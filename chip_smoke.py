@@ -4,17 +4,22 @@
 
 Phases, each printing one JSON line, all of them on every run:
 
-1. ``device``     the card's name, count, and nvidia-smi's name and power
-                  limit (also printed raw on a line of its own).
+1. ``device``     the card's name, count, SM count, and nvidia-smi's name
+                  and power limit (also printed raw on a line of its own).
 2. ``build``      nvcc build of ``llmc_tpu_torch/csrc`` (seconds,
                   registers and spills per kernel).
-3. ``kernel_checks``  each hand-written kernel against its plain PyTorch
-                  version on the card at the main path's shapes, with
-                  times (CUDA events) beside the bound and a library
-                  yardstick that the port never calls.
+3. ``kernel_checks``  each of the five hand-written kernels against its
+                  plain PyTorch version on the card at the main paths'
+                  shapes (the W4A8 kernel also against a float64 integer
+                  oracle), with times (CUDA events) beside the bound and a
+                  library yardstick that the port never calls for that
+                  function.
 4. ``parity``     2 layers at Llama-2-7B width: the card (bf16, kernels)
                   against the CPU (f32, plain versions) on the same
-                  random packed weights.
+                  random packed weights, once per serving configuration:
+                  W4A16 + flash, W4A8 + batch attention, W8A16 + flash;
+                  each with a control run of the card through the plain
+                  linears.
 5. ``serve``      ``ServingEngine`` on Llama-2-7B (32 layers) with random
                   packed W4 g128 weights and an int8 KV cache; the kernel
                   launch counters must equal what the path implies.
@@ -23,11 +28,22 @@ Phases, each printing one JSON line, all of them on every run:
                   (a record, not a claim).
 7. ``profile``    torch.profiler over 8 decode steps at that shape: device
                   time by kernel and the device's idle share.
+8. ``serve_w4a8`` + its ``throughput`` and ``profile``: the same engine
+                  and bench shape with per-token int8 activations (every
+                  block linear through the W4A8 kernel, the head
+                  weight-only) and the serving-batch attention kernel
+                  (``ATTN_IMPL='batch'``).
+9. ``serve_w8`` + its ``throughput`` and ``profile``: the same on W8A16
+                  per-group 128 weights (every linear through the W8
+                  kernel).
+10. ``serve_w8_companion``  8 layers at 7B width, a random fp model packed
+                  with ``pack_model(w8_prefill=True)``: the engine once
+                  with ``prefill_w8`` and once with ``decode_w8``.
 
-Every phase that drives the model on the card (parity, serve, throughput,
-profile) sets the kernels' launch counters to 0 just before its run,
-reads them just after, and fails unless they equal what its path implies.
-Then the ``{"kernels": [...]}`` line (launches from the serve run), the
+Every phase that drives the model on the card sets the kernels' launch
+counters to 0 just before its run, reads them just after, and fails
+unless they equal what its path implies.  Then the ``{"kernels": [...]}``
+line (each kernel's launches from the serve phase of its own path), the
 nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero.
 There is no CPU mode: without a CUDA card the script exits 2.  The phase
@@ -38,7 +54,10 @@ need no kernel at a tiny size on the CPU.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -56,11 +75,13 @@ LLAMA2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                  num_key_value_heads=32, head_dim=128, dtype='bfloat16')
 
 # Data-sheet peaks (dense): memory bytes/s, bf16 tensor-core flop/s,
-# f32 CUDA-core flop/s.  H100 SXM at 700 W unless the name says otherwise.
+# f32 CUDA-core flop/s, int8 tensor-core op/s.  H100 SXM at 700 W unless
+# the name says otherwise.
+Peaks = collections.namedtuple('Peaks', 'bw bf16 f32 int8')
 PEAKS = {
-    'H100 SXM': (3.35e12, 989e12, 67e12),
-    'H100 PCIe': (2.0e12, 756e12, 51e12),
-    'H100 NVL': (3.9e12, 835e12, 60e12),
+    'H100 SXM': Peaks(3.35e12, 989e12, 67e12, 1979e12),
+    'H100 PCIe': Peaks(2.0e12, 756e12, 51e12, 1513e12),
+    'H100 NVL': Peaks(3.9e12, 835e12, 60e12, 1671e12),
 }
 
 # Tolerances, with their reasons.
@@ -71,11 +92,32 @@ PEAKS = {
 #   between y+ and the excess-8 correction: max |err| <= 1e-4 * max |ref|.
 TOL_W4_BF16 = 1e-2
 TOL_W4_F32 = 1e-4
-# flash kernel vs plain (both f32): exp and summation order only.
+# W4A8 kernel vs plain on the same int8 codes: as the w4 kernel.  Against
+# the float64 integer oracle at f32 output the int32 sums are exact and
+# only the order of the <= 86 f32 group terms differs.
+TOL_A8_ORACLE = 1e-6
+# W8 kernel vs the plain version that rounds the weight to bf16 the same
+# way: as the w4 kernel.
+# flash and batch kernels vs plain (all f32): exp and summation order only.
 TOL_FLASH = 2e-4
-# card (bf16 activations, int8 KV) vs CPU (f32) over 2 layers: bf16
-# rounding at every cast and int8 KV codes that flip between the two.
-TOL_PARITY = 5e-2
+# card (bf16 activations, int8 KV) vs CPU (f32) over 2 layers at 7B width,
+# relative to the largest logit: bf16 rounding at every cast and int8 KV
+# codes that flip between the two.  Measured on an H100 with seeds 0-2
+# (phase_parity(seed=...)): W4A16 4.2e-3, 1.3e-3, 3.7e-3.  W4A8 quantizes
+# every block linear's input per token to int8 in both runs, from a bf16 row
+# on the card and an f32 row on the CPU, so a code near a rounding tie
+# differs by one step: 1.4e-2, 1.3e-3, 1.2e-3, inside the W4A16 tolerance.
+# The random W8 model's codes are centred (the W4 model's excess-8 nibbles
+# have mean -0.5, which puts a common component into every logit and
+# flatters a ratio to the largest one), and its logits are 2.5x smaller:
+# 5.0e-2, 6.0e-2, 4.8e-2, and as much (4.6e-2 to 4.9e-2) when the card runs
+# the plain f32-weight linears on the same bf16 activations, so the error
+# is the working type's on that model and not the kernel's or its bf16
+# weight rounding; its tolerance is 1e-1.  What the kernels add is held by
+# a second limit: the run with kernels may err at most PARITY_VS_CONTROL
+# times what the card's control run with plain linears errs.
+TOL_PARITY = {'w4a16': 5e-2, 'w4a8': 5e-2, 'w8a16': 1e-1}
+PARITY_VS_CONTROL = 2.0
 MIN_GREEDY_AGREE = 0.5
 
 
@@ -151,80 +193,211 @@ def _w4_case(N, K, M, sym, gen, dev, gs=128):
     return x, packed, s.contiguous(), (s * z).contiguous(), meta
 
 
-def w4_bound(M, N, K, out_bytes, peaks):
-    bw, bf16, _ = peaks
-    ng = K // 128
-    nbytes = M * K * 2 + N * K // 2 + 2 * ng * N * 4 + M * N * out_bytes
-    flops = 2 * M * N * K
-    t_b, t_o = nbytes / bw * 1e3, flops / bf16 * 1e3
+def _w8_case(N, K, M, sym, gen, dev, gs=128):
+    """Signed int8 codes, legacy [N, ng] scales (and zeros when asym)."""
+    from llmc_tpu_torch.ops.dequant_matmul import QMeta
+    ng = K // gs
+    meta = QMeta(bits=8, group_size=gs, symmetric=sym, out_features=N,
+                 in_features=K)
+    codes = torch.randint(-128, 128, (N, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+    s = torch.rand((N, ng), generator=gen, device=dev) * 0.001 + 0.0002
+    z = None if sym else torch.randint(-16, 16, (N, ng), generator=gen,
+                                       device=dev).to(F32)
+    x = torch.randn((M, K), generator=gen, device=dev).to(BF16)
+    return x, codes, s.contiguous(), z, meta
+
+
+def gemm_bound(kind, M, N, K, out_bytes, peaks, gs=128):
+    """Least time of one dequant-matmul: every input read once (x, the
+    weight, two f32 per group and column, the per-token scale of W4A8),
+    the output written once, against 2*M*N*K operations at the peak of
+    the type the tensor cores multiply in."""
+    ng = K // gs
+    x_b, w_b, peak = {'w4': (2 * M * K, N * K // 2, peaks.bf16),
+                      'w4a8': (M * K + 4 * M, N * K // 2, peaks.int8),
+                      'w8': (2 * M * K, N * K, peaks.bf16)}[kind]
+    nbytes = x_b + w_b + 2 * ng * N * 4 + M * N * out_bytes
+    t_b, t_o = nbytes / peaks.bw * 1e3, 2 * M * N * K / peak * 1e3
     return max(t_b, t_o), ('bytes' if t_b >= t_o else 'operations')
 
 
-def check_w4(dev, peaks, shapes, ms_list, time_it=True):
-    """Kernel 1 at every main-path (N, K), each M, sym and asym."""
-    from llmc_tpu_torch.ops.dequant_matmul import (dequant_matmul_plain,
-                                                   dequant_weight,
-                                                   w4_dequant_matmul,
-                                                   _unfold_pre_t)
+def _gemm_ops(kind):
+    """(case, kernel, plain, library, tiling) of one dequant-matmul kernel.
+    ``kernel(case, weight, out_dtype)`` calls the kernel's wrapper on
+    ``weight`` in place of the case's own (same shape), ``plain(case)`` is
+    its plain version in f32, ``library(case)`` returns the yardstick
+    call."""
+    D = importlib.import_module('llmc_tpu_torch.ops.dequant_matmul')
+    from llmc_tpu_torch.utils.device import sm_count
+
+    def sms(case):
+        return sm_count(case[0].device.index)
+
+    memo = {}
+
+    def once(key, make):
+        """What the wrapper's caller prepares once per case (the int8
+        activation codes, the transposed scales), kept out of the timing
+        loop: the kernel's wrapper is what is timed."""
+        if memo.get('key') is not key:
+            memo.update(key=key, value=make())
+        return memo['value']
+
+    if kind == 'w8':
+        def kernel(case, weight, out_dtype):
+            x, _, s, z, meta = case
+            s_t, z_t = once(s, lambda: (
+                s.T.contiguous(), None if z is None else z.T.contiguous()))
+            return D.w8_dequant_matmul(x, weight, s_t, z_t, meta, out_dtype)
+
+        def plain(case):
+            x, codes, s, z, meta = case
+            return D.dequant_matmul_plain(x, codes, s, z, meta,
+                                          out_dtype=F32, w_bf16=True)
+
+        def library(case):
+            x, codes, s, z, meta = case
+            w = D.dequant_weight(codes, s, z, meta).to(BF16)
+            return lambda: torch.matmul(x, w.T)
+
+        def tiling(case):
+            x, _, _, _, meta = case
+            return D._tiling(x.shape[0], meta.out_features,
+                             x.shape[1] // D.W8_CHUNK, sms(case))
+        return _w8_case, kernel, plain, library, tiling
+
+    def tiling(case):
+        x, _, _, _, meta = case
+        return D.kernel_tiling(x.shape[0], meta.out_features, x.shape[1],
+                               D._half_group(meta)[0], sms(case))
+
+    def dense_weight(case):
+        _, packed, s, zs, meta = case
+        return D.dequant_weight(packed, *D._unfold_pre_t(s, zs, meta))
+
+    if kind == 'w4':
+        def kernel(case, weight, out_dtype):
+            x, _, s, zs, meta = case
+            return D.w4_dequant_matmul(x, weight, s, zs, meta, out_dtype)
+
+        def plain(case):
+            x, packed, s, zs, meta = case
+            return D.dequant_matmul_plain(x, packed, s, zs, meta,
+                                          out_dtype=F32)
+
+        def library(case):
+            x, w = case[0], dense_weight(case).to(BF16)
+            return lambda: torch.matmul(x, w.T)
+        return _w4_case, kernel, plain, library, tiling
+
+    def kernel(case, weight, out_dtype):       # w4a8
+        x, _, s, zs, meta = case
+        xq, sx = once(x, lambda: D._quant_act_token(x))
+        return D.w4a8_dequant_matmul(xq, sx, weight, s, zs, meta, out_dtype)
+
+    def plain(case):
+        x, packed, s, zs, meta = case
+        return D.dequant_matmul_plain_a8(x, packed, s, zs, meta,
+                                         out_dtype=F32)
+
+    def library(case):
+        x, packed, _, _, meta = case
+        xq, _ = D._quant_act_token(x)
+        rows = max(32, -(-xq.shape[0] // 8) * 8)    # _int_mm needs > 16
+        xq = torch.nn.functional.pad(xq, (0, 0, 0, rows - xq.shape[0]))
+        w8 = D.unpack_weight(packed, meta).to(torch.int8)
+        return lambda: torch._int_mm(xq, w8.T)
+    return _w4_case, kernel, plain, library, tiling
+
+
+def a8_oracle(case):
+    """The integer oracle of W4A8 in float64 from the same int8 codes:
+    sx * sum_g s_g * sum_k xq * (u - z_eff)."""
+    D = importlib.import_module('llmc_tpu_torch.ops.dequant_matmul')
+    x, packed, s, zs, meta = case
+    xq, sx = D._quant_act_token(x)
+    w = D.dequant_weight(packed, *D._unfold_pre_t(s.double(), zs.double(),
+                                                  meta))
+    return (xq.double() @ w.double().T) * sx.double()
+
+
+def _rel(got, want):
+    err = (got.to(want.dtype) - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def check_gemm(kind, dev, peaks, shapes, ms_list, time_it=True):
+    """One dequant-matmul kernel ('w4', 'w4a8' or 'w8') at every main-path
+    (N, K), each M, sym and asym.  The tolerance is TOL_W4_F32 at f32
+    output and TOL_W4_BF16 at bf16; W4A8 is also run at f32 output against
+    the float64 oracle."""
+    make, kernel, plain, library, tiling = _gemm_ops(kind)
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows, worst_abs, worst_rel = [], 0.0, 0.0
+    rows, worst_abs, worst_rel, worst_oracle = [], 0.0, 0.0, 0.0
     for (N, K, is_head) in shapes:
         out_dtype = F32 if is_head else BF16
         tol = TOL_W4_F32 if is_head else TOL_W4_BF16
         for M in ms_list:
             for sym in (True, False):
-                x, packed, s, zs, meta = _w4_case(N, K, M, sym, gen, dev)
-                got = w4_dequant_matmul(x, packed, s, zs, meta, out_dtype)
-                want = dequant_matmul_plain(x, packed, s, zs, meta,
-                                            out_dtype=F32)
+                case = make(N, K, M, sym, gen, dev)
+                got = kernel(case, case[1], out_dtype)
+                want = plain(case)
                 torch.cuda.synchronize()
-                err = (got.to(F32) - want).abs().max().item()
-                scale = want.abs().max().item()
-                rel = err / max(scale, 1e-30)
+                err, rel = _rel(got, want)
                 worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
                                                                 rel)
+                what = f'{kind} N={N} K={K} M={M} sym={sym}'
                 require(bool(torch.isfinite(got).all()) and rel <= tol,
-                        f'w4 N={N} K={K} M={M} sym={sym}: rel err {rel:.3g}'
-                        f' > {tol}')
-                row = dict(N=N, K=K, M=M, sym=sym,
+                        f'{what}: rel err {rel:.3g} > {tol}')
+                bm, splits = tiling(case)
+                row = dict(N=N, K=K, M=M, sym=sym, bm=bm, splits=splits,
                            out=str(out_dtype).replace('torch.', ''),
                            max_abs_err=err, max_rel_err=rel)
+                if kind == 'w4a8':
+                    got32 = got if is_head else kernel(case, case[1], F32)
+                    _, rel_p = _rel(got32, want)
+                    _, rel_o = _rel(got32, a8_oracle(case))
+                    require(rel_p <= TOL_W4_F32 and rel_o <= TOL_A8_ORACLE,
+                            f'{what}: f32 output rel err {rel_p:.3g} vs '
+                            f'plain, {rel_o:.3g} vs the integer oracle')
+                    worst_oracle = max(worst_oracle, rel_o)
+                    row.update(f32_rel_err_plain=rel_p,
+                               f32_rel_err_oracle=rel_o)
+                    del got32
                 if time_it and sym:
-                    row.update(_time_w4(x, packed, s, zs, meta, out_dtype,
-                                        peaks, dequant_weight,
-                                        _unfold_pre_t, w4_dequant_matmul,
-                                        dequant_matmul_plain, gen))
+                    row.update(_time_gemm(kind, case, out_dtype, peaks,
+                                          kernel, plain, library, gen))
                 rows.append(row)
-                del x, packed, s, zs, got, want
-    return rows, worst_abs, worst_rel
+                del case, got, want
+    return rows, worst_abs, worst_rel, worst_oracle
 
 
-def _time_w4(x, packed, s, zs, meta, out_dtype, peaks, dequant_weight,
-             unfold, w4, plain, gen):
+def _time_gemm(kind, case, out_dtype, peaks, kernel, plain, library, gen):
+    x, weight, meta = case[0], case[1], case[4]
     M, K = x.shape
     N = meta.out_features
     # rotate over copies of the weight so that the 50 MB L2 does not
     # hold it between calls (the main path reads each weight once a step)
-    n_copy = max(1, min(8, -(-160_000_000 // packed.numel())))
-    copies = [packed] + [torch.randint(0, 256, packed.shape, generator=gen,
-                                       device=packed.device,
-                                       dtype=torch.uint8)
+    n_copy = max(1, min(8, -(-160_000_000 // weight.numel())))
+    lo, hi = (0, 256) if weight.dtype == torch.uint8 else (-128, 128)
+    copies = [weight] + [torch.randint(lo, hi, weight.shape, generator=gen,
+                                       device=weight.device,
+                                       dtype=weight.dtype)
                          for _ in range(n_copy - 1)]
     it = [0]
 
     def kern():
         it[0] += 1
-        return w4(x, copies[it[0] % n_copy], s, zs, meta, out_dtype)
+        return kernel(case, copies[it[0] % n_copy], out_dtype)
     iters = 10 if M >= 4096 else 50
     kernel_ms = cuda_ms(kern, iters)
-    plain_ms = cuda_ms(lambda: plain(x, packed, s, zs, meta,
-                                     out_dtype=out_dtype), 3, 1)
-    s_l, z_l, meta_l = unfold(s, zs, meta)
-    w_bf16 = dequant_weight(packed, s_l, z_l, meta_l).to(BF16)
-    library_ms = cuda_ms(lambda: torch.matmul(x, w_bf16.T), iters)
-    del w_bf16, copies
-    bound_ms, bound_by = w4_bound(M, N, K, 4 if out_dtype == F32 else 2,
-                                  peaks)
+    plain_ms = cuda_ms(lambda: plain(case), 3, 1)
+    lib = library(case)
+    library_ms = cuda_ms(lib, iters)
+    del lib, copies
+    bound_ms, bound_by = gemm_bound(kind, M, N, K,
+                                    4 if out_dtype == F32 else 2, peaks)
     return dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -250,59 +423,92 @@ def flash_inputs(dev, B=128, smax=96, kvh=32, H=32, hd=128, L=2, quant=True,
 
 
 def flash_bound(pos, kvh, hd, H, quant, peaks):
-    bw, _, f32 = peaks
+    """Least time of one decode attention: the valid rows of K and V of
+    this run's positions, q, the output and pos."""
     valid = int((pos.to(torch.int64) + 1).sum())
     per_row = hd * (1 if quant else 2) + (4 if quant else 0)
     B = pos.numel()
     nbytes = 2 * valid * kvh * per_row + 2 * B * H * hd * 4 + B * 4
     flops = 4 * valid * (H // kvh) * kvh * hd
-    t_b, t_o = nbytes / bw * 1e3, flops / f32 * 1e3
+    t_b, t_o = nbytes / peaks.bw * 1e3, flops / peaks.f32 * 1e3
     return max(t_b, t_o), ('bytes' if t_b >= t_o else 'operations')
 
 
-def check_flash(dev, peaks, B=128, smax=96, kvh=32, H=32, hd=128):
-    """Kernel 2 at the bench's decode shape, int8 and bf16 caches, with
-    per-slot positions at 0, chunk boundaries and Smax - 1."""
-    from llmc_tpu_torch.ops.flash_decode import (KERNEL_CHUNK,
-                                                 flash_decode_cuda,
-                                                 flash_decode_plain)
+def _attn_positions(B, smax, chunk, dev):
+    """Named position vectors: random with the chunk boundaries; one slot
+    at Smax - 1 and the rest near 0, with every block of 8 slots holding
+    such a slot and with only the first block holding one."""
     rng = np.random.RandomState(3)
-    special = [0, KERNEL_CHUNK - 1, KERNEL_CHUNK, KERNEL_CHUNK + 1,
-               smax - 1, 31, 32, 1]
-    pos_np = rng.randint(0, smax, B)
-    pos_np[:len(special)] = special
-    pos = torch.as_tensor(pos_np, dtype=torch.int32, device=dev)
-    rows, worst_abs, worst_rel = [], 0.0, 0.0
-    for quant in (True, False):
-        q, kb, vb, ks, vs = flash_inputs(dev, B, smax, kvh, H, hd,
-                                         quant=quant)
-        got = flash_decode_cuda(q, kb, vb, ks, vs, pos, 1)
-        want = flash_decode_plain(q, kb, vb, ks, vs, pos, 1)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        rel = err / max(want.abs().max().item(), 1e-30)
-        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        require(bool(torch.isfinite(got).all()) and rel <= TOL_FLASH,
-                f'flash quant={quant}: rel err {rel:.3g} > {TOL_FLASH}')
-        # timing at the bench's mid-run state: 64 valid positions a slot
-        pos64 = torch.full((B,), 63, dtype=torch.int32, device=dev)
-        it = [0]
+    special = [0, chunk - 1, chunk, chunk + 1, smax - 1, 31, 32, 1]
+    rnd = rng.randint(0, smax, B)
+    rnd[:len(special)] = [min(p, smax - 1) for p in special]
+    every = rng.randint(0, 3, B)
+    every[::8] = smax - 1
+    first = rng.randint(0, 3, B)
+    first[3] = smax - 1
+    return {name: torch.as_tensor(v, dtype=torch.int32, device=dev)
+            for name, v in (('random', rnd), ('skew_every_block', every),
+                            ('skew_one_block', first))}
 
-        def kern():
-            it[0] += 1   # alternate layers: each is ~100 MB, beyond L2
-            return flash_decode_cuda(q, kb, vb, ks, vs, pos64, it[0] % 2)
-        kernel_ms = cuda_ms(kern, 50)
-        plain_ms = cuda_ms(lambda: flash_decode_plain(q, kb, vb, ks, vs,
-                                                      pos64, 1), 5, 1)
-        library_ms = _time_sdpa(q, kb, vb, ks, vs, pos64, 1)
-        bound_ms, bound_by = flash_bound(pos64, kvh, hd, H, quant, peaks)
-        rows.append(dict(B=B, smax=smax, kvh=kvh, H=H, hd=hd,
-                         cache='int8' if quant else 'bf16',
-                         max_abs_err=err, max_rel_err=rel,
-                         timed_valid_positions=64, kernel_ms=kernel_ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-        del q, kb, vb, ks, vs
+
+def check_attention(name, dev, peaks, shapes=((128, 96), (8, 1024)), kvh=32,
+                    H=32, hd=128):
+    """A decode-attention kernel ('flash_decode' or 'batch_decode') against
+    its plain version at the bench's decode shape and at a small batch
+    with a long cache, int8 and bf16 caches, over ``_attn_positions``;
+    timed at the bench's mid-run state, 64 valid positions a slot (the
+    first row, which the ``kernels`` line reads), and the long cache also
+    at 1000."""
+    if name == 'flash_decode':
+        from llmc_tpu_torch.ops.flash_decode import (
+            KERNEL_CHUNK as chunk, flash_decode_cuda as kernel,
+            flash_decode_plain as plain)
+    else:
+        from llmc_tpu_torch.ops.batch_decode import (
+            KERNEL_CHUNK as chunk, batch_decode_cuda as kernel,
+            batch_decode_plain as plain)
+    rows, worst_abs, worst_rel = [], 0.0, 0.0
+    for B, smax in shapes:
+        for quant in (True, False):
+            q, kb, vb, ks, vs = flash_inputs(dev, B, smax, kvh, H, hd,
+                                             quant=quant)
+            errs = {}
+            for pname, pos in _attn_positions(B, smax, chunk, dev).items():
+                got = kernel(q, kb, vb, ks, vs, pos, 1)
+                want = plain(q, kb, vb, ks, vs, pos, 1)
+                torch.cuda.synchronize()
+                err, rel = _rel(got, want)
+                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
+                                                                rel)
+                require(bool(torch.isfinite(got).all()) and rel <= TOL_FLASH,
+                        f'{name} B={B} Smax={smax} quant={quant} {pname}: '
+                        f'rel err {rel:.3g} > {TOL_FLASH}')
+                errs[pname] = rel
+            # the long cache is also timed nearly full, where the kernels
+            # are bound by the rows they read and not by their launch
+            for valid in (64, smax - 24) if smax > 128 else (64,):
+                pos_t = torch.full((B,), valid - 1, dtype=torch.int32,
+                                   device=dev)
+                it = [0]
+
+                def kern():
+                    it[0] += 1   # alternate layers: at B=128 each is beyond L2
+                    return kernel(q, kb, vb, ks, vs, pos_t, it[0] % 2)
+                kernel_ms = cuda_ms(kern, 200, 5)
+                plain_ms = cuda_ms(
+                    lambda: plain(q, kb, vb, ks, vs, pos_t, 1), 5, 1)
+                library_ms = _time_sdpa(q, kb, vb, ks, vs, pos_t, 1)
+                bound_ms, bound_by = flash_bound(pos_t, kvh, hd, H, quant,
+                                                 peaks)
+                rows.append(dict(B=B, smax=smax, kvh=kvh, H=H, hd=hd,
+                                 cache='int8' if quant else 'bf16',
+                                 max_rel_err=max(errs.values()),
+                                 rel_err_by_positions=errs,
+                                 timed_valid_positions=valid,
+                                 kernel_ms=kernel_ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by))
+            del q, kb, vb, ks, vs
     return rows, worst_abs, worst_rel
 
 
@@ -323,34 +529,121 @@ def _time_sdpa(q, kb, vb, ks, vs, pos, layer):
     mask = (torch.arange(smax, device=q.device)[None, :]
             <= pos[:, None].to(torch.int64))[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return cuda_ms(lambda: sdpa(qq, k, v, attn_mask=mask, scale=1.0), 50)
+    return cuda_ms(lambda: sdpa(qq, k, v, attn_mask=mask, scale=1.0), 200, 5)
 
 
 # --------------------------------------------------------------------------
 # model phases (device and sizes are arguments, so the CPU tests run them)
 # --------------------------------------------------------------------------
 
-def _wspec():
+KERNEL_NAMES = ('w4_dequant_matmul', 'w4a8_dequant_matmul',
+                'w8_dequant_matmul', 'flash_decode', 'batch_decode')
+# A serving configuration: weight bits, per-token int8 activations on the
+# block linears, and the decode-attention kernel (``ATTN_IMPL``).
+Mode = collections.namedtuple('Mode', 'bits a_int8 attn')
+MODES = {'w4a16': Mode(4, False, 'flash'), 'w4a8': Mode(4, True, 'batch'),
+         'w8a16': Mode(8, False, 'flash')}
+
+
+def _wspec(bits=4, group_size=128):
     from llmc_tpu_torch.quant import QuantSpec
-    return QuantSpec(bit=4, symmetric=True, granularity='per_group',
-                     group_size=128)
+    return QuantSpec(bit=bits, symmetric=True, granularity='per_group',
+                     group_size=group_size)
+
+
+def make_model(mode, cfg_kw, dev, seed=0, group_size=128):
+    """Random packed Llama of a serving mode, and its QMap."""
+    from llmc_tpu_torch.models import LlamaConfig
+    from llmc_tpu_torch.serve.packed import random_packed_llama
+    m = MODES[mode]
+    return random_packed_llama(LlamaConfig(**cfg_kw),
+                               _wspec(m.bits, group_size), seed=seed,
+                               fuse=True, pre_t=True, head=True,
+                               a_int8=m.a_int8, device=dev)
+
+
+@contextlib.contextmanager
+def attn_impl(name):
+    """Run a block under ``serve.decode.ATTN_IMPL = name``."""
+    from llmc_tpu_torch.serve import decode
+    old, decode.ATTN_IMPL = decode.ATTN_IMPL, name
+    try:
+        yield
+    finally:
+        decode.ATTN_IMPL = old
+
+
+def expected_launches(layers, forwards, decode_steps, mode='w4a16',
+                      block_forwards=None):
+    """Launches a path implies.  Per forward: 4 block linears a layer
+    (fused qkv, o, fused gate_up, down) through the mode's kernel and the
+    packed head through the weight-only kernel of its bits; per decode
+    step, one decode-attention a layer.  ``block_forwards``: the forwards
+    whose block linears launch a kernel at all (the w8 companion's dot is
+    no kernel of the port), default every forward."""
+    m = MODES[mode]
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    weight_only = 'w8_dequant_matmul' if m.bits == 8 else 'w4_dequant_matmul'
+    block = 'w4a8_dequant_matmul' if m.a_int8 else weight_only
+    n[block] += 4 * layers * (forwards if block_forwards is None
+                              else block_forwards)
+    n[weight_only] += forwards
+    n['batch_decode' if m.attn == 'batch' else 'flash_decode'] = \
+        layers * decode_steps
+    return n
+
+
+def _scale_weights(tree, factor) -> None:
+    """Multiply every packed linear's scales by ``factor``, in place."""
+    if isinstance(tree, dict):
+        if 'qweight' in tree:
+            tree['scales'] = tree['scales'] * factor
+            return
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            _scale_weights(v, factor)
+
+
+@contextlib.contextmanager
+def plain_linears(w_bf16=False):
+    """Send the card's dequant-matmuls through their plain versions (the
+    parity phase's control run: same bf16 activations, no kernel).
+    ``w_bf16`` rounds a W8 weight to bf16 as the W8 kernel does."""
+    D = importlib.import_module('llmc_tpu_torch.ops.dequant_matmul')
+
+    def plain(x2, packed, scales, zeros, meta, out_dtype, a_int8):
+        if a_int8:
+            return D.dequant_matmul_plain_a8(x2, packed, scales, zeros, meta,
+                                             out_dtype=out_dtype)
+        return D.dequant_matmul_plain(x2, packed, scales, zeros, meta,
+                                      out_dtype=out_dtype,
+                                      w_bf16=w_bf16 and meta.bits == 8)
+    old, D._dequant_matmul_cuda = D._dequant_matmul_cuda, plain
+    try:
+        yield
+    finally:
+        D._dequant_matmul_cuda = old
 
 
 def phase_parity(dev, ref_dev, cfg_kw, prompt_len=32, steps=8, seed=0,
-                 wspec=None):
+                 mode='w4a16', group_size=128):
     """The same random packed weights on ``dev`` (bf16) and ``ref_dev``
     (f32).  The reference is teacher-forced on ``dev``'s greedy tokens,
     so every step's logits compare like with like."""
-    from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
+    from llmc_tpu_torch.models import LlamaAdapter
     from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
     from llmc_tpu_torch.serve import KVCachePolicy
     from llmc_tpu_torch.serve.decode import forward_cached, init_cache
-    from llmc_tpu_torch.serve.packed import random_packed_llama
-    cfg = LlamaConfig(**cfg_kw)
+    src, qmap = make_model(mode, cfg_kw, 'cpu', seed, group_size)
+    cfg = src.cfg
+    if MODES[mode].bits == 8:
+        # the random model gives 8-bit codes (+-128) the scale of the 4-bit
+        # ones (+-8); a sixteenth of it gives the W8 parity model the W4
+        # model's weight magnitude, so that the attention softmax is not
+        # saturated to one-hot rows whose argmax a rounding can flip
+        _scale_weights(src.params, 1 / 16)
     cfg32 = dataclasses.replace(cfg, dtype='float32')
-    src, qmap = random_packed_llama(cfg, wspec or _wspec(), seed=seed,
-                                    fuse=True, pre_t=True, head=True,
-                                    device='cpu')
     m_dev = LlamaAdapter(cfg, tree_to(src.params, dev))
     m_ref = LlamaAdapter(cfg32, tree_to(src.params, ref_dev, F32))
     policy = KVCachePolicy(method='naive', bit=8)
@@ -375,30 +668,37 @@ def phase_parity(dev, ref_dev, cfg_kw, prompt_len=32, steps=8, seed=0,
             toks.append(int(tok))
         return torch.cat(rows), toks
 
-    with torch.no_grad():
+    with torch.no_grad(), attn_impl(MODES[mode].attn):
         reset_launch_counts()
         got, toks = run(m_dev, dev)
         counts = launch_counts()
         want, ref_toks = run(m_ref, ref_dev, feed=toks)
-    err = (got - want).abs().max().item()
-    rel = err / max(want.abs().max().item(), 1e-30)
+        # control runs on ``dev``: the same bf16 activations through the
+        # plain linears, to tell the kernels' share of the error from the
+        # working type's
+        controls = {}
+        if dev.type == 'cuda':
+            for name, w_bf16 in (('plain_linears', False),
+                                 ('plain_linears_bf16_weight', True)):
+                if w_bf16 and MODES[mode].bits != 8:
+                    continue
+                with plain_linears(w_bf16):
+                    ctl, _ = run(m_dev, dev, feed=toks)
+                controls[name] = _rel(ctl, want)[1]
+    err, rel = _rel(got, want)
     agree = float(np.mean([a == b for a, b in zip(toks, ref_toks)]))
-    return dict(phase='parity', layers=cfg.num_hidden_layers,
+    tol = TOL_PARITY[mode]
+    return dict(phase='parity', mode=mode, layers=cfg.num_hidden_layers,
                 width=cfg.hidden_size, prompt=prompt_len, steps=steps,
                 max_abs_logit_err=err, rel_logit_err=rel,
-                greedy_agreement=agree, tolerance=TOL_PARITY,
+                rel_logit_err_of_controls=controls,
+                greedy_agreement=agree, tolerance=tol,
                 min_greedy_agreement=MIN_GREEDY_AGREE,
-                ok=bool(rel <= TOL_PARITY and agree >= MIN_GREEDY_AGREE),
+                ok=bool(rel <= tol and agree >= MIN_GREEDY_AGREE
+                        and all(rel <= PARITY_VS_CONTROL * c
+                                for c in controls.values())),
                 launches=counts, expected_launches=expected_launches(
-                    cfg.num_hidden_layers, 1 + steps, steps))
-
-
-def expected_launches(layers, forwards, decode_steps):
-    """Launches the main path implies: per forward, 4 linears a layer
-    (fused qkv, o, fused gate_up, down) and the packed head; per decode
-    step, one flash-decode a layer."""
-    return {'w4_dequant_matmul': (4 * layers + 1) * forwards,
-            'flash_decode': layers * decode_steps}
+                    cfg.num_hidden_layers, 1 + steps, steps, mode))
 
 
 def serve_requests(n, vocab, max_prompt=200, seed=0):
@@ -412,39 +712,60 @@ def serve_requests(n, vocab, max_prompt=200, seed=0):
 
 
 def phase_serve(dev, model, qmap, n_requests=10, max_batch=8, max_len=256,
-                buckets=(32, 64, 128, 256), max_prompt=200):
+                buckets=(32, 64, 128, 256), max_prompt=200, mode='w4a16',
+                w8_flag=None):
     """ServingEngine over mixed requests; returns the phase record with
-    the launch counts the path implies."""
+    the launch counts the path implies.  ``w8_flag`` ('prefill_w8' or
+    'decode_w8') sends those forwards through the model's w8 companion,
+    whose block linears launch no kernel of the port."""
     from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
     from llmc_tpu_torch.serve import KVCachePolicy, ServingEngine
     cfg = model.cfg
-    eng = ServingEngine(model, qmap=qmap, max_batch=max_batch,
-                        max_len=max_len, prefill_buckets=buckets,
-                        kv_policy=KVCachePolicy(method='naive', bit=8),
-                        device=dev)
-    reqs = serve_requests(n_requests, cfg.vocab_size, max_prompt)
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    if dev.type == 'cuda':
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
+    with attn_impl(MODES[mode].attn):
+        eng = ServingEngine(model, qmap=qmap, max_batch=max_batch,
+                            max_len=max_len, prefill_buckets=buckets,
+                            kv_policy=KVCachePolicy(method='naive', bit=8),
+                            device=dev, **({w8_flag: True} if w8_flag else {}))
+        reqs = serve_requests(n_requests, cfg.vocab_size, max_prompt)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
     L = cfg.num_hidden_layers
-    expect = expected_launches(
-        L, eng.stats['prefill_forwards'] + eng.stats['decode_steps'],
-        eng.stats['decode_steps'])
+    prefills, steps = eng.stats['prefill_forwards'], eng.stats['decode_steps']
+    block_forwards = {None: None, 'prefill_w8': steps, 'decode_w8': 0}[w8_flag]
+    expect = expected_launches(L, prefills + steps, steps, mode,
+                               block_forwards)
     done = all(r.done and len(r.output_ids) == r.max_new_tokens
                and all(0 <= t < cfg.vocab_size for t in r.output_ids)
                for r in reqs)
-    return dict(phase='serve', layers=L, requests=len(reqs),
+    name = 'serve' if mode == 'w4a16' else f'serve_{mode.replace("a16", "")}'
+    if w8_flag:
+        name = f'serve_w8_companion.{w8_flag}'
+    return dict(phase=name, mode=mode, layers=L, requests=len(reqs),
                 prompt_lens=[len(r.prompt_ids) for r in reqs],
                 tokens=sum(len(r.output_ids) for r in reqs),
                 wall_s=wall, **eng.stats, launches=counts,
                 expected_launches=expect, all_done=done)
 
 
-def phase_throughput(dev, model, qmap, B=128, prefill=32, steps=64, seed=0):
+def companion_model(dev, cfg_kw, seed=0, group_size=128):
+    """A random fp Llama packed W4 with the per-channel int8 companion
+    beside every block linear (``pack_model(w8_prefill=True)`` builds it
+    from the dequantized weight), and its serving QMap."""
+    from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
+    from llmc_tpu_torch.serve import pack_model
+    model = LlamaAdapter.random(LlamaConfig(**cfg_kw), seed=seed, device=dev)
+    qmap = pack_model(model, _wspec(4, group_size), fuse=True, head=True,
+                      w8_prefill=True)
+    return model, qmap
+
+
+def phase_throughput(dev, model, qmap, B=128, prefill=32, steps=64, seed=0,
+                     mode='w4a16'):
     """The reference bench's shape on the port: prefill, then greedy
     decode steps, timed with host clocks around synchronised work.  One
     prefill and one step on a throwaway cache first take the first-use
@@ -461,7 +782,7 @@ def phase_throughput(dev, model, qmap, B=128, prefill=32, steps=64, seed=0):
         if dev.type == 'cuda':
             torch.cuda.synchronize()
 
-    with torch.no_grad():
+    with torch.no_grad(), attn_impl(MODES[mode].attn):
         cache = init_cache(model, B, prefill + 1, policy, device=dev)
         logits, cache = forward_cached(model.params, cfg, ids, cache,
                                        policy, qmap, last_only=True)
@@ -485,14 +806,15 @@ def phase_throughput(dev, model, qmap, B=128, prefill=32, steps=64, seed=0):
         sync()
         dec = time.perf_counter() - t0
         counts = launch_counts()
-    return dict(phase='throughput', B=B, prefill=prefill, steps=steps,
-                tokens_per_s=B * steps / dec, ttft_ms=ttft * 1e3,
-                step_ms=dec / steps * 1e3, launches=counts,
-                expected_launches=expected_launches(
-                    cfg.num_hidden_layers, 1 + steps, steps))
+    return dict(phase='throughput', mode=mode, B=B, prefill=prefill,
+                steps=steps, tokens_per_s=B * steps / dec,
+                ttft_ms=ttft * 1e3, step_ms=dec / steps * 1e3,
+                launches=counts, expected_launches=expected_launches(
+                    cfg.num_hidden_layers, 1 + steps, steps, mode))
 
 
-def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12):
+def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12,
+                  mode='w4a16'):
     """torch.profiler over ``steps`` decode steps at the bench's shape:
     device time by kernel, and the device's busy share of the wall."""
     from torch.profiler import ProfilerActivity, profile
@@ -502,7 +824,7 @@ def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12):
     cfg = model.cfg
     policy = KVCachePolicy(method='naive', bit=8)
     ids = torch.randint(0, cfg.vocab_size, (B, prefill), device=dev)
-    with torch.no_grad():
+    with torch.no_grad(), attn_impl(MODES[mode].attn):
         cache = init_cache(model, B, prefill + steps + 1, policy, device=dev)
         reset_launch_counts()
         logits, cache = forward_cached(model.params, cfg, ids, cache, policy,
@@ -531,47 +853,52 @@ def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12):
             rows.append((dt, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3          # ms
-    return dict(phase='profile', B=B, steps=steps, wall_ms=wall * 1e3,
-                device_busy_ms=busy,
+    return dict(phase='profile', mode=mode, B=B, steps=steps,
+                wall_ms=wall * 1e3, device_busy_ms=busy,
+                device_busy_ms_per_step=busy / steps,
                 device_idle_share=max(0.0, 1 - busy / (wall * 1e3)),
                 per_step_ms=wall * 1e3 / steps,
                 top=[dict(kernel=k[:80], ms=dt / 1e3, calls=c)
                      for dt, k, c in rows[:top]],
                 launches=counts, expected_launches=expected_launches(
-                    cfg.num_hidden_layers, 1 + steps, steps))
+                    cfg.num_hidden_layers, 1 + steps, steps, mode))
 
 
-def step_bound(model, B, prefill, steps, peaks):
-    """Least time of one decode step: packed weight bytes + the average
-    valid int8 KV prefix, against the linears' bf16 flops."""
-    bw, bf16, _ = peaks
+def step_bound(model, B, prefill, steps, peaks, mode='w4a16'):
+    """Least time of one decode step: the packed weights' bytes (codes,
+    scales, zeros) + the average valid int8 KV prefix, against the
+    linears' operations at the peak of the type they multiply in (int8
+    for the block linears of W4A8, bf16 otherwise and for the head)."""
     cfg = model.cfg
-    wbytes, lin_params = 0, 0
 
     def walk(t):
-        nonlocal wbytes, lin_params
+        """(bytes, weights) of every packed linear under ``t``."""
         if isinstance(t, dict):
             if 'qweight' in t:
-                for k in ('qweight', 'scales', 'zeros'):
-                    if t.get(k) is not None:
-                        wbytes += t[k].numel() * t[k].element_size()
-                lin_params += t['qweight'].numel() * 2
-                return
-            for v in t.values():
-                walk(v)
-        elif isinstance(t, list):
-            for v in t:
-                walk(v)
-    walk(model.params)
+                nbytes = sum(t[k].numel() * t[k].element_size()
+                             for k in ('qweight', 'scales', 'zeros')
+                             if t.get(k) is not None)
+                per_byte = 2 if t['qweight'].dtype == torch.uint8 else 1
+                return nbytes, t['qweight'].numel() * per_byte
+            t = list(t.values())
+        if isinstance(t, list):
+            parts = [walk(v) for v in t]
+            return sum(p[0] for p in parts), sum(p[1] for p in parts)
+        return 0, 0
+    blk_bytes, blk_params = walk(model.params['blocks'])
+    head_bytes, head_params = walk(model.params.get('lm_head'))
     L, KVH, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                   cfg.head_dim)
     valid = prefill + steps / 2
     kv = 2 * L * B * valid * KVH * (hd + 4)
-    t_b = (wbytes + kv) / bw * 1e3
-    t_o = 2 * B * lin_params / bf16 * 1e3
+    wbytes = blk_bytes + head_bytes
+    t_b = (wbytes + kv) / peaks.bw * 1e3
+    blk_peak = peaks.int8 if MODES[mode].a_int8 else peaks.bf16
+    t_o = 2 * B * (blk_params / blk_peak + head_params / peaks.bf16) * 1e3
     return dict(step_bound_ms=max(t_b, t_o),
                 step_bound_by='bytes' if t_b >= t_o else 'operations',
-                weight_bytes=wbytes, kv_bytes_avg=kv, linear_params=lin_params)
+                weight_bytes=wbytes, kv_bytes_avg=kv,
+                linear_params=blk_params + head_params)
 
 
 # --------------------------------------------------------------------------
@@ -587,6 +914,45 @@ def require_launches(rec) -> None:
             f'{rec["expected_launches"]}')
 
 
+def require_served(rec) -> None:
+    require(rec['all_done'], f'{rec["phase"]}: a request did not finish '
+            f'with max_new_tokens valid token ids')
+    require(rec['requests'] >= 8, f'{rec["phase"]}: fewer than 8 requests')
+    require_launches(rec)
+
+
+def drive_mode(mode, dev, peaks, card):
+    """The model phases of one serving mode at Llama-2-7B width and depth:
+    serve, throughput, profile.  Returns the serve phase's launches."""
+    model, qmap = make_model(mode, LLAMA2_7B, dev)
+    rec = phase_serve(dev, model, qmap, mode=mode)
+    emit(rec)
+    require_served(rec)
+    launches = rec['launches']
+    rec = phase_throughput(dev, model, qmap, mode=mode)
+    rec.update(step_bound(model, 128, 32, 64, peaks, mode), **card)
+    emit(rec)
+    require_launches(rec)
+    rec = phase_profile(dev, model, qmap, mode=mode)
+    emit(rec)
+    require_launches(rec)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_record(name, source, replaces, replaces_fn, launches, errs, row,
+                  at):
+    worst_abs, worst_rel = errs
+    return dict(name=name, route='cuda',
+                source=f'llmc_tpu_torch/csrc/{source}', replaces=replaces,
+                replaces_fn=replaces_fn, launches=launches[name],
+                max_abs_err=worst_abs, max_rel_err=worst_rel,
+                ms=row['kernel_ms'], plain_ms=row['plain_ms'],
+                bound_ms=row['bound_ms'], bound_by=row['bound_by'],
+                library_ms=row['library_ms'], at=at)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.parse_args(argv)
@@ -595,83 +961,95 @@ def main(argv=None) -> int:
               'card', file=sys.stderr)
         return 2
     from llmc_tpu_torch.ops import _build
+    from llmc_tpu_torch.utils.device import sm_count
+    t_start = time.perf_counter()
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
+    card = dict(card=kind, nvidia_smi=smi)
     peak_name, peaks = peaks_for(kind)
     emit(dict(phase='device', kind=kind, count=count, nvidia_smi=smi,
-              peaks=dict(table=peak_name, bytes_per_s=peaks[0],
-                         bf16_flops=peaks[1], f32_flops=peaks[2])))
+              sms=sm_count(0),
+              peaks=dict(table=peak_name, bytes_per_s=peaks.bw,
+                         bf16_flops=peaks.bf16, f32_flops=peaks.f32,
+                         int8_ops=peaks.int8)))
     print(smi, flush=True)
 
     t0 = time.perf_counter()
     _build.lib()
     emit(dict(phase='build', wall_s=time.perf_counter() - t0,
               **_build.BUILD_INFO))
-    w4_rows, w4_abs, w4_rel = check_w4(dev, peaks, MAIN_SHAPES,
-                                       (1, 128, 4096))
-    fd_rows, fd_abs, fd_rel = check_flash(dev, peaks)
-    emit(dict(phase='kernel_checks', w4_dequant_matmul=w4_rows,
-              flash_decode=fd_rows))
 
-    rec = phase_parity(dev, torch.device('cpu'),
-                       dict(LLAMA2_7B, num_hidden_layers=2))
-    emit(rec)
-    require(rec['ok'], f'parity: {rec}')
-    require_launches(rec)
+    gemm = {kind_: check_gemm(kind_, dev, peaks, MAIN_SHAPES, (1, 128, 4096))
+            for kind_ in ('w4', 'w4a8', 'w8')}
+    attn = {name: check_attention(name, dev, peaks)
+            for name in ('flash_decode', 'batch_decode')}
+    emit(dict(phase='kernel_checks', sms=sm_count(0), **card,
+              w4_dequant_matmul=gemm['w4'][0],
+              w4a8_dequant_matmul=gemm['w4a8'][0],
+              w4a8_worst_rel_err_vs_integer_oracle=gemm['w4a8'][3],
+              w8_dequant_matmul=gemm['w8'][0],
+              flash_decode=attn['flash_decode'][0],
+              batch_decode=attn['batch_decode'][0]))
 
-    from llmc_tpu_torch.models import LlamaConfig
-    from llmc_tpu_torch.serve.packed import random_packed_llama
-    model, qmap = random_packed_llama(LlamaConfig(**LLAMA2_7B), _wspec(),
-                                      seed=0, fuse=True, pre_t=True,
-                                      head=True, device=dev)
-    serve = phase_serve(dev, model, qmap)
-    emit(serve)
-    require(serve['all_done'], 'serve: a request did not finish with '
-            'max_new_tokens valid token ids')
-    require(serve['requests'] >= 8, 'serve: fewer than 8 requests')
-    require_launches(serve)
+    for mode in MODES:
+        rec = phase_parity(dev, torch.device('cpu'),
+                           dict(LLAMA2_7B, num_hidden_layers=2), mode=mode)
+        emit(rec)
+        require(rec['ok'], f'parity: {rec}')
+        require_launches(rec)
 
-    rec = phase_throughput(dev, model, qmap)
-    rec.update(step_bound(model, 128, 32, 64, peaks), card=kind,
-               nvidia_smi=smi)
-    emit(rec)
-    require_launches(rec)
-    rec = phase_profile(dev, model, qmap)
-    emit(rec)
-    require_launches(rec)
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for mode in MODES:
+        got = drive_mode(mode, dev, peaks, card)
+        # a kernel's launches are read from the serve run of its own path
+        # (the head of the W4A8 model also runs the w4 kernel: keep the
+        # W4A16 path's count for it)
+        launches.update({k: v for k, v in got.items()
+                         if v and not launches[k]})
 
-    launches = serve['launches']
+    model, qmap = companion_model(dev, dict(LLAMA2_7B, num_hidden_layers=8))
+    for flag in ('prefill_w8', 'decode_w8'):
+        rec = phase_serve(dev, model, qmap, n_requests=8, w8_flag=flag)
+        emit(rec)
+        require_served(rec)
+    del model
+    torch.cuda.empty_cache()
+
     require(min(launches.values()) > 0,
-            'a kernel of the main path was never launched')
-    w4_head = next(r for r in w4_rows
-                   if (r['N'], r['M']) == (22016, 128) and r['sym'])
-    fd_head = fd_rows[0]
+            f'a kernel of the main paths was never launched: {launches}')
+
+    def gemm_row(kind_):
+        return next(r for r in gemm[kind_][0]
+                    if (r['N'], r['M']) == (22016, 128) and r['sym'])
+    at_gemm = 'gate_up N=22016 K=4096 M=128 bf16'
+    at_attn = 'B=128 Smax=96 KVH=32 hd=128 int8, 64 valid'
+    dm = 'llmc_tpu/ops/dequant_matmul.py'
     emit({'kernels': [
-        dict(name='w4_dequant_matmul', route='cuda',
-             source='llmc_tpu_torch/csrc/dequant_matmul_w4.cu',
-             replaces='llmc_tpu/ops/dequant_matmul.py:189',
-             replaces_fn='llmc_tpu/ops/dequant_matmul.py::_kernel_w4',
-             launches=launches['w4_dequant_matmul'],
-             max_abs_err=w4_abs, max_rel_err=w4_rel,
-             ms=w4_head['kernel_ms'], plain_ms=w4_head['plain_ms'],
-             bound_ms=w4_head['bound_ms'], bound_by=w4_head['bound_by'],
-             library_ms=w4_head['library_ms'],
-             at='gate_up N=22016 K=4096 M=128 bf16'),
-        dict(name='flash_decode', route='cuda',
-             source='llmc_tpu_torch/csrc/flash_decode.cu',
-             replaces='llmc_tpu/ops/flash_decode.py:59',
-             replaces_fn='llmc_tpu/ops/flash_decode.py::_kernel',
-             launches=launches['flash_decode'],
-             max_abs_err=fd_abs, max_rel_err=fd_rel,
-             ms=fd_head['kernel_ms'], plain_ms=fd_head['plain_ms'],
-             bound_ms=fd_head['bound_ms'], bound_by=fd_head['bound_by'],
-             library_ms=fd_head['library_ms'],
-             at='B=128 Smax=96 KVH=32 hd=128 int8, 64 valid'),
+        kernel_record('w4_dequant_matmul', 'dequant_matmul_w4.cu',
+                      f'{dm}:189', f'{dm}::_kernel_w4', launches,
+                      gemm['w4'][1:3], gemm_row('w4'), at_gemm),
+        kernel_record('w4a8_dequant_matmul', 'dequant_matmul_w4a8.cu',
+                      f'{dm}:236', f'{dm}::_kernel_w4a8', launches,
+                      gemm['w4a8'][1:3], gemm_row('w4a8'), at_gemm),
+        kernel_record('w8_dequant_matmul', 'dequant_matmul_w8.cu',
+                      f'{dm}:274', f'{dm}::_kernel_w8', launches,
+                      gemm['w8'][1:3], gemm_row('w8'), at_gemm),
+        kernel_record('flash_decode', 'flash_decode.cu',
+                      'llmc_tpu/ops/flash_decode.py:59',
+                      'llmc_tpu/ops/flash_decode.py::_kernel', launches,
+                      attn['flash_decode'][1:3], attn['flash_decode'][0][0],
+                      at_attn),
+        kernel_record('batch_decode', 'batch_decode.cu',
+                      'llmc_tpu/ops/batch_decode.py:88',
+                      'llmc_tpu/ops/batch_decode.py::_kernel', launches,
+                      attn['batch_decode'][1:3], attn['batch_decode'][0][0],
+                      at_attn),
     ]})
+    emit(dict(phase='done', wall_s=time.perf_counter() - t_start, **card))
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                  'count': count}})

@@ -1,11 +1,12 @@
 """Carry weights from numpy trees (for example the JAX package's params,
 ``jax.tree.map(np.asarray, model.params)``) onto the port's params.
 
-Packed ``qweight`` bytes become ``torch.uint8`` by reinterpretation of
-the bytes (``.view(np.uint8)``), never by a value cast: a packed byte is
-unsigned in the port.  bfloat16 arrays from ``ml_dtypes``, which
-``torch.from_numpy`` refuses, go through int16 and are viewed back as
-``torch.bfloat16``.
+Packed 4-bit ``qweight`` bytes become ``torch.uint8`` by reinterpretation
+of the bytes (``.view(np.uint8)``), never by a value cast: a packed nibble
+byte is unsigned in the port.  A bits=8 ``qweight`` and the companion
+``qweight8`` are signed int8 codes and keep their sign.  bfloat16 arrays
+from ``ml_dtypes``, which ``torch.from_numpy`` refuses, go through int16
+and are viewed back as ``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -32,19 +33,39 @@ def tensor_from_numpy(a, device: torch.device, dtype=None,
     return t.to(device)
 
 
-def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
+def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None,
+                      qmap=None, bits: Optional[int] = None):
     """Map a nested dict/list tree of numpy arrays onto tensors on
     ``device`` (``None``: the CUDA device).  ``dtype`` casts the floating
-    leaves; integer leaves keep their type."""
+    leaves; integer leaves keep their type.
+
+    An int8 ``qweight`` is reinterpreted as unsigned nibble bytes only
+    when its weight has 4 bits; with 8 bits it is a signed code and keeps
+    its sign, as ``qweight8`` always does.  The shapes cannot tell the two
+    apart, so the bits come from ``qmap`` (the serving QMap: the entry of
+    the linear's path, ``lm_head`` or a block path such as
+    ``self_attn.qkv_proj``), else from ``bits`` for every linear.  An int8
+    ``qweight`` with neither raises."""
     dev = resolve_device(device)
 
-    def rec(node, key=None):
+    def nibble_bytes(path):
+        qc = qmap.get(path) if qmap is not None else None
+        if qc is not None and getattr(qc, 'qmeta', None) is not None:
+            return int(qc.qmeta.bits) == 4
+        if bits is None:
+            raise ValueError(
+                f'{path}.qweight is int8: 4-bit nibble bytes or signed '
+                f'8-bit codes?  Pass qmap= or bits=')
+        return int(bits) == 4
+
+    def rec(node, path=()):
         if node is None:
             return None
         if isinstance(node, dict):
-            return {k: rec(v, k) for k, v in node.items()}
+            return {k: rec(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [rec(v) for v in node]
-        return tensor_from_numpy(node, dev, dtype,
-                                 packed=key in ('qweight',))
+            return [rec(v, ()) for v in node]   # a block: paths restart
+        packed = (path[-1:] == ('qweight',) and np.asarray(node).dtype == np.int8
+                  and nibble_bytes('.'.join(path[:-1])))
+        return tensor_from_numpy(node, dev, dtype, packed=packed)
     return rec(tree)

@@ -42,16 +42,9 @@
 // Not yet: wgmma, TMA, warp specialisation, a load-time repack of the
 // nibbles.  A 128-row tile spilled at 255 registers.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_common.cuh"
 
 namespace {
-
-constexpr int BN = 128;    // output columns per CTA
-constexpr int NT = 256;    // 8 warps
-constexpr int STAGES = 4;  // chunks in flight (cp.async ring)
-constexpr int KC = 128;    // columns of each half group per chunk
 
 template <int BM>
 struct Tile {
@@ -77,46 +70,6 @@ __device__ __forceinline__ uint32_t nib2bf16x2(uint32_t a, uint32_t b) {
 }
 
 constexpr uint32_t kOnes = 0x3F803F80u;  // bf16x2 {1.0, 1.0}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of m16n8k16 (16 x 16 bf16, row-major in shared memory):
-// lane l gives the address of row l % 16 at column 8 * (l / 16)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* a, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// CTAs per SM the register budget is set for (shared memory allows it)
-template <int BM>
-constexpr int min_blocks() { return BM <= 16 ? 2 : 1; }
 
 template <int BM, bool OUT_F32>
 __global__ void __launch_bounds__(NT, min_blocks<BM>()) w4_dequant_matmul_kernel(
@@ -256,49 +209,8 @@ __global__ void __launch_bounds__(NT, min_blocks<BM>()) w4_dequant_matmul_kernel
     }
   }
 
-  // write: the output, or this split's f32 partial
-#pragma unroll
-  for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < T::NJ; ++nj)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = m0 + mi * 16 + g + 8 * r;
-        const int n = n0 + wn + nj * 8 + 2 * t;
-        if (m >= M || n >= N) continue;  // N is even: n + 1 < N too
-        const float v0 = acc[mi][nj][2 * r], v1 = acc[mi][nj][2 * r + 1];
-        const size_t o = (size_t)m * N + n;
-        if (partial != nullptr) {
-          *reinterpret_cast<float2*>(partial + (size_t)blockIdx.z * M * N +
-                                     o) = make_float2(v0, v1);
-        } else if (OUT_F32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-              make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
-                                             o) = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-}
-
-// Sum the split-K partials [splits, M*N] in split order into the output.
-template <bool OUT_F32>
-__global__ void __launch_bounds__(256) w4_split_sum_kernel(
-    const float* __restrict__ partial, void* __restrict__ out, int splits,
-    size_t mn) {
-  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 2;
-  if (i >= mn) return;
-  float2 a = *reinterpret_cast<const float2*>(partial + i);
-  for (int z = 1; z < splits; ++z) {
-    const float2 b = *reinterpret_cast<const float2*>(partial + z * mn + i);
-    a.x += b.x;
-    a.y += b.y;
-  }
-  if (OUT_F32)
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) = a;
-  else
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
-                                       i) = __floats2bfloat162_rn(a.x, a.y);
+  write_tile<T::MI, T::NJ, OUT_F32>(acc, out, partial, nullptr, M, N, m0,
+                                     n0 + wn, lane, blockIdx.z);
 }
 
 template <int BM, bool OUT_F32>
@@ -322,31 +234,9 @@ int launch(const void* x, const void* packed, const void* s, const void* zs,
       static_cast<const float*>(zs), out,
       splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, gsl,
       single, pps);
-  if (splits > 1) {
-    const size_t mn = (size_t)M * N;
-    const unsigned blocks = (unsigned)((mn / 2 + 255) / 256);
-    w4_split_sum_kernel<OUT_F32><<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(partial), out, splits, mn);
-  }
+  if (splits > 1)
+    launch_split_sum<OUT_F32>(partial, out, nullptr, splits, M, N, st);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool OUT_F32>
-int launch_bm(int bm, const void* x, const void* packed,
-              const void* s, const void* zs, void* out, void* partial, int M,
-              int N, int K, int gsl, int single, int splits,
-              cudaStream_t st) {
-  switch (bm) {
-    case 16:
-      return launch<16, OUT_F32>(x, packed, s, zs, out, partial, M, N, K,
-                                 gsl, single, splits, st);
-    case 32:
-      return launch<32, OUT_F32>(x, packed, s, zs, out, partial, M, N, K,
-                                 gsl, single, splits, st);
-    default:
-      return launch<64, OUT_F32>(x, packed, s, zs, out, partial, M, N, K,
-                                 gsl, single, splits, st);
-  }
 }
 
 }  // namespace
@@ -361,8 +251,8 @@ extern "C" int llmc_w4_dequant_matmul(const void* x, const void* packed,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_f32)
-    return launch_bm<true>(bm, x, packed, s, zs, out, partial, M, N, K,
-                           gsl, single, splits, st);
-  return launch_bm<false>(bm, x, packed, s, zs, out, partial, M, N, K,
-                          gsl, single, splits, st);
+    return LLMC_DISPATCH_BM(bm, true, launch, x, packed, s, zs, out, partial,
+                            M, N, K, gsl, single, splits, st);
+  return LLMC_DISPATCH_BM(bm, false, launch, x, packed, s, zs, out, partial,
+                          M, N, K, gsl, single, splits, st);
 }

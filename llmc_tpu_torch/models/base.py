@@ -2,9 +2,10 @@
 
 Params are nested dicts of tensors under the reference's HF-style paths;
 ``linear_apply`` applies one linear with its static ``LinearQcfg``
-policy.  Ported: the fp path and the packed W4A16 path.  The other ``LinearQcfg`` fields are kept so that a
-policy means the same in both packages, and raise ``NotImplementedError``
-when set.
+policy.  Ported: the fp path and the packed paths (W4A16, W4A8 through
+``a_int8``, W8A16, and the w8 companion through ``w8_alt``).  The other
+``LinearQcfg`` fields are kept so that a policy means the same in both
+packages, and raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -42,8 +43,6 @@ class LinearQcfg:
 _UNPORTED = (
     ('a_spec', 'activation fake-quant (ROADMAP A10)'),
     ('a_static', 'static activation qparams (ROADMAP A10)'),
-    ('a_int8', 'W4A8 serving (ROADMAP A9, kernel B3)'),
-    ('w8_alt', 'the w8 companion path (ROADMAP A9)'),
     ('a_outlier_threshold', 'LLM.int8 decomposition (ROADMAP A10)'),
     ('pre_had', 'QuaRot online rotation (ROADMAP A10)'),
     ('ste', 'straight-through rounding (ROADMAP A10)'),
@@ -71,8 +70,12 @@ def linear_apply(p: Dict, x: torch.Tensor,
     check_qcfg(qcfg)
     if qcfg is not None and qcfg.w_packed:
         from ..ops.dequant_matmul import dequant_matmul
-        y = dequant_matmul(x, p['qweight'], p['scales'], p.get('zeros'),
-                           qcfg.qmeta)
+        if qcfg.w8_alt:   # the per-channel int8 companion copy
+            y = dequant_matmul(x, p['qweight8'], p['scales8'], None,
+                               qcfg.qmeta, a_int8=qcfg.a_int8)
+        else:
+            y = dequant_matmul(x, p['qweight'], p['scales'], p.get('zeros'),
+                               qcfg.qmeta, a_int8=qcfg.a_int8)
     else:
         y = matmul_f32_acc(x, p['w']).to(x.dtype)
     if p.get('b') is not None:

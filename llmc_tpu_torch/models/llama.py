@@ -294,7 +294,7 @@ def embed_apply(params: Dict, cfg: LlamaConfig,
 def head_apply(params: Dict, cfg: LlamaConfig, x: torch.Tensor,
                qmap=None) -> torch.Tensor:
     """Final norm + lm_head -> float32 logits.  A packed head goes through
-    the W4 dequant-matmul with an f32 output."""
+    the weight-only dequant-matmul of its bits with an f32 output."""
     h = rms_norm(x, params['norm']['w'], cfg.rms_norm_eps)
     head = params.get('lm_head') if not cfg.tie_word_embeddings else None
     if head is not None and 'qweight' in head:

@@ -40,6 +40,15 @@ SIGNATURES = {
     # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
     # kv_kind, chunk, stream
     'llmc_flash_decode': [_VP] * 7 + [_I] * 8 + [_VP],
+    # x, packed, s, zs, sx, out, partial, M, N, K, gsl, single, out_f32,
+    # bm, splits, stream
+    'llmc_w4a8_dequant_matmul': [_VP] * 7 + [_I] * 8 + [_VP],
+    # x, codes, s, z, out, partial, M, N, K, gs, has_z, out_f32, bm,
+    # splits, stream
+    'llmc_w8_dequant_matmul': [_VP] * 6 + [_I] * 8 + [_VP],
+    # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
+    # kv_kind, b_blk, wps, chunk, stream
+    'llmc_batch_decode': [_VP] * 7 + [_I] * 10 + [_VP],
 }
 
 

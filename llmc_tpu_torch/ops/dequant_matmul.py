@@ -1,37 +1,53 @@
-"""W4A16 dequant-matmul (port of ``llmc_tpu/ops/dequant_matmul.py``).
+"""Dequant-matmul over packed weights (port of
+``llmc_tpu/ops/dequant_matmul.py``): W4A16, W4A8, W8A16 and the
+per-channel W8A8 dot.
 
 Host side: ``QMeta``, group-pair ``pack_weight``, ``pack_scales_t``,
-``unpack_weight``, ``dequant_weight`` and the plain matmul, which mirrors
-the reference's XLA path ``_dequant_matmul_xla`` including the ``pre_t``
-un-fold ``z_eff = zs / clip(s, 1e-9)``.
+``unpack_weight``, ``dequant_weight``, the per-token int8 activation
+quantizer ``_quant_act_token`` and the plain matmuls, which mirror the
+reference's XLA paths (``_dequant_matmul_xla``, ``_dequant_matmul_xla_a8``,
+``_dequant_matmul_a8_staged``) including the ``pre_t`` un-fold
+``z_eff = zs / clip(s, 1e-9)``.
 
-Kernel: ``w4_dequant_matmul`` launches ``csrc/dequant_matmul_w4.cu``, the
-Hopper port of the TPU kernel ``_kernel_w4`` plus its zero correction.
-``dequant_matmul`` dispatches on the tensor's device: the kernel for a
-CUDA tensor, the plain version for a CPU tensor.  There is no fallback
-from the kernel to the plain version.
+Kernels, one wrapper each, every one the Hopper port of a TPU kernel:
+
+- ``w4_dequant_matmul``   -> ``csrc/dequant_matmul_w4.cu``   (``_kernel_w4``)
+- ``w4a8_dequant_matmul`` -> ``csrc/dequant_matmul_w4a8.cu`` (``_kernel_w4a8``)
+- ``w8_dequant_matmul``   -> ``csrc/dequant_matmul_w8.cu``   (``_kernel_w8``)
+
+``dequant_matmul`` keeps the reference's dispatch and decides by the
+tensor's device: a kernel for a CUDA tensor, the plain version for a CPU
+tensor.  There is no fallback from a kernel to its plain version.  Two
+branches are plain torch on both devices because the reference runs them
+in XLA and has no Pallas kernel for them: the per-channel W8A8 dot
+(``_int8_dot``: ``torch._int_mm`` on the card, an exact int32 matmul on
+the CPU) and the per-group W8A8 emulation.
 
 A packed byte is **unsigned** here, as ``pack_weight`` emits it and as the
 reference's XLA path reads it (``& 0xFF``).  The reference's
 ``random_packed_llama`` stores packed bytes as int8, which its TPU kernel sign-extends
 (``dequant_matmul.py:216``), so its kernel and XLA paths disagree on such
-bytes; the port's converter reinterprets int8 bytes as uint8.
+bytes; the port's converter reinterprets int8 nibble bytes as uint8.  A
+bits=8 ``qweight`` (and ``qweight8``) is a **signed** int8 code and keeps
+its sign.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+import os
 from typing import Optional, Tuple
 
 import torch
 
+from ..utils.device import sm_count
 from . import _build
 
 F32 = torch.float32
 
 # Launches of the CUDA kernel (the plain version never counts).
-LAUNCHES = {'w4_dequant_matmul': 0}
+LAUNCHES = {'w4_dequant_matmul': 0, 'w4a8_dequant_matmul': 0,
+            'w8_dequant_matmul': 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,13 +164,87 @@ def _unfold_pre_t(scales, zeros, meta: QMeta):
 
 
 def dequant_matmul_plain(x, packed, scales, zeros, meta: QMeta,
-                         out_dtype=None) -> torch.Tensor:
-    """x [M, K] -> [M, N]: dequantize in f32, one f32 matmul."""
+                         out_dtype=None, w_bf16: bool = False
+                         ) -> torch.Tensor:
+    """x [M, K] -> [M, N]: dequantize in f32, one f32 matmul.  With
+    ``w_bf16`` the dequantized weight and x are rounded to bf16 first, as
+    the W8 kernel does (the function ``_kernel_w8`` computes)."""
     if meta.pre_t:
         scales, zeros, meta = _unfold_pre_t(scales, zeros, meta)
     w = dequant_weight(packed, scales, zeros, meta)
-    y = torch.matmul(x.to(F32), w.T)
+    xf = x.to(F32)
+    if w_bf16:
+        w = w.to(torch.bfloat16).to(F32)
+        xf = x.to(torch.bfloat16).to(F32)
+    y = torch.matmul(xf, w.T)
     return y.to(out_dtype or x.dtype)
+
+
+def _quant_act_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-token symmetric int8 (the W4A8 runtime's activation
+    quantizer, and per-'row' the w8 companion's).  Returns (xq int8,
+    sx [M, 1] f32)."""
+    xf = x.to(F32)
+    ax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp(ax, min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def dequant_matmul_plain_a8(x, packed, scales, zeros, meta: QMeta,
+                            out_dtype=None) -> torch.Tensor:
+    """The W4A8 / W8A8 emulation (the reference's
+    ``_dequant_matmul_xla_a8``): per-token int8 codes of x against the
+    dequantized weight in one f32 matmul, then the per-token scale."""
+    if meta.pre_t:
+        scales, zeros, meta = _unfold_pre_t(scales, zeros, meta)
+    xq, sx = _quant_act_token(x)
+    w = dequant_weight(packed, scales, zeros, meta)
+    y = torch.matmul(xq.to(F32), w.T) * sx
+    return y.to(out_dtype or x.dtype)
+
+
+def _int8_dot(xq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """xq [M, K] int8 times w8 [N, K] int8, transposed -> [M, N] int32,
+    exact.  The reference leaves this dot to XLA, outside any Pallas
+    kernel, so on the card it is ``torch._int_mm``, which refuses 16 rows
+    or fewer: the rows are padded to a multiple of 8, at least 32, and
+    the result sliced.  On the CPU it is an int32 matmul."""
+    if not xq.is_cuda:
+        return torch.matmul(xq.to(torch.int32), w8.to(torch.int32).T)
+    M, K = xq.shape
+    if K % 8 or w8.shape[0] % 8:
+        raise ValueError(f'the int8 dot on the card needs K and N in '
+                         f'multiples of 8, got K={K}, N={w8.shape[0]}')
+    Mp = max(32, -(-M // 8) * 8)
+    if Mp != M:
+        xq = torch.nn.functional.pad(xq, (0, 0, 0, Mp - M))
+    return torch._int_mm(xq.contiguous(), w8.T)[:M]
+
+
+def w8a8_channel_matmul(x, w8, scales8, out_dtype=None) -> torch.Tensor:
+    """The per-channel W8A8 dot (dequant_matmul.py:523-535): per-token
+    int8 x against int8 codes [N, K] with one f32 scale per output
+    channel.  The int32 result is cast and scaled in f32."""
+    xq, sx = _quant_act_token(x)
+    y = _int8_dot(xq, w8).to(F32) * (sx * scales8.reshape(-1)[None, :].to(F32))
+    return y.to(out_dtype or x.dtype)
+
+
+# Row count from which the W4A8 path re-quantizes the w4 weight to
+# per-channel int8 once per call and runs one full-K int8 dot.  Off by
+# default, as in the reference.
+A8_STAGE_MIN_M = int(os.environ.get('LLMC_A8_STAGE_MIN_M', str(2 ** 62)))
+
+
+def _dequant_matmul_a8_staged(x, packed, scales, zeros, meta: QMeta,
+                              out_dtype=None) -> torch.Tensor:
+    """W4A8 prefill staging: w4 -> per-channel int8 weight, then one
+    int8 dot.  Plain torch on both devices (XLA in the reference)."""
+    if meta.pre_t:
+        scales, zeros, meta = _unfold_pre_t(scales, zeros, meta)
+    w8, s8 = _quant_act_token(dequant_weight(packed, scales, zeros, meta))
+    return w8a8_channel_matmul(x, w8, s8[:, 0], out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -196,23 +286,45 @@ def _check_kernel_meta(meta: QMeta, M: int, K: int) -> Tuple[int, bool]:
 _RESIDENT = {16: 2, 32: 1, 64: 1}
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+def _tiling(M: int, N: int, units: int, sms: int) -> Tuple[int, int]:
+    """(row tile BM, K splits) when the K loop has ``units`` steps that
+    can be dealt out to CTAs."""
+    bm = next(b for b in (16, 32, 64) if M <= b or b == 64)
+    tiles = -(-N // 128) * -(-M // bm)
+    want = sms * _RESIDENT[bm]
+    splits = 1 if tiles >= want else min(units, -(-want // tiles))
+    if splits > 1:
+        per = -(-units // splits)
+        splits = -(-units // per)
+    return bm, splits
 
 
 def kernel_tiling(M: int, N: int, K: int, gsl: int,
                   sms: int) -> Tuple[int, int]:
-    """(row tile BM, K splits) for the kernel on a card of ``sms`` SMs."""
-    bm = next(b for b in (16, 32, 64) if M <= b or b == 64)
-    npairs = (K // 2) // gsl
-    tiles = -(-N // 128) * -(-M // bm)
-    want = sms * _RESIDENT[bm]
-    splits = 1 if tiles >= want else min(npairs, -(-want // tiles))
-    if splits > 1:
-        per = -(-npairs // splits)
-        splits = -(-npairs // per)
-    return bm, splits
+    """(row tile BM, K splits) for the W4 kernels on a card of ``sms``
+    SMs: the K loop is dealt out in group pairs."""
+    return _tiling(M, N, (K // 2) // gsl, sms)
+
+
+def _check_operands(x, want, out_dtype) -> None:
+    """Each kernel operand: dtype, shape, device, contiguity, alignment."""
+    for name, (t, dt, shape) in want.items():
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f'{name}: want {dt} {shape}, got {t.dtype} '
+                             f'{tuple(t.shape)}')
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f'{name}: must be contiguous on {x.device}')
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name}: must be 16-byte aligned')
+    if out_dtype not in (torch.bfloat16, F32):
+        raise ValueError(f'out_dtype must be bf16 or f32, got {out_dtype}')
+
+
+def _out_and_partial(M, N, splits, out_dtype, device):
+    out = torch.empty((M, N), dtype=out_dtype, device=device)
+    partial = (torch.empty((splits, M, N), dtype=F32, device=device)
+               if splits > 1 else out)
+    return out, partial
 
 
 def w4_dequant_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -229,23 +341,12 @@ def w4_dequant_matmul(x: torch.Tensor, packed: torch.Tensor,
                          'x is on the CPU')
     gsl, single = _check_kernel_meta(meta, M, K)
     ng = 1 if single else K // gsl
-    want = {'x': (x, torch.bfloat16, (M, K)),
-            'packed': (packed, torch.uint8, (N, K // 2)),
-            's': (s_t, F32, (ng, N)), 'zs': (zs_t, F32, (ng, N))}
-    for name, (t, dt, shape) in want.items():
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f'{name}: want {dt} {shape}, got {t.dtype} '
-                             f'{tuple(t.shape)}')
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f'{name}: must be contiguous on {x.device}')
-        if t.data_ptr() % 16:
-            raise ValueError(f'{name}: must be 16-byte aligned')
-    if out_dtype not in (torch.bfloat16, F32):
-        raise ValueError(f'out_dtype must be bf16 or f32, got {out_dtype}')
-    bm, splits = kernel_tiling(M, N, K, gsl, _sm_count(x.device.index))
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    partial = (torch.empty((splits, M, N), dtype=F32, device=x.device)
-               if splits > 1 else out)
+    _check_operands(x, {'x': (x, torch.bfloat16, (M, K)),
+                        'packed': (packed, torch.uint8, (N, K // 2)),
+                        's': (s_t, F32, (ng, N)),
+                        'zs': (zs_t, F32, (ng, N))}, out_dtype)
+    bm, splits = kernel_tiling(M, N, K, gsl, sm_count(x.device.index))
+    out, partial = _out_and_partial(M, N, splits, out_dtype, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.lib().llmc_w4_dequant_matmul(
         x.data_ptr(), packed.data_ptr(), s_t.data_ptr(), zs_t.data_ptr(),
@@ -256,35 +357,157 @@ def w4_dequant_matmul(x: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-def _kernel_operands(x2, scales, zeros, meta: QMeta):
-    """bf16 x and [ng, N] (s, zs) for the kernel from either layout
-    (the reference wrapper's transpose/fold, :408-415)."""
-    if meta.pre_t:
-        s_t, zs_t = scales, zeros
-    else:
-        z = zeros if zeros is not None else torch.zeros_like(scales)
-        z_eff = z + 8.0 if meta.symmetric else z
-        s_t = scales.T.contiguous()
-        zs_t = (scales * z_eff).T.contiguous()
-    return x2.to(torch.bfloat16).contiguous(), s_t, zs_t
+def w4a8_dequant_matmul(xq: torch.Tensor, sx: torch.Tensor,
+                        packed: torch.Tensor, s_t: torch.Tensor,
+                        zs_t: torch.Tensor, meta: QMeta,
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch the W4A8 Hopper kernel: xq [M, K] int8 per-token codes and
+    sx [M, 1] f32 (from ``_quant_act_token``, made before the launch as
+    the reference does), packed [N, K/2] uint8, s_t / zs_t [ng, N] f32
+    -> [M, N] ``out_dtype``.  The kernel also applies the zero /
+    excess-8 correction and the per-token scale."""
+    M, K = xq.shape
+    N = meta.out_features
+    if not xq.is_cuda:
+        raise ValueError('w4a8_dequant_matmul launches a CUDA kernel; '
+                         'xq is on the CPU')
+    gsl, single = _check_kernel_meta(meta, M, K)
+    ng = 1 if single else K // gsl
+    _check_operands(xq, {'xq': (xq, torch.int8, (M, K)),
+                         'sx': (sx, F32, (M, 1)),
+                         'packed': (packed, torch.uint8, (N, K // 2)),
+                         's': (s_t, F32, (ng, N)),
+                         'zs': (zs_t, F32, (ng, N))}, out_dtype)
+    bm, splits = kernel_tiling(M, N, K, gsl, sm_count(xq.device.index))
+    out, partial = _out_and_partial(M, N, splits, out_dtype, xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    err = _build.lib().llmc_w4a8_dequant_matmul(
+        xq.data_ptr(), packed.data_ptr(), s_t.data_ptr(), zs_t.data_ptr(),
+        sx.data_ptr(), out.data_ptr(), partial.data_ptr(), M, N, K, gsl,
+        int(single), int(out_dtype == F32), bm, splits, stream)
+    _build.check(err, 'w4a8_dequant_matmul')
+    LAUNCHES['w4a8_dequant_matmul'] += 1
+    return out
 
 
-def dequant_matmul(x, packed, scales, zeros, meta: QMeta, out_dtype=None):
-    """y = x @ dequant(packed).T for x [*, K].  A CUDA tensor launches
-    the kernel; a CPU tensor takes the plain version."""
-    if meta.bits != 4:
+W8_CHUNK = 128   # K columns the W8 kernel reads per step
+
+
+def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
+    """Raise on a weight the W8 kernel does not take; returns gs."""
+    N = meta.out_features
+    gs = meta.group_size if meta.group_size > 0 else K
+    if meta.bits != 8 or K != meta.in_features:
+        raise ValueError(f'kernel takes bits=8 with K={meta.in_features}; '
+                         f'got bits={meta.bits}, K={K}')
+    if gs % W8_CHUNK or K % gs:
         raise NotImplementedError(
-            f'bits={meta.bits} serving is not ported yet (ROADMAP A9, '
-            f'kernel B4 _kernel_w8)')
+            f'the W8 kernel reads {W8_CHUNK}-column chunks inside one scale '
+            f'group; group size {gs} at K={K} is not ported (ROADMAP B4)')
+    if N % 2 or M < 1:
+        raise ValueError(f'kernel needs an even N and M >= 1 (N={N}, M={M})')
+    return gs
+
+
+def w8_dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
+                      s_t: torch.Tensor, z_t: Optional[torch.Tensor],
+                      meta: QMeta, out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch the W8A16 Hopper kernel: x [M, K] bf16, codes [N, K] int8,
+    s_t / z_t [ng, N] f32 (``z_t`` None: no zero point) -> [M, N]
+    ``out_dtype``.  Each weight is dequantized ``(code - z) * s`` in f32
+    and rounded to bf16 before the dot, as ``_kernel_w8`` does."""
+    M, K = x.shape
+    N = meta.out_features
+    if not x.is_cuda:
+        raise ValueError('w8_dequant_matmul launches a CUDA kernel; '
+                         'x is on the CPU')
+    gs = _check_w8_meta(meta, M, K)
+    ng = K // gs
+    want = {'x': (x, torch.bfloat16, (M, K)),
+            'codes': (codes, torch.int8, (N, K)), 's': (s_t, F32, (ng, N))}
+    if z_t is not None:
+        want['z'] = (z_t, F32, (ng, N))
+    _check_operands(x, want, out_dtype)
+    bm, splits = _tiling(M, N, K // W8_CHUNK, sm_count(x.device.index))
+    out, partial = _out_and_partial(M, N, splits, out_dtype, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _build.lib().llmc_w8_dequant_matmul(
+        x.data_ptr(), codes.data_ptr(), s_t.data_ptr(),
+        (z_t if z_t is not None else s_t).data_ptr(), out.data_ptr(),
+        partial.data_ptr(), M, N, K, gs, int(z_t is not None),
+        int(out_dtype == F32), bm, splits, stream)
+    _build.check(err, 'w8_dequant_matmul')
+    LAUNCHES['w8_dequant_matmul'] += 1
+    return out
+
+
+def _kernel_operands(scales, zeros, meta: QMeta):
+    """[ng, N] (s, zs) for the W4 kernels from either layout (the
+    reference wrapper's transpose/fold, :408-415)."""
+    if meta.pre_t:
+        return scales, zeros
+    z = zeros if zeros is not None else torch.zeros_like(scales)
+    z_eff = z + 8.0 if meta.symmetric else z
+    return scales.T.contiguous(), (scales * z_eff).T.contiguous()
+
+
+def _dequant_matmul_cuda(x2, packed, scales, zeros, meta: QMeta, out_dtype,
+                         a_int8: bool) -> torch.Tensor:
+    """The kernel for (bits, a_int8), or a raise."""
+    if meta.bits == 4:
+        s_t, zs_t = _kernel_operands(scales, zeros, meta)
+        if a_int8:
+            xq, sx = _quant_act_token(x2)
+            return w4a8_dequant_matmul(xq.contiguous(), sx.contiguous(),
+                                       packed, s_t, zs_t, meta, out_dtype)
+        return w4_dequant_matmul(x2.to(torch.bfloat16).contiguous(), packed,
+                                 s_t, zs_t, meta, out_dtype)
+    if meta.bits == 8:
+        if meta.pre_t:
+            raise ValueError('bits=8 weights have no pre_t layout')
+        N = meta.out_features
+        s_t = scales.reshape(N, -1).T.contiguous()
+        z_t = (zeros.reshape(N, -1).T.contiguous() if zeros is not None
+               else None)
+        return w8_dequant_matmul(x2.to(torch.bfloat16).contiguous(), packed,
+                                 s_t, z_t, meta, out_dtype)
+    raise NotImplementedError(
+        f'bits={meta.bits}: no kernel for the card (only 4 and 8 are served)')
+
+
+def dequant_matmul(x, packed, scales, zeros, meta: QMeta, out_dtype=None,
+                   a_int8: bool = False):
+    """y = x @ dequant(packed).T for x [*, K], with the reference's
+    dispatch.  ``a_int8`` (bits 4 and 8): per-token dynamic int8
+    activations.
+
+    - bits=8, ``a_int8``, one group per channel: the W8A8 dot, on both
+      devices (symmetric weights only: anything else raises).
+    - bits=8, ``a_int8``, per group: the plain emulation on both devices
+      (the reference has no kernel for it either).
+    - bits=4, ``a_int8``, at least ``A8_STAGE_MIN_M`` rows: the staged
+      per-channel dot, plain torch.
+    - else a CUDA tensor launches the kernel of (bits, a_int8) and a CPU
+      tensor takes its plain version."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.is_cuda:
-        xb, s_t, zs_t = _kernel_operands(x2, scales, zeros, meta)
-        y = w4_dequant_matmul(xb, packed, s_t, zs_t, meta,
-                              out_dtype or x.dtype)
-    elif x2.device.type == 'cpu':
-        y = dequant_matmul_plain(x2, packed, scales, zeros, meta,
-                                 out_dtype=out_dtype)
-    else:
+    if x2.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {x2.device}')
+    a_int8 = a_int8 and meta.bits in (4, 8)
+    od = out_dtype or x.dtype
+    if a_int8 and meta.bits == 8:
+        if meta.group_size >= meta.in_features:
+            if zeros is not None and not meta.symmetric:
+                raise ValueError('the per-channel a8 dot requires symmetric '
+                                 'weights')
+            y = w8a8_channel_matmul(x2, packed, scales, od)
+        else:
+            y = dequant_matmul_plain_a8(x2, packed, scales, zeros, meta, od)
+    elif a_int8 and x2.shape[0] >= A8_STAGE_MIN_M:
+        y = _dequant_matmul_a8_staged(x2, packed, scales, zeros, meta, od)
+    elif x2.is_cuda:
+        y = _dequant_matmul_cuda(x2, packed, scales, zeros, meta, od, a_int8)
+    else:
+        plain = dequant_matmul_plain_a8 if a_int8 else dequant_matmul_plain
+        y = plain(x2, packed, scales, zeros, meta, out_dtype=od)
     return y.reshape(*lead, -1)

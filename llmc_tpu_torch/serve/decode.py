@@ -2,31 +2,62 @@
 ``llmc_tpu/serve/decode.py``).
 
 ``forward_cached`` runs S tokens of every slot against the cache, one
-Python loop over the layers.  Decode (S == 1) attention always goes
-through ``ops.flash_decode.flash_decode_attention`` — the Hopper kernel
-on the card — for the ``fp`` and symmetric ``naive`` caches.  Prefill
-(S > 1) keeps the reference's plain masked attention (decode.py:319-363):
-the block writes its K/V first and then attends over what the policy
-reads back, so with an int8 cache prefill sees the dequantized codes it
-just wrote, as the reference does.  The reference's XLA scheduling
-machinery (``_pick_attn``, ``prefer_unroll``, scan stacking) has no
-counterpart here.
+Python loop over the layers.  Decode (S == 1) attention over the ``fp``
+and symmetric ``naive`` caches goes through a hand-written kernel on the
+card, chosen by ``ATTN_IMPL`` (read from ``LLMC_ATTN``, the reference's
+switch):
+
+- ``auto`` and ``flash``: ``ops.flash_decode.flash_decode_attention``;
+- ``batch``: ``ops.batch_decode.batch_decode_attention``, the
+  serving-batch kernel;
+- ``chunked`` and ``full``: the reference's XLA reads; they come with
+  the paged, sink and long-context reads (ROADMAP A11) and raise.
+
+The asymmetric int8 cache (``k_z`` in the cache) has no kernel in the
+reference either: whatever ``ATTN_IMPL`` says, its decode step takes the
+plain masked read that prefill uses, on both devices.  Prefill (S > 1)
+keeps the reference's plain masked attention (decode.py:319-363): the
+block writes its K/V first and then attends over what the policy reads
+back, so with an int8 cache prefill sees the dequantized codes it just
+wrote, as the reference does.  The reference's XLA scheduling machinery
+(``_pick_attn``'s scan / unroll table, ``BATCH_MIN_B``,
+``prefer_unroll``, scan stacking) has no counterpart here: it chose
+between XLA programs, and the port has one eager loop.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
 
 from ..models import llama as L
 from ..models.base import linear_apply, rms_norm
+from ..ops.batch_decode import batch_decode_attention
 from ..ops.flash_decode import flash_decode_attention
 from ..utils.device import check_on, resolve_device
 from .kvcache import KVCachePolicy
 
 F32 = torch.float32
 FP_POLICY = KVCachePolicy(method='fp')
+# auto | flash | batch | chunked | full (module-level, as in the reference)
+ATTN_IMPL = os.environ.get('LLMC_ATTN', 'auto')
+_DECODE_KERNELS = {'auto': flash_decode_attention,
+                   'flash': flash_decode_attention,
+                   'batch': batch_decode_attention}
+
+
+def _decode_kernel():
+    """The decode-attention function ``ATTN_IMPL`` names."""
+    if ATTN_IMPL in _DECODE_KERNELS:
+        return _DECODE_KERNELS[ATTN_IMPL]
+    if ATTN_IMPL in ('chunked', 'full'):
+        raise NotImplementedError(
+            f'LLMC_ATTN={ATTN_IMPL}: the chunked and full decode reads are '
+            f'not ported yet (ROADMAP A11)')
+    raise ValueError(f'LLMC_ATTN={ATTN_IMPL!r}: want auto, flash, batch, '
+                     f'chunked or full')
 
 
 def _per_slot(pos) -> bool:
@@ -35,7 +66,8 @@ def _per_slot(pos) -> bool:
 
 def _attend_cached(q, cache, layer: int, policy: KVCachePolicy, cfg,
                    x_dtype) -> torch.Tensor:
-    """Plain masked attention over the whole cache buffer (prefill).
+    """Plain masked attention over the whole cache buffer (prefill, and
+    the decode step of the asymmetric int8 cache).
     q [B, S, H, hd] -> ctx [B, S, H, hd] in ``x_dtype``."""
     B, S, H, hd = q.shape
     KVH = cfg.num_key_value_heads
@@ -88,16 +120,14 @@ def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
     q, k = L.apply_rope(q, k, cos, sin)
     cache = policy.update(cache, layer, k, v)
     scale = 1.0 / (hd ** 0.5)
-    if S == 1:
-        if 'k_z' in cache:
-            raise NotImplementedError(
-                'asymmetric int8 KV decode is not ported yet (ROADMAP A5)')
+    if S == 1 and 'k_z' not in cache:
+        attend = _decode_kernel()
         fp = policy.method == 'fp'
         pos = cache['pos']
         pos_b = (pos.to(torch.int32) if _per_slot(pos) else
                  torch.full((B,), int(pos), dtype=torch.int32,
                             device=x.device))
-        ctx = flash_decode_attention(
+        ctx = attend(
             q[:, 0].to(F32) * scale,
             cache['k'] if fp else cache['k_q'],
             cache['v'] if fp else cache['v_q'],

@@ -14,10 +14,15 @@ property instead: a slot's draw depends only on (seed, admission nonce,
 generated-token index), through a counter-based hash computed on the
 device, so outputs do not change with co-scheduling or window size.
 
+``prefill_w8`` sends every prefill forward through the per-channel int8
+companion copy of the block linears (``pack_model(w8_prefill=True)``,
+``packed.prefill_qmap_from``); ``decode_w8`` sends the decode steps
+there too.  The engine checks at construction that the companion is
+packed in.  Where the reference ignores either flag silently when
+``qmap`` is None, the port raises ``ValueError``.
+
 Not ported yet, and raising: ``mesh`` (ROADMAP A14), ``prefill_chunk``
-(A7), ``prefill_w8`` / ``decode_w8`` (A9; the reference ignores them
-silently when ``qmap`` is None, the port always raises), and KV policies
-other than fp / naive (A11).
+(A7), and KV policies other than fp / naive (A11).
 """
 
 from __future__ import annotations
@@ -29,9 +34,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models.base import get_path, has_path
 from ..utils.device import check_on, resolve_device
 from .decode import forward_cached
 from .kvcache import KVCachePolicy
+from .packed import prefill_qmap_from
 
 F32 = torch.float32
 FP = KVCachePolicy(method='fp')
@@ -111,9 +118,7 @@ class ServingEngine(torch.nn.Module):
                  decode_w8: bool = False, device=None):
         super().__init__()
         for name, v, item in (('mesh', mesh, 'A14 parallel'),
-                              ('prefill_chunk', prefill_chunk, 'A7'),
-                              ('prefill_w8', prefill_w8 or None, 'A9'),
-                              ('decode_w8', decode_w8 or None, 'A9')):
+                              ('prefill_chunk', prefill_chunk, 'A7')):
             if v is not None:
                 raise NotImplementedError(
                     f'ServingEngine({name}=...) is not ported yet '
@@ -128,6 +133,14 @@ class ServingEngine(torch.nn.Module):
         self.model = model
         self.cfg = model.cfg
         self.qmap = qmap
+        self.qmap_prefill = qmap
+        if prefill_w8 or decode_w8:
+            qmap_w8 = self._w8_qmap(model, qmap,
+                                    'prefill_w8' if prefill_w8
+                                    else 'decode_w8')
+            self.qmap_prefill = qmap_w8
+            if decode_w8:   # decode rides the companion too: W8A8 serving
+                self.qmap = qmap_w8
         self.policy = kv_policy
         self.temperature = float(temperature)
         self.top_p = float(top_p)
@@ -159,6 +172,26 @@ class ServingEngine(torch.nn.Module):
         # forwards run, for checking kernel launch counts
         self.stats = {'prefill_forwards': 0, 'decode_steps': 0}
 
+    @staticmethod
+    def _w8_qmap(model, qmap, which: str):
+        """The companion QMap, after checking at construction (not at the
+        first admission) that every packed block linear, and each fused
+        one, has its w8 companion."""
+        if qmap is None:
+            raise ValueError(f'{which}=True needs the serving qmap of a '
+                             f'model packed with its w8 companion')
+        blk0 = model.blocks[0]
+        paths = [p for p in model.get_layout().linears
+                 if has_path(blk0, p) and 'qweight' in get_path(blk0, p)]
+        paths += [p for p in ('self_attn.qkv_proj', 'mlp.gate_up_proj')
+                  if has_path(blk0, p)]
+        for p in paths:
+            if 'qweight8' not in get_path(blk0, p):
+                raise ValueError(
+                    f'{which}=True but linear {p!r} has no w8 companion: '
+                    f'pack with pack_model(..., w8_prefill=True)')
+        return prefill_qmap_from(qmap)
+
     # ------------------------------------------------------------------
     # device programs
     # ------------------------------------------------------------------
@@ -189,7 +222,7 @@ class ServingEngine(torch.nn.Module):
             cfg.num_hidden_layers, dtype=cfg.tdtype, device=self.device)
         ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         logits, local = forward_cached(self.model.params, cfg, ids_t, local,
-                                       self.policy, self.qmap)
+                                       self.policy, self.qmap_prefill)
         self.stats['prefill_forwards'] += 1
         sl = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         for k, v in local.items():

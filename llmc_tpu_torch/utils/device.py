@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -35,3 +37,9 @@ def check_on(tree, device: torch.device, what: str) -> None:
     if d is not None and d.type != device.type:
         raise ValueError(f'{what} lives on {d}, but device={device} was '
                          f'asked for')
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

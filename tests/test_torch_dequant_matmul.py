@@ -152,11 +152,13 @@ def test_odd_group_count_and_bits8_raise():
     codes, scales, zeros, meta, tmeta = _case(True, K=192, gs=64)
     with pytest.raises(ValueError, match='even group count'):
         TD.pack_weight(_t(codes), _t(scales), None, tmeta)
+    # bits=8 is served: signed int8 codes, here three groups of 64
     m8 = dataclasses.replace(tmeta, bits=8)
-    with pytest.raises(NotImplementedError, match='A9'):
-        TD.dequant_matmul(torch.zeros(2, 192), torch.zeros(64, 192,
-                                                           dtype=torch.int8),
-                          torch.ones(64, 3), None, m8)
+    x = torch.randn(2, 192)
+    got = TD.dequant_matmul(x, _t(codes), _t(scales), None, m8)
+    want = x @ (_t(codes).float().reshape(64, 3, 64)
+                * _t(scales)[:, :, None]).reshape(64, 192).T
+    assert rel_err(got.numpy(), want.numpy()) < 1e-5
 
 
 def test_cpu_tensor_takes_plain_version_without_launch():

@@ -108,7 +108,8 @@ def test_unported_graph_options_raise(opt):
 def test_linear_qcfg_unported_fields_raise(pair):
     _, tm = pair
     p = tm.blocks[0]['self_attn']['q_proj']
-    for kw in (dict(a_int8=True), dict(w8_alt=True), dict(pre_had='full')):
+    for kw in (dict(a_outlier_threshold=6.0), dict(ste=True),
+               dict(pre_had='full')):
         with pytest.raises(NotImplementedError):
             TB.linear_apply(p, torch.zeros(1, 64), TB.LinearQcfg(**kw))
 

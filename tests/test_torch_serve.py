@@ -175,10 +175,13 @@ def test_engine_sampling_independent_of_co_scheduling(packed_pair):
 @pytest.mark.parametrize('kw', [dict(prefill_chunk=8), dict(mesh=object()),
                                 dict(prefill_w8=True), dict(decode_w8=True)])
 def test_engine_unported_options_raise(packed_pair, kw):
-    """Unported engine options raise instead of being ignored (the
-    reference ignores decode_w8 / prefill_w8 when qmap is None)."""
+    """Unported engine options raise instead of being ignored; so do
+    prefill_w8 / decode_w8 with qmap=None (ValueError), which the
+    reference ignores silently."""
     _, _, tm, _ = packed_pair
-    with pytest.raises(NotImplementedError):
+    err = (ValueError if 'prefill_w8' in kw or 'decode_w8' in kw
+           else NotImplementedError)
+    with pytest.raises(err):
         ServingEngine(tm, qmap=None, max_batch=2, max_len=48, device='cpu',
                       **kw)
 
