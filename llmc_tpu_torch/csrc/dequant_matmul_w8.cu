@@ -10,9 +10,11 @@
 // to after the dot (dequant_matmul_w4.cu may do that: its codes are exact
 // in bf16, these products are not).
 //
-// Layout.  x [M, K] bf16; codes [N, K] int8 (signed); s, z [ng, N] f32
-// (transposed by the wrapper; z absent when has_z == 0); gs the group
-// size, a multiple of KC = 128, so every chunk lies in one group.
+// Layout.  x [M, K] bf16; codes [N, K] int8 (signed); s, z [N, ng] f32, as
+// the packer stores them (z absent when has_z == 0); gs the group size, a
+// multiple of KC = 128, so every chunk lies in one group.  A warp reads
+// one (s, z) per output column and chunk, 4 bytes of a 32-byte sector
+// whose other groups the following chunks find in the cache.
 //
 // What bounds it on an H100: at decode (M <= 128) the weight stream, K
 // bytes per output column — the card's memory rate; at M = 4096 the bf16
@@ -66,7 +68,7 @@ w8_dequant_matmul_kernel(
   const int wn = warp * T::WN;
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int total = K / KC;
+  const int total = K / KC, ng = K / gs;
   const int c_begin = blockIdx.z * chunks_per_split;
   const int c_end = min(total, c_begin + chunks_per_split);
   const int n_chunks = c_end - c_begin;
@@ -126,8 +128,8 @@ w8_dequant_matmul_kernel(
 #pragma unroll
     for (int nj = 0; nj < T::NJ; ++nj) {
       const int n = n0 + wn + nj * 8 + g;
-      sv[nj] = n < N ? s[(size_t)sg * N + n] : 0.f;
-      zv[nj] = (has_z && n < N) ? z[(size_t)sg * N + n] : 0.f;
+      sv[nj] = n < N ? s[(size_t)n * ng + sg] : 0.f;
+      zv[nj] = (has_z && n < N) ? z[(size_t)n * ng + sg] : 0.f;
     }
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 16) {

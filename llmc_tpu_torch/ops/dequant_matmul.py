@@ -233,7 +233,10 @@ def w8a8_channel_matmul(x, w8, scales8, out_dtype=None) -> torch.Tensor:
 
 # Row count from which the W4A8 path re-quantizes the w4 weight to
 # per-channel int8 once per call and runs one full-K int8 dot.  Off by
-# default, as in the reference.
+# default, as in the reference, and on an H100 it should stay off:
+# ``chip_smoke.py`` times it beside the W4A8 kernel at 4096 rows
+# (``staged_ms`` against ``path_ms``), where it is slower at every linear
+# of Llama-2-7B.
 A8_STAGE_MIN_M = int(os.environ.get('LLMC_A8_STAGE_MIN_M', str(2 ** 62)))
 
 
@@ -410,12 +413,13 @@ def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
 
 
 def w8_dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
-                      s_t: torch.Tensor, z_t: Optional[torch.Tensor],
+                      s: torch.Tensor, z: Optional[torch.Tensor],
                       meta: QMeta, out_dtype: torch.dtype) -> torch.Tensor:
     """Launch the W8A16 Hopper kernel: x [M, K] bf16, codes [N, K] int8,
-    s_t / z_t [ng, N] f32 (``z_t`` None: no zero point) -> [M, N]
-    ``out_dtype``.  Each weight is dequantized ``(code - z) * s`` in f32
-    and rounded to bf16 before the dot, as ``_kernel_w8`` does."""
+    s / z [N, ng] f32 as ``pack_weight`` stores them (``z`` None: no zero
+    point) -> [M, N] ``out_dtype``.  Each weight is dequantized
+    ``(code - z) * s`` in f32 and rounded to bf16 before the dot, as
+    ``_kernel_w8`` does."""
     M, K = x.shape
     N = meta.out_features
     if not x.is_cuda:
@@ -424,17 +428,17 @@ def w8_dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
     gs = _check_w8_meta(meta, M, K)
     ng = K // gs
     want = {'x': (x, torch.bfloat16, (M, K)),
-            'codes': (codes, torch.int8, (N, K)), 's': (s_t, F32, (ng, N))}
-    if z_t is not None:
-        want['z'] = (z_t, F32, (ng, N))
+            'codes': (codes, torch.int8, (N, K)), 's': (s, F32, (N, ng))}
+    if z is not None:
+        want['z'] = (z, F32, (N, ng))
     _check_operands(x, want, out_dtype)
     bm, splits = _tiling(M, N, K // W8_CHUNK, sm_count(x.device.index))
     out, partial = _out_and_partial(M, N, splits, out_dtype, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.lib().llmc_w8_dequant_matmul(
-        x.data_ptr(), codes.data_ptr(), s_t.data_ptr(),
-        (z_t if z_t is not None else s_t).data_ptr(), out.data_ptr(),
-        partial.data_ptr(), M, N, K, gs, int(z_t is not None),
+        x.data_ptr(), codes.data_ptr(), s.data_ptr(),
+        (z if z is not None else s).data_ptr(), out.data_ptr(),
+        partial.data_ptr(), M, N, K, gs, int(z is not None),
         int(out_dtype == F32), bm, splits, stream)
     _build.check(err, 'w8_dequant_matmul')
     LAUNCHES['w8_dequant_matmul'] += 1
@@ -465,12 +469,12 @@ def _dequant_matmul_cuda(x2, packed, scales, zeros, meta: QMeta, out_dtype,
     if meta.bits == 8:
         if meta.pre_t:
             raise ValueError('bits=8 weights have no pre_t layout')
+        # the kernel reads the stored [N, ng] layout: no torch op here
         N = meta.out_features
-        s_t = scales.reshape(N, -1).T.contiguous()
-        z_t = (zeros.reshape(N, -1).T.contiguous() if zeros is not None
-               else None)
-        return w8_dequant_matmul(x2.to(torch.bfloat16).contiguous(), packed,
-                                 s_t, z_t, meta, out_dtype)
+        return w8_dequant_matmul(
+            x2.to(torch.bfloat16).contiguous(), packed, scales.reshape(N, -1),
+            zeros.reshape(N, -1) if zeros is not None else None, meta,
+            out_dtype)
     raise NotImplementedError(
         f'bits={meta.bits}: no kernel for the card (only 4 and 8 are served)')
 

@@ -186,3 +186,14 @@ def test_bounds_follow_the_data_sheet():
     # W8 reads a byte a weight: twice the w4 byte bound at M=1, nearly
     ms4, by4 = chip_smoke.gemm_bound('w8', 1, 22016, 4096, 2, peaks)
     assert by4 == 'bytes' and 1.8 < ms4 / ms1 < 2.0
+    # its bytes, exactly: x, a byte a weight, one f32 scale per group and
+    # column, as many zeros only where the weight has them, the output
+    N, K, M, ng = 22016, 4096, 128, 32
+    sym = 2 * M * K + N * K + ng * N * 4 + 2 * M * N
+    for has_z, nbytes in ((False, sym), (True, sym + ng * N * 4)):
+        ms5, by5 = chip_smoke.gemm_bound('w8', M, N, K, 2, peaks,
+                                         has_z=has_z)
+        assert by5 == 'bytes' and abs(ms5 - nbytes / 3.35e12 * 1e3) < 1e-12
+    # the W4 kernels read s and zs whatever the storage
+    assert chip_smoke.gemm_bound('w4', 1, N, K, 2, peaks, has_z=False) == \
+        (ms1, by1)

@@ -214,9 +214,8 @@ def test_cpu_tensors_take_plain_versions_without_launch():
         TD.w4a8_dequant_matmul(xq, sx, _t(jp), _t(js), _t(jz), tmeta,
                                torch.float32)
     with pytest.raises(ValueError, match='CUDA'):
-        TD.w8_dequant_matmul(x.to(torch.bfloat16), _t(codes),
-                             _t(scales).T.contiguous(), None, tmeta8,
-                             torch.bfloat16)
+        TD.w8_dequant_matmul(x.to(torch.bfloat16), _t(codes), _t(scales),
+                             None, tmeta8, torch.bfloat16)
 
 
 @pytest.mark.parametrize('gs, K, ok', [(128, 512, True), (256, 256, True),
@@ -339,11 +338,13 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     codes, scales, zeros, _, tmeta8 = _case8(True, N=128, K=256, gs=128)
     c8, s8 = _t(codes).to(dev), _t(scales).to(dev)
     with pytest.raises(ValueError, match='x:'):
-        TD.w8_dequant_matmul(x, c8, s8.T.contiguous(), None, tmeta8,
-                             torch.bfloat16)
+        TD.w8_dequant_matmul(x, c8, s8, None, tmeta8, torch.bfloat16)
     with pytest.raises(ValueError, match='contiguous'):
         TD.w8_dequant_matmul(x.to(torch.bfloat16), c8.T.contiguous().T,
-                             s8.T.contiguous(), None, tmeta8, torch.bfloat16)
+                             s8, None, tmeta8, torch.bfloat16)
+    with pytest.raises(ValueError, match='^s:'):    # the [ng, N] layout
+        TD.w8_dequant_matmul(x.to(torch.bfloat16), c8, s8.T.contiguous(),
+                             None, tmeta8, torch.bfloat16)
     m8_64 = dataclasses.replace(tmeta8, group_size=64)
     with pytest.raises(NotImplementedError, match='B4'):
         TD.dequant_matmul(x, c8, torch.ones(128, 4, device=dev), None, m8_64)
