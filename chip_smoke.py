@@ -8,12 +8,14 @@ Phases, each printing one JSON line, all of them on every run:
                   and power limit (also printed raw on a line of its own).
 2. ``build``      nvcc build of ``llmc_tpu_torch/csrc`` (seconds,
                   registers and spills per kernel).
-3. ``kernel_checks``  each of the five hand-written kernels against its
+3. ``kernel_checks``  each of the six hand-written kernels against its
                   plain PyTorch version on the card at the main paths'
                   shapes (the W4A8 kernel also against a float64 integer
-                  oracle), with times (CUDA events) beside the bound and a
-                  library yardstick that the port never calls for that
-                  function.  ``kernel_ms`` is the kernel's wrapper on
+                  oracle, the FP8-block kernel against a float64 oracle
+                  on both of its instruction paths), with times (CUDA
+                  events) beside the bound and a library yardstick that
+                  the port never calls for that function.
+                  ``kernel_ms`` is the kernel's wrapper on
                   prepared operands, ``path_ms`` the ``dequant_matmul``
                   call one linear of the main path makes (for W4A8 with
                   the activation quantizer).  Also the staged W4A8 prefill
@@ -45,6 +47,22 @@ Phases, each printing one JSON line, all of them on every run:
 10. ``serve_w8_companion``  8 layers at 7B width, a random fp model packed
                   with ``pack_model(w8_prefill=True)``: the engine once
                   with ``prefill_w8`` and once with ``decode_w8``.
+11. ``fp8_linear`` one Llama-2-7B block's seven linears stored as an
+                  FP8-block checkpoint stores them (e4m3 codes and one
+                  inverse scale per 128 x 128 block), applied to 128 rows:
+                  ``act_quant_per_group`` -> ``fp8_block_matmul``, seven
+                  launches of the FP8-block kernel.
+12. ``compress``  ``run_pipeline`` at Llama-2-7B width and depth (bf16,
+                  random weights from a seed, synthetic calibration and
+                  PPL data, W4 symmetric per-group 128): once RTN, once
+                  AWQ (scale search + clip v1) on weights that came
+                  through the FP8-block ingest.  PPLs finite,
+                  ``ppl_transformed`` near ``ppl_pretrain``, seconds per
+                  pipeline phase.  The pipeline launches no kernel.
+13. ``compress_serve``  what AWQ made, packed (``pack_model``, fused,
+                  packed head) and served by ``ServingEngine`` with an
+                  int8 KV cache; its logits on one prompt against the
+                  same model under the fake-quant ``QMap``.
 
 Every phase that drives the model on the card sets the kernels' launch
 counters to 0 just before its run, reads them just after, and fails
@@ -82,13 +100,13 @@ LLAMA2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                  num_key_value_heads=32, head_dim=128, dtype='bfloat16')
 
 # Data-sheet peaks (dense): memory bytes/s, bf16 tensor-core flop/s,
-# f32 CUDA-core flop/s, int8 tensor-core op/s.  H100 SXM at 700 W unless
-# the name says otherwise.
-Peaks = collections.namedtuple('Peaks', 'bw bf16 f32 int8')
+# f32 CUDA-core flop/s, int8 tensor-core op/s, fp8 tensor-core flop/s.
+# H100 SXM at 700 W unless the name says otherwise.
+Peaks = collections.namedtuple('Peaks', 'bw bf16 f32 int8 fp8')
 PEAKS = {
-    'H100 SXM': Peaks(3.35e12, 989e12, 67e12, 1979e12),
-    'H100 PCIe': Peaks(2.0e12, 756e12, 51e12, 1513e12),
-    'H100 NVL': Peaks(3.9e12, 835e12, 60e12, 1671e12),
+    'H100 SXM': Peaks(3.35e12, 989e12, 67e12, 1979e12, 1979e12),
+    'H100 PCIe': Peaks(2.0e12, 756e12, 51e12, 1513e12, 1513e12),
+    'H100 NVL': Peaks(3.9e12, 835e12, 60e12, 1671e12, 1671e12),
 }
 
 # Tolerances, with their reasons.
@@ -107,6 +125,35 @@ TOL_A8_ORACLE = 1e-6
 # way: as the w4 kernel.
 # flash and batch kernels vs plain (all f32): exp and summation order only.
 TOL_FLASH = 2e-4
+# FP8-block kernel at f32 output vs the float64 oracle on the same codes
+# and scales (and vs the plain f32 version): every e4m3 product is exact
+# in f32, so what is left is the order of the f32 sums inside a 128-wide
+# block and over at most 86 scaled block terms.  At bf16 output one more
+# bf16 rounding: TOL_W4_BF16.
+TOL_FP8_ORACLE = 1e-5
+# One FP8-block linear (bf16 activations through act_quant_per_group and
+# the kernel) vs x @ weight_cast_to_bf16(codes, scale_inv)^T in f32: the
+# activation's e4m3 rounding, at most 2^-4 relative an element with random
+# sign, leaves about 2.5% of an output's RMS, 4 to 5 sigma of it over all
+# outputs against a largest output of as many sigma: 5e-2 of the largest
+# output (the reference's own test allows 0.1).
+TOL_FP8_LINEAR = 5e-2
+# ``compress``: the transformed model's PPL against the pretrained one's.
+# RTN transforms nothing (equal).  AWQ's scale transform is an equivalence
+# up to the working type's rounding of the rescaled weights, and clip v1
+# clamps group outliers in place, which a 4-bit grid search found cheaper
+# than keeping them; both move the PPL of a model with random weights
+# (close to the vocabulary size whatever the weights) by far less than
+# 2e-2 relative.
+TOL_PPL_TRANSFORMED = 2e-2
+# ``compress_serve``: logits of the packed model through the kernels
+# against the same model under the fake-quant QMap, both on the card in
+# bf16, relative to the largest logit.  The two differ by the bf16
+# rounding of the fake-quantized weight (the kernel multiplies the exact
+# codes and applies the f32 scales afterwards), the order of the f32 sums
+# and the bf16 roundings they flip, through every layer of the run.
+# Measured on an H100 at 32 layers of Llama-2-7B width: 1.9e-2.
+TOL_COMPRESS_SERVE = 3e-2
 # card (bf16 activations, int8 KV) vs CPU (f32) over 2 layers at 7B width,
 # relative to the largest logit: bf16 rounding at every cast and int8 KV
 # codes that flip between the two.  Measured on an H100 with seeds 0-2
@@ -608,11 +655,172 @@ def _time_sdpa(q, kb, vb, ks, vs, pos, layer):
 
 
 # --------------------------------------------------------------------------
+# the FP8-block GEMM
+# --------------------------------------------------------------------------
+
+FP8_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (22016, 4096)]
+
+
+def fp8_bound(M, N, K, out_bytes, peaks, bs=128):
+    """Least time of one FP8-block GEMM: codes, both scale arrays and the
+    output moved once, against 2*M*N*K operations at the FP8 rate."""
+    kb = K // bs
+    nbytes = (M * K + N * K + 4 * M * kb + 4 * -(-N // bs) * kb
+              + out_bytes * M * N)
+    t_b, t_o = nbytes / peaks.bw * 1e3, 2 * M * N * K / peaks.fp8 * 1e3
+    return max(t_b, t_o), ('bytes' if t_b >= t_o else 'operations')
+
+
+def _fp8_case(N, K, M, gen, dev):
+    """(x bf16, its codes and scales, the weight's codes and scale_inv):
+    random activations and weights through the port's own quantizers."""
+    from llmc_tpu_torch.quant import act_quant_per_group, weight_cast_to_fp8
+    x = torch.randn((M, K), generator=gen, device=dev).to(BF16)
+    w = torch.randn((N, K), generator=gen, device=dev) * 0.02
+    xc, xs = act_quant_per_group(x)
+    wc, ws = weight_cast_to_fp8(w)
+    return x, xc, xs.contiguous(), wc, ws.contiguous()
+
+
+def _fp8_library(case):
+    """The yardstick call and its name: ``torch._scaled_mm`` with 1x128 /
+    128x128 block scales where this build of torch takes them (and gives
+    the plain version's result), else a bf16 ``torch.matmul`` on the weight
+    from ``weight_cast_to_bf16``, which is what the loader's route costs."""
+    from llmc_tpu_torch.ops.fp8_gemm import fp8_block_matmul_plain
+    from llmc_tpu_torch.quant import weight_cast_to_bf16
+    x, xc, xs, wc, ws = case
+    want = fp8_block_matmul_plain(xc, xs, wc, ws, out_dtype=F32)
+    for sa, sb in ((xs.t().contiguous().t(), ws.t()),
+                   (xs, ws.t().contiguous()),
+                   (xs.t().contiguous().t(), ws.t().contiguous())):
+        def scaled(sa=sa, sb=sb):
+            return torch._scaled_mm(xc, wc.t(), scale_a=sa, scale_b=sb,
+                                    out_dtype=BF16)
+        try:
+            got = scaled()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError, TypeError, NotImplementedError):
+            continue
+        if _rel(got, want)[1] <= TOL_W4_BF16:
+            return scaled, 'torch._scaled_mm, 1x128 and 128x128 block scales'
+    w = weight_cast_to_bf16(wc, ws)
+    return (lambda: torch.matmul(x, w.T)), \
+        'torch.matmul, bf16 weight from weight_cast_to_bf16'
+
+
+def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
+              timed=(1, 128, 4096)):
+    """The FP8-block kernel at every (N, K) and M, f32 and bf16 output,
+    against its plain version and the float64 oracle; the e4m3 mma path's
+    error against the oracle is recorded beside the default path's.  Times
+    by CUDA events at the ``timed`` Ms."""
+    from llmc_tpu_torch.ops import fp8_gemm as G
+    from llmc_tpu_torch.ops.dequant_matmul import _tiling
+    from llmc_tpu_torch.quant import act_quant_per_group, fp8_block_matmul
+    from llmc_tpu_torch.utils.device import sm_count
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows, worst_abs, worst_rel, worst_oracle = [], 0.0, 0.0, 0.0
+    for (N, K), M in itertools.product(shapes, ms_list):
+        case = _fp8_case(N, K, M, gen, dev)
+        x, xc, xs, wc, ws = case
+        plain = G.fp8_block_matmul_plain(xc, xs, wc, ws, out_dtype=F32)
+        oracle = G.fp8_block_matmul_plain(xc, xs, wc, ws,
+                                          out_dtype=torch.float64,
+                                          acc_dtype=torch.float64)
+        got32 = G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=F32)
+        got16 = G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=BF16)
+        other = G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=F32,
+                                        native=not G.NATIVE_MMA)
+        torch.cuda.synchronize()
+        err, rel_p = _rel(got32, plain)
+        _, rel_o = _rel(got32, oracle)
+        err16, rel16 = _rel(got16, plain)
+        _, rel_other = _rel(other, oracle)
+        what = f'fp8_block_gemm N={N} K={K} M={M}'
+        finite = bool(torch.isfinite(got32).all()
+                      and torch.isfinite(got16).all())
+        require(finite and rel_o <= TOL_FP8_ORACLE
+                and rel_p <= TOL_FP8_ORACLE and rel16 <= TOL_W4_BF16,
+                f'{what}: rel err {rel_o:.3g} vs the float64 oracle, '
+                f'{rel_p:.3g} vs plain (limit {TOL_FP8_ORACLE}), bf16 output '
+                f'{rel16:.3g} (limit {TOL_W4_BF16})')
+        worst_abs, worst_rel = max(worst_abs, err16), max(worst_rel, rel16)
+        worst_oracle = max(worst_oracle, rel_o)
+        bm, splits = _tiling(M, N, K // 128, sm_count(dev.index or 0))
+        names = {True: 'e4m3_mma', False: 'f16_mma'}
+        row = dict(N=N, K=K, M=M, bm=bm, splits=splits,
+                   path=names[G.NATIVE_MMA], f32_rel_err_oracle=rel_o,
+                   f32_rel_err_plain=rel_p, max_abs_err=err16,
+                   max_rel_err=rel16,
+                   **{f'{names[not G.NATIVE_MMA]}_f32_rel_err_oracle':
+                      rel_other})
+        del plain, oracle, got32, got16, other
+        if M in timed:
+            n_copy = max(1, min(8, -(-160_000_000 // wc.numel())))
+            copies = [wc] + [wc.clone() for _ in range(n_copy - 1)]
+            it = [0]
+
+            def rotating(fn):
+                def call():
+                    it[0] += 1
+                    return fn(copies[it[0] % n_copy])
+                return call
+            iters = 10 if M >= 4096 else 50
+            row['kernel_ms'] = cuda_ms(rotating(
+                lambda w: G.fp8_block_matmul_cuda(xc, xs, w, ws)), iters)
+            row[f'{names[not G.NATIVE_MMA]}_ms'] = cuda_ms(rotating(
+                lambda w: G.fp8_block_matmul_cuda(
+                    xc, xs, w, ws, native=not G.NATIVE_MMA)), iters)
+            row['path_ms'] = cuda_ms(rotating(
+                lambda w: fp8_block_matmul(*act_quant_per_group(x), w, ws)),
+                iters)
+            row['plain_ms'] = cuda_ms(
+                lambda: G.fp8_block_matmul_plain(xc, xs, wc, ws), 2, 1)
+            lib, row['library'] = _fp8_library(case)
+            row['library_ms'] = cuda_ms(lib, iters)
+            row['bound_ms'], row['bound_by'] = fp8_bound(M, N, K, 2, peaks)
+            del lib, copies
+        rows.append(row)
+        del case, x, xc, xs, wc, ws
+    return rows, worst_abs, worst_rel, worst_oracle
+
+
+def fp8_adder_probe(dev, M=16, N=128, K=1024):
+    """What each instruction path keeps when a block's products differ
+    widely in size: in every 32-wide k step one product of 448 * 448 (about
+    2^17.6) beside 31 products of 2^-6 * 16 = 2^-2, which float32 adds
+    exactly (the sum of a block needs 21 bits).  An adder that aligns to
+    the step's largest product and keeps fewer bits loses the small ones:
+    124 * 2^-2 in 4 * 448^2 of a block, 3.9e-5 of the output.  Returns each
+    path's error against the float64 oracle, relative to the largest
+    output."""
+    from llmc_tpu_torch.ops import fp8_gemm as G
+    x = torch.full((M, K), 2.0 ** -6, device=dev)
+    w = torch.full((N, K), 16.0, device=dev)
+    x[:, ::32] = 448.0
+    w[:, ::32] = 448.0
+    # rows and columns differ, so that no two outputs are the same sum
+    x[:, 1::32] *= torch.arange(1, M + 1, device=dev)[:, None].float()
+    w[:, 2::32] /= 2.0 ** torch.arange(N, device=dev)[:, None].remainder(4)
+    xc, wc = x.to(torch.float8_e4m3fn), w.to(torch.float8_e4m3fn)
+    xs = torch.ones((M, K // 128), device=dev)
+    ws = torch.ones((N // 128, K // 128), device=dev)
+    oracle = G.fp8_block_matmul_plain(xc, xs, wc, ws,
+                                      out_dtype=torch.float64,
+                                      acc_dtype=torch.float64)
+    return {name: _rel(G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=F32,
+                                               native=native), oracle)[1]
+            for name, native in (('f16_mma', False), ('e4m3_mma', True))}
+
+
+# --------------------------------------------------------------------------
 # model phases (device and sizes are arguments, so the CPU tests run them)
 # --------------------------------------------------------------------------
 
 KERNEL_NAMES = ('w4_dequant_matmul', 'w4a8_dequant_matmul',
-                'w8_dequant_matmul', 'flash_decode', 'batch_decode')
+                'w8_dequant_matmul', 'flash_decode', 'batch_decode',
+                'fp8_block_gemm')
 # A serving configuration: weight bits, per-token int8 activations on the
 # block linears, and the decode-attention kernel (``ATTN_IMPL``).
 Mode = collections.namedtuple('Mode', 'bits a_int8 attn')
@@ -986,6 +1194,198 @@ def step_bound(model, B, prefill, steps, peaks, mode='w4a16'):
 
 
 # --------------------------------------------------------------------------
+# the FP8-block linear and the compression pipeline
+# --------------------------------------------------------------------------
+
+def phase_fp8_linear(dev, cfg_kw, M=128, seed=0, block_size=128):
+    """One block's seven linears as an FP8-block checkpoint stores them:
+    random weights -> ``weight_cast_to_fp8``; M rows of bf16 activations
+    -> ``act_quant_per_group`` -> ``fp8_block_matmul``.  Each output is
+    held against x @ weight_cast_to_bf16(codes, scale_inv)^T in f32 and
+    against the plain version on the same codes."""
+    from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
+    from llmc_tpu_torch.models.base import get_path
+    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.quant import (act_quant_per_group, fp8_block_matmul,
+                                      weight_cast_to_bf16, weight_cast_to_fp8)
+    model = LlamaAdapter.random(
+        LlamaConfig(**dict(cfg_kw, num_hidden_layers=1)), seed=seed,
+        device=dev)
+    paths = model.get_layout().linears
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        stored = {p: weight_cast_to_fp8(get_path(model.blocks[0], p)['w'],
+                                        block_size) for p in paths}
+        xs_in = {p: torch.randn((M, stored[p][0].shape[1]), generator=gen,
+                                device=dev).to(BF16) for p in paths}
+        reset_launch_counts()
+        outs = {}
+        for p in paths:
+            codes, scale_inv = stored[p]
+            xc, xs = act_quant_per_group(xs_in[p], block_size)
+            outs[p] = fp8_block_matmul(xc, xs, codes, scale_inv, block_size)
+        counts = launch_counts()
+        rows = []
+        for p in paths:
+            codes, scale_inv = stored[p]
+            xc, xs = act_quant_per_group(xs_in[p], block_size)
+            plain = fp8_block_matmul(xc, xs, codes, scale_inv, block_size,
+                                     out_dtype=F32, force_plain=True)
+            dense = xs_in[p].to(F32) @ weight_cast_to_bf16(
+                codes, scale_inv, block_size).to(F32).T
+            rows.append(dict(
+                path=p, N=codes.shape[0], K=codes.shape[1],
+                finite=bool(torch.isfinite(outs[p]).all()),
+                rel_err_vs_plain=_rel(outs[p], plain)[1],
+                rel_err_vs_dense_bf16_weight=_rel(outs[p], dense)[1]))
+    expect = dict.fromkeys(KERNEL_NAMES, 0)
+    expect['fp8_block_gemm'] = len(paths) if dev.type == 'cuda' else 0
+    return dict(phase='fp8_linear', width=model.cfg.hidden_size, layers=1,
+                M=M, block_size=block_size, linears=rows,
+                tolerance_vs_plain=TOL_W4_BF16,
+                tolerance_vs_dense=TOL_FP8_LINEAR,
+                ok=all(r['finite'] and r['rel_err_vs_plain'] <= TOL_W4_BF16
+                       and r['rel_err_vs_dense_bf16_weight'] <= TOL_FP8_LINEAR
+                       for r in rows),
+                launches=counts, expected_launches=expect)
+
+
+def _fp8_ingest_model_type():
+    """Register (once) the model type of the ``compress`` phase's AWQ run:
+    a random Llama whose block linears went through the FP8-block ingest
+    in memory: ``weight_cast_to_fp8`` (what such a checkpoint stores) and
+    the loader's own ``_ingest_fp8`` (``weight_cast_to_bf16`` with the
+    block size taken from the two shapes)."""
+    from llmc_tpu_torch.models import LlamaAdapter
+    from llmc_tpu_torch.models.base import get_path, set_path
+    from llmc_tpu_torch.models.hf_loader import _ingest_fp8
+    from llmc_tpu_torch.quant import weight_cast_to_fp8
+    from llmc_tpu_torch.utils import MODEL_REGISTRY
+    name = 'LlamaFp8BlockIngest'
+    if name in MODEL_REGISTRY:
+        return name
+
+    @MODEL_REGISTRY.register(name=name)
+    class LlamaFp8BlockIngest(LlamaAdapter):
+        @classmethod
+        def from_config(cls, config, device=None):
+            model = super().from_config(config, device=device)
+            bs = int(config['model'].get('fp8_block_size', 128))
+            with torch.no_grad():
+                for i, blk in enumerate(model.blocks):
+                    for p in model.get_layout().linears:
+                        lin = get_path(blk, p)
+                        codes, scale_inv = weight_cast_to_fp8(lin['w'], bs)
+                        w = _ingest_fp8(codes, scale_inv).to(lin['w'].dtype)
+                        blk = set_path(blk, p, dict(lin, w=w))
+                    model.set_block(i, blk)
+            return model
+    return name
+
+
+def compress_config(cfg_kw, method, special=None, fp8_ingest=False,
+                    group_size=128, n_samples=8, seq_len=512,
+                    eval_tokens=4096, eval_bs=4, seed=0):
+    """The pipeline config of the ``compress`` phase: a random model from
+    ``model.arch``, synthetic calibration and PPL data, W4 symmetric
+    per-group weights."""
+    quant = dict(method=method, weight=dict(
+        bit=4, symmetric=True, granularity='per_group',
+        group_size=group_size))
+    if special:
+        quant['special'] = dict(special)
+    vocab = cfg_kw['vocab_size']
+    return dict(
+        base=dict(seed=seed),
+        model=dict(type=_fp8_ingest_model_type() if fp8_ingest else 'Llama',
+                   arch=dict(cfg_kw), seed=seed),
+        calib=dict(name='synthetic', n_samples=n_samples, bs=-1,
+                   seq_len=seq_len, seed=seed, vocab_size=vocab),
+        eval=dict(name='synthetic', num_tokens=eval_tokens, seq_len=seq_len,
+                  vocab_size=vocab, bs=eval_bs,
+                  eval_pos=['pretrain', 'transformed', 'fake_quant']),
+        quant=quant)
+
+
+AWQ_SPECIAL = dict(trans=True, weight_clip=True, clip_version='v1')
+
+
+def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
+                   **sizes):
+    """``run_pipeline`` (build, pretrain eval, calibration data, block
+    loop, transformed eval, fake-quant eval) on ``dev``.  Returns the
+    phase record and the pipeline's result (the compressed model and its
+    algorithm object)."""
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    config = compress_config(cfg_kw, method, special, fp8_ingest, **sizes)
+    reset_launch_counts()
+    res = run_pipeline(config, device=dev)
+    counts = launch_counts()
+    ppl = {k: res[k] for k in ('ppl_pretrain', 'ppl_transformed',
+                               'ppl_fake_quant')}
+    drift = abs(ppl['ppl_transformed'] - ppl['ppl_pretrain']) \
+        / ppl['ppl_pretrain']
+    times = res['phase_times']
+    calib = times[f'calib_{method}']
+    L = cfg_kw['num_hidden_layers']
+    rec = dict(phase='compress', method=method, special=special or {},
+               fp8_block_ingest=fp8_ingest, layers=L,
+               width=cfg_kw['hidden_size'], dtype=cfg_kw['dtype'],
+               calib=config['calib'], eval=config['eval'],
+               weight=config['quant']['weight'], **ppl,
+               ppl_transformed_rel_drift=drift,
+               tolerance_ppl_transformed=TOL_PPL_TRANSFORMED,
+               phase_times_s=times, block_loop_s_per_block=calib / L,
+               wall_s=res['wall_s'], launches=counts,
+               ok=bool(all(np.isfinite(v) for v in ppl.values())
+                       and drift <= TOL_PPL_TRANSFORMED))
+    return rec, res
+
+
+def phase_compress_serve(dev, res, prompt_len=32, seed=0, **serve_kw):
+    """Serve what the pipeline compressed: ``pack_model`` (fused, packed
+    head) on the result's model -> ``ServingEngine`` with an int8 KV
+    cache.  Before the engine runs, the packed model's logits on one
+    prompt are held against the same model under the fake-quant ``QMap``
+    (the head's weight fake-quantized in place first, since the packed
+    head is quantized too)."""
+    from llmc_tpu_torch.quant.quantizer import fake_quant_weight
+    from llmc_tpu_torch.serve import pack_model
+    from llmc_tpu_torch.serve.decode import (FP_POLICY, forward_cached,
+                                             init_cache)
+    model, opt = res['model'], res['opt']
+    cfg = model.cfg
+    ids = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (1, prompt_len)), device=dev)
+
+    def prefill_logits(qmap):
+        # the serving forward, for both: it takes the fused layout too
+        cache = init_cache(model, 1, prompt_len, device=dev)
+        return forward_cached(model.params, cfg, ids, cache, FP_POLICY,
+                              qmap)[0].float()
+
+    with torch.no_grad():
+        head = model.params['lm_head']
+        model.params['lm_head'] = dict(
+            head, w=fake_quant_weight(opt.wspec, head['w']))
+        want = prefill_logits(opt.deploy('fake_quant'))
+        qmap = pack_model(model, opt.wspec, fuse=True, head=True)
+        got = prefill_logits(qmap)
+    err, rel = _rel(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    rec = phase_serve(dev, model, qmap, **serve_kw)
+    rec.update(phase='compress_serve', method=type(opt).__name__,
+               prompt=prompt_len, max_abs_logit_err_vs_fake_quant=err,
+               rel_logit_err_vs_fake_quant=rel,
+               argmax_agreement_vs_fake_quant=agree,
+               tolerance_vs_fake_quant=TOL_COMPRESS_SERVE,
+               ok=bool(torch.isfinite(got).all()
+                       and rel <= TOL_COMPRESS_SERVE))
+    return rec
+
+
+# --------------------------------------------------------------------------
 
 MAIN_SHAPES = [(12288, 4096, False), (4096, 4096, False),
                (22016, 4096, False), (4096, 11008, False),
@@ -1064,7 +1464,7 @@ def main(argv=None) -> int:
               sms=sm_count(0),
               peaks=dict(table=peak_name, bytes_per_s=peaks.bw,
                          bf16_flops=peaks.bf16, f32_flops=peaks.f32,
-                         int8_ops=peaks.int8)))
+                         int8_ops=peaks.int8, fp8_flops=peaks.fp8)))
     print(smi, flush=True)
 
     t0 = time.perf_counter()
@@ -1076,6 +1476,12 @@ def main(argv=None) -> int:
             for kind_ in ('w4', 'w4a8', 'w8')}
     attn = {name: check_attention(name, dev, peaks)
             for name in ('flash_decode', 'batch_decode')}
+    fp8 = check_fp8(dev, peaks)
+    fp8_adder = fp8_adder_probe(dev)
+    require(max(fp8_adder.values()) <= TOL_FP8_ORACLE,
+            f'fp8_block_gemm on a block whose products span 20 bits: '
+            f'{fp8_adder} against the float64 oracle '
+            f'(limit {TOL_FP8_ORACLE})')
     emit(dict(phase='kernel_checks', sms=sm_count(0), **card,
               w4_dequant_matmul=gemm['w4'][0],
               w4a8_dequant_matmul=gemm['w4a8'][0],
@@ -1083,7 +1489,10 @@ def main(argv=None) -> int:
               w8_dequant_matmul=gemm['w8'][0],
               flash_decode=attn['flash_decode'][0],
               batch_decode=attn['batch_decode'][0],
-              batch_decode_sweep=sweep_batch_blocks(dev)))
+              batch_decode_sweep=sweep_batch_blocks(dev),
+              fp8_block_gemm=fp8[0],
+              fp8_worst_rel_err_vs_float64_oracle=fp8[3],
+              fp8_adder_probe_rel_err_vs_float64_oracle=fp8_adder))
 
     failed = []
     for mode, seed in itertools.product(MODES, args.parity_seeds):
@@ -1110,6 +1519,39 @@ def main(argv=None) -> int:
         emit(rec)
         require_served(rec)
     del model
+    torch.cuda.empty_cache()
+
+    rec = phase_fp8_linear(dev, LLAMA2_7B)
+    rec.update(card)
+    emit(rec)
+    require(rec['ok'], 'fp8_linear: an FP8-block linear is off its plain '
+            'version or its dense bf16 weight')
+    require_launches(rec)
+    launches['fp8_block_gemm'] = rec['launches']['fp8_block_gemm']
+
+    # the compression pipeline: RTN, then AWQ (scale search + clip v1) on
+    # weights that came through the FP8-block ingest; what AWQ made is
+    # packed and served
+    for method, special, ingest in (('RTN', None, False),
+                                    ('Awq', AWQ_SPECIAL, True)):
+        rec, res = phase_compress(dev, LLAMA2_7B, method, special, ingest)
+        rec.update(card)
+        emit(rec)
+        require(rec['ok'], f'compress {method}: a PPL is not finite, or '
+                f'ppl_transformed left ppl_pretrain by '
+                f'{rec["ppl_transformed_rel_drift"]:.3g} '
+                f'(limit {TOL_PPL_TRANSFORMED})')
+        if method == 'RTN':
+            del res
+            torch.cuda.empty_cache()
+    rec = phase_compress_serve(dev, res)
+    rec.update(card)
+    emit(rec)
+    require(rec['ok'], f'compress_serve: packed logits are '
+            f'{rec["rel_logit_err_vs_fake_quant"]:.3g} off the fake-quant '
+            f'model\'s (limit {TOL_COMPRESS_SERVE})')
+    require_served(rec)
+    del res
     torch.cuda.empty_cache()
 
     require(min(launches.values()) > 0,
@@ -1141,6 +1583,12 @@ def main(argv=None) -> int:
                       'llmc_tpu/ops/batch_decode.py::_kernel', launches,
                       attn['batch_decode'][1:3], attn['batch_decode'][0][0],
                       at_attn),
+        kernel_record('fp8_block_gemm', 'fp8_block_gemm.cu',
+                      'llmc_tpu/ops/fp8_gemm.py:28',
+                      'llmc_tpu/ops/fp8_gemm.py::_kernel_fp8', launches,
+                      fp8[1:3], next(r for r in fp8[0] if (r['N'], r['M'])
+                                     == (22016, 128)),
+                      'N=22016 K=4096 M=128 e4m3, block 128, bf16 out'),
     ]})
     emit(dict(phase='done', wall_s=time.perf_counter() - t_start, **card))
     print(smi, flush=True)

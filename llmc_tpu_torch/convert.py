@@ -6,7 +6,9 @@ of the bytes (``.view(np.uint8)``), never by a value cast: a packed nibble
 byte is unsigned in the port.  A bits=8 ``qweight`` and the companion
 ``qweight8`` are signed int8 codes and keep their sign.  bfloat16 arrays
 from ``ml_dtypes``, which ``torch.from_numpy`` refuses, go through int16
-and are viewed back as ``torch.bfloat16``.
+and are viewed back as ``torch.bfloat16``; ``ml_dtypes`` float8 arrays
+(the codes of an FP8-block checkpoint) go through uint8 the same way.
+``params_to_numpy`` is the way back, for comparisons.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ import torch
 from .utils.device import resolve_device
 
 
+# ml_dtypes float8 names -> the torch type with the same bits
+_FLOAT8 = {'float8_e4m3fn': torch.float8_e4m3fn,
+           'float8_e5m2': torch.float8_e5m2}
+
+
 def tensor_from_numpy(a, device: torch.device, dtype=None,
                       packed: bool = False) -> torch.Tensor:
     a = np.array(a)   # a writable copy: torch does not alias the source
@@ -26,6 +33,8 @@ def tensor_from_numpy(a, device: torch.device, dtype=None,
         a = a.view(np.uint8)
     if a.dtype.name == 'bfloat16':   # ml_dtypes, detected by name
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype.name in _FLOAT8:
+        t = torch.from_numpy(a.view(np.uint8)).view(_FLOAT8[a.dtype.name])
     else:
         t = torch.from_numpy(a)
     if dtype is not None and t.is_floating_point():
@@ -69,3 +78,29 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None,
                   and nibble_bytes('.'.join(path[:-1])))
         return tensor_from_numpy(node, dev, dtype, packed=packed)
     return rec(tree)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host.  bfloat16 becomes float32
+    (every bf16 value is one); float8 codes become ``ml_dtypes`` arrays
+    of the same bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.to(torch.float32).numpy()
+    for name, tt in _FLOAT8.items():
+        if t.dtype == tt:
+            import ml_dtypes
+            return t.view(torch.uint8).numpy().view(getattr(ml_dtypes, name))
+    return t.numpy()
+
+
+def params_to_numpy(tree):
+    """A params tree (nested dicts / lists of tensors) as numpy arrays;
+    ``None`` leaves stay."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tensor_to_numpy(tree)
+    return tree

@@ -1,5 +1,6 @@
-// Pieces shared by the dequant-matmul kernels (dequant_matmul_w4.cu,
-// dequant_matmul_w4a8.cu, dequant_matmul_w8.cu): the cp.async ring's
+// Pieces shared by the GEMM kernels (dequant_matmul_w4.cu,
+// dequant_matmul_w4a8.cu, dequant_matmul_w8.cu, fp8_block_gemm.cu): the
+// cp.async ring's
 // primitives, the tensor-core fragments, the output write and the
 // split-K sum.  Everything sits in an anonymous namespace, so each
 // source gets its own copy.
@@ -15,7 +16,8 @@ namespace {
 constexpr int BN = 128;    // output columns per CTA
 constexpr int NT = 256;    // 8 warps, side by side along N
 constexpr int STAGES = 4;  // chunks in flight (cp.async ring)
-constexpr int KC = 128;    // K columns per chunk (of each half group for W4)
+constexpr int KC = 128;    // K columns per chunk (of each half group for W4;
+                           // one scale block for FP8)
 
 // CTAs per SM the register budget is set for (shared memory allows it)
 template <int BM>

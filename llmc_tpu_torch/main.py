@@ -1,0 +1,150 @@
+"""The compression pipeline (port of ``llmc_tpu/main.py``): config -> model ->
+calibration data -> blockwise optimization -> evals -> save.  Entry points:
+
+    python -m llmc_tpu_torch --config cfg.yml [--device cpu]
+    run_pipeline(cfg_dict, device=None)
+
+``device=None`` is the CUDA device, and raises without one; the CPU is
+taken only when asked for.  Ported: the weight-only quantization methods
+registered in ``ALGO_REGISTRY`` (RTN, Awq), PPL evals at ``pretrain`` /
+``transformed`` / ``fake_quant``, ``save_trans`` / ``save_fake``.  Data
+parallel calibration, sparsification, the backend exports and the
+external evals raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict
+
+import torch
+
+from . import compression  # noqa: F401  (registers ALGO_REGISTRY entries)
+from .data import CalibDataset
+from .eval.orchestrate import EvalOrchestrator
+from .models import build_model
+from .utils import (ALGO_REGISTRY, Cfg, check_config, get_modality,
+                    load_config, resolve_device, seed_all)
+from .utils.profiler import PhaseTimer, trace
+
+_UNPORTED_SAVES = ('save_lightx2v', 'save_vllm', 'save_sgl', 'save_lightllm',
+                   'save_autoawq', 'save_mlcllm', 'save_trtllm')
+
+
+def _check_ported(config: Cfg) -> None:
+    """Raise before any heavy work for what the port does not run yet."""
+    if 'sparse' in config:
+        raise NotImplementedError(
+            'sparsification is not ported yet (ROADMAP A13)')
+    if int((config.get('parallel', {}) or {}).get('dp', 1) or 1) > 1:
+        raise NotImplementedError(
+            'parallel.dp > 1 (data-parallel calibration) is not ported yet '
+            '(ROADMAP A14)')
+    save = config.get('save', {}) or {}
+    for flag in _UNPORTED_SAVES:
+        if save.get(flag):
+            raise NotImplementedError(
+                f'save.{flag} (a backend export) is not ported yet '
+                f'(ROADMAP A13)')
+    if 'opencompass' in config:
+        raise NotImplementedError(
+            'the opencompass eval is not ported yet (ROADMAP A13)')
+    for modality, mcfg in get_modality(config):
+        if modality != 'language':
+            raise NotImplementedError(
+                f'modality {modality!r} is not ported yet (ROADMAP A13)')
+        ALGO_REGISTRY[mcfg['method']]   # an unknown algorithm raises here
+
+
+def run_pipeline(config: Dict, device=None) -> Dict:
+    """Run the whole pipeline; returns the eval metrics per position, the
+    wall time of every phase (``phase_times``, each ending in a device
+    synchronise), the model (``model``) and the algorithm object
+    (``opt``)."""
+    dev = resolve_device(device)
+    config = Cfg(config)
+    check_config(config)
+    _check_ported(config)
+    seed_all(config.get('base', {}).get('seed', 42))
+    results = {}
+    timer = PhaseTimer()
+    t0 = time.time()
+
+    with timer.phase('build_model'):
+        model = build_model(config, device=dev)
+    orch = EvalOrchestrator(config, model)
+    with timer.phase('eval_pretrain'):
+        if orch.wants('pretrain'):
+            results.update(orch.run('pretrain', model))
+
+    blockwise_opt = None
+    for _, mcfg in get_modality(config):
+        calib_cfg = config.get('calib')
+        algo_cls = ALGO_REGISTRY[mcfg['method']]
+        if calib_cfg and getattr(algo_cls, 'needs_calib', True):
+            with timer.phase('calib_data'):
+                dataset = CalibDataset(calib_cfg, model.tokenizer)
+                batches, padding_mask = dataset.get_calib_dataset()
+                xs, kws = model.collect_first_block_input(batches)
+            inputs = {'data': xs, 'kwargs': kws}
+        else:
+            inputs, padding_mask = {'data': [], 'kwargs': []}, None
+        blockwise_opt = algo_cls(model, mcfg, inputs, padding_mask, config)
+        with timer.phase(f"calib_{mcfg['method']}"), \
+                trace(config.get('base', {}).get('trace_dir')):
+            blockwise_opt.run_block_loop()
+
+    if orch.wants('transformed'):
+        with timer.phase('eval_transformed'):
+            results.update(orch.run('transformed', model))
+    if blockwise_opt is not None and orch.wants('fake_quant_wo_kv'):
+        raise NotImplementedError(
+            'eval_pos fake_quant_wo_kv needs a KV-cache quantizer in the '
+            'evals, which is not ported yet (ROADMAP A11)')
+    if blockwise_opt is not None and orch.wants('fake_quant'):
+        qmap = blockwise_opt.deploy('fake_quant')
+        with timer.phase('eval_fake_quant'):
+            results.update(orch.run('fake_quant', model, qmap=qmap))
+
+    save = config.get('save', {}) or {}
+    if save.get('save_trans') or save.get('save_fake'):
+        from .models.hf_loader import save_llama_params_to_hf
+        out = save.get('save_path', './save')
+        # skip the baking if a fake_quant deploy already did it: a second
+        # pass would compute minmax qparams on quantized weights
+        if save.get('save_fake') and blockwise_opt is not None \
+                and not getattr(blockwise_opt, '_baked', False):
+            blockwise_opt.bake_fake_quant_weights()
+            blockwise_opt._baked = True
+        with timer.phase('save'):
+            save_llama_params_to_hf(model.params, out, model.hf_config)
+        results['saved_to'] = out
+
+    results['wall_s'] = time.time() - t0
+    results['phase_times'] = timer.as_dict()
+    results['device'] = (torch.cuda.get_device_name(dev)
+                         if dev.type == 'cuda' else 'cpu')
+    results['model'] = model
+    results['opt'] = blockwise_opt
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog='python -m llmc_tpu_torch')
+    ap.add_argument('--config', required=True)
+    ap.add_argument('--device', default=None,
+                    help="'cpu' to run the plain PyTorch path on the CPU; "
+                         'default: the CUDA device')
+    ap.add_argument('--task_id', default='0')
+    args = ap.parse_args(argv)
+    results = run_pipeline(load_config(args.config), device=args.device)
+    for k, v in results.items():
+        if isinstance(v, (int, float, str)):
+            print(f'{k}: {v}')
+    for k, v in results['phase_times'].items():
+        print(f'phase {k}: {v:.3f} s')
+
+
+if __name__ == '__main__':
+    main()

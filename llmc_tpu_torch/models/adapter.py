@@ -1,19 +1,21 @@
-"""Model adapters (port of ``llmc_tpu/models/adapter.py:54-286``).
+"""Model adapters (port of ``llmc_tpu/models/adapter.py:54-286`` and
+``build_model``): the protocol the compression engine and the evals
+consume.
 
 ``QMap`` maps linear paths to their static ``LinearQcfg``.  The adapter
 is an ``nn.Module`` because it owns the params: a nested dict of tensors
 under the reference's HF-style paths (not registered ``nn.Parameter``s,
-so the converter stays a tree map).  ``from_pretrained`` waits for a
-checkpoint in the repository (ROADMAP A8).
+so the converter stays a tree map).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import os
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, tree_device
 from ..utils.registry import MODEL_REGISTRY
 from . import llama as L
 from .base import BlockLayout, LinearQcfg
@@ -70,11 +72,48 @@ class BaseAdapter(torch.nn.Module):
     def get_layout(self) -> BlockLayout:
         raise NotImplementedError
 
+    @property
+    def device(self) -> torch.device:
+        return tree_device(self.params)
+
+    def block_fn(self) -> Callable:
+        """(block_params, x, kwargs, qmap, capture) -> (y, captures)."""
+        raise NotImplementedError
+
+    def inspect_fns(self) -> Dict[str, Callable]:
+        raise NotImplementedError
+
+    def embed_and_rope_p(self, params, input_ids, attention_mask=None):
+        """(params, ids[, mask]) -> (x, kwargs) for block 0."""
+        raise NotImplementedError
+
+    def head_fn(self) -> Callable:
+        raise NotImplementedError
+
     def forward_logits(self, input_ids, qmap=None):
         raise NotImplementedError
 
     def forward(self, input_ids, qmap=None):
         return self.forward_logits(input_ids, qmap=qmap)
+
+    def collect_first_block_input(self, calib_batches: List[Dict]
+                                  ) -> Tuple[List, List]:
+        """Run the embedding (and the rope tables) over the calibration
+        batches.  Returns (inputs, kwargs_list): inputs[i] is block 0's
+        input, kwargs_list[i] that batch's block kwargs.  A batch's numpy
+        ids go to the params' device."""
+        dev = self.device
+        xs, kws = [], []
+        with torch.no_grad():
+            for batch in calib_batches:
+                ids = torch.as_tensor(batch['input_ids']).to(dev)
+                mask = batch.get('attention_mask')
+                if mask is not None:
+                    mask = torch.as_tensor(mask).to(dev)
+                x, kw = self.embed_and_rope_p(self.params, ids, mask)
+                xs.append(x)
+                kws.append(kw)
+        return xs, kws
 
     def set_block(self, idx: int, new_block: Dict) -> None:
         self.params['blocks'][idx] = new_block
@@ -102,12 +141,146 @@ class LlamaAdapter(BaseAdapter):
         return cls(cfg, L.init_params(cfg, gen, device=dev))
 
     @classmethod
-    def from_pretrained(cls, *a, **kw):
-        raise NotImplementedError(
-            'loading HF checkpoints is not ported yet (ROADMAP A8 hf_loader)')
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16,
+                        stream: Optional[bool] = None, offload: bool = False,
+                        device=None):
+        """Load an HF checkpoint directory onto ``device`` (``None``: the
+        CUDA device).  ``stream`` reads the tensors one at a time from the
+        (possibly sharded) safetensors files (default: on for a sharded
+        checkpoint).  FP8-block weights are dequantized on load."""
+        from .hf_loader import (LazyHFTensors, llama_params_from_hf,
+                                load_hf_config, load_hf_tensors)
+        if offload:
+            raise NotImplementedError(
+                'offload=True (block params kept on the host) is not ported '
+                'yet (ROADMAP A13)')
+        dev = resolve_device(device)
+        hf = load_hf_config(path)
+        cfg = cls.config_cls.from_hf(hf)
+        if stream is None:
+            stream = os.path.exists(
+                os.path.join(path, 'model.safetensors.index.json'))
+        if stream:
+            flat = LazyHFTensors(path, dtype=dtype)
+        else:
+            flat = load_hf_tensors(path, dtype=dtype, device=dev)
+        params = llama_params_from_hf(flat, cfg.num_hidden_layers,
+                                      cfg.tie_word_embeddings)
+        if stream:
+            params = _tree_to(params, dev)
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        """Build from a framework config dict: ``model.path`` (an HF
+        checkpoint directory) or ``model.arch`` (an inline architecture,
+        random weights from ``model.seed``)."""
+        m = config['model']
+        if m.get('path'):
+            return cls.from_pretrained(
+                m['path'], dtype=_config_dtype(m.get('torch_dtype',
+                                                     'bfloat16')),
+                device=device)
+        if 'arch' not in m:
+            raise ValueError(
+                'model.path is missing/empty; set model.path to a checkpoint '
+                'or pass model.arch explicitly for a synthetic model')
+        return cls.random(cls.config_cls(**dict(m['arch'])),
+                          seed=int(m.get('seed', 0)), device=device)
 
     def get_layout(self) -> BlockLayout:
         return self._layout
 
+    def block_fn(self):
+        cfg = self.cfg
+
+        def fn(bp, x, kw, qmap=None, capture=False):
+            return L.block_apply(bp, cfg, x, kw['cos'], kw['sin'],
+                                 kw.get('attn_bias'), qmap=qmap,
+                                 capture=capture)
+        return fn
+
+    def inspect_fns(self):
+        return L.make_inspect_fns(self.cfg)
+
+    def embed_and_rope_p(self, params, input_ids, attention_mask=None):
+        cfg = self.cfg
+        x = L.embed_apply(params, cfg, input_ids)
+        S = input_ids.shape[1]
+        dev = input_ids.device
+        if attention_mask is not None:
+            # HF convention under (left) padding: positions count the
+            # valid tokens only (cumsum(mask) - 1, clamped at 0)
+            positions = torch.clamp(
+                torch.cumsum(attention_mask, dim=-1) - 1, min=0)
+        else:
+            positions = torch.arange(S, device=dev)[None, :]
+        cos, sin = L.rope_cos_sin(cfg, positions)
+        kw = {'cos': cos, 'sin': sin}
+        if attention_mask is not None:
+            # additive [B,1,S,S] bias: the padding mask plus the causal
+            # mask, with a finite value so that an all-masked pad row
+            # softmaxes to finite garbage, not NaN
+            neg = torch.tensor(-1e9, dtype=torch.float32, device=dev)
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            bias = torch.where(attention_mask[:, None, None, :] > 0, zero,
+                               neg)
+            q_pos = torch.arange(S, device=dev)[:, None]
+            k_pos = torch.arange(S, device=dev)[None, :]
+            causal = torch.where(q_pos >= k_pos, zero, neg)
+            kw['attn_bias'] = bias + causal[None, None]
+        return x, kw
+
+    def head_fn(self):
+        cfg = self.cfg
+
+        def fn(params, x):
+            return L.head_apply(params, cfg, x)
+        return fn
+
     def forward_logits(self, input_ids, qmap=None):
         return L.model_apply(self.params, self.cfg, input_ids, qmap=qmap)
+
+
+def _config_dtype(s) -> torch.dtype:
+    """An HF-config dtype string ('torch.float16', 'auto', ...) as a torch
+    dtype; 'auto' is float32 and fp16 maps to bf16, as in the reference."""
+    s = str(s).replace('torch.', '')
+    if s == 'auto':
+        s = 'float32'
+    if s in ('float16', 'half'):
+        s = 'bfloat16'
+    return getattr(torch, s)
+
+
+def _load_tokenizer(path: str):
+    """The checkpoint's tokenizer, or None where ``transformers`` is not
+    installed or the directory holds no tokenizer files (the text
+    calibration sources then have nothing to tokenize with and raise)."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        return None
+    try:
+        return AutoTokenizer.from_pretrained(path, local_files_only=True)
+    except (OSError, ValueError):
+        return None
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
+    return tree if tree is None else tree.to(device)
+
+
+def build_model(config, device=None) -> BaseAdapter:
+    """The adapter ``config.model.type`` names, on ``device`` (``None``:
+    the CUDA device)."""
+    m = config['model']
+    if m.get('offload'):
+        raise NotImplementedError(
+            'model.offload (block params kept on the host) is not ported '
+            'yet (ROADMAP A13)')
+    return MODEL_REGISTRY[m['type']].from_config(config, device=device)

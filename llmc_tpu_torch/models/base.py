@@ -2,10 +2,12 @@
 
 Params are nested dicts of tensors under the reference's HF-style paths;
 ``linear_apply`` applies one linear with its static ``LinearQcfg``
-policy.  Ported: the fp path and the packed paths (W4A16, W4A8 through
-``a_int8``, W8A16, and the w8 companion through ``w8_alt``).  The other
-``LinearQcfg`` fields are kept so that a policy means the same in both
-packages, and raise ``NotImplementedError`` when set.
+policy.  Ported: the fp path, the weight fake-quant of an unbaked
+``w_spec`` (with the layer's stored clip factors), and the packed paths
+(W4A16, W4A8 through ``a_int8``, W8A16, and the w8 companion through
+``w8_alt``).  The other ``LinearQcfg`` fields are kept so that a policy
+means the same in both packages, and raise ``NotImplementedError`` when
+set.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..quant.qspec import QuantSpec
+from ..quant.quantizer import fake_quant_weight
 
 F32 = torch.float32
 
@@ -53,10 +56,6 @@ _UNPORTED = (
 def check_qcfg(qcfg: Optional[LinearQcfg]) -> None:
     if qcfg is None:
         return
-    if qcfg.w_spec is not None and not qcfg.w_baked:
-        raise NotImplementedError(
-            'LinearQcfg.w_spec: weight fake-quant inside linear_apply is not '
-            'ported yet (ROADMAP A8)')
     for name, what in _UNPORTED:
         v = getattr(qcfg, name)
         if v not in (None, False):
@@ -77,7 +76,11 @@ def linear_apply(p: Dict, x: torch.Tensor,
             y = dequant_matmul(x, p['qweight'], p['scales'], p.get('zeros'),
                                qcfg.qmeta, a_int8=qcfg.a_int8)
     else:
-        y = matmul_f32_acc(x, p['w']).to(x.dtype)
+        w = p['w']
+        if qcfg is not None and qcfg.w_spec is not None and not qcfg.w_baked:
+            w = fake_quant_weight(qcfg.w_spec, w, up_factor=p.get('clip_up'),
+                                  low_factor=p.get('clip_low'))
+        y = matmul_f32_acc(x, w).to(x.dtype)
     if p.get('b') is not None:
         y = y + p['b']
     return y

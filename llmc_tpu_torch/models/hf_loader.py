@@ -1,0 +1,208 @@
+"""HuggingFace checkpoint ingestion (port of
+``llmc_tpu/models/hf_loader.py``): safetensors -> the params tree, and
+back.
+
+FP8-block checkpoints (an e4m3 ``weight`` beside a ``weight_scale_inv``
+with one f32 inverse scale per block) are dequantized on load by
+``quant.fp8_block.weight_cast_to_bf16``; the block size follows from the
+two shapes.  ``safetensors`` is imported inside the functions, so the
+package imports without it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional
+
+import torch
+
+from ..quant.fp8_block import weight_cast_to_bf16
+
+F32 = torch.float32
+
+
+def load_hf_config(path: str) -> dict:
+    with open(os.path.join(path, 'config.json')) as f:
+        return json.load(f)
+
+
+def _iter_safetensor_files(path: str):
+    idx = os.path.join(path, 'model.safetensors.index.json')
+    if os.path.exists(idx):
+        with open(idx) as f:
+            index = json.load(f)
+        for fname in sorted(set(index['weight_map'].values())):
+            yield os.path.join(path, fname)
+    else:
+        single = os.path.join(path, 'model.safetensors')
+        if not os.path.exists(single):
+            raise FileNotFoundError(f'no safetensors found under {path}')
+        yield single
+
+
+def _ingest_fp8(w: torch.Tensor, scale_inv: torch.Tensor) -> torch.Tensor:
+    """(e4m3 codes, weight_scale_inv) -> f32 weight; the block size is
+    what the two shapes imply."""
+    bs = -(-w.shape[0] // scale_inv.shape[0])
+    return weight_cast_to_bf16(w, scale_inv, block_size=bs, dtype=F32)
+
+
+def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype is not None and t.dtype in (torch.float16, torch.float32,
+                                         torch.bfloat16, torch.float64):
+        return t.to(dtype)
+    return t
+
+
+class LazyHFTensors:
+    """Lazy {hf_name: tensor} view over a (sharded) safetensors
+    checkpoint: one tensor is read per access, straight from its shard, so
+    peak host memory while a params tree is assembled is the tree plus one
+    tensor.  Stands in for the flat dict ``llama_params_from_hf`` takes
+    (``[]``, ``.get``, ``in``, ``.keys``).  FP8-block pairs are dequantized
+    on access.  Tensors come back on the CPU."""
+
+    def __init__(self, path: str, dtype=torch.bfloat16):
+        self.path = path
+        self.dtype = dtype
+        self._name_to_file: Dict[str, str] = {}
+        idx = os.path.join(path, 'model.safetensors.index.json')
+        if os.path.exists(idx):
+            with open(idx) as f:
+                index = json.load(f)
+            self._name_to_file = dict(index['weight_map'])
+            self.total_size = int(
+                index.get('metadata', {}).get('total_size', 0))
+        else:
+            single = os.path.join(path, 'model.safetensors')
+            if not os.path.exists(single):
+                raise FileNotFoundError(
+                    f'no safetensors found under {path}')
+            from safetensors import safe_open
+            with safe_open(single, framework='pt') as f:
+                for name in f.keys():
+                    self._name_to_file[name] = 'model.safetensors'
+            self.total_size = os.path.getsize(single)
+
+    def keys(self):
+        return self._name_to_file.keys()
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._name_to_file
+
+    def _raw(self, name: str) -> torch.Tensor:
+        from safetensors import safe_open
+        fpath = os.path.join(self.path, self._name_to_file[name])
+        with safe_open(fpath, framework='pt') as f:
+            return f.get_tensor(name)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        if name not in self._name_to_file:
+            raise KeyError(name)
+        if name.endswith('weight_scale_inv'):
+            raise KeyError(f'{name}: consumed by its weight pair')
+        t = self._raw(name)
+        sn = name + '_scale_inv'
+        if name.endswith('weight') and sn in self._name_to_file:
+            t = _ingest_fp8(t, self._raw(sn))
+        return _cast(t, self.dtype)
+
+    def get(self, name: str, default=None):
+        try:
+            return self[name]
+        except KeyError:
+            return default
+
+
+def load_hf_tensors(path: str, dtype=torch.bfloat16,
+                    device='cpu') -> Dict[str, torch.Tensor]:
+    """Flat {hf_name: tensor} on ``device``; floating tensors are cast to
+    ``dtype``, FP8-block weights dequantized with their
+    ``weight_scale_inv``."""
+    from safetensors import safe_open
+    out = {}
+    for fpath in _iter_safetensor_files(path):
+        with safe_open(fpath, framework='pt') as f:
+            for name in f.keys():
+                out[name] = f.get_tensor(name).to(device)
+    for sn in [n for n in out if n.endswith('weight_scale_inv')]:
+        wn = sn.replace('_scale_inv', '')
+        out[wn] = _ingest_fp8(out[wn], out.pop(sn))
+    return {name: _cast(t, dtype) for name, t in out.items()}
+
+
+def llama_params_from_hf(flat, num_layers: int, tie_embeddings: bool) -> Dict:
+    """Map HF Llama names onto the params tree."""
+    def lin(prefix: str) -> Dict:
+        return {'w': flat[f'{prefix}.weight'],
+                'b': flat.get(f'{prefix}.bias')}
+
+    def ln(prefix: str) -> Dict:
+        return {'w': flat[f'{prefix}.weight']}
+
+    blocks = []
+    for i in range(num_layers):
+        b = f'model.layers.{i}'
+        blocks.append({
+            'input_layernorm': ln(f'{b}.input_layernorm'),
+            'self_attn': {
+                'q_proj': lin(f'{b}.self_attn.q_proj'),
+                'k_proj': lin(f'{b}.self_attn.k_proj'),
+                'v_proj': lin(f'{b}.self_attn.v_proj'),
+                'o_proj': lin(f'{b}.self_attn.o_proj'),
+            },
+            'mlp': {
+                'up_proj': lin(f'{b}.mlp.up_proj'),
+                'down_proj': lin(f'{b}.mlp.down_proj'),
+                'gate_proj': lin(f'{b}.mlp.gate_proj'),
+            },
+            'post_attention_layernorm': ln(
+                f'{b}.post_attention_layernorm'),
+        })
+    params = {
+        'embed_tokens': {'w': flat['model.embed_tokens.weight']},
+        'blocks': blocks,
+        'norm': ln('model.norm'),
+    }
+    if not tie_embeddings:
+        lm = flat.get('lm_head.weight')
+        if lm is None:  # some checkpoints tie without the flag
+            params['lm_head'] = {'w': flat['model.embed_tokens.weight'],
+                                 'b': None}
+        else:
+            params['lm_head'] = {'w': lm, 'b': flat.get('lm_head.bias')}
+    return params
+
+
+def save_llama_params_to_hf(params: Dict, path: str,
+                            hf_config: Optional[dict] = None) -> None:
+    """Write params back out as an HF-style safetensors checkpoint (the
+    ``save_trans`` / ``save_fake`` output)."""
+    from safetensors.torch import save_file
+    os.makedirs(path, exist_ok=True)
+    flat = {}
+
+    def put(name, t):
+        if t is not None:
+            flat[name] = t.detach().to('cpu').contiguous()
+
+    put('model.embed_tokens.weight', params['embed_tokens']['w'])
+    put('model.norm.weight', params['norm']['w'])
+    if 'lm_head' in params:
+        put('lm_head.weight', params['lm_head']['w'])
+    for i, blk in enumerate(params['blocks']):
+        b = f'model.layers.{i}'
+        put(f'{b}.input_layernorm.weight', blk['input_layernorm']['w'])
+        put(f'{b}.post_attention_layernorm.weight',
+            blk['post_attention_layernorm']['w'])
+        for proj in ('q_proj', 'k_proj', 'v_proj', 'o_proj'):
+            put(f'{b}.self_attn.{proj}.weight', blk['self_attn'][proj]['w'])
+            put(f'{b}.self_attn.{proj}.bias', blk['self_attn'][proj].get('b'))
+        for proj in ('gate_proj', 'up_proj', 'down_proj'):
+            put(f'{b}.mlp.{proj}.weight', blk['mlp'][proj]['w'])
+            put(f'{b}.mlp.{proj}.bias', blk['mlp'][proj].get('b'))
+    save_file(flat, os.path.join(path, 'model.safetensors'))
+    if hf_config is not None:
+        with open(os.path.join(path, 'config.json'), 'w') as f:
+            json.dump(hf_config, f, indent=2)

@@ -365,6 +365,34 @@ def llama_layout(cfg: LlamaConfig) -> BlockLayout:
 
 
 # --------------------------------------------------------------------------
+# Inspect functions: re-run a slice of the block from a subset's input
+# --------------------------------------------------------------------------
+
+def make_inspect_fns(cfg: LlamaConfig):
+    """Named functions (bp, subset_input, kwargs) -> subset output."""
+
+    def attn(bp, h, kw, qmap=None):
+        out, _ = attention_apply(bp['self_attn'], cfg, h, kw.get('cos'),
+                                 kw.get('sin'), kw.get('attn_bias'), qmap)
+        return out
+
+    def o_proj(bp, o_in, kw, qmap=None):
+        return linear_apply(bp['self_attn']['o_proj'], o_in,
+                            _qc(qmap, 'self_attn.o_proj'))
+
+    def mlp(bp, h, kw, qmap=None):
+        out, _ = mlp_apply(bp['mlp'], h, qmap, act=cfg.act_fn)
+        return out
+
+    def down_proj(bp, down_in, kw, qmap=None):
+        return linear_apply(bp['mlp']['down_proj'], down_in,
+                            _qc(qmap, 'mlp.down_proj'))
+
+    return {'attn': attn, 'o_proj': o_proj, 'mlp': mlp,
+            'down_proj': down_proj}
+
+
+# --------------------------------------------------------------------------
 # Parameter init (random, for tests and benches without checkpoints)
 # --------------------------------------------------------------------------
 

@@ -8,8 +8,9 @@ from .dequant_matmul import (QMeta, dequant_matmul, dequant_weight,
                              pack_scales_t, pack_weight, unpack_weight)
 from .flash_decode import LAUNCHES as _FD_LAUNCHES
 from .flash_decode import flash_decode_attention
+from .fp8_gemm import LAUNCHES as _FP8_LAUNCHES
 
-_COUNTERS = (_DM_LAUNCHES, _FD_LAUNCHES, _BD_LAUNCHES)
+_COUNTERS = (_DM_LAUNCHES, _FD_LAUNCHES, _BD_LAUNCHES, _FP8_LAUNCHES)
 
 
 def launch_counts() -> dict:

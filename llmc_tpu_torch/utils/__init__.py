@@ -1,4 +1,10 @@
+from .config import (Cfg, check_config, get_modality, iter_compress_sections,
+                     load_config, seed_all)
 from .device import resolve_device
-from .registry import KV_REGISTRY, MODEL_REGISTRY, Registry
+from .registry import (ALGO_REGISTRY, KV_REGISTRY, MODEL_REGISTRY,
+                       PREPROC_REGISTRY, Registry)
 
-__all__ = ['resolve_device', 'Registry', 'MODEL_REGISTRY', 'KV_REGISTRY']
+__all__ = ['resolve_device', 'Registry', 'MODEL_REGISTRY', 'KV_REGISTRY',
+           'ALGO_REGISTRY', 'PREPROC_REGISTRY', 'Cfg', 'check_config',
+           'get_modality', 'iter_compress_sections', 'load_config',
+           'seed_all']

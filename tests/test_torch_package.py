@@ -42,6 +42,49 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert bad == []
 
 
+NEW_MODULES = ('main.py', '__main__.py', 'compression/blockwise.py',
+               'compression/transforms.py', 'compression/quantization/awq.py',
+               'compression/quantization/auto_clip.py',
+               'compression/quantization/rtn.py', 'data/dataset.py',
+               'data/preproc.py', 'eval/ppl.py', 'eval/orchestrate.py',
+               'models/hf_loader.py', 'ops/fp8_gemm.py',
+               'quant/fp8_block.py', 'quant/fp_formats.py',
+               'utils/config.py', 'utils/profiler.py')
+
+
+def _module_level_imports(path):
+    """Imports a module runs when it is imported (not those inside a
+    function)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ''
+        elif not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            stack.extend(ast.iter_child_nodes(node))
+
+
+def test_compression_slice_is_under_the_import_check():
+    names = {p.relative_to(ROOT / 'llmc_tpu_torch').as_posix()
+             for p in PORT_FILES[:-1]}
+    assert set(NEW_MODULES) <= names
+
+
+def test_optional_packages_are_imported_only_inside_functions():
+    """safetensors, yaml, datasets and transformers may be missing where
+    the port runs: no module imports them at import time, and
+    chip_smoke.py nowhere."""
+    optional = ('safetensors', 'yaml', 'datasets', 'transformers')
+    bad = [(p.relative_to(ROOT).as_posix(), m) for p in PORT_FILES
+           for m in _module_level_imports(p) if m.split('.')[0] in optional]
+    assert bad == []
+    assert [m for m in _imports(ROOT / 'chip_smoke.py')
+            if m.split('.')[0] in optional] == []
+
+
 def test_package_imports_without_gpu_nvcc_or_triton():
     """A fresh interpreter with triton blocked imports every module."""
     code = ('import sys; sys.modules["triton"] = None\n'
@@ -197,3 +240,89 @@ def test_bounds_follow_the_data_sheet():
     # the W4 kernels read s and zs whatever the storage
     assert chip_smoke.gemm_bound('w4', 1, N, K, 2, peaks, has_z=False) == \
         (ms1, by1)
+
+
+def test_chip_smoke_cpu_fp8_linear_phase_tiny():
+    """One block's seven linears through the FP8-block path at a tiny
+    size on the CPU (the plain version: no launches)."""
+    rec = chip_smoke.phase_fp8_linear(torch.device('cpu'), TINY_BF16, M=16)
+    assert rec['ok'] and len(rec['linears']) == 7
+    assert rec['launches'] == rec['expected_launches'] == ZERO_LAUNCHES
+    assert {r['path']: (r['N'], r['K']) for r in rec['linears']}[
+        'mlp.down_proj'] == (128, 256)
+    assert all(0 < r['rel_err_vs_dense_bf16_weight']
+               <= chip_smoke.TOL_FP8_LINEAR for r in rec['linears'])
+
+
+@pytest.fixture(scope='module')
+def compressed_tiny():
+    """method -> (phase record, pipeline result) of the ``compress`` phase
+    at a tiny size on the CPU."""
+    sizes = dict(group_size=32, n_samples=4, seq_len=24, eval_tokens=480,
+                 eval_bs=2)
+    cpu = torch.device('cpu')
+    return {'RTN': chip_smoke.phase_compress(cpu, TINY_BF16, 'RTN', **sizes),
+            'Awq': chip_smoke.phase_compress(
+                cpu, TINY_BF16, 'Awq', chip_smoke.AWQ_SPECIAL,
+                fp8_ingest=True, **sizes)}
+
+
+@pytest.mark.parametrize('method', ['RTN', 'Awq'])
+def test_chip_smoke_cpu_compress_phase_tiny(compressed_tiny, method):
+    rec, res = compressed_tiny[method]
+    assert rec['ok'] and rec['phase'] == 'compress' and rec['layers'] == 2
+    assert rec['launches'] == ZERO_LAUNCHES    # the pipeline runs no kernel
+    assert rec['ppl_transformed_rel_drift'] <= chip_smoke.TOL_PPL_TRANSFORMED
+    assert (rec['ppl_transformed'] == rec['ppl_pretrain']) == \
+        (method == 'RTN')
+    assert set(rec['phase_times_s']) == {
+        'build_model', 'eval_pretrain', 'calib_data', f'calib_{method}',
+        'eval_transformed', 'eval_fake_quant'}
+    assert rec['fp8_block_ingest'] == (method == 'Awq')
+    assert res['opt'].wspec.group_size == 32
+
+
+def test_chip_smoke_fp8_ingest_rounds_the_block_linears_to_e4m3():
+    from llmc_tpu_torch.models import build_model
+    from llmc_tpu_torch.quant import weight_cast_to_bf16, weight_cast_to_fp8
+    cfg = chip_smoke.compress_config(TINY_BF16, 'RTN', fp8_ingest=True)
+    plain = build_model(chip_smoke.compress_config(TINY_BF16, 'RTN'),
+                        device='cpu')
+    model = build_model(cfg, device='cpu')
+    w0 = plain.blocks[1]['mlp']['up_proj']['w']
+    w1 = model.blocks[1]['mlp']['up_proj']['w']
+    assert w1.dtype == torch.bfloat16 and not torch.equal(w0, w1)
+    assert torch.equal(w1, weight_cast_to_bf16(*weight_cast_to_fp8(w0)))
+    assert torch.equal(plain.params['embed_tokens']['w'],
+                       model.params['embed_tokens']['w'])
+
+
+def test_chip_smoke_cpu_compress_serve_phase_tiny(compressed_tiny):
+    """What the AWQ run made, packed and served at a tiny size: the
+    packed logits against the fake-quant model's, and the launches the
+    serving path implies."""
+    _, res = compressed_tiny['Awq']
+    rec = chip_smoke.phase_compress_serve(
+        torch.device('cpu'), res, prompt_len=8, n_requests=4, max_batch=2,
+        max_len=96, buckets=(16, 32), max_prompt=30)
+    assert rec['ok'] and rec['all_done'] and rec['phase'] == 'compress_serve'
+    assert rec['rel_logit_err_vs_fake_quant'] <= chip_smoke.TOL_COMPRESS_SERVE
+    assert rec['launches'] == ZERO_LAUNCHES
+    L, fw = 2, rec['prefill_forwards'] + rec['decode_steps']
+    assert rec['expected_launches'] == dict(
+        ZERO_LAUNCHES, w4_dequant_matmul=(4 * L + 1) * fw,
+        flash_decode=L * rec['decode_steps'])
+    assert 'qweight' in res['model'].params['lm_head']
+
+
+def test_fp8_bound_follows_the_data_sheet():
+    peaks = chip_smoke.PEAKS['H100 SXM']
+    N, K = 22016, 4096
+    for M, by in ((1, 'bytes'), (128, 'bytes'), (4096, 'operations')):
+        ms, got = chip_smoke.fp8_bound(M, N, K, 2, peaks)
+        nbytes = M * K + N * K + 4 * M * 32 + 4 * 172 * 32 + 2 * M * N
+        want = max(nbytes / 3.35e12, 2 * M * N * K / 1979e12) * 1e3
+        assert got == by and abs(ms - want) < 1e-12
+    assert 0.0269 < chip_smoke.fp8_bound(1, N, K, 2, peaks)[0] < 0.0270
+    assert 0.373 < chip_smoke.fp8_bound(4096, N, K, 2, peaks)[0] < 0.374
+    assert chip_smoke.KERNEL_NAMES[-1] == 'fp8_block_gemm'

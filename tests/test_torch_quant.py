@@ -91,11 +91,35 @@ def test_round_half_to_even_matches():
 
 @pytest.mark.parametrize('algo', ['mse', 'hqq', 'learnable', 'clip'])
 def test_unported_calibration_raises(algo):
-    spec = QuantSpec(bit=4, granularity='per_group', group_size=32,
-                     calib_algo='minmax' if algo == 'clip' else algo)
-    clip = torch.zeros(4, 1) if algo == 'clip' else None
-    with pytest.raises(NotImplementedError, match='A2'):
-        TQ.real_quant_weight(spec, torch.zeros(4, 32), clip, clip)
+    """The mse / hqq / learnable calibrations raise; AWQ's stored clip
+    factors (``clip``) are ported and give the reference's codes, scales
+    and zeros, symmetric and not."""
+    if algo != 'clip':
+        spec = QuantSpec(bit=4, granularity='per_group', group_size=32,
+                         calib_algo=algo)
+        with pytest.raises(NotImplementedError, match='A2'):
+            TQ.real_quant_weight(spec, torch.zeros(4, 32))
+        return
+    rng = np.random.RandomState(0)
+    w = rng.standard_normal((4, 64)).astype(np.float32)
+    up = rng.uniform(0.5, 4.0, (8, 1)).astype(np.float32)
+    low = rng.uniform(0.5, 4.0, (8, 1)).astype(np.float32)
+    for sym in (True, False):
+        kw = dict(bit=4, symmetric=sym, granularity='per_group',
+                  group_size=32)
+        want = JQ.real_quant_weight(JSpec(**kw), jnp.asarray(w),
+                                    jnp.asarray(up), jnp.asarray(low))
+        got = TQ.real_quant_weight(QuantSpec(**kw), torch.as_tensor(w),
+                                   torch.as_tensor(up), torch.as_tensor(low))
+        for g, j in zip(got, want):
+            assert (g is None) == (j is None)
+            if g is not None:
+                _eq(g.numpy(), j)
+        _eq(TQ.fake_quant_weight(QuantSpec(**kw), torch.as_tensor(w),
+                                 torch.as_tensor(up),
+                                 torch.as_tensor(low)).numpy(),
+            JQ.fake_quant_weight(JSpec(**kw), jnp.asarray(w),
+                                 jnp.asarray(up), jnp.asarray(low)))
 
 
 def test_spec_from_config_matches():
