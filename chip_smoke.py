@@ -11,10 +11,10 @@ Phases, each printing one JSON line, all of them on every run:
 3. ``kernel_checks``  each of the six hand-written kernels against its
                   plain PyTorch version on the card at the main paths'
                   shapes (the W4A8 kernel also against a float64 integer
-                  oracle, the FP8-block kernel against a float64 oracle
-                  on both of its instruction paths), with times (CUDA
-                  events) beside the bound and a library yardstick that
-                  the port never calls for that function.
+                  oracle, the FP8-block kernel against a float64 oracle,
+                  also on a block built to expose a short adder), with
+                  times (CUDA events) beside the bound and a library
+                  yardstick that the port never calls for that function.
                   ``kernel_ms`` is the kernel's wrapper on
                   prepared operands, ``path_ms`` the ``dequant_matmul``
                   call one linear of the main path makes (for W4A8 with
@@ -56,9 +56,15 @@ Phases, each printing one JSON line, all of them on every run:
                   random weights from a seed, synthetic calibration and
                   PPL data, W4 symmetric per-group 128): once RTN, once
                   AWQ (scale search + clip v1) on weights that came
-                  through the FP8-block ingest.  PPLs finite,
-                  ``ppl_transformed`` near ``ppl_pretrain``, seconds per
-                  pipeline phase.  The pipeline launches no kernel.
+                  through the FP8-block ingest and whose norms give the
+                  activations outlier channels.  PPLs finite,
+                  ``ppl_transformed`` near ``ppl_pretrain``, the searched
+                  blocks' fake-quant output error at most RTN's on the
+                  calibration inputs, seconds per pipeline phase.  The
+                  calibration set is cut to 8 x 512 tokens; one more AWQ
+                  run of a single block reads the seconds at 128 x 512,
+                  the size of ``configs/quantization/methods/
+                  awq_w_only.yml``.  The pipeline launches no kernel.
 13. ``compress_serve``  what AWQ made, packed (``pack_model``, fused,
                   packed head) and served by ``ServingEngine`` with an
                   int8 KV cache; its logits on one prompt against the
@@ -146,6 +152,16 @@ TOL_FP8_LINEAR = 5e-2
 # (close to the vocabulary size whatever the weights) by far less than
 # 2e-2 relative.
 TOL_PPL_TRANSFORMED = 2e-2
+# ``compress`` with a search (AWQ scales, clip v1): the PPLs of random
+# weights cannot tell a right search from a wrong one, so the searched
+# blocks are held against RTN where it shows.  On a block's own calibration
+# inputs, the squared error of its fake-quantized output against the
+# unquantized block's is at most RTN's: both grids hold the point that
+# changes nothing (ratio 0, no shrink), so every subset's own objective can
+# only fall, and clipping a 4-bit group of Gaussian weights takes 10 to 20%
+# off it.  A search that picks wrong scales, applies them on one side only
+# or shrinks too far raises the error above RTN's.
+TOL_SEARCH_VS_RTN = 1.0
 # ``compress_serve``: logits of the packed model through the kernels
 # against the same model under the fake-quant QMap, both on the card in
 # bf16, relative to the largest logit.  The two differ by the bf16
@@ -712,9 +728,8 @@ def _fp8_library(case):
 def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
               timed=(1, 128, 4096)):
     """The FP8-block kernel at every (N, K) and M, f32 and bf16 output,
-    against its plain version and the float64 oracle; the e4m3 mma path's
-    error against the oracle is recorded beside the default path's.  Times
-    by CUDA events at the ``timed`` Ms."""
+    against its plain version and the float64 oracle.  Times by CUDA
+    events at the ``timed`` Ms."""
     from llmc_tpu_torch.ops import fp8_gemm as G
     from llmc_tpu_torch.ops.dequant_matmul import _tiling
     from llmc_tpu_torch.quant import act_quant_per_group, fp8_block_matmul
@@ -730,13 +745,10 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
                                           acc_dtype=torch.float64)
         got32 = G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=F32)
         got16 = G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=BF16)
-        other = G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=F32,
-                                        native=not G.NATIVE_MMA)
         torch.cuda.synchronize()
         err, rel_p = _rel(got32, plain)
         _, rel_o = _rel(got32, oracle)
         err16, rel16 = _rel(got16, plain)
-        _, rel_other = _rel(other, oracle)
         what = f'fp8_block_gemm N={N} K={K} M={M}'
         finite = bool(torch.isfinite(got32).all()
                       and torch.isfinite(got16).all())
@@ -748,14 +760,10 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
         worst_abs, worst_rel = max(worst_abs, err16), max(worst_rel, rel16)
         worst_oracle = max(worst_oracle, rel_o)
         bm, splits = _tiling(M, N, K // 128, sm_count(dev.index or 0))
-        names = {True: 'e4m3_mma', False: 'f16_mma'}
         row = dict(N=N, K=K, M=M, bm=bm, splits=splits,
-                   path=names[G.NATIVE_MMA], f32_rel_err_oracle=rel_o,
-                   f32_rel_err_plain=rel_p, max_abs_err=err16,
-                   max_rel_err=rel16,
-                   **{f'{names[not G.NATIVE_MMA]}_f32_rel_err_oracle':
-                      rel_other})
-        del plain, oracle, got32, got16, other
+                   f32_rel_err_oracle=rel_o, f32_rel_err_plain=rel_p,
+                   max_abs_err=err16, max_rel_err=rel16)
+        del plain, oracle, got32, got16
         if M in timed:
             n_copy = max(1, min(8, -(-160_000_000 // wc.numel())))
             copies = [wc] + [wc.clone() for _ in range(n_copy - 1)]
@@ -769,9 +777,6 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
             iters = 10 if M >= 4096 else 50
             row['kernel_ms'] = cuda_ms(rotating(
                 lambda w: G.fp8_block_matmul_cuda(xc, xs, w, ws)), iters)
-            row[f'{names[not G.NATIVE_MMA]}_ms'] = cuda_ms(rotating(
-                lambda w: G.fp8_block_matmul_cuda(
-                    xc, xs, w, ws, native=not G.NATIVE_MMA)), iters)
             row['path_ms'] = cuda_ms(rotating(
                 lambda w: fp8_block_matmul(*act_quant_per_group(x), w, ws)),
                 iters)
@@ -787,13 +792,13 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
 
 
 def fp8_adder_probe(dev, M=16, N=128, K=1024):
-    """What each instruction path keeps when a block's products differ
-    widely in size: in every 32-wide k step one product of 448 * 448 (about
+    """What the kernel keeps when a block's products differ widely in
+    size: in every 32-wide k step one product of 448 * 448 (about
     2^17.6) beside 31 products of 2^-6 * 16 = 2^-2, which float32 adds
     exactly (the sum of a block needs 21 bits).  An adder that aligns to
     the step's largest product and keeps fewer bits loses the small ones:
-    124 * 2^-2 in 4 * 448^2 of a block, 3.9e-5 of the output.  Returns each
-    path's error against the float64 oracle, relative to the largest
+    124 * 2^-2 in 4 * 448^2 of a block, 3.9e-5 of the output.  Returns the
+    kernel's error against the float64 oracle, relative to the largest
     output."""
     from llmc_tpu_torch.ops import fp8_gemm as G
     x = torch.full((M, K), 2.0 ** -6, device=dev)
@@ -809,9 +814,8 @@ def fp8_adder_probe(dev, M=16, N=128, K=1024):
     oracle = G.fp8_block_matmul_plain(xc, xs, wc, ws,
                                       out_dtype=torch.float64,
                                       acc_dtype=torch.float64)
-    return {name: _rel(G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=F32,
-                                               native=native), oracle)[1]
-            for name, native in (('f16_mma', False), ('e4m3_mma', True))}
+    return _rel(G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=F32),
+                oracle)[1]
 
 
 # --------------------------------------------------------------------------
@@ -1255,7 +1259,13 @@ def _fp8_ingest_model_type():
     a random Llama whose block linears went through the FP8-block ingest
     in memory: ``weight_cast_to_fp8`` (what such a checkpoint stores) and
     the loader's own ``_ingest_fp8`` (``weight_cast_to_bf16`` with the
-    block size taken from the two shapes)."""
+    block size taken from the two shapes).  Its norm weights are
+    log-normal (sigma ``NORM_SIGMA``, scaled to a mean square of 1, which
+    keeps a block's share of the residual stream what it is with norm
+    weights of one) instead of ones, so that the inputs
+    of the linears have outlier channels as a trained model's do: with
+    uniform channels every AWQ ratio gives nearly the same scales, and
+    ``search_vs_rtn`` could not tell the best ratio from the worst."""
     from llmc_tpu_torch.models import LlamaAdapter
     from llmc_tpu_torch.models.base import get_path, set_path
     from llmc_tpu_torch.models.hf_loader import _ingest_fp8
@@ -1271,6 +1281,9 @@ def _fp8_ingest_model_type():
         def from_config(cls, config, device=None):
             model = super().from_config(config, device=device)
             bs = int(config['model'].get('fp8_block_size', 128))
+            dev = model.device
+            gen = torch.Generator(device=dev).manual_seed(
+                int(config['model'].get('seed', 0)) + 1)
             with torch.no_grad():
                 for i, blk in enumerate(model.blocks):
                     for p in model.get_layout().linears:
@@ -1278,6 +1291,13 @@ def _fp8_ingest_model_type():
                         codes, scale_inv = weight_cast_to_fp8(lin['w'], bs)
                         w = _ingest_fp8(codes, scale_inv).to(lin['w'].dtype)
                         blk = set_path(blk, p, dict(lin, w=w))
+                    for p in ('input_layernorm', 'post_attention_layernorm'):
+                        ln = get_path(blk, p)
+                        spread = torch.exp(NORM_SIGMA * torch.randn(
+                            ln['w'].shape, generator=gen, device=dev))
+                        spread = spread / spread.square().mean().sqrt()
+                        blk = set_path(blk, p, dict(
+                            ln, w=(ln['w'].float() * spread).to(ln['w'].dtype)))
                     model.set_block(i, blk)
             return model
     return name
@@ -1307,15 +1327,60 @@ def compress_config(cfg_kw, method, special=None, fp8_ingest=False,
         quant=quant)
 
 
+NORM_SIGMA = 1.0
+# The calibration set of the repository's AWQ config: 128 samples of 512
+# tokens.  The 32-layer runs take 8 samples to stay inside the script's
+# time limit.
+AWQ_SOURCE = 'configs/quantization/methods/awq_w_only.yml'
+AWQ_SOURCE_SAMPLES = 128
 AWQ_SPECIAL = dict(trans=True, weight_clip=True, clip_version='v1')
+
+
+def search_vs_rtn(dev, config, res, blocks):
+    """What the search bought, measured outside the algorithm.  The model
+    of ``config`` is built again from its seed (the weights before the
+    search), the calibration batches walk through its unquantized blocks
+    as they did in the block loop, and at each of ``blocks`` the squared
+    error of the fake-quantized output against the unquantized block's is
+    taken twice on those inputs: with the original weights (RTN) and with
+    the weights the search left in ``res['model']``."""
+    from llmc_tpu_torch.data import CalibDataset
+    from llmc_tpu_torch.models import build_model
+    model, opt = res['model'], res['opt']
+    orig = build_model(config, device=dev)
+    batches, _ = CalibDataset(config['calib'],
+                              orig.tokenizer).get_calib_dataset()
+    xs, kws = orig.collect_first_block_input(batches)
+    block_fn = orig.block_fn()
+    rows = []
+    with torch.no_grad():
+        for i in range(max(blocks) + 1):
+            outs = [block_fn(orig.blocks[i], x, kw)[0]
+                    for x, kw in zip(xs, kws)]
+            if i in blocks:
+                qmap = opt.fake_quant_qmap(i)
+                n = sum(y.numel() for y in outs)
+                mse = {name: sum(float(
+                    ((block_fn(blk, x, kw, qmap=qmap)[0].float()
+                      - y.float()) ** 2).sum())
+                    for x, kw, y in zip(xs, kws, outs)) / n
+                    for name, blk in (('rtn', orig.blocks[i]),
+                                      ('searched', model.blocks[i]))}
+                rows.append(dict(block=i, mse_rtn=mse['rtn'],
+                                 mse_searched=mse['searched'],
+                                 searched_over_rtn=mse['searched']
+                                 / mse['rtn']))
+            xs = outs
+    return rows
 
 
 def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
                    **sizes):
     """``run_pipeline`` (build, pretrain eval, calibration data, block
-    loop, transformed eval, fake-quant eval) on ``dev``.  Returns the
-    phase record and the pipeline's result (the compressed model and its
-    algorithm object)."""
+    loop, transformed eval, fake-quant eval) on ``dev``; after a method
+    that searches, ``search_vs_rtn`` at the first, the middle and the last
+    block.  Returns the phase record and the pipeline's result (the
+    compressed model and its algorithm object)."""
     from llmc_tpu_torch.main import run_pipeline
     from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
     config = compress_config(cfg_kw, method, special, fp8_ingest, **sizes)
@@ -1329,6 +1394,8 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
     times = res['phase_times']
     calib = times[f'calib_{method}']
     L = cfg_kw['num_hidden_layers']
+    searched = search_vs_rtn(dev, config, res, sorted({0, L // 2, L - 1})) \
+        if special else []
     rec = dict(phase='compress', method=method, special=special or {},
                fp8_block_ingest=fp8_ingest, layers=L,
                width=cfg_kw['hidden_size'], dtype=cfg_kw['dtype'],
@@ -1336,10 +1403,14 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
                weight=config['quant']['weight'], **ppl,
                ppl_transformed_rel_drift=drift,
                tolerance_ppl_transformed=TOL_PPL_TRANSFORMED,
+               block_output_mse=searched,
+               tolerance_searched_over_rtn=TOL_SEARCH_VS_RTN,
                phase_times_s=times, block_loop_s_per_block=calib / L,
                wall_s=res['wall_s'], launches=counts,
                ok=bool(all(np.isfinite(v) for v in ppl.values())
-                       and drift <= TOL_PPL_TRANSFORMED))
+                       and drift <= TOL_PPL_TRANSFORMED
+                       and all(r['searched_over_rtn'] <= TOL_SEARCH_VS_RTN
+                               for r in searched)))
     return rec, res
 
 
@@ -1478,9 +1549,9 @@ def main(argv=None) -> int:
             for name in ('flash_decode', 'batch_decode')}
     fp8 = check_fp8(dev, peaks)
     fp8_adder = fp8_adder_probe(dev)
-    require(max(fp8_adder.values()) <= TOL_FP8_ORACLE,
+    require(fp8_adder <= TOL_FP8_ORACLE,
             f'fp8_block_gemm on a block whose products span 20 bits: '
-            f'{fp8_adder} against the float64 oracle '
+            f'{fp8_adder:.3g} against the float64 oracle '
             f'(limit {TOL_FP8_ORACLE})')
     emit(dict(phase='kernel_checks', sms=sm_count(0), **card,
               w4_dequant_matmul=gemm['w4'][0],
@@ -1537,10 +1608,11 @@ def main(argv=None) -> int:
         rec, res = phase_compress(dev, LLAMA2_7B, method, special, ingest)
         rec.update(card)
         emit(rec)
-        require(rec['ok'], f'compress {method}: a PPL is not finite, or '
+        require(rec['ok'], f'compress {method}: a PPL is not finite, '
                 f'ppl_transformed left ppl_pretrain by '
                 f'{rec["ppl_transformed_rel_drift"]:.3g} '
-                f'(limit {TOL_PPL_TRANSFORMED})')
+                f'(limit {TOL_PPL_TRANSFORMED}), or a searched block errs '
+                f'more than RTN: {rec["block_output_mse"]}')
         if method == 'RTN':
             del res
             torch.cuda.empty_cache()
@@ -1551,6 +1623,17 @@ def main(argv=None) -> int:
             f'{rec["rel_logit_err_vs_fake_quant"]:.3g} off the fake-quant '
             f'model\'s (limit {TOL_COMPRESS_SERVE})')
     require_served(rec)
+    del res
+    torch.cuda.empty_cache()
+
+    # one block at the calibration size AWQ's own config asks for
+    rec, res = phase_compress(dev, dict(LLAMA2_7B, num_hidden_layers=1),
+                              'Awq', AWQ_SPECIAL, True,
+                              n_samples=AWQ_SOURCE_SAMPLES)
+    rec.update(card, calib_size_of=AWQ_SOURCE)
+    emit(rec)
+    require(rec['ok'], f'compress Awq at {AWQ_SOURCE_SAMPLES} samples: '
+            f'{rec["block_output_mse"]}')
     del res
     torch.cuda.empty_cache()
 

@@ -25,21 +25,12 @@
 // FRESH accumulator fragment per chunk takes the block's sum, and
 // acc += part * xs * ws runs in f32 registers.
 //
-// Two instruction paths compute the block's sum (template NATIVE):
-//   1  mma.sync.m16n8k32 e4m3 x e4m3 -> f32, the tensor cores' own FP8
-//      path, with no conversion (the wrapper's default).
-//   0  each e4m3 pair is converted to f16x2 (cvt.rn.f16x2.e4m3x2, exact:
-//      every e4m3 value is an f16 value) and multiplied by
-//      mma.sync.m16n8k16 f16 x f16 -> f32, exact by construction.  The k
-//      index inside a 32-byte step is permuted the same way for A and B,
-//      which a dot product does not see.
-// The wrapper picks the path; chip_smoke.py holds both against a float64
-// oracle and records what each keeps and takes.  Not yet: wgmma, TMA, a
-// warp layout in which each warp does not read the whole A tile (eight
-// warps side by side along N read it eight times from shared memory).
-
-#include <cuda_fp8.h>
-#include <cuda_fp16.h>
+// The block's sum is mma.sync.m16n8k32 e4m3 x e4m3 -> f32, the tensor
+// cores' own FP8 path, with no conversion; chip_smoke.py holds it against a
+// float64 oracle, on random data and on a block whose products span 20
+// bits.  Not yet: wgmma, TMA, a warp layout in which each warp does not
+// read the whole A tile (eight warps side by side along N read it eight
+// times from shared memory).
 
 #include "gemm_common.cuh"
 
@@ -55,25 +46,6 @@ __device__ __forceinline__ void mma16832_e4m3(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 x 16 f16 (row) times 16 x 8 f16 (col) into 16 x 8 f32
-__device__ __forceinline__ void mma16816_f16(float* c, uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// two e4m3 codes (16 bits) -> f16x2, the lower byte in the lower half
-__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t two) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(two & 0xFFFFu), __NV_E4M3);
-  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
-}
-
 template <int BM>
 struct Tile {
   static constexpr int WN = BN / 8;
@@ -86,7 +58,7 @@ struct Tile {
   static_assert(X_BYTES % 16 == 0 && W_BYTES % 16 == 0, "alignment");
 };
 
-template <int BM, bool OUT_F32, bool NATIVE>
+template <int BM, bool OUT_F32>
 __global__ void __launch_bounds__(NT, min_blocks<BM>())
 fp8_block_gemm_kernel(const uint8_t* __restrict__ x,
                       const float* __restrict__ xs,
@@ -181,45 +153,15 @@ fp8_block_gemm_kernel(const uint8_t* __restrict__ x,
       for (int mi = 0; mi < T::MI; ++mi)
         ldmatrix_x4(a[mi], &sx[(mi * 16 + (lane & 15)) * T::RS + kk +
                                16 * (lane >> 4)]);
-      if constexpr (NATIVE) {
 #pragma unroll
-        for (int nj = 0; nj < T::NJ; ++nj) {
-          // column n = g at bytes 4t..4t+3 and 16+4t..
-          const uint8_t* wb = &sw[(wn + nj * 8 + g) * T::RS + kk + 4 * t];
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wb);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wb + 16);
-#pragma unroll
-          for (int mi = 0; mi < T::MI; ++mi)
-            mma16832_e4m3(part[mi][nj], a[mi], b0, b1);
-        }
-      } else {
-        // Each 16-byte half of the step is one f16 mma whose k slots
-        // (2t, 2t+1) and (2t+8, 2t+9) take bytes (4t, 4t+1) and
-        // (4t+2, 4t+3) of that half, for A and B alike.
-        uint32_t af[T::MI][8];
+      for (int nj = 0; nj < T::NJ; ++nj) {
+        // column n = g at bytes 4t..4t+3 and 16+4t..
+        const uint8_t* wb = &sw[(wn + nj * 8 + g) * T::RS + kk + 4 * t];
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wb);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wb + 16);
 #pragma unroll
         for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            af[mi][4 * h + 0] = e4m3x2_to_f16x2(a[mi][2 * h]);
-            af[mi][4 * h + 1] = e4m3x2_to_f16x2(a[mi][2 * h + 1]);
-            af[mi][4 * h + 2] = e4m3x2_to_f16x2(a[mi][2 * h] >> 16);
-            af[mi][4 * h + 3] = e4m3x2_to_f16x2(a[mi][2 * h + 1] >> 16);
-          }
-#pragma unroll
-        for (int nj = 0; nj < T::NJ; ++nj) {
-          const uint8_t* wb = &sw[(wn + nj * 8 + g) * T::RS + kk + 4 * t];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint32_t b = *reinterpret_cast<const uint32_t*>(wb + 16 * h);
-            const uint32_t b0 = e4m3x2_to_f16x2(b);
-            const uint32_t b1 = e4m3x2_to_f16x2(b >> 16);
-#pragma unroll
-            for (int mi = 0; mi < T::MI; ++mi)
-              mma16816_f16(part[mi][nj], af[mi][4 * h], af[mi][4 * h + 1],
-                           af[mi][4 * h + 2], af[mi][4 * h + 3], b0, b1);
-          }
-        }
+          mma16832_e4m3(part[mi][nj], a[mi], b0, b1);
       }
     }
 
@@ -238,12 +180,12 @@ fp8_block_gemm_kernel(const uint8_t* __restrict__ x,
                                      n0 + wn, lane, blockIdx.z);
 }
 
-template <int BM, bool OUT_F32, bool NATIVE>
-int launch_path(const void* x, const void* xs, const void* w, const void* ws,
-                void* out, void* partial, int M, int N, int K, int splits,
-                cudaStream_t st) {
+template <int BM, bool OUT_F32>
+int launch(const void* x, const void* xs, const void* w, const void* ws,
+           void* out, void* partial, int M, int N, int K, int splits,
+           cudaStream_t st) {
   using T = Tile<BM>;
-  auto kern = fp8_block_gemm_kernel<BM, OUT_F32, NATIVE>;
+  auto kern = fp8_block_gemm_kernel<BM, OUT_F32>;
   static bool attr = false;
   if (!attr) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -262,31 +204,19 @@ int launch_path(const void* x, const void* xs, const void* w, const void* ws,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, bool OUT_F32>
-int launch(const void* x, const void* xs, const void* w, const void* ws,
-           void* out, void* partial, int M, int N, int K, int native,
-           int splits, cudaStream_t st) {
-  if (native)
-    return launch_path<BM, OUT_F32, true>(x, xs, w, ws, out, partial, M, N, K,
-                                          splits, st);
-  return launch_path<BM, OUT_F32, false>(x, xs, w, ws, out, partial, M, N, K,
-                                         splits, st);
-}
-
 }  // namespace
 
 // bm in {16, 32, 64}; N and K multiples of 128; splits >= 1 K-splits
-// (partial: [splits, M, N] f32 scratch when splits > 1); native: 1 for the
-// e4m3 mma, 0 for the exact f16 path.
+// (partial: [splits, M, N] f32 scratch when splits > 1).
 extern "C" int llmc_fp8_block_gemm(const void* x, const void* xs,
                                    const void* w, const void* ws, void* out,
                                    void* partial, int M, int N, int K,
-                                   int out_f32, int native, int bm, int splits,
+                                   int out_f32, int bm, int splits,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_f32)
     return LLMC_DISPATCH_BM(bm, true, launch, x, xs, w, ws, out, partial, M,
-                            N, K, native, splits, st);
+                            N, K, splits, st);
   return LLMC_DISPATCH_BM(bm, false, launch, x, xs, w, ws, out, partial, M, N,
-                          K, native, splits, st);
+                          K, splits, st);
 }

@@ -49,9 +49,8 @@ SIGNATURES = {
     # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
     # kv_kind, b_blk, wps, chunk, stream
     'llmc_batch_decode': [_VP] * 7 + [_I] * 10 + [_VP],
-    # x, xs, w, ws, out, partial, M, N, K, out_f32, native, bm, splits,
-    # stream
-    'llmc_fp8_block_gemm': [_VP] * 6 + [_I] * 7 + [_VP],
+    # x, xs, w, ws, out, partial, M, N, K, out_f32, bm, splits, stream
+    'llmc_fp8_block_gemm': [_VP] * 6 + [_I] * 6 + [_VP],
 }
 
 

@@ -22,16 +22,6 @@ BLOCK = 128   # the scale block the kernel is written for
 # Launches of the CUDA kernel (the plain version never counts).
 LAUNCHES = {'fp8_block_gemm': 0}
 
-# Which instruction multiplies the codes on the card.  True: the e4m3
-# mma.sync, the tensor cores' own FP8 path, with a fresh f32 accumulator
-# fragment per 128-wide block.  False: each e4m3 pair is converted to f16
-# in registers (exact) and multiplied by the f16 mma.sync with f32
-# accumulation, exact by construction.  ``chip_smoke.py`` holds both
-# against a float64 oracle, on random data and on a block whose products
-# span 20 bits; on an H100 both read the same error, so the native path is
-# the default.
-NATIVE_MMA = True
-
 
 def fp8_block_matmul_plain(x_codes, x_scales, w_codes, w_scale_inv,
                            block_size: int = 128,
@@ -60,8 +50,8 @@ def fp8_block_matmul_plain(x_codes, x_scales, w_codes, w_scale_inv,
 
 def fp8_block_matmul_cuda(x_codes, x_scales, w_codes, w_scale_inv,
                           block_size: int = 128,
-                          out_dtype: torch.dtype = torch.bfloat16,
-                          native: bool = None) -> torch.Tensor:
+                          out_dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
     """Launch the Hopper kernel: x_codes [M, K] e4m3, x_scales [M, K/128]
     f32, w_codes [N, K] e4m3, w_scale_inv [N/128, K/128] f32, all as
     stored -> [M, N] ``out_dtype`` (bf16 or f32).  Checks what the kernel
@@ -90,8 +80,7 @@ def fp8_block_matmul_cuda(x_codes, x_scales, w_codes, w_scale_inv,
     err = _build.lib().llmc_fp8_block_gemm(
         x_codes.data_ptr(), x_scales.data_ptr(), w_codes.data_ptr(),
         w_scale_inv.data_ptr(), out.data_ptr(), partial.data_ptr(), M, N, K,
-        int(out_dtype == F32), int(NATIVE_MMA if native is None else native),
-        bm, splits, stream)
+        int(out_dtype == F32), bm, splits, stream)
     _build.check(err, 'fp8_block_gemm')
     LAUNCHES['fp8_block_gemm'] += 1
     return out

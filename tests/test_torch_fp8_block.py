@@ -205,19 +205,17 @@ def test_float_fake_quant_weight_matches_reference(fmt, gran, scaled_cast):
 # --------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('native', [False, True])
 @pytest.mark.parametrize('M', [1, 16, 77, 128, 600])
 @pytest.mark.parametrize('N,K', [(128, 128), (512, 1024), (4096, 4096)])
-def test_kernel_matches_plain_and_oracle_on_card(cuda_device, N, K, M,
-                                                 native):
+def test_kernel_matches_plain_and_oracle_on_card(cuda_device, N, K, M):
     _, p = _gemm_case(M, N, K, 128, seed=8)
     p = tuple(a.to(cuda_device).contiguous() for a in p)
     oracle = G.fp8_block_matmul_plain(*p, out_dtype=torch.float64,
                                       acc_dtype=torch.float64).cpu().numpy()
     plain = G.fp8_block_matmul_plain(*p, out_dtype=F32).cpu().numpy()
     before = G.LAUNCHES['fp8_block_gemm']
-    got = G.fp8_block_matmul_cuda(*p, out_dtype=F32, native=native)
-    got16 = G.fp8_block_matmul_cuda(*p, native=native)
+    got = G.fp8_block_matmul_cuda(*p, out_dtype=F32)
+    got16 = G.fp8_block_matmul_cuda(*p)
     assert G.LAUNCHES['fp8_block_gemm'] == before + 2
     assert got.shape == (M, N) and got16.dtype == torch.bfloat16
     assert rel_err(got.cpu().numpy(), oracle) <= 1e-5

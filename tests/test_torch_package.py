@@ -280,6 +280,11 @@ def test_chip_smoke_cpu_compress_phase_tiny(compressed_tiny, method):
         'eval_transformed', 'eval_fake_quant'}
     assert rec['fp8_block_ingest'] == (method == 'Awq')
     assert res['opt'].wspec.group_size == 32
+    # what the search left errs less than RTN at every checked block
+    assert [r['block'] for r in rec['block_output_mse']] == \
+        ([0, 1] if method == 'Awq' else [])
+    assert all(0 < r['searched_over_rtn'] < 0.9
+               for r in rec['block_output_mse'])
 
 
 def test_chip_smoke_fp8_ingest_rounds_the_block_linears_to_e4m3():
@@ -295,6 +300,10 @@ def test_chip_smoke_fp8_ingest_rounds_the_block_linears_to_e4m3():
     assert torch.equal(w1, weight_cast_to_bf16(*weight_cast_to_fp8(w0)))
     assert torch.equal(plain.params['embed_tokens']['w'],
                        model.params['embed_tokens']['w'])
+    # its norms spread the channels; the plain model's are ones
+    ln = model.blocks[0]['input_layernorm']['w'].float()
+    assert ln.max() / ln.min() > 10
+    assert bool((plain.blocks[0]['input_layernorm']['w'] == 1).all())
 
 
 def test_chip_smoke_cpu_compress_serve_phase_tiny(compressed_tiny):
