@@ -8,7 +8,7 @@ Phases, each printing one JSON line, all of them on every run:
                   and power limit (also printed raw on a line of its own).
 2. ``build``      nvcc build of ``llmc_tpu_torch/csrc`` (seconds,
                   registers and spills per kernel).
-3. ``kernel_checks``  each of the six hand-written kernels against its
+3. ``kernel_checks``  each of the six kernels of the main paths against its
                   plain PyTorch version on the card at the main paths'
                   shapes (the W4A8 kernel also against a float64 integer
                   oracle, the FP8-block kernel against a float64 oracle,
@@ -21,38 +21,47 @@ Phases, each printing one JSON line, all of them on every run:
                   the activation quantizer).  Also the staged W4A8 prefill
                   beside the kernel at M=4096, and a sweep of the
                   serving-batch kernel's two launch arguments.
-4. ``parity``     2 layers at Llama-2-7B width: the card (bf16, kernels)
+4. ``probes``     the w4 design probes (``ops/probe_gemm.py``, nine kernels
+                  of ``csrc/probe_gemm.cu``) through their entry points
+                  ``llmc_tpu_torch.tools.kernel_bench.run`` and
+                  ``.w4_probe.run`` at the JAX tools' gate_up shape (K=4096,
+                  N=22016) and M = 64, 77, 128 and 4096: every kernel held
+                  against its plain version (bf16 within 1e-2 of the
+                  largest output, the int8 dot's int32 equal), timed beside
+                  its bound, the plain version and the library call, and
+                  its launches equal to the calls the tools made.
+5. ``parity``     2 layers at Llama-2-7B width: the card (bf16, kernels)
                   against the CPU (f32, plain versions) on the same
                   random packed weights, once per serving configuration:
                   W4A16 + flash, W4A8 + batch attention, W8A16 + flash;
                   each with a control run of the card through the plain
                   linears.  ``--parity-seeds 0 1 2`` repeats it on more
                   random models; nothing else takes an option.
-5. ``serve``      ``ServingEngine`` on Llama-2-7B (32 layers) with random
+6. ``serve``      ``ServingEngine`` on Llama-2-7B (32 layers) with random
                   packed W4 g128 weights and an int8 KV cache; the kernel
                   launch counters must equal what the path implies.
-6. ``throughput`` the reference bench's shape: B=128, prefill 32, 64
+7. ``throughput`` the reference bench's shape: B=128, prefill 32, 64
                   greedy decode steps after one warm-up prefill and step
                   (a record, not a claim).
-7. ``profile``    torch.profiler over 8 decode steps at that shape: device
+8. ``profile``    torch.profiler over 8 decode steps at that shape: device
                   time by kernel and the device's idle share.
-8. ``serve_w4a8`` + its ``throughput`` and ``profile``: the same engine
+9. ``serve_w4a8`` + its ``throughput`` and ``profile``: the same engine
                   and bench shape with per-token int8 activations (every
                   block linear through the W4A8 kernel, the head
                   weight-only) and the serving-batch attention kernel
                   (``ATTN_IMPL='batch'``).
-9. ``serve_w8`` + its ``throughput`` and ``profile``: the same on W8A16
+10. ``serve_w8`` + its ``throughput`` and ``profile``: the same on W8A16
                   per-group 128 weights (every linear through the W8
                   kernel).
-10. ``serve_w8_companion``  8 layers at 7B width, a random fp model packed
+11. ``serve_w8_companion``  8 layers at 7B width, a random fp model packed
                   with ``pack_model(w8_prefill=True)``: the engine once
                   with ``prefill_w8`` and once with ``decode_w8``.
-11. ``fp8_linear`` one Llama-2-7B block's seven linears stored as an
+12. ``fp8_linear`` one Llama-2-7B block's seven linears stored as an
                   FP8-block checkpoint stores them (e4m3 codes and one
                   inverse scale per 128 x 128 block), applied to 128 rows:
                   ``act_quant_per_group`` -> ``fp8_block_matmul``, seven
                   launches of the FP8-block kernel.
-12. ``compress``  ``run_pipeline`` at Llama-2-7B width and depth (bf16,
+13. ``compress``  ``run_pipeline`` at Llama-2-7B width and depth (bf16,
                   random weights from a seed, synthetic calibration and
                   PPL data, W4 symmetric per-group 128): once RTN, once
                   AWQ (scale search + clip v1) on weights that came
@@ -65,15 +74,17 @@ Phases, each printing one JSON line, all of them on every run:
                   run of a single block reads the seconds at 128 x 512,
                   the size of ``configs/quantization/methods/
                   awq_w_only.yml``.  The pipeline launches no kernel.
-13. ``compress_serve``  what AWQ made, packed (``pack_model``, fused,
+14. ``compress_serve``  what AWQ made, packed (``pack_model``, fused,
                   packed head) and served by ``ServingEngine`` with an
                   int8 KV cache; its logits on one prompt against the
                   same model under the fake-quant ``QMap``.
 
-Every phase that drives the model on the card sets the kernels' launch
-counters to 0 just before its run, reads them just after, and fails
-unless they equal what its path implies.  Then the ``{"kernels": [...]}``
-line (each kernel's launches from the serve phase of its own path), the
+Every phase that drives the model or the probe tools on the card sets the
+kernels' launch counters to 0 just before its run, reads them just after,
+and fails unless they equal what its path implies.  Then the
+``{"kernels": [...]}`` line (fifteen kernels: each of the main paths'
+launches from the serve phase of its own path, each probe's from the
+``probes`` phase), the
 nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero.
 There is no CPU mode: without a CUDA card the script exits 2.  The phase
@@ -90,12 +101,15 @@ import dataclasses
 import importlib
 import itertools
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from llmc_tpu_torch.utils.device import (PEAKS,  # noqa: F401 (re-exported)
+                                         nvidia_smi_line, peaks_for)
+from llmc_tpu_torch.utils.profiler import cuda_ms
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -104,16 +118,6 @@ BF16 = torch.bfloat16
 LLAMA2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                  num_hidden_layers=32, num_attention_heads=32,
                  num_key_value_heads=32, head_dim=128, dtype='bfloat16')
-
-# Data-sheet peaks (dense): memory bytes/s, bf16 tensor-core flop/s,
-# f32 CUDA-core flop/s, int8 tensor-core op/s, fp8 tensor-core flop/s.
-# H100 SXM at 700 W unless the name says otherwise.
-Peaks = collections.namedtuple('Peaks', 'bw bf16 f32 int8 fp8')
-PEAKS = {
-    'H100 SXM': Peaks(3.35e12, 989e12, 67e12, 1979e12, 1979e12),
-    'H100 PCIe': Peaks(2.0e12, 756e12, 51e12, 1513e12, 1513e12),
-    'H100 NVL': Peaks(3.9e12, 835e12, 60e12, 1671e12, 1671e12),
-}
 
 # Tolerances, with their reasons.
 # w4 kernel vs plain (same bf16 x and packed weights, f32 plain math):
@@ -213,35 +217,6 @@ class CheckFailed(RuntimeError):
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
-
-
-def nvidia_smi_line() -> str:
-    r = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                        '--format=csv,noheader'], capture_output=True,
-                       text=True, timeout=60)
-    return r.stdout.strip().splitlines()[0] if r.stdout.strip() else ''
-
-
-def peaks_for(name: str):
-    for key in ('H100 PCIe', 'H100 NVL'):
-        if key.split()[1] in name and 'H100' in name:
-            return key, PEAKS[key]
-    return 'H100 SXM', PEAKS['H100 SXM']
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call over ``iters`` calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def tree_to(tree, device, float_dtype=None):
@@ -822,9 +797,29 @@ def fp8_adder_probe(dev, M=16, N=128, K=1024):
 # model phases (device and sizes are arguments, so the CPU tests run them)
 # --------------------------------------------------------------------------
 
-KERNEL_NAMES = ('w4_dequant_matmul', 'w4a8_dequant_matmul',
-                'w8_dequant_matmul', 'flash_decode', 'batch_decode',
-                'fp8_block_gemm')
+# The w4 design probes (rows 7 to 15 of PERF.md's kernel table), each with
+# the TPU kernel it replaces: the tool's pallas_call and its kernel function
+PROBE_KERNELS = {
+    'bf16_chunked': ('tools/kernel_bench.py:113',
+                     'tools/kernel_bench.py::_bf16_kernel'),
+    'bf16_bigdot': ('tools/w4_probe.py:149', 'tools/w4_probe.py::_bf16_big'),
+    'i8_cast': ('tools/kernel_bench.py:151',
+                'tools/kernel_bench.py::_i8_kernel'),
+    'i8xi8_int32': ('tools/w4_probe.py:210', 'tools/w4_probe.py::_i8i8'),
+    'w4_blockdecode': ('tools/w4_probe.py:257',
+                       'tools/w4_probe.py::_w4_block'),
+    'w4_fullq': ('tools/kernel_bench.py:236',
+                 'tools/kernel_bench.py::_fullq_kernel'),
+    'i32_window': ('tools/kernel_bench.py:191',
+                   'tools/kernel_bench.py::_i32_kernel'),
+    'w4_xc': ('tools/kernel_bench.py:297',
+              'tools/kernel_bench.py::_xc_kernel'),
+    'i4_native': ('tools/w4_probe.py:295', 'tools/w4_probe.py::_i4_big'),
+}
+# every kernel of the port: the probes, then the main paths' six
+KERNEL_NAMES = tuple(PROBE_KERNELS) + (
+    'w4_dequant_matmul', 'w4a8_dequant_matmul', 'w8_dequant_matmul',
+    'flash_decode', 'batch_decode', 'fp8_block_gemm')
 # A serving configuration: weight bits, per-token int8 activations on the
 # block linears, and the decode-attention kernel (``ATTN_IMPL``).
 Mode = collections.namedtuple('Mode', 'bits a_int8 attn')
@@ -1463,6 +1458,52 @@ MAIN_SHAPES = [(12288, 4096, False), (4096, 4096, False),
                (32000, 4096, True)]
 
 
+PROBE_MS = (64, 77, 128, 4096)
+
+
+def phase_probes(dev, Ms=PROBE_MS, K=4096, N=22016):
+    """The w4 design probes through the tools' entry points at every M.
+    Each tool holds each kernel against its plain version (bf16 within
+    ``probe_gemm.TOL_BF16`` of the largest output, the int8 dot's int32
+    equal) and raises when one is off; the launches must equal the calls
+    the tools made."""
+    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.tools import kernel_bench, w4_probe
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    kb = kernel_bench.run(dev, M=Ms, K=K, N=N)
+    wp = w4_probe.run(dev, M=Ms, K=K, N=N)
+    counts = launch_counts()
+    wall = time.perf_counter() - t0
+    expect = dict.fromkeys(KERNEL_NAMES, 0)
+    for r in kb + wp:
+        if r['kernel']:
+            expect[r['kernel']] += r['calls']
+    return dict(phase='probes', K=K, N=N, Ms=list(Ms), wall_s=wall,
+                kernel_bench=kb, w4_probe=wp, launches=counts,
+                expected_launches=expect)
+
+
+def probe_kernel_record(name, rec, launches, M=128):
+    """The ``kernels`` line's entry of a probe: its worst errors over every
+    M, its times at gate_up and M (w4_probe's line where both tools have
+    one)."""
+    rows = [r for r in rec['w4_probe'] + rec['kernel_bench']
+            if r['kernel'] == name]
+    row = next(r for r in rows if r['M'] == M)
+    replaces, replaces_fn = PROBE_KERNELS[name]
+    return dict(name=name, route='cuda',
+                source='llmc_tpu_torch/csrc/probe_gemm.cu',
+                replaces=replaces, replaces_fn=replaces_fn,
+                launches=launches[name],
+                max_abs_err=max(r['max_abs_err'] for r in rows),
+                max_rel_err=max(r['max_rel_err'] for r in rows),
+                ms=row['ms'], plain_ms=row['plain_ms'],
+                bound_ms=row['bound_ms'], bound_by=row['bound_by'],
+                library_ms=row['library_ms'],
+                at=f'{row["name"]} N={rec["N"]} K={rec["K"]} M={M}')
+
+
 def require_launches(rec) -> None:
     require(rec['launches'] == rec['expected_launches'],
             f'{rec["phase"]}: launches {rec["launches"]} != expected '
@@ -1565,6 +1606,11 @@ def main(argv=None) -> int:
               fp8_worst_rel_err_vs_float64_oracle=fp8[3],
               fp8_adder_probe_rel_err_vs_float64_oracle=fp8_adder))
 
+    probes = phase_probes(dev)
+    probes.update(card)
+    emit(probes)
+    require_launches(probes)
+
     failed = []
     for mode, seed in itertools.product(MODES, args.parity_seeds):
         rec = phase_parity(dev, torch.device('cpu'),
@@ -1576,6 +1622,7 @@ def main(argv=None) -> int:
     require(not failed, f'parity failed for (mode, seed) in {failed}')
 
     launches = dict.fromkeys(KERNEL_NAMES, 0)
+    launches.update({k: probes['launches'][k] for k in PROBE_KERNELS})
     for mode in MODES:
         got = drive_mode(mode, dev, peaks, card)
         # a kernel's launches are read from the serve run of its own path
@@ -1672,7 +1719,8 @@ def main(argv=None) -> int:
                       fp8[1:3], next(r for r in fp8[0] if (r['N'], r['M'])
                                      == (22016, 128)),
                       'N=22016 K=4096 M=128 e4m3, block 128, bf16 out'),
-    ]})
+    ] + [probe_kernel_record(name, probes, launches)
+         for name in PROBE_KERNELS]})
     emit(dict(phase='done', wall_s=time.perf_counter() - t_start, **card))
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

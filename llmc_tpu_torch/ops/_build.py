@@ -51,6 +51,8 @@ SIGNATURES = {
     'llmc_batch_decode': [_VP] * 7 + [_I] * 10 + [_VP],
     # x, xs, w, ws, out, partial, M, N, K, out_f32, bm, splits, stream
     'llmc_fp8_block_gemm': [_VP] * 6 + [_I] * 6 + [_VP],
+    # kind, x, x2, w, s, out, partial, M, N, K, splits, stream
+    'llmc_probe_gemm': [_I] + [_VP] * 6 + [_I] * 4 + [_VP],
 }
 
 

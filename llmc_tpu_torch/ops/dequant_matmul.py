@@ -289,10 +289,12 @@ def _check_kernel_meta(meta: QMeta, M: int, K: int) -> Tuple[int, bool]:
 _RESIDENT = {16: 2, 32: 1, 64: 1}
 
 
-def _tiling(M: int, N: int, units: int, sms: int) -> Tuple[int, int]:
+def _tiling(M: int, N: int, units: int, sms: int,
+            bm: Optional[int] = None) -> Tuple[int, int]:
     """(row tile BM, K splits) when the K loop has ``units`` steps that
-    can be dealt out to CTAs."""
-    bm = next(b for b in (16, 32, 64) if M <= b or b == 64)
+    can be dealt out to CTAs; ``bm`` fixes the row tile (else it follows
+    M)."""
+    bm = bm or next(b for b in (16, 32, 64) if M <= b or b == 64)
     tiles = -(-N // 128) * -(-M // bm)
     want = sms * _RESIDENT[bm]
     splits = 1 if tiles >= want else min(units, -(-want // tiles))
@@ -310,7 +312,8 @@ def kernel_tiling(M: int, N: int, K: int, gsl: int,
 
 
 def _check_operands(x, want, out_dtype) -> None:
-    """Each kernel operand: dtype, shape, device, contiguity, alignment."""
+    """Each kernel operand: dtype, shape, device, contiguity, alignment;
+    and ``out_dtype`` bf16 or f32 (None: the caller's own check)."""
     for name, (t, dt, shape) in want.items():
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f'{name}: want {dt} {shape}, got {t.dtype} '
@@ -319,7 +322,7 @@ def _check_operands(x, want, out_dtype) -> None:
             raise ValueError(f'{name}: must be contiguous on {x.device}')
         if t.data_ptr() % 16:
             raise ValueError(f'{name}: must be 16-byte aligned')
-    if out_dtype not in (torch.bfloat16, F32):
+    if out_dtype is not None and out_dtype not in (torch.bfloat16, F32):
         raise ValueError(f'out_dtype must be bf16 or f32, got {out_dtype}')
 
 

@@ -17,6 +17,22 @@ from typing import Dict, Optional
 import torch
 
 
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds a call of ``fn`` takes on the card over ``iters``
+    calls after ``warmup`` more (CUDA events around the whole run)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()

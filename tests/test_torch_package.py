@@ -35,10 +35,14 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
+    """No jax and nothing of the reference: ``llmc_tpu``, nor the repo's
+    root ``tools`` package, whose probes import both (the port's own
+    ``llmc_tpu_torch.tools`` is another package)."""
     assert len(PORT_FILES) > 15
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in PORT_FILES
            for m in _imports(p)
-           if m.split('.')[0] in ('jax', 'jaxlib', 'llmc_tpu', 'flax')]
+           if m.split('.')[0] in ('jax', 'jaxlib', 'llmc_tpu', 'flax',
+                                  'tools')]
     assert bad == []
 
 
@@ -49,7 +53,9 @@ NEW_MODULES = ('main.py', '__main__.py', 'compression/blockwise.py',
                'data/preproc.py', 'eval/ppl.py', 'eval/orchestrate.py',
                'models/hf_loader.py', 'ops/fp8_gemm.py',
                'quant/fp8_block.py', 'quant/fp_formats.py',
-               'utils/config.py', 'utils/profiler.py')
+               'utils/config.py', 'utils/profiler.py',
+               'ops/probe_gemm.py', 'tools/__init__.py', 'tools/_measure.py',
+               'tools/kernel_bench.py', 'tools/w4_probe.py')
 
 
 def _module_level_imports(path):
@@ -322,6 +328,35 @@ def test_chip_smoke_cpu_compress_serve_phase_tiny(compressed_tiny):
         ZERO_LAUNCHES, w4_dequant_matmul=(4 * L + 1) * fw,
         flash_decode=L * rec['decode_steps'])
     assert 'qweight' in res['model'].params['lm_head']
+
+
+def test_chip_smoke_cpu_probes_phase_tiny():
+    """The probes phase at a tiny size on the CPU: both tools' records
+    (plain versions, no launches) and the kernels line's entries."""
+    rec = chip_smoke.phase_probes(torch.device('cpu'), Ms=(16, 77), K=2048,
+                                  N=256)
+    assert rec['phase'] == 'probes' and rec['Ms'] == [16, 77]
+    assert rec['launches'] == rec['expected_launches'] == ZERO_LAUNCHES
+    assert len(rec['kernel_bench']) == 2 * 7 and len(rec['w4_probe']) == 2 * 9
+    assert all(r.get('ok', True) for r in rec['kernel_bench'] +
+               rec['w4_probe'])
+    launches = dict.fromkeys(chip_smoke.KERNEL_NAMES, 3)
+    entries = [chip_smoke.probe_kernel_record(n, rec, launches, M=77)
+               for n in chip_smoke.PROBE_KERNELS]
+    assert [e['name'] for e in entries] == list(chip_smoke.PROBE_KERNELS)
+    for e in entries:
+        assert e['route'] == 'cuda' and e['launches'] == 3
+        assert e['source'] == 'llmc_tpu_torch/csrc/probe_gemm.cu'
+        assert (ROOT / e['source']).exists()
+        path, line = e['replaces'].split(':')
+        fn = e['replaces_fn'].split('::')[1]
+        src = (ROOT / path).read_text().splitlines()
+        # the line is the probe's pallas_call, inside the tool's wrapper
+        # whose kernel function is ``replaces_fn``
+        assert 'pallas_call' in src[int(line) - 1], e['replaces']
+        assert f'def {fn}(' in (ROOT / path).read_text()
+        assert set(e) >= {'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                          'bound_by', 'library_ms'}
 
 
 def test_fp8_bound_follows_the_data_sheet():
