@@ -7,7 +7,8 @@ Phases, each printing one JSON line, all of them on every run:
 1. ``device``     the card's name, count, SM count, and nvidia-smi's name
                   and power limit (also printed raw on a line of its own).
 2. ``build``      nvcc build of ``llmc_tpu_torch/csrc`` (seconds,
-                  registers and spills per kernel).
+                  registers and spills per kernel); it fails on a spill in
+                  the wgmma kernels (B1, B4).
 3. ``kernel_checks``  each of the six kernels of the main paths against its
                   plain PyTorch version on the card at the main paths'
                   shapes (the W4A8 kernel also against a float64 integer
@@ -18,11 +19,15 @@ Phases, each printing one JSON line, all of them on every run:
                   ``kernel_ms`` is the kernel's wrapper on
                   prepared operands, ``path_ms`` the ``dequant_matmul``
                   call one linear of the main path makes (for W4A8 with
-                  the activation quantizer).  Also the staged W4A8 prefill
+                  the activation quantizer).  B1 and B4 also at M=77 and
+                  with their host microseconds a launch; B1 also at half
+                  groups of 64 columns, and timed beside its old mma.sync
+                  design on the same operands.  Also the staged W4A8 prefill
                   beside the kernel at M=4096, and a sweep of the
                   serving-batch kernel's two launch arguments.
 4. ``probes``     the w4 design probes (``ops/probe_gemm.py``, nine kernels
-                  of ``csrc/probe_gemm.cu``) through their entry points
+                  of ``csrc/probe_gemm.cu`` and B1's old design
+                  ``w4_current``) through their entry points
                   ``llmc_tpu_torch.tools.kernel_bench.run`` and
                   ``.w4_probe.run`` at the JAX tools' gate_up shape (K=4096,
                   N=22016) and M = 64, 77, 128 and 4096: every kernel held
@@ -82,9 +87,10 @@ Phases, each printing one JSON line, all of them on every run:
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
 and fails unless they equal what its path implies.  Then the
-``{"kernels": [...]}`` line (fifteen kernels: each of the main paths'
-launches from the serve phase of its own path, each probe's from the
-``probes`` phase), the
+``wgmma_kernels`` line (B1's and B4's registers, spills and host
+microseconds a launch, B1's old design), the ``{"kernels": [...]}`` line
+(sixteen kernels: each of the main paths' launches from the serve phase of
+its own path, each probe's from the ``probes`` phase), the
 nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero.
 There is no CPU mode: without a CUDA card the script exits 2.  The phase
@@ -317,14 +323,23 @@ def _gemm_ops(kind):
 
         def tiling(case):
             x, _, _, _, meta = case
-            return D._tiling(x.shape[0], meta.out_features,
-                             x.shape[1] // D.W8_CHUNK, sms(case))
+            tt, splits = D.wgmma_tiling(x.shape[0], meta.out_features,
+                                        x.shape[1] // D.WG_UNIT, sms(case))
+            return dict(tok_tile=tt, splits=splits)
         return _w8_case, kernel, plain, library, tiling, path
 
     def tiling(case):
         x, _, _, _, meta = case
-        return D.kernel_tiling(x.shape[0], meta.out_features, x.shape[1],
-                               D._half_group(meta)[0], sms(case))
+        if kind == 'w4':
+            tt, splits = D.wgmma_tiling(x.shape[0], meta.out_features,
+                                        D.w4_steps(x.shape[1],
+                                                   D._half_group(meta)[0]),
+                                        sms(case))
+            return dict(tok_tile=tt, splits=splits)
+        bm, splits = D.kernel_tiling(x.shape[0], meta.out_features,
+                                     x.shape[1], D._half_group(meta)[0],
+                                     sms(case))
+        return dict(bm=bm, splits=splits)
 
     def dense_weight(case):
         _, packed, s, zs, meta = case
@@ -387,9 +402,11 @@ def _rel(got, want):
     return err, err / max(want.abs().max().item(), 1e-30)
 
 
-def check_gemm(kind, dev, peaks, shapes, ms_list, time_it=True):
+def check_gemm(kind, dev, peaks, shapes, ms_list, timed_ms=(1, 128, 4096),
+               gs=128):
     """One dequant-matmul kernel ('w4', 'w4a8' or 'w8') at every main-path
-    (N, K), each M, sym and asym.  The tolerance is TOL_W4_F32 at f32
+    (N, K), each M, sym and asym, group size ``gs``; the symmetric case
+    timed at each M of ``timed_ms``.  The tolerance is TOL_W4_F32 at f32
     output and TOL_W4_BF16 at bf16; W4A8 is also run at f32 output against
     the float64 oracle."""
     make, kernel, plain, library, tiling, path = _gemm_ops(kind)
@@ -400,18 +417,17 @@ def check_gemm(kind, dev, peaks, shapes, ms_list, time_it=True):
         tol = TOL_W4_F32 if is_head else TOL_W4_BF16
         for M in ms_list:
             for sym in (True, False):
-                case = make(N, K, M, sym, gen, dev)
+                case = make(N, K, M, sym, gen, dev, gs)
                 got = kernel(case, case[1], out_dtype)
                 want = plain(case)
                 torch.cuda.synchronize()
                 err, rel = _rel(got, want)
                 worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
                                                                 rel)
-                what = f'{kind} N={N} K={K} M={M} sym={sym}'
+                what = f'{kind} N={N} K={K} M={M} sym={sym} gs={gs}'
                 require(bool(torch.isfinite(got).all()) and rel <= tol,
                         f'{what}: rel err {rel:.3g} > {tol}')
-                bm, splits = tiling(case)
-                row = dict(N=N, K=K, M=M, sym=sym, bm=bm, splits=splits,
+                row = dict(N=N, K=K, M=M, sym=sym, gs=gs, **tiling(case),
                            out=str(out_dtype).replace('torch.', ''),
                            max_abs_err=err, max_rel_err=rel)
                 if kind == 'w4a8':
@@ -425,7 +441,7 @@ def check_gemm(kind, dev, peaks, shapes, ms_list, time_it=True):
                     row.update(f32_rel_err_plain=rel_p,
                                f32_rel_err_oracle=rel_o)
                     del got32
-                if time_it and sym:
+                if M in timed_ms and sym:
                     row.update(_time_gemm(kind, case, out_dtype, peaks,
                                           kernel, plain, library, path, gen))
                     if kind == 'w4a8' and M >= 4096:
@@ -448,6 +464,47 @@ def _time_staged(case, out_dtype, want):
         return D._dequant_matmul_a8_staged(x, packed, s, zs, meta, out_dtype)
     _, rel = _rel(staged(), want)
     return dict(staged_ms=cuda_ms(staged, 5, 1), staged_rel_err=rel)
+
+
+def host_us(fn, n=50):
+    """Host microseconds a call of ``fn`` takes to enqueue its work (the
+    device is synchronised before and after, not in between)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def graph_ms(fn, n=20):
+    """Device milliseconds a call of ``fn`` takes with the host out of the
+    way: ``n`` calls captured in one CUDA graph, replayed and timed with
+    CUDA events (``kernel_ms`` times calls as the host enqueues them, which
+    at a few microseconds of device work a call reads the host)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    ms = cuda_ms(g.replay, 5, 1) / n
+    del g
+    return ms
+
+
+def _old_w4(case, weight, out_dtype):
+    """B1's design before its wgmma redesign (the ``w4_current`` probe) on
+    the same operands."""
+    from llmc_tpu_torch.ops.probe_gemm import w4_mma_sync
+    x, _, s, zs, meta = case
+    return w4_mma_sync(x, weight, s, zs, meta, out_dtype)
 
 
 def _time_gemm(kind, case, out_dtype, peaks, kernel, plain, library, path,
@@ -473,6 +530,16 @@ def _time_gemm(kind, case, out_dtype, peaks, kernel, plain, library, path,
     iters = 10 if M >= 4096 else 50
     kernel_ms = cuda_ms(rotating(kernel), iters)
     path_ms = cuda_ms(rotating(path), iters)
+    old = {}
+    if kind in ('w4', 'w8'):
+        old['host_us'] = host_us(rotating(kernel))
+        if M <= 128:
+            old['device_ms'] = graph_ms(rotating(kernel))
+    if kind == 'w4':
+        old.update(old_design_ms=cuda_ms(rotating(_old_w4), iters),
+                   old_design_host_us=host_us(rotating(_old_w4)))
+        if M <= 128:
+            old['old_design_device_ms'] = graph_ms(rotating(_old_w4))
     plain_ms = cuda_ms(lambda: plain(case), 3, 1)
     lib = library(case)
     library_ms = cuda_ms(lib, iters)
@@ -482,7 +549,7 @@ def _time_gemm(kind, case, out_dtype, peaks, kernel, plain, library, path,
                                     has_z=kind != 'w8' or case[3] is not None)
     return dict(kernel_ms=kernel_ms, path_ms=path_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, **old)
 
 
 def flash_inputs(dev, B=128, smax=96, kvh=32, H=32, hd=128, L=2, quant=True,
@@ -815,7 +882,13 @@ PROBE_KERNELS = {
     'w4_xc': ('tools/kernel_bench.py:297',
               'tools/kernel_bench.py::_xc_kernel'),
     'i4_native': ('tools/w4_probe.py:295', 'tools/w4_probe.py::_i4_big'),
+    # B1's design before its wgmma redesign, the tools' ``w4_current``
+    'w4_mma_sync': ('llmc_tpu/ops/dequant_matmul.py:426',
+                    'llmc_tpu/ops/dequant_matmul.py::_kernel_w4'),
 }
+# the CUDA source of each probe
+PROBE_SOURCES = dict(dict.fromkeys(PROBE_KERNELS, 'probe_gemm.cu'),
+                     w4_mma_sync='dequant_matmul_w4_mma.cu')
 # every kernel of the port: the probes, then the main paths' six
 KERNEL_NAMES = tuple(PROBE_KERNELS) + (
     'w4_dequant_matmul', 'w4a8_dequant_matmul', 'w8_dequant_matmul',
@@ -1493,7 +1566,7 @@ def probe_kernel_record(name, rec, launches, M=128):
     row = next(r for r in rows if r['M'] == M)
     replaces, replaces_fn = PROBE_KERNELS[name]
     return dict(name=name, route='cuda',
-                source='llmc_tpu_torch/csrc/probe_gemm.cu',
+                source=f'llmc_tpu_torch/csrc/{PROBE_SOURCES[name]}',
                 replaces=replaces, replaces_fn=replaces_fn,
                 launches=launches[name],
                 max_abs_err=max(r['max_abs_err'] for r in rows),
@@ -1515,6 +1588,64 @@ def require_served(rec) -> None:
             f'with max_new_tokens valid token ids')
     require(rec['requests'] >= 8, f'{rec["phase"]}: fewer than 8 requests')
     require_launches(rec)
+
+
+# instantiations: 5 token tiles x 2 outputs x (B1) 1 or 2 pieces a step,
+# (B4) with or without zeros
+WGMMA_KERNELS = {'w4_dequant_matmul': 20, 'w8_dequant_matmul': 20}
+
+
+def wgmma_build(build_info):
+    """Registers and spill bytes of every instantiation of the wgmma
+    kernels (B1, B4), from ptxas; fails on a spill or a missing kernel."""
+    out = {}
+    for name, want in WGMMA_KERNELS.items():
+        insts = {k: v for k, v in build_info.get('kernels', {}).items()
+                 if f'{name}_kernel' in k}
+        require(len(insts) == want, f'{name}: {len(insts)} instantiations '
+                f'in the ptxas report, want {want}')
+        spills = {k: v for k, v in insts.items()
+                  if v.get('spill_stores', 0) or v.get('spill_loads', 0)}
+        require(not spills, f'{name} spills: {spills}')
+        out[name] = insts
+    return out
+
+
+def _at(row):
+    return f'N={row["N"]} K={row["K"]} M={row["M"]}'
+
+
+def wgmma_summary(build, gemm, probes):
+    """The B1 and B4 entries that go before the ``kernels`` line: each
+    kernel's registers and spills, its host microseconds a launch at every
+    timed shape and its device time through a CUDA graph up to M=128 (B1
+    beside its old design), and B1's old design from the probes phase
+    (``w4_current``, gate_up, M = 64, 128, 4096)."""
+    rec = {}
+    for kind, name in (('w4', 'w4_dequant_matmul'),
+                       ('w8', 'w8_dequant_matmul')):
+        rows = [r for r in gemm[kind][0] if 'kernel_ms' in r]
+        rec[name] = dict(
+            registers=sorted({v['registers'] for v in build[name].values()}),
+            spill_bytes=sum(v.get('spill_stores', 0) + v.get('spill_loads', 0)
+                            for v in build[name].values()),
+            host_us={_at(r): r['host_us'] for r in rows},
+            device_ms={_at(r): r['device_ms'] for r in rows
+                       if 'device_ms' in r})
+    rows = [r for r in gemm['w4'][0] if 'kernel_ms' in r]
+    rec['w4_dequant_matmul'].update(
+        old_design_host_us={_at(r): r['old_design_host_us'] for r in rows},
+        old_design_device_ms={_at(r): r['old_design_device_ms'] for r in rows
+                              if 'old_design_device_ms' in r},
+        old_design_ms=old_design_ms(probes))
+    return rec
+
+
+def old_design_ms(probes):
+    """``w4_current`` (B1's mma.sync design) from the probes phase at
+    gate_up, M -> ms (``w4_probe``'s line)."""
+    return {r['M']: r['ms'] for r in probes['w4_probe']
+            if r['kernel'] == 'w4_mma_sync' and r['M'] in (64, 128, 4096)}
 
 
 def drive_mode(mode, dev, peaks, card):
@@ -1583,9 +1714,22 @@ def main(argv=None) -> int:
     _build.lib()
     emit(dict(phase='build', wall_s=time.perf_counter() - t0,
               **_build.BUILD_INFO))
+    wg_build = wgmma_build(_build.BUILD_INFO)
 
-    gemm = {kind_: check_gemm(kind_, dev, peaks, MAIN_SHAPES, (1, 128, 4096))
+    # B1 and B4 also at M=64 (timed: the probes' M) and M=77 (rows off
+    # every token tile), and B1 at group size 64 (half groups of 64
+    # columns, and a single group of K=128)
+    gemm = {kind_: check_gemm(kind_, dev, peaks, MAIN_SHAPES,
+                              (1, 128, 4096) if kind_ == 'w4a8'
+                              else (1, 64, 77, 128, 4096),
+                              (1, 128, 4096) if kind_ == 'w4a8'
+                              else (1, 64, 128, 4096))
             for kind_ in ('w4', 'w4a8', 'w8')}
+    gs64 = [check_gemm('w4', dev, peaks, shapes, (1, 77, 128), timed_ms=(),
+                       gs=gs)
+            for shapes, gs in (([(22016, 4096, False), (32000, 4096, True),
+                                 (4096, 128, False)], 64),
+                               ([(4096, 128, False)], 128))]
     attn = {name: check_attention(name, dev, peaks)
             for name in ('flash_decode', 'batch_decode')}
     fp8 = check_fp8(dev, peaks)
@@ -1596,6 +1740,7 @@ def main(argv=None) -> int:
             f'(limit {TOL_FP8_ORACLE})')
     emit(dict(phase='kernel_checks', sms=sm_count(0), **card,
               w4_dequant_matmul=gemm['w4'][0],
+              w4_dequant_matmul_half_group_64=gs64[0][0] + gs64[1][0],
               w4a8_dequant_matmul=gemm['w4a8'][0],
               w4a8_worst_rel_err_vs_integer_oracle=gemm['w4a8'][3],
               w8_dequant_matmul=gemm['w8'][0],
@@ -1691,12 +1836,17 @@ def main(argv=None) -> int:
         return next(r for r in gemm[kind_][0]
                     if (r['N'], r['M']) == (22016, 128) and r['sym'])
     at_gemm = 'gate_up N=22016 K=4096 M=128 bf16'
+    emit(dict(phase='wgmma_kernels', **card,
+              **wgmma_summary(wg_build, gemm, probes)))
+    w4_errs = [max(e) for e in zip(gemm['w4'][1:3], gs64[0][1:3],
+                                   gs64[1][1:3])]
     at_attn = 'B=128 Smax=96 KVH=32 hd=128 int8, 64 valid'
     dm = 'llmc_tpu/ops/dequant_matmul.py'
     emit({'kernels': [
-        kernel_record('w4_dequant_matmul', 'dequant_matmul_w4.cu',
-                      f'{dm}:189', f'{dm}::_kernel_w4', launches,
-                      gemm['w4'][1:3], gemm_row('w4'), at_gemm),
+        dict(kernel_record('w4_dequant_matmul', 'dequant_matmul_w4.cu',
+                           f'{dm}:189', f'{dm}::_kernel_w4', launches,
+                           w4_errs, gemm_row('w4'), at_gemm),
+             old_design_ms=old_design_ms(probes)),
         kernel_record('w4a8_dequant_matmul', 'dequant_matmul_w4a8.cu',
                       f'{dm}:236', f'{dm}::_kernel_w4a8', launches,
                       gemm['w4a8'][1:3], gemm_row('w4a8'), at_gemm),

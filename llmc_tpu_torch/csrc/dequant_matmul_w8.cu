@@ -6,177 +6,199 @@
 //   w[n,k] = bf16( (f32(code[n,k]) - z[g,n]) * s[g,n] )
 //   y[m,n] = sum_k bf16(x[m,k]) * w[n,k]          (f32 accumulation)
 // The rounding of the dequantized weight to bf16 is part of the function,
-// so the scale multiplies the weight BEFORE the dot here; it must not move
-// to after the dot (dequant_matmul_w4.cu may do that: its codes are exact
-// in bf16, these products are not).
+// so the scale multiplies the weight BEFORE the dot here, in the decode of
+// wgmma's A fragment; it must not move to after the dot
+// (dequant_matmul_w4.cu may do that: its codes are exact in bf16, these
+// products are not).
 //
 // Layout.  x [M, K] bf16; codes [N, K] int8 (signed); s, z [N, ng] f32, as
 // the packer stores them (z absent when has_z == 0); gs the group size, a
-// multiple of KC = 128, so every chunk lies in one group.  A warp reads
-// one (s, z) per output column and chunk, 4 bytes of a 32-byte sector
-// whose other groups the following chunks find in the cache.
+// multiple of 64, so every 64-column unit lies in one group.
 //
 // What bounds it on an H100: at decode (M <= 128) the weight stream, K
 // bytes per output column — the card's memory rate; at M = 4096 the bf16
-// tensor-core rate, and before that this kernel's own dequantization: four
-// instructions per weight on the CUDA cores, done once per CTA and reused
-// by BM / 16 mma.  Design: 256 threads on a BM x 128 output tile, BM in
-// {16, 32, 64} from M; a ring of STAGES cp.async buffers over KC-column
-// chunks of x and codes; the 8 warps side by side along N, each over all
-// BM rows, so a B fragment is dequantized once and feeds BM / 16 mma.sync
-// m16n8k16 bf16 -> f32; A fragments by ldmatrix; split-K over CTAs below
-// one wave, summed in a fixed order by a second kernel.  Not yet: wgmma,
-// TMA, a wider row tile to amortise the dequantization at prefill.
+// tensor-core rate, and before it this kernel's dequantization: four to
+// five instructions a weight on the CUDA cores (a byte_perm to an f32
+// magic number, the exact subtractions, the scale, half a bf16x2 pack),
+// done once per CTA and T tokens.  The design before this one (a 64-row
+// mma.sync tile, 8 warps along N each loading the whole x tile) reached
+// neither bound.  This one runs on the skeleton of wgmma_common.cuh: the
+// token count is wgmma's N, so the weight is read and dequantized once per
+// T <= 128 tokens; x reaches the tensor cores from shared memory by TMA;
+// the codes are dequantized in registers straight into wgmma's A fragment,
+// the next unit's while the tensor cores run the current one.  The
+// dequantization still binds it: on gate_up at M=4096 it read 2.23-2.52 ms
+// as built, 1.35 with no dequantization, 1.59-1.63 with no wgmma
+// (tools/wgmma_variants.py, PERF.md).
 
-#include "gemm_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
-template <int BM>
-struct Tile {
-  static constexpr int WN = BN / 8;
-  static constexpr int MI = BM / 16, NJ = WN / 8;
-  static constexpr int XS = KC + 8;   // x smem row stride, bf16 elements
-  static constexpr int WS = KC + 16;  // codes smem row stride, bytes
-  static constexpr int X_BYTES = BM * XS * 2;
-  static constexpr int W_BYTES = BN * WS;
-  static constexpr int STAGE = X_BYTES + W_BYTES;
-  static constexpr int SMEM = STAGES * STAGE;
-  static_assert(X_BYTES % 16 == 0 && W_BYTES % 16 == 0, "alignment");
-};
+using namespace wg;
 
-// two int8 codes (the low two bytes of u) -> bf16x2 of (code - z) * s
-__device__ __forceinline__ uint32_t dequant2(uint32_t u, float s, float z) {
-  const float c0 = (float)(int8_t)(u & 0xFF);
-  const float c1 = (float)(int8_t)((u >> 8) & 0xFF);
-  const __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(c0 - z, s),
-                                                 __fmul_rn(c1 - z, s));
+// two int8 codes of w2 (bytes picked by sel0, sel1; every byte of w2 is
+// code + 128) -> bf16x2 of bf16((code - z) * s), or bf16(code * s) for a
+// weight without zeros.  0x4B0000cc is the f32 2^23 + cc, so the code comes
+// out exact.
+template <bool HAS_Z>
+__device__ __forceinline__ uint32_t dequant2(uint32_t w2, uint32_t sel0,
+                                             uint32_t sel1, float s, float z) {
+  float c0 = __fsub_rn(__uint_as_float(__byte_perm(w2, 0x4B000000u, sel0)),
+                       8388736.f);
+  float c1 = __fsub_rn(__uint_as_float(__byte_perm(w2, 0x4B000000u, sel1)),
+                       8388736.f);
+  if (HAS_Z) {
+    c0 = __fsub_rn(c0, z);
+    c1 = __fsub_rn(c1, z);
+  }
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(__fmul_rn(c0, s), __fmul_rn(c1, s));
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int BM, bool OUT_F32>
-__global__ void __launch_bounds__(NT, min_blocks<BM>())
-w8_dequant_matmul_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ s, const float* __restrict__ z,
-    void* __restrict__ out, float* __restrict__ partial, int M, int N, int K,
-    int gs, int has_z, int chunks_per_split) {
-  using T = Tile<BM>;
-  extern __shared__ __align__(16) uint8_t smem[];
+template <int T, bool HAS_Z, bool OUT_F32>
+__global__ void __launch_bounds__(NTHREADS, 1) w8_dequant_matmul_kernel(
+    const __grid_constant__ CUtensorMap tw,
+    const __grid_constant__ CUtensorMap tx, const float* __restrict__ s,
+    const float* __restrict__ z, void* __restrict__ out,
+    float* __restrict__ partial, int M, int N, int K, int gs,
+    int units_per_split) {
+  using L = Layout<T, 1, false>;
+  constexpr int S = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + S;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wn = warp * T::WN;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int total = K / KC, ng = K / gs;
-  const int c_begin = blockIdx.z * chunks_per_split;
-  const int c_end = min(total, c_begin + chunks_per_split);
-  const int n_chunks = c_end - c_begin;
+  const int tid = threadIdx.x;
+  // output tiles with the weight-row tiles fastest
+  const int nt = (N + ROWS - 1) / ROWS;
+  const int m0 = (blockIdx.x / nt) * T, n0 = (blockIdx.x % nt) * ROWS;
+  const int units = K / UNIT, ng = K / gs;
+  const int u0 = blockIdx.z * units_per_split;
+  const int nu = max(0, min(units, u0 + units_per_split) - u0);
 
-  auto stage_x = [&](int st) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + st * T::STAGE);
-  };
-  auto stage_w = [&](int st) { return smem + st * T::STAGE + T::X_BYTES; };
-
-  auto load_chunk = [&](int st, int i) {
-    const size_t k0 = (size_t)(c_begin + i) * KC;
-    __nv_bfloat16* sx = stage_x(st);
-    uint8_t* sw = stage_w(st);
-    constexpr int XV = KC / 8;  // 16-byte vectors per x row
-    for (int v = tid; v < BM * XV; v += NT) {
-      const int r = v / XV, col = (v % XV) * 8;
-      const int m = m0 + r;
-      cp_async16(&sx[r * T::XS + col],
-                 x + (size_t)min(m, M - 1) * K + k0 + col, m < M);
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS / 32);  // one arrival a warp
     }
-    constexpr int WV = KC / 16;  // 16-byte vectors per codes row
-    for (int v = tid; v < BN * WV; v += NT) {
-      const int r = v / WV, col = (v % WV) * 16;
-      const int n = n0 + r;
-      cp_async16(&sw[r * T::WS + col],
-                 w + (size_t)min(n, N - 1) * K + k0 + col, n < N);
-    }
-  };
-
-  float acc[T::MI][T::NJ][4];
-#pragma unroll
-  for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < T::NJ; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-
-#pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < n_chunks) load_chunk(j, j);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = 0; i < n_chunks; ++i) {
-    const int st = i % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // chunk i landed; every warp is done with chunk i-1
-    if (i + STAGES - 1 < n_chunks)
-      load_chunk((i + STAGES - 1) % STAGES, i + STAGES - 1);
-    cp_async_commit();
+  __syncthreads();
 
-    const __nv_bfloat16* sx = stage_x(st);
-    const uint8_t* sw = stage_w(st);
-
-    // this chunk's scale group: one (s, z) per output column of the warp
-    const int sg = ((c_begin + i) * KC) / gs;
-    float sv[T::NJ], zv[T::NJ];
-#pragma unroll
-    for (int nj = 0; nj < T::NJ; ++nj) {
-      const int n = n0 + wn + nj * 8 + g;
-      sv[nj] = n < N ? s[(size_t)n * ng + sg] : 0.f;
-      zv[nj] = (has_z && n < N) ? z[(size_t)n * ng + sg] : 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t a[T::MI][4];
-#pragma unroll
-      for (int mi = 0; mi < T::MI; ++mi)
-        ldmatrix_x4(a[mi], &sx[(mi * 16 + (lane & 15)) * T::XS + kk +
-                               8 * (lane >> 4)]);
-#pragma unroll
-      for (int nj = 0; nj < T::NJ; ++nj) {
-        // B fragment: column n = g, k = 2t, 2t+1 and 2t+8, 2t+9
-        const uint8_t* wb = &sw[(wn + nj * 8 + g) * T::WS + kk + 2 * t];
-        const uint32_t b0 = dequant2(
-            *reinterpret_cast<const uint16_t*>(wb), sv[nj], zv[nj]);
-        const uint32_t b1 = dequant2(
-            *reinterpret_cast<const uint16_t*>(wb + 8), sv[nj], zv[nj]);
-#pragma unroll
-        for (int mi = 0; mi < T::MI; ++mi)
-          mma16816(acc[mi][nj], a[mi], b0, b1);
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) {
+      for (int i = 0; i < nu; ++i) {
+        const int st = i % S;
+        mbar_wait(&empty[st], ((i / S) & 1) ^ 1);
+        uint8_t* buf = smem + st * L::STAGE;
+        const int k0 = (u0 + i) * UNIT;
+        mbar_expect_tx(&full[st], L::STAGE);
+        tma_load_2d(buf, &tw, &full[st], k0, n0);
+        tma_load_2d(buf + L::W_BYTES, &tx, &full[st], k0, m0);
       }
     }
-  }
+  } else {
+    const int wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = wgi * 64 + warp * 16 + g;  // tile rows r0 and r0 + 8
+    const int nr[2] = {n0 + r0, n0 + r0 + 8};
+    float acc[T / 2];
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) acc[i] = 0.f;
 
-  write_tile<T::MI, T::NJ, OUT_F32>(acc, out, partial, nullptr, M, N, m0,
-                                     n0 + wn, lane, blockIdx.z);
+    // the scales of unit i's group, loaded a unit ahead of its decode
+    auto scales = [&](float(&dst)[4], int i) {
+      const int sg = ((u0 + i) * UNIT) / gs;
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const size_t o = (size_t)nr[rh] * ng + sg;
+        dst[rh] = nr[rh] < N ? __ldg(s + o) : 0.f;
+        dst[2 + rh] = (HAS_Z && nr[rh] < N) ? __ldg(z + o) : 0.f;
+      }
+    };
+    float sc[4], sc_next[4];
+    // A fragments of unit i (k16 step ks: {row g, g+8} x {k 2t..,
+    // k 2t+8..}), dequantized while the tensor cores work on unit i - 1
+    auto decode = [&](uint32_t(&a)[4][4], int i) {
+      if (i + 1 < nu) scales(sc_next, i + 1);
+      const int st = i % S;
+      mbar_wait(&full[st], (i / S) & 1);
+      const uint8_t* buf = smem + st * L::STAGE;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const uint32_t w2 =
+              frag_bytes(buf, r0 + 8 * rh, ks, t) ^ 0x80808080u;
+          a[ks][rh] =
+              dequant2<HAS_Z>(w2, 0x7540, 0x7541, sc[rh], sc[2 + rh]);
+          a[ks][2 + rh] =
+              dequant2<HAS_Z>(w2, 0x7542, 0x7543, sc[rh], sc[2 + rh]);
+        }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[e] = sc_next[e];
+    };
+    // issue unit i's wgmma on fragments a; then, with it in flight, wait
+    // for unit i - 1, release its stage, and decode unit i + 1 into b
+    auto step = [&](uint32_t(&a)[4][4], uint32_t(&b)[4][4], int i) {
+      const uint64_t d = desc_b128(smem + (i % S) * L::STAGE + L::W_BYTES);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_rs<T>(acc, a[ks], d + 2 * ks, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(b);
+      if (i > 0) release_stage(&empty[(i - 1) % S], lane);
+      if (i + 1 < nu) decode(b, i + 1);
+    };
+    uint32_t a0[4][4], a1[4][4];
+    if (nu > 0) scales(sc, 0);
+    if (nu > 0) decode(a0, 0);
+    for (int i = 0; i < nu; i += 2) {
+      step(a0, a1, i);
+      if (i + 1 < nu) step(a1, a0, i + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(a0);
+    fence_regs(a1);
+    if (nu > 0) release_stage(&empty[(nu - 1) % S], lane);
+    store_tile<T, OUT_F32>(acc, smem, out, partial, M, N, m0, n0, blockIdx.z,
+                           r0, t);
+  }
 }
 
-template <int BM, bool OUT_F32>
+template <int T, bool OUT_F32>
 int launch(const void* x, const void* codes, const void* s, const void* z,
            void* out, void* partial, int M, int N, int K, int gs, int has_z,
            int splits, cudaStream_t st) {
-  using T = Tile<BM>;
-  auto kern = w8_dequant_matmul_kernel<BM, OUT_F32>;
-  static bool attr = false;
-  if (!attr) {
+  using L = Layout<T, 1, false>;
+  auto kern = has_z ? w8_dequant_matmul_kernel<T, true, OUT_F32>
+                    : w8_dequant_matmul_kernel<T, false, OUT_F32>;
+  static bool attr[2] = {false, false};
+  if (!attr[has_z != 0]) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         T::SMEM);
-    attr = true;
+                         L::SMEM);
+    attr[has_z != 0] = true;
   }
-  const int total = K / KC;
-  const int cps = (total + splits - 1) / splits;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  kern<<<grid, NT, T::SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(codes),
-      static_cast<const float*>(s), static_cast<const float*>(z), out,
-      splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, gs, has_z,
-      cps);
+  CUtensorMap tw, tx;
+  int e = encode_2d(&tw, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K,
+                    ROWS, UNIT, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = encode_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K,
+                  T, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != 0) return e;
+  const int units = K / UNIT;
+  const int ups = (units + splits - 1) / splits;
+  const dim3 grid(((M + T - 1) / T) * ((N + ROWS - 1) / ROWS), 1, splits);
+  kern<<<grid, NTHREADS, L::SMEM, st>>>(
+      tw, tx, static_cast<const float*>(s), static_cast<const float*>(z), out,
+      splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, gs, ups);
   if (splits > 1)
     launch_split_sum<OUT_F32>(partial, out, nullptr, splits, M, N, st);
   return static_cast<int>(cudaGetLastError());
@@ -184,17 +206,19 @@ int launch(const void* x, const void* codes, const void* s, const void* z,
 
 }  // namespace
 
-// bm in {16, 32, 64}; gs a multiple of 128 (KC) that divides K; splits >= 1
-// K-splits (partial: [splits, M, N] f32 scratch when splits > 1).
+// tok_tile in {8, 16, 32, 64, 128}; gs a multiple of 64 that divides K;
+// splits >= 1 K-splits (partial: [splits, M, N] f32 scratch when
+// splits > 1).
 extern "C" int llmc_w8_dequant_matmul(const void* x, const void* codes,
                                       const void* s, const void* z, void* out,
                                       void* partial, int M, int N, int K,
-                                      int gs, int has_z, int out_f32, int bm,
-                                      int splits, void* stream) {
+                                      int gs, int has_z, int out_f32,
+                                      int tok_tile, int splits,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_f32)
-    return LLMC_DISPATCH_BM(bm, true, launch, x, codes, s, z, out, partial, M,
-                            N, K, gs, has_z, splits, st);
-  return LLMC_DISPATCH_BM(bm, false, launch, x, codes, s, z, out, partial, M,
-                          N, K, gs, has_z, splits, st);
+    return LLMC_DISPATCH_T(tok_tile, true, launch, x, codes, s, z, out,
+                           partial, M, N, K, gs, has_z, splits, st);
+  return LLMC_DISPATCH_T(tok_tile, false, launch, x, codes, s, z, out,
+                         partial, M, N, K, gs, has_z, splits, st);
 }

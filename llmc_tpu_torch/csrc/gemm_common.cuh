@@ -1,9 +1,10 @@
-// Pieces shared by the GEMM kernels (dequant_matmul_w4.cu,
-// dequant_matmul_w4a8.cu, dequant_matmul_w8.cu, fp8_block_gemm.cu): the
-// cp.async ring's
-// primitives, the tensor-core fragments, the output write and the
-// split-K sum.  Everything sits in an anonymous namespace, so each
-// source gets its own copy.
+// Pieces shared by the mma.sync GEMM kernels (dequant_matmul_w4a8.cu,
+// fp8_block_gemm.cu, the probes of probe_gemm.cu and B1's old design in
+// dequant_matmul_w4_mma.cu): the cp.async ring's primitives, the
+// tensor-core fragments, the output write and the split-K sum.  The wgmma
+// kernels (wgmma_common.cuh: dequant_matmul_w4.cu, dequant_matmul_w8.cu)
+// use only the split-K sum.  Everything sits in an anonymous namespace, so
+// each source gets its own copy.
 
 #pragma once
 

@@ -34,16 +34,19 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every pointer and the stream as void*, every int as int
 SIGNATURES = {
-    # x, packed, s, zs, out, partial, M, N, K, gsl, single, out_f32,
-    # bm, splits, stream
-    'llmc_w4_dequant_matmul': [_VP] * 6 + [_I] * 8 + [_VP],
+    # x, packed, s, zs, sums, out, partial, M, N, K, gsl, single, out_f32,
+    # tok_tile, splits, stream
+    'llmc_w4_dequant_matmul': [_VP] * 7 + [_I] * 8 + [_VP],
+    # x, packed, s, zs, out, partial, M, N, K, gsl, single, out_f32, bm,
+    # splits, stream (B1's mma.sync design, a probe)
+    'llmc_w4_mma_sync': [_VP] * 6 + [_I] * 8 + [_VP],
     # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
     # kv_kind, chunk, stream
     'llmc_flash_decode': [_VP] * 7 + [_I] * 8 + [_VP],
     # x, packed, s, zs, sx, out, partial, M, N, K, gsl, single, out_f32,
     # bm, splits, stream
     'llmc_w4a8_dequant_matmul': [_VP] * 7 + [_I] * 8 + [_VP],
-    # x, codes, s, z, out, partial, M, N, K, gs, has_z, out_f32, bm,
+    # x, codes, s, z, out, partial, M, N, K, gs, has_z, out_f32, tok_tile,
     # splits, stream
     'llmc_w8_dequant_matmul': [_VP] * 6 + [_I] * 8 + [_VP],
     # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
@@ -136,8 +139,11 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError('nvcc link failed:\n' + link.stderr[-4000:])
     os.replace(tmp, lib)
+    text = '\n'.join(logs)
     BUILD_INFO.update(cached=False, seconds=time.perf_counter() - t0,
-                      kernels=_parse_ptxas('\n'.join(logs)),
+                      kernels=_parse_ptxas(text),
+                      warnings=[ln for ln in text.splitlines()
+                                if 'warning' in ln.lower()],
                       sources=[s.name for s in srcs])
     return lib
 

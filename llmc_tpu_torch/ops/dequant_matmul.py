@@ -35,6 +35,7 @@ its sign.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -263,8 +264,11 @@ def _half_group(meta: QMeta) -> Tuple[int, bool]:
     return (K // 2 if single else gs), single
 
 
-def _check_kernel_meta(meta: QMeta, M: int, K: int) -> Tuple[int, bool]:
-    """Raise on a weight the kernel does not take; returns (gsl, single)."""
+def _check_kernel_meta(meta: QMeta, M: int, K: int, span: int = 64,
+                       item: str = 'B1') -> Tuple[int, bool]:
+    """Raise on a weight the kernel does not take; returns (gsl, single).
+    ``span``: the columns of a half group the kernel reads at a time (64
+    for the W4A16 kernel, ROADMAP ``item``; 128 for W4A8's)."""
     N = meta.out_features
     gsl, single = _half_group(meta)
     if meta.bits != 4 or K != meta.in_features:
@@ -273,11 +277,10 @@ def _check_kernel_meta(meta: QMeta, M: int, K: int) -> Tuple[int, bool]:
     if not single and (K // gsl) % 2:
         raise ValueError(f'odd group count {K // gsl}: the group-pair '
                          f'layout needs an even count')
-    if gsl % 128:
+    if gsl % span:
         raise NotImplementedError(
-            f'the kernel reads 128-column chunks of each half group; a span '
-            f'of {gsl} (group size 64, or K == gs < 256) is not ported yet '
-            f'(ROADMAP B1)')
+            f'the kernel reads {span}-column pieces of each half group; a '
+            f'span of {gsl} is not ported yet (ROADMAP {item})')
     if N % 2 or M < 1:
         raise ValueError(f'kernel needs an even N and M >= 1 (N={N}, M={M})')
     return gsl, single
@@ -289,37 +292,83 @@ def _check_kernel_meta(meta: QMeta, M: int, K: int) -> Tuple[int, bool]:
 _RESIDENT = {16: 2, 32: 1, 64: 1}
 
 
+def _even_splits(units: int, splits: int) -> int:
+    """The fewest splits that deal ``units`` K steps out as evenly as
+    ``splits`` do (every split gets at least one)."""
+    if splits <= 1:
+        return 1
+    per = -(-units // splits)
+    return -(-units // per)
+
+
 def _tiling(M: int, N: int, units: int, sms: int,
             bm: Optional[int] = None) -> Tuple[int, int]:
-    """(row tile BM, K splits) when the K loop has ``units`` steps that
-    can be dealt out to CTAs; ``bm`` fixes the row tile (else it follows
-    M)."""
+    """(row tile BM, K splits) of the mma.sync kernels (W4A8, FP8-block,
+    the probes) when the K loop has ``units`` steps that can be dealt out
+    to CTAs; ``bm`` fixes the row tile (else it follows M)."""
     bm = bm or next(b for b in (16, 32, 64) if M <= b or b == 64)
     tiles = -(-N // 128) * -(-M // bm)
     want = sms * _RESIDENT[bm]
     splits = 1 if tiles >= want else min(units, -(-want // tiles))
-    if splits > 1:
-        per = -(-units // splits)
-        splits = -(-units // per)
-    return bm, splits
+    return bm, _even_splits(units, splits)
 
 
 def kernel_tiling(M: int, N: int, K: int, gsl: int,
                   sms: int) -> Tuple[int, int]:
-    """(row tile BM, K splits) for the W4 kernels on a card of ``sms``
+    """(row tile BM, K splits) for the W4A8 kernel on a card of ``sms``
     SMs: the K loop is dealt out in group pairs."""
     return _tiling(M, N, (K // 2) // gsl, sms)
+
+
+# The wgmma kernels (W4A16, W8A16): a CTA covers WG_ROWS weight rows by a
+# token tile from TOKEN_TILES (wgmma's N), and its K loop walks units of
+# WG_UNIT weight bytes a row (64 columns of each half group for W4, 64
+# columns for W8).
+WG_ROWS = 128
+WG_UNIT = 64
+TOKEN_TILES = (8, 16, 32, 64, 128)
+# a split's cost in waves: above the decode tiles, and at them
+SPLIT_COST = (0.05, 0.02)
+
+
+def w4_steps(K: int, gsl: int) -> int:
+    """K steps of the W4A16 kernel: two 64-column pieces of each half group
+    a step where a half group holds two (one epilogue a step), else one."""
+    units = (K // 2) // WG_UNIT
+    return units // 2 if gsl % (2 * WG_UNIT) == 0 else units
+
+
+@functools.lru_cache(maxsize=4096)
+def wgmma_tiling(M: int, N: int, units: int,
+                 sms: int) -> Tuple[int, int]:
+    """(token tile T, K splits) of the wgmma kernels on a card of ``sms``
+    SMs (one CTA fills an SM).  T is the smallest tile that holds the M
+    tokens, else 128, repeated.  The K loop of ``units`` steps is split
+    over CTAs, below four waves of tiles, to the count with the fewest
+    waves of CTAs per split (a tail wave costs as much as a full one), each
+    split beyond the first counted as SPLIT_COST[T <= 16] of a wave (its
+    f32 partials: a few rows at decode tiles, the whole output above
+    them)."""
+    T = next(t for t in TOKEN_TILES if M <= t or t == TOKEN_TILES[-1])
+    tiles = -(-N // WG_ROWS) * -(-M // T)
+    if tiles >= 4 * sms:      # a tail of at most a quarter: no split
+        return T, 1
+    cost = SPLIT_COST[T <= 16]
+    splits = min(range(1, min(units, 16) + 1),
+                 key=lambda n: (-(-tiles * n // sms) / n + cost * (n - 1), n))
+    return T, _even_splits(units, splits)
 
 
 def _check_operands(x, want, out_dtype) -> None:
     """Each kernel operand: dtype, shape, device, contiguity, alignment;
     and ``out_dtype`` bf16 or f32 (None: the caller's own check)."""
+    dev = x.device
     for name, (t, dt, shape) in want.items():
-        if t.dtype != dt or tuple(t.shape) != shape:
+        if t.dtype != dt or t.shape != shape:
             raise ValueError(f'{name}: want {dt} {shape}, got {t.dtype} '
                              f'{tuple(t.shape)}')
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f'{name}: must be contiguous on {x.device}')
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f'{name}: must be contiguous on {dev}')
         if t.data_ptr() % 16:
             raise ValueError(f'{name}: must be 16-byte aligned')
     if out_dtype is not None and out_dtype not in (torch.bfloat16, F32):
@@ -351,13 +400,21 @@ def w4_dequant_matmul(x: torch.Tensor, packed: torch.Tensor,
                         'packed': (packed, torch.uint8, (N, K // 2)),
                         's': (s_t, F32, (ng, N)),
                         'zs': (zs_t, F32, (ng, N))}, out_dtype)
-    bm, splits = kernel_tiling(M, N, K, gsl, sm_count(x.device.index))
-    out, partial = _out_and_partial(M, N, splits, out_dtype, x.device)
+    tt, splits = wgmma_tiling(M, N, w4_steps(K, gsl),
+                              sm_count(x.device.index))
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    # one f32 scratch: x's row sums over each 64-column piece (the zero
+    # term; rows padded to a multiple of 4 for the kernel's TMA), then the
+    # split-K partials
+    n_sums = (K // WG_UNIT) * (-(-M // 4) * 4)
+    scratch = torch.empty(n_sums + (splits * M * N if splits > 1 else 0),
+                          dtype=F32, device=x.device)
+    sums = scratch.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.lib().llmc_w4_dequant_matmul(
         x.data_ptr(), packed.data_ptr(), s_t.data_ptr(), zs_t.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), M, N, K, gsl, int(single),
-        int(out_dtype == F32), bm, splits, stream)
+        sums, out.data_ptr(), sums + 4 * n_sums, M, N, K, gsl, int(single),
+        int(out_dtype == F32), tt, splits, stream)
     _build.check(err, 'w4_dequant_matmul')
     LAUNCHES['w4_dequant_matmul'] += 1
     return out
@@ -377,7 +434,7 @@ def w4a8_dequant_matmul(xq: torch.Tensor, sx: torch.Tensor,
     if not xq.is_cuda:
         raise ValueError('w4a8_dequant_matmul launches a CUDA kernel; '
                          'xq is on the CPU')
-    gsl, single = _check_kernel_meta(meta, M, K)
+    gsl, single = _check_kernel_meta(meta, M, K, span=128, item='B3')
     ng = 1 if single else K // gsl
     _check_operands(xq, {'xq': (xq, torch.int8, (M, K)),
                          'sx': (sx, F32, (M, 1)),
@@ -396,7 +453,7 @@ def w4a8_dequant_matmul(xq: torch.Tensor, sx: torch.Tensor,
     return out
 
 
-W8_CHUNK = 128   # K columns the W8 kernel reads per step
+W8_CHUNK = 128   # the W8 kernel's scale groups: a multiple of this
 
 
 def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
@@ -408,8 +465,9 @@ def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
                          f'got bits={meta.bits}, K={K}')
     if gs % W8_CHUNK or K % gs:
         raise NotImplementedError(
-            f'the W8 kernel reads {W8_CHUNK}-column chunks inside one scale '
-            f'group; group size {gs} at K={K} is not ported (ROADMAP B4)')
+            f'the W8 kernel takes scale groups of a multiple of {W8_CHUNK} '
+            f'columns (the reference kernel\'s rule); group size {gs} at '
+            f'K={K} is not ported (ROADMAP B4)')
     if N % 2 or M < 1:
         raise ValueError(f'kernel needs an even N and M >= 1 (N={N}, M={M})')
     return gs
@@ -435,14 +493,14 @@ def w8_dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
     if z is not None:
         want['z'] = (z, F32, (N, ng))
     _check_operands(x, want, out_dtype)
-    bm, splits = _tiling(M, N, K // W8_CHUNK, sm_count(x.device.index))
+    tt, splits = wgmma_tiling(M, N, K // WG_UNIT, sm_count(x.device.index))
     out, partial = _out_and_partial(M, N, splits, out_dtype, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.lib().llmc_w8_dequant_matmul(
         x.data_ptr(), codes.data_ptr(), s.data_ptr(),
         (z if z is not None else s).data_ptr(), out.data_ptr(),
         partial.data_ptr(), M, N, K, gs, int(z is not None),
-        int(out_dtype == F32), bm, splits, stream)
+        int(out_dtype == F32), tt, splits, stream)
     _build.check(err, 'w8_dequant_matmul')
     LAUNCHES['w8_dequant_matmul'] += 1
     return out

@@ -34,6 +34,11 @@ group-pair bytes as group halves, ``i32_window`` applies no scale.  The
 TPU tiling arguments of the tools (``tn``, ``span``, the ``_g4`` / ``_g8``
 k-step widths) change no function, so each row has one kernel.
 
+Beside them, ``w4_mma_sync``: B1's function on B1's layout in B1's design
+before its wgmma redesign (``csrc/dequant_matmul_w4_mma.cu``), which the
+tools time as ``w4_current`` so that one run reads the old design beside
+the new one.
+
 ``i4_native``'s operand: torch has no int4 tensor a kernel can read, so
 the 4-bit codes travel in the port's own layout, ``pack_i4_native`` (two's
 complement, column 2c in the low nibble of byte c), with its inverse.
@@ -45,7 +50,9 @@ import torch
 
 from ..utils.device import sm_count
 from . import _build
-from .dequant_matmul import QMeta, _check_operands, _tiling, unpack_weight
+from .dequant_matmul import (QMeta, _check_kernel_meta, _check_operands,
+                             _out_and_partial, _tiling, dequant_matmul_plain,
+                             kernel_tiling, unpack_weight)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -65,7 +72,7 @@ KINDS = {'bf16_chunked': 0, 'bf16_bigdot': 1, 'i8_cast': 2,
          'i32_window': 6, 'w4_xc': 7, 'i4_native': 8}
 
 # Launches of the CUDA kernels (the plain versions never count).
-LAUNCHES = dict.fromkeys(KINDS, 0)
+LAUNCHES = dict.fromkeys(list(KINDS) + ['w4_mma_sync'], 0)
 
 PROBE_BM = 64      # the kernels' one row tile
 CHUNK = 128        # K columns a kernel chunk covers (a group pair: 256)
@@ -358,6 +365,35 @@ def i4_native(x, packed, force_plain: bool = False) -> torch.Tensor:
     return _launch('i4_native', x, packed, N=N, K=K, units=K // CHUNK,
                    want={'x': (x, BF16, (M, K)),
                          'packed': (packed, torch.uint8, (N, K // 2))})
+
+
+def w4_mma_sync(x, packed, s_t, zs_t, meta: QMeta, out_dtype=BF16,
+                force_plain: bool = False) -> torch.Tensor:
+    """B1's old design: x [M, K] bf16, packed [N, K/2] uint8, s_t / zs_t
+    [ng, N] f32 (pre_t) -> [M, N] ``out_dtype`` (bf16 or f32).  Its plain
+    version is B1's (``dequant_matmul_plain``)."""
+    if _plain_route(x, force_plain):
+        return dequant_matmul_plain(x, packed, s_t, zs_t, meta,
+                                    out_dtype=F32).to(out_dtype)
+    M, K = x.shape
+    N = meta.out_features
+    gsl, single = _check_kernel_meta(meta, M, K, span=CHUNK,
+                                     item='B1, old design')
+    ng = 1 if single else K // gsl
+    _check_operands(x, {'x': (x, BF16, (M, K)),
+                        'packed': (packed, torch.uint8, (N, K // 2)),
+                        's': (s_t, F32, (ng, N)),
+                        'zs': (zs_t, F32, (ng, N))}, out_dtype)
+    bm, splits = kernel_tiling(M, N, K, gsl, sm_count(x.device.index))
+    out, partial = _out_and_partial(M, N, splits, out_dtype, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _build.lib().llmc_w4_mma_sync(
+        x.data_ptr(), packed.data_ptr(), s_t.data_ptr(), zs_t.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), M, N, K, gsl, int(single),
+        int(out_dtype == F32), bm, splits, stream)
+    _build.check(err, 'w4_mma_sync')
+    LAUNCHES['w4_mma_sync'] += 1
+    return out
 
 
 # name -> (wrapper, plain version)

@@ -11,10 +11,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.dequant_matmul import (QMeta, _unfold_pre_t, dequant_matmul,
-                                  dequant_matmul_plain, dequant_weight,
-                                  pack_scales_t, pack_weight)
-from ..ops.probe_gemm import rel_err, within
+from ..ops.dequant_matmul import (QMeta, _unfold_pre_t, dequant_matmul_plain,
+                                  dequant_weight, pack_scales_t, pack_weight)
+from ..ops.probe_gemm import rel_err, w4_mma_sync, within
 from ..utils.device import nvidia_smi_line, peaks_for
 from ..utils.profiler import cuda_ms
 
@@ -39,7 +38,7 @@ def as_tensor(a: np.ndarray, dtype, dev) -> torch.Tensor:
 def w4_operands(codes: torch.Tensor, scales: torch.Tensor):
     """The tools' W4 weight from int8 codes [N, K] in -8..7 and scales
     [N, K/128]: (packed [N, K/2] uint8 group pairs, s [N, ng], the
-    shipping kernel's s_t / zs_t [ng, N] and its QMeta)."""
+    W4 kernels' s_t / zs_t [ng, N] and their QMeta)."""
     N, K = codes.shape
     meta = QMeta(bits=4, group_size=GS, symmetric=True, out_features=N,
                  in_features=K)
@@ -49,14 +48,15 @@ def w4_operands(codes: torch.Tensor, scales: torch.Tensor):
 
 
 def w4_current(x, packed, s_t, zs_t, meta_t):
-    """The shipping kernel's variant: call (``dequant_matmul``: its
-    kernel on the card), plain version, library call."""
+    """B1's variant: the W4A16 kernel in the design the tools measured
+    (``probe_gemm.w4_mma_sync``, B1 before its wgmma redesign: the kernel
+    on the card), plain version, library call."""
     def library():
         w = dequant_weight(packed, *_unfold_pre_t(s_t, zs_t, meta_t)).to(BF16)
         return lambda: torch.matmul(x, w.T)
     return dict(
-        kernel='w4_dequant_matmul',
-        call=lambda p, s, z: dequant_matmul(x, p, s, z, meta_t, BF16),
+        kernel='w4_mma_sync',
+        call=lambda p, s, z: w4_mma_sync(x, p, s, z, meta_t),
         weights=(packed, s_t, zs_t),
         plain=lambda: dequant_matmul_plain(x, packed, s_t, zs_t, meta_t,
                                            out_dtype=F32),

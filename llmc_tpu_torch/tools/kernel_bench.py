@@ -5,10 +5,11 @@
 
 One linear at the gate_up shape: M=64, K=4096, N=22016, group size 128,
 operands from ``np.random.RandomState(0)`` as the JAX tool draws them.
-Variants, each the shipping kernel's skeleton (``csrc/probe_gemm.cu``)
+Variants, each the skeleton of B1's mma.sync design (``csrc/probe_gemm.cu``)
 with one part changed:
 
-  w4_current   the shipping kernel (``csrc/dequant_matmul_w4.cu``)
+  w4_current   B1 in that design (``csrc/dequant_matmul_w4_mma.cu``; B1
+               itself now runs on wgmma, ``csrc/dequant_matmul_w4.cu``)
   bf16_pallas  weights already bf16 (``bf16_chunked``): against
                w4_current the nibble decode, the zero term and the scale
                epilogue (at M=4096; at M <= 128 the bf16 weight's 4x bytes

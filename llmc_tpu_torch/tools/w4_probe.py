@@ -3,9 +3,10 @@
     python -m llmc_tpu_torch.tools.w4_probe
 
 The hypotheses of the JAX tool, restated for Hopper.  Each probe is the
-shipping kernel's skeleton (``csrc/probe_gemm.cu``: 64 x 128 tiles, eight
+skeleton of B1's mma.sync design (``csrc/probe_gemm.cu``: 64 x 128 tiles, eight
 warps along N, a cp.async ring, ``mma.sync``) with one part changed, so a
-pair of lines isolates one part of B1 (``csrc/dequant_matmul_w4.cu``):
+pair of lines isolates one part of that design of B1
+(``csrc/dequant_matmul_w4_mma.cu``, ``w4_current``):
 
   H1  the nibble decode, zero term and scale epilogue
       -> w4_current against bf16_pallas_chunked (at M=4096; at M <= 128

@@ -101,10 +101,12 @@ def test_plain_matmul_matches_xla(sym, pre_t, gs, out):
 
 
 @pytest.mark.parametrize('sym', [True, False])
-def test_plain_matches_pallas_kernel_interpret(sym):
+@pytest.mark.parametrize('gs', [128, 64])
+def test_plain_matches_pallas_kernel_interpret(sym, gs):
     """The reference's Pallas kernel (interpret mode) casts x to bf16;
-    held to the plain version on the same bf16-rounded x, to 1e-5."""
-    codes, scales, zeros, meta, tmeta = _case(sym, N=128, K=256, gs=128)
+    held to the plain version on the same bf16-rounded x, to 1e-5, at
+    half groups of 128 and of 64 columns (both served by the kernel)."""
+    codes, scales, zeros, meta, tmeta = _case(sym, N=128, K=256, gs=gs)
     jp, js, jz = JD.pack_weight(jnp.asarray(codes), jnp.asarray(scales),
                                 None if zeros is None else jnp.asarray(zeros),
                                 meta)
@@ -174,17 +176,36 @@ def test_cpu_tensor_takes_plain_version_without_launch():
 
 
 @pytest.mark.parametrize('gs, K, ok', [(128, 512, True), (256, 256, True),
-                                       (64, 256, False), (128, 128, False)])
+                                       (64, 256, True), (128, 128, True),
+                                       (192, 192, False)])
 def test_kernel_takes_only_128_column_half_groups(gs, K, ok):
-    """The kernel reads each half group in 128-column chunks: group size
-    64, or a single group narrower than 256, raises."""
+    """The W4A16 kernel reads each half group in 64-column pieces: group
+    size 64 and a single group of 128 columns are taken; a half group of
+    96 columns (one group of 192) raises."""
     meta = TD.QMeta(bits=4, group_size=gs, symmetric=True, out_features=64,
                     in_features=K)
     if ok:
-        assert TD._check_kernel_meta(meta, 8, K)[0] % 128 == 0
+        gsl, single = TD._check_kernel_meta(meta, 8, K)
+        assert gsl % 64 == 0 and single == (gs == K)
     else:
         with pytest.raises(NotImplementedError, match='B1'):
             TD._check_kernel_meta(meta, 8, K)
+
+
+@pytest.mark.parametrize('gs, K, ok', [(128, 512, True), (256, 256, True),
+                                       (64, 256, False), (128, 128, False)])
+def test_w4a8_kernel_takes_only_128_column_half_groups(gs, K, ok):
+    """The W4A8 kernel (not yet on the wgmma skeleton) still reads each
+    half group in 128-column chunks: group size 64, or a single group
+    narrower than 256, raises."""
+    meta = TD.QMeta(bits=4, group_size=gs, symmetric=True, out_features=64,
+                    in_features=K)
+    if ok:
+        assert TD._check_kernel_meta(meta, 8, K, span=128,
+                                     item='B3')[0] % 128 == 0
+    else:
+        with pytest.raises(NotImplementedError, match='B3'):
+            TD._check_kernel_meta(meta, 8, K, span=128, item='B3')
 
 
 @pytest.mark.parametrize('sms', [114, 132])
@@ -196,15 +217,64 @@ def test_kernel_tiling_splits_k_below_one_wave(sms):
     assert TD.kernel_tiling(4096, 22016, 4096, 128, sms) == (64, 1)
 
 
+@pytest.mark.parametrize('M, tile', [(1, 8), (8, 8), (9, 16), (16, 16),
+                                     (37, 64), (64, 64), (77, 128),
+                                     (128, 128), (300, 128), (4096, 128)])
+def test_wgmma_tiling_token_tile_follows_m(M, tile):
+    """The wgmma kernels' token tile (wgmma's N) is the smallest that holds
+    M, else 128; a prefill-sized grid does not split K."""
+    assert TD.wgmma_tiling(M, 22016, TD.w4_steps(4096, 128), 132)[0] == tile
+    assert TD.wgmma_tiling(4096, 4096, 32, 132) == (128, 1)
+
+
+@pytest.mark.parametrize('sms', [114, 132])
+@pytest.mark.parametrize('N, K', [(4096, 4096), (12288, 4096),
+                                  (22016, 4096), (4096, 11008)])
+def test_wgmma_tiling_splits_k_at_decode(sms, N, K):
+    """At decode tiles the K loop (of the W4 kernel's steps) is split so that
+    the CTAs fill their last wave of SMs (a tail wave costs a full one):
+    at least 80% of every wave busy, better than without a split where
+    that falls short, and every split with a share of the units."""
+    units = TD.w4_steps(K, 128)
+    tile, splits = TD.wgmma_tiling(1, N, units, sms)
+    tiles = -(-N // TD.WG_ROWS)
+
+    def fill(n):
+        return tiles * n / (-(-tiles * n // sms) * sms)
+    assert tile == 8 and 1 <= splits <= units
+    assert fill(splits) >= max(0.8, fill(1))
+    per = -(-units // splits)
+    assert -(-units // per) == splits     # no split left empty
+
+
+@pytest.mark.parametrize('sms', [114, 132])
+@pytest.mark.parametrize('N', [4096, 22016])
+def test_wgmma_tiling_fills_the_waves_above_decode_tiles(sms, N):
+    """At the B=128 step's tile the same rule holds, with a dearer split
+    (its partials are the whole output): o_proj's 32 tiles and gate_up's
+    172 fill at least 80% of every wave, better than without a split."""
+    tile, splits = TD.wgmma_tiling(128, N, 32, sms)
+    tiles = -(-N // TD.WG_ROWS)
+
+    def fill(n):
+        return tiles * n / (-(-tiles * n // sms) * sms)
+    assert tile == 128 and 1 < splits <= 32
+    assert fill(splits) >= max(0.8, fill(1))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('sym', [True, False])
-@pytest.mark.parametrize('M', [1, 37, 128])
-@pytest.mark.parametrize('shape', [(256, 512, 128), (128, 256, 256)])
+@pytest.mark.parametrize('M', [1, 8, 37, 128, 300])
+@pytest.mark.parametrize('shape', [(256, 512, 128), (128, 256, 256),
+                                   (256, 512, 64), (128, 128, 128),
+                                   (200, 256, 128), (202, 256, 64)])
 @pytest.mark.parametrize('out', [torch.bfloat16, torch.float32])
 def test_kernel_matches_plain_on_card(cuda_device, sym, M, shape, out):
     """The Hopper kernel vs the plain version on the same bf16 x: bf16
     output within one bf16 rounding (1e-2 of the output scale), f32
-    output within f32 summation order (1e-4)."""
+    output within f32 summation order (1e-4).  Shapes (N, K, gs): half
+    groups of 128 and 64 columns, one group of K=128, and N off the
+    128-row weight tile (even, and not a multiple of 4)."""
     N, K, gs = shape
     codes, scales, zeros, meta, tmeta = _case(sym, N=N, K=K, gs=gs)
     tp, ts, tz = TD.pack_weight(_t(codes), _t(scales), _t(zeros), tmeta)
@@ -220,3 +290,42 @@ def test_kernel_matches_plain_on_card(cuda_device, sym, M, shape, out):
     assert TD.LAUNCHES['w4_dequant_matmul'] == before + 1
     tol = 1e-2 if out == torch.bfloat16 else 1e-4
     assert rel_err(got.float().cpu().numpy(), want.cpu().numpy()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('M', [1, 77])
+def test_old_design_matches_plain_on_card(cuda_device, M):
+    """B1's mma.sync design, kept as the ``w4_current`` probe, against the
+    same plain version (bf16 out, 1e-2) and counted on its own."""
+    P = importlib.import_module('llmc_tpu_torch.ops.probe_gemm')
+    codes, scales, zeros, meta, tmeta = _case(False, N=256, K=512, gs=128)
+    tp, ts, tz = TD.pack_weight(_t(codes), _t(scales), _t(zeros), tmeta)
+    st, zst = TD.pack_scales_t(ts, tz, tmeta)
+    tmeta = dataclasses.replace(tmeta, pre_t=True)
+    dev = cuda_device
+    x = torch.randn(M, 512).to(torch.bfloat16).to(dev)
+    args = (tp.to(dev), st.to(dev), zst.to(dev))
+    before = dict(TD.LAUNCHES), P.LAUNCHES['w4_mma_sync']
+    got = P.w4_mma_sync(x, *args, tmeta)
+    want = TD.dequant_matmul_plain(x, *args, tmeta, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (dict(TD.LAUNCHES), P.LAUNCHES['w4_mma_sync']) == \
+        (before[0], before[1] + 1)
+    assert rel_err(got.float().cpu().numpy(), want.cpu().numpy()) < 1e-2
+
+
+def test_old_design_takes_plain_version_on_cpu():
+    """On a CPU tensor the old design's wrapper is B1's plain version."""
+    P = importlib.import_module('llmc_tpu_torch.ops.probe_gemm')
+    codes, scales, zeros, meta, tmeta = _case(True, N=128, K=256, gs=128)
+    tp, ts, tz = TD.pack_weight(_t(codes), _t(scales), _t(zeros), tmeta)
+    st, zst = TD.pack_scales_t(ts, tz, tmeta)
+    tmeta = dataclasses.replace(tmeta, pre_t=True)
+    x = torch.randn(3, 256).to(torch.bfloat16)
+    before = P.LAUNCHES['w4_mma_sync']
+    got = P.w4_mma_sync(x, tp, st, zst, tmeta)
+    want = TD.dequant_matmul_plain(x, tp, st, zst, tmeta,
+                                   out_dtype=torch.float32)
+    assert got.dtype == torch.bfloat16 and P.LAUNCHES['w4_mma_sync'] == before
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  want.to(torch.bfloat16).float().numpy())

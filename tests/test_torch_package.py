@@ -55,7 +55,8 @@ NEW_MODULES = ('main.py', '__main__.py', 'compression/blockwise.py',
                'quant/fp8_block.py', 'quant/fp_formats.py',
                'utils/config.py', 'utils/profiler.py',
                'ops/probe_gemm.py', 'tools/__init__.py', 'tools/_measure.py',
-               'tools/kernel_bench.py', 'tools/w4_probe.py')
+               'tools/kernel_bench.py', 'tools/w4_probe.py',
+               'tools/ab_serve.py', 'tools/wgmma_variants.py')
 
 
 def _module_level_imports(path):
@@ -346,7 +347,8 @@ def test_chip_smoke_cpu_probes_phase_tiny():
     assert [e['name'] for e in entries] == list(chip_smoke.PROBE_KERNELS)
     for e in entries:
         assert e['route'] == 'cuda' and e['launches'] == 3
-        assert e['source'] == 'llmc_tpu_torch/csrc/probe_gemm.cu'
+        assert e['source'] == ('llmc_tpu_torch/csrc/'
+                               + chip_smoke.PROBE_SOURCES[e['name']])
         assert (ROOT / e['source']).exists()
         path, line = e['replaces'].split(':')
         fn = e['replaces_fn'].split('::')[1]

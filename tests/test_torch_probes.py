@@ -269,7 +269,7 @@ def test_tools_on_cpu_give_every_key_of_the_jax_tools():
         assert r['bound_ms'] > 0 and r['bound_by'] in ('bytes', 'operations')
         assert r.get('ok', True) and r['calls'] == 0
     assert {r['kernel'] for r in recs + recs_wp} - {None} == \
-        set(P.PROBES) | {'w4_dequant_matmul'}
+        set(P.PROBES) | {'w4_mma_sync'}
 
 
 def test_tools_raise_without_a_card():
@@ -278,6 +278,51 @@ def test_tools_raise_without_a_card():
     for tool in (kernel_bench, w4_probe):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             tool.run()
+
+
+def test_ab_serve_needs_a_card_and_runs_each_tree_in_its_root(tmp_path,
+                                                             monkeypatch):
+    """The A/B serving tool exits 2 without a card; with one it runs the
+    trees in the order A, B, B, A, each as a subprocess in its own root,
+    and tags every record with its tree and turn."""
+    from llmc_tpu_torch.tools import ab_serve
+    if not torch.cuda.is_available():
+        assert ab_serve.main([str(tmp_path), str(tmp_path)]) == 2
+    calls = []
+
+    class Done:
+        returncode, stderr = 0, ''
+        stdout = 'nvcc log\n{"phase": "throughput", "ttft_ms": 1.0}\n'
+
+    def fake_run(cmd, cwd, **kw):
+        calls.append(cwd)
+        assert 'chip_smoke' in cmd[-1] and "['w4a16']" in cmd[-1]
+        return Done()
+    monkeypatch.setattr(ab_serve.subprocess, 'run', fake_run)
+    a, b = tmp_path / 'a', tmp_path / 'b'
+    recs = [r for turn, (tag, tree) in enumerate(
+        [('A', a), ('B', b), ('B', b), ('A', a)])
+        for r in ab_serve.run_tree(tree, ['w4a16'], tag, turn)]
+    assert calls == [a, b, b, a]
+    assert [(r['tree'], r['turn'], r['phase']) for r in recs] == [
+        ('A', 0, 'throughput'), ('B', 1, 'throughput'),
+        ('B', 2, 'throughput'), ('A', 3, 'throughput')]
+
+
+@pytest.mark.parametrize('kernel, variant', [
+    (k, v) for k in ('w4_dequant_matmul', 'w8_dequant_matmul')
+    for v in ('no_decode', 'no_wgmma')])
+def test_wgmma_variants_cut_the_shipping_sources(kernel, variant):
+    """Each attribution variant finds its anchors once in the shipping
+    source and changes it (a stale variant would raise, not time the
+    kernel as built)."""
+    from llmc_tpu_torch.ops import _build
+    from llmc_tpu_torch.tools import wgmma_variants as V
+    source = V.VARIANTS[kernel][0]
+    cut = V.variant_source(kernel, variant)
+    assert cut != (_build.CSRC / source).read_text()
+    for old, new in V.VARIANTS[kernel][1][variant]:
+        assert old not in cut and new in cut
 
 
 def test_bounds_follow_the_data_sheet():

@@ -288,14 +288,16 @@ def test_w4a8_kernel_matches_plain_and_oracle_on_card(cuda_device, sym, M,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('sym', [True, False])
-@pytest.mark.parametrize('M', [1, 37, 128])
-@pytest.mark.parametrize('shape', [(256, 512, 128), (128, 256, 256)])
+@pytest.mark.parametrize('M', [1, 8, 37, 128, 300])
+@pytest.mark.parametrize('shape', [(256, 512, 128), (128, 256, 256),
+                                   (200, 256, 128), (202, 384, 128)])
 @pytest.mark.parametrize('out', [torch.bfloat16, torch.float32])
 def test_w8_kernel_matches_bf16_weight_plain_on_card(cuda_device, sym, M,
                                                      shape, out):
     """The W8 kernel against the plain version that rounds the weight to
     bf16 the same way: 1e-4 at f32 output (summation order), 1e-2 at bf16
-    (one output rounding)."""
+    (one output rounding).  Shapes (N, K, gs) include N off the 128-row
+    weight tile (even, and not a multiple of 4)."""
     N, K, gs = shape
     codes, scales, zeros, meta, tmeta = _case8(sym, N=N, K=K, gs=gs)
     dev = cuda_device
@@ -332,7 +334,7 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                tmeta, torch.float32)
     m64 = TD.QMeta(bits=4, group_size=64, symmetric=True, out_features=128,
                    in_features=256, pre_t=True)
-    with pytest.raises(NotImplementedError, match='B1'):
+    with pytest.raises(NotImplementedError, match='B3'):
         TD.dequant_matmul(x, packed, torch.ones(4, 128, device=dev),
                           torch.ones(4, 128, device=dev), m64, a_int8=True)
     codes, scales, zeros, _, tmeta8 = _case8(True, N=128, K=256, gs=128)
