@@ -8,23 +8,27 @@ Phases, each printing one JSON line, all of them on every run:
                   and power limit (also printed raw on a line of its own).
 2. ``build``      nvcc build of ``llmc_tpu_torch/csrc`` (seconds,
                   registers and spills per kernel); it fails on a spill in
-                  the wgmma kernels (B1, B4).
-3. ``kernel_checks``  each of the six kernels of the main paths against its
-                  plain PyTorch version on the card at the main paths'
-                  shapes (the W4A8 kernel also against a float64 integer
-                  oracle, the FP8-block kernel against a float64 oracle,
-                  also on a block built to expose a short adder), with
+                  the wgmma kernels (B1, B3, B4, B6).
+3. ``kernel_checks``  each of the seven kernels of the main paths against
+                  its plain PyTorch version on the card at the main paths'
+                  shapes and M = 1, 64, 77, 128, 4096 (the W4A8 kernel also
+                  against a float64 integer oracle, the FP8-block kernel
+                  against a float64 oracle, also on a block built to
+                  expose a short adder, and at an N off the 128-row
+                  block; the W4A8 activation quantizer bit for bit), with
                   times (CUDA events) beside the bound and a library
                   yardstick that the port never calls for that function.
                   ``kernel_ms`` is the kernel's wrapper on
                   prepared operands, ``path_ms`` the ``dequant_matmul``
                   call one linear of the main path makes (for W4A8 with
-                  the activation quantizer).  B1 and B4 also at M=77 and
-                  with their host microseconds a launch; B1 also at half
-                  groups of 64 columns, and timed beside its old mma.sync
-                  design on the same operands.  Also the staged W4A8 prefill
-                  beside the kernel at M=4096, and a sweep of the
-                  serving-batch kernel's two launch arguments.
+                  the activation quantizer's launch); every GEMM with its
+                  host microseconds a launch and, up to M=128, its device
+                  time through a CUDA graph.  B1 and B3 also at half
+                  groups of 64 columns, B4 at groups of 64 and 32; B1
+                  timed beside its old mma.sync design on the same
+                  operands.  Also the staged W4A8 prefill beside the
+                  kernel at M=4096, and a sweep of the serving-batch
+                  kernel's two launch arguments.
 4. ``probes``     the w4 design probes (``ops/probe_gemm.py``, nine kernels
                   of ``csrc/probe_gemm.cu`` and B1's old design
                   ``w4_current``) through their entry points
@@ -52,9 +56,9 @@ Phases, each printing one JSON line, all of them on every run:
                   time by kernel and the device's idle share.
 9. ``serve_w4a8`` + its ``throughput`` and ``profile``: the same engine
                   and bench shape with per-token int8 activations (every
-                  block linear through the W4A8 kernel, the head
-                  weight-only) and the serving-batch attention kernel
-                  (``ATTN_IMPL='batch'``).
+                  block linear through the quantizer and the W4A8 kernel,
+                  the head weight-only) and the serving-batch attention
+                  kernel (``ATTN_IMPL='batch'``).
 10. ``serve_w8`` + its ``throughput`` and ``profile``: the same on W8A16
                   per-group 128 weights (every linear through the W8
                   kernel).
@@ -87,10 +91,11 @@ Phases, each printing one JSON line, all of them on every run:
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
 and fails unless they equal what its path implies.  Then the
-``wgmma_kernels`` line (B1's and B4's registers, spills and host
-microseconds a launch, B1's old design), the ``{"kernels": [...]}`` line
-(sixteen kernels: each of the main paths' launches from the serve phase of
-its own path, each probe's from the ``probes`` phase), the
+``wgmma_kernels`` line (B1's, B3's, B4's and B6's registers, spills, host
+microseconds a launch and graph times, B1's old design), the
+``{"kernels": [...]}`` line (seventeen kernels: each of the main paths'
+launches from the serve phase of its own path, the FP8-block kernel's from
+``fp8_linear``, each probe's from the ``probes`` phase), the
 nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero.
 There is no CPU mode: without a CUDA card the script exits 2.  The phase
@@ -328,18 +333,13 @@ def _gemm_ops(kind):
             return dict(tok_tile=tt, splits=splits)
         return _w8_case, kernel, plain, library, tiling, path
 
-    def tiling(case):
+    def tiling(case):       # w4 and w4a8: the same K steps
         x, _, _, _, meta = case
-        if kind == 'w4':
-            tt, splits = D.wgmma_tiling(x.shape[0], meta.out_features,
-                                        D.w4_steps(x.shape[1],
-                                                   D._half_group(meta)[0]),
-                                        sms(case))
-            return dict(tok_tile=tt, splits=splits)
-        bm, splits = D.kernel_tiling(x.shape[0], meta.out_features,
-                                     x.shape[1], D._half_group(meta)[0],
-                                     sms(case))
-        return dict(bm=bm, splits=splits)
+        tt, splits = D.wgmma_tiling(x.shape[0], meta.out_features,
+                                    D.w4_steps(x.shape[1],
+                                               D._half_group(meta)[0]),
+                                    sms(case))
+        return dict(tok_tile=tt, splits=splits)
 
     def dense_weight(case):
         _, packed, s, zs, meta = case
@@ -363,13 +363,15 @@ def _gemm_ops(kind):
     memo = {}
 
     def kernel(case, weight, out_dtype):       # w4a8
-        """The wrapper on int8 codes made once per case: the quantizer is
-        no part of the kernel (``path`` times the two together)."""
+        """The wrapper on the quantizer kernel's outputs, made once per
+        case: the quantizer is no part of the GEMM (``path`` times the two
+        together).  Its launch is no launch of the main path either."""
         x, _, s, zs, meta = case
         if memo.get('x') is not x:
-            memo.update(x=x, codes=D._quant_act_token(x))
-        xq, sx = memo['codes']
-        return D.w4a8_dequant_matmul(xq, sx, weight, s, zs, meta, out_dtype)
+            memo.update(x=x, codes=D.quant_act_token(x))
+        xq, sx, sums = memo['codes']
+        return D.w4a8_dequant_matmul(xq, sx, sums, weight, s, zs, meta,
+                                     out_dtype)
 
     def plain(case):
         x, packed, s, zs, meta = case
@@ -395,6 +397,69 @@ def a8_oracle(case):
     w = D.dequant_weight(packed, *D._unfold_pre_t(s.double(), zs.double(),
                                                   meta))
     return (xq.double() @ w.double().T) * sx.double()
+
+
+def quant_bound(M, K, x_bytes, peaks):
+    """Least time of the activation quantizer: x read once; xq, sx and the
+    int32 piece sums (rows padded to a multiple of 4) written once; about
+    four operations an element (abs and max, divide, round and clamp) at
+    the f32 rate."""
+    nbytes = M * K * (x_bytes + 1) + 4 * M + 4 * (K // 64) * (-(-M // 4) * 4)
+    t_b, t_o = nbytes / peaks.bw * 1e3, 4 * M * K / peaks.f32 * 1e3
+    return max(t_b, t_o), ('bytes' if t_b >= t_o else 'operations')
+
+
+def check_quant_act_token(dev, peaks, Ks=(4096, 11008),
+                          ms_list=(1, 77, 128, 4096), timed=(1, 128, 4096),
+                          wide=((53248, 1), (53248, 77))):
+    """The quantizer kernel (``quant_act_token``) against its plain
+    version ``_quant_act_token`` on the same x on the card: xq and sx bit
+    for bit and the int32 piece sums exact (zeros past M); the plain
+    version on the card also bit-equal to itself on the CPU.  bf16 x at
+    the block linears' K (f32 x too at one shape); row m's first element
+    is 1 + 0.01 m, which puts some rows' scale where a true division by
+    127 and the folded multiply differ.  ``wide``: (K, M) of rows too wide
+    for the kernel to hold in registers (Llama-3-405B's down projection),
+    which it reads twice.  Timed at K=4096, bf16."""
+    D = importlib.import_module('llmc_tpu_torch.ops.dequant_matmul')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for K, M in [*itertools.product(Ks, ms_list), *wide]:
+        for dt in (BF16, F32) if (K, M) == (4096, 77) else (BF16,):
+            x = torch.rand((M, K), generator=gen, device=dev) * 2 - 1
+            x[:, 0] = 1 + 0.01 * torch.arange(M, device=dev)
+            x = x.to(dt)
+            xq, sx, sums = D.quant_act_token(x)
+            pq, psx = D._quant_act_token(x)
+            cq, csx = D._quant_act_token(x.cpu())
+            torch.cuda.synchronize()
+            want = pq.to(torch.int32).reshape(M, K // 64, 64).sum(-1).T
+            checks = dict(
+                xq=torch.equal(xq, pq), sx=torch.equal(sx, psx),
+                sums=torch.equal(sums[:, :M], want)
+                and bool((sums[:, M:] == 0).all()),
+                card_vs_cpu=torch.equal(pq.cpu(), cq)
+                and torch.equal(psx.cpu(), csx))
+            require(all(checks.values()), f'quant_act_token M={M} K={K} '
+                    f'{dt}: not bit-equal: {checks}')
+            row = dict(M=M, K=K, x=str(dt).replace('torch.', ''),
+                       bit_equal=checks, max_abs_err=max(
+                           (xq.float() - pq.float()).abs().max().item(),
+                           (sx - psx).abs().max().item()))
+            if M in timed and K == 4096 and dt == BF16:
+                def kern():
+                    return D.quant_act_token(x)
+                row.update(kernel_ms=cuda_ms(kern, 50),
+                           plain_ms=cuda_ms(lambda: D._quant_act_token(x),
+                                            10),
+                           host_us=host_us(kern), library_ms=None)
+                if M <= 128:
+                    row['device_ms'] = graph_ms(kern)
+                row['bound_ms'], row['bound_by'] = quant_bound(M, K, 2,
+                                                               peaks)
+            rows.append(row)
+            del x, xq, sx, sums, pq, psx
+    return rows
 
 
 def _rel(got, want):
@@ -531,10 +596,11 @@ def _time_gemm(kind, case, out_dtype, peaks, kernel, plain, library, path,
     kernel_ms = cuda_ms(rotating(kernel), iters)
     path_ms = cuda_ms(rotating(path), iters)
     old = {}
-    if kind in ('w4', 'w8'):
-        old['host_us'] = host_us(rotating(kernel))
-        if M <= 128:
-            old['device_ms'] = graph_ms(rotating(kernel))
+    old['host_us'] = host_us(rotating(kernel))
+    if M <= 128:
+        old['device_ms'] = graph_ms(rotating(kernel))
+        if kind == 'w4a8':   # the quantizer and the GEMM, one chain
+            old['path_device_ms'] = graph_ms(rotating(path))
     if kind == 'w4':
         old.update(old_design_ms=cuda_ms(rotating(_old_w4), iters),
                    old_design_host_us=host_us(rotating(_old_w4)))
@@ -717,6 +783,8 @@ def _time_sdpa(q, kb, vb, ks, vs, pos, layer):
 # --------------------------------------------------------------------------
 
 FP8_SHAPES = [(4096, 4096), (11008, 4096), (4096, 11008), (22016, 4096)]
+# an N that is no multiple of the 128-row scale block (nor of the tile)
+FP8_RAGGED = [(4000, 4096)]
 
 
 def fp8_bound(M, N, K, out_bytes, peaks, bs=128):
@@ -767,13 +835,14 @@ def _fp8_library(case):
         'torch.matmul, bf16 weight from weight_cast_to_bf16'
 
 
-def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
-              timed=(1, 128, 4096)):
+def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 64, 77, 128, 4096),
+              timed=(1, 64, 128, 4096)):
     """The FP8-block kernel at every (N, K) and M, f32 and bf16 output,
     against its plain version and the float64 oracle.  Times by CUDA
-    events at the ``timed`` Ms."""
+    events at the ``timed`` Ms, with the host's microseconds a launch and,
+    up to M=128, the device time through a CUDA graph."""
     from llmc_tpu_torch.ops import fp8_gemm as G
-    from llmc_tpu_torch.ops.dequant_matmul import _tiling
+    from llmc_tpu_torch.ops.dequant_matmul import wgmma_tiling
     from llmc_tpu_torch.quant import act_quant_per_group, fp8_block_matmul
     from llmc_tpu_torch.utils.device import sm_count
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -801,8 +870,8 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
                 f'{rel16:.3g} (limit {TOL_W4_BF16})')
         worst_abs, worst_rel = max(worst_abs, err16), max(worst_rel, rel16)
         worst_oracle = max(worst_oracle, rel_o)
-        bm, splits = _tiling(M, N, K // 128, sm_count(dev.index or 0))
-        row = dict(N=N, K=K, M=M, bm=bm, splits=splits,
+        tt, splits = wgmma_tiling(M, N, K // 128, sm_count(dev.index or 0))
+        row = dict(N=N, K=K, M=M, tok_tile=tt, splits=splits,
                    f32_rel_err_oracle=rel_o, f32_rel_err_plain=rel_p,
                    max_abs_err=err16, max_rel_err=rel16)
         del plain, oracle, got32, got16
@@ -817,8 +886,11 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
                     return fn(copies[it[0] % n_copy])
                 return call
             iters = 10 if M >= 4096 else 50
-            row['kernel_ms'] = cuda_ms(rotating(
-                lambda w: G.fp8_block_matmul_cuda(xc, xs, w, ws)), iters)
+            kern = rotating(lambda w: G.fp8_block_matmul_cuda(xc, xs, w, ws))
+            row['kernel_ms'] = cuda_ms(kern, iters)
+            row['host_us'] = host_us(kern)
+            if M <= 128:
+                row['device_ms'] = graph_ms(kern)
             row['path_ms'] = cuda_ms(rotating(
                 lambda w: fp8_block_matmul(*act_quant_per_group(x), w, ws)),
                 iters)
@@ -827,7 +899,7 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 77, 128, 4096),
             lib, row['library'] = _fp8_library(case)
             row['library_ms'] = cuda_ms(lib, iters)
             row['bound_ms'], row['bound_by'] = fp8_bound(M, N, K, 2, peaks)
-            del lib, copies
+            del lib, copies, kern
         rows.append(row)
         del case, x, xc, xs, wc, ws
     return rows, worst_abs, worst_rel, worst_oracle
@@ -889,10 +961,11 @@ PROBE_KERNELS = {
 # the CUDA source of each probe
 PROBE_SOURCES = dict(dict.fromkeys(PROBE_KERNELS, 'probe_gemm.cu'),
                      w4_mma_sync='dequant_matmul_w4_mma.cu')
-# every kernel of the port: the probes, then the main paths' six
+# every kernel of the port: the probes, then the main paths' seven (the
+# W4A8 path's activation quantizer replaces no TPU kernel)
 KERNEL_NAMES = tuple(PROBE_KERNELS) + (
-    'w4_dequant_matmul', 'w4a8_dequant_matmul', 'w8_dequant_matmul',
-    'flash_decode', 'batch_decode', 'fp8_block_gemm')
+    'w4_dequant_matmul', 'w4a8_dequant_matmul', 'quant_act_token',
+    'w8_dequant_matmul', 'flash_decode', 'batch_decode', 'fp8_block_gemm')
 # A serving configuration: weight bits, per-token int8 activations on the
 # block linears, and the decode-attention kernel (``ATTN_IMPL``).
 Mode = collections.namedtuple('Mode', 'bits a_int8 attn')
@@ -931,7 +1004,8 @@ def attn_impl(name):
 def expected_launches(layers, forwards, decode_steps, mode='w4a16',
                       block_forwards=None):
     """Launches a path implies.  Per forward: 4 block linears a layer
-    (fused qkv, o, fused gate_up, down) through the mode's kernel and the
+    (fused qkv, o, fused gate_up, down) through the mode's kernel (for
+    W4A8 each after one launch of the activation quantizer) and the
     packed head through the weight-only kernel of its bits; per decode
     step, one decode-attention a layer.  ``block_forwards``: the forwards
     whose block linears launch a kernel at all (the w8 companion's dot is
@@ -942,6 +1016,8 @@ def expected_launches(layers, forwards, decode_steps, mode='w4a16',
     block = 'w4a8_dequant_matmul' if m.a_int8 else weight_only
     n[block] += 4 * layers * (forwards if block_forwards is None
                               else block_forwards)
+    if m.a_int8:
+        n['quant_act_token'] = n[block]
     n[weight_only] += forwards
     n['batch_decode' if m.attn == 'batch' else 'flash_decode'] = \
         layers * decode_steps
@@ -1590,14 +1666,16 @@ def require_served(rec) -> None:
     require_launches(rec)
 
 
-# instantiations: 5 token tiles x 2 outputs x (B1) 1 or 2 pieces a step,
-# (B4) with or without zeros
-WGMMA_KERNELS = {'w4_dequant_matmul': 20, 'w8_dequant_matmul': 20}
+# instantiations: 5 token tiles x 2 outputs x (B1, B3) 1 or 2 pieces a
+# step, (B4) with or without zeros x one or two groups a unit, (B6) one
+WGMMA_KERNELS = {'w4_dequant_matmul': 20, 'w4a8_dequant_matmul': 20,
+                 'w8_dequant_matmul': 40, 'fp8_block_gemm': 10}
 
 
 def wgmma_build(build_info):
     """Registers and spill bytes of every instantiation of the wgmma
-    kernels (B1, B4), from ptxas; fails on a spill or a missing kernel."""
+    kernels (B1, B3, B4, B6), from ptxas; fails on a spill or a missing
+    kernel."""
     out = {}
     for name, want in WGMMA_KERNELS.items():
         insts = {k: v for k, v in build_info.get('kernels', {}).items()
@@ -1615,16 +1693,20 @@ def _at(row):
     return f'N={row["N"]} K={row["K"]} M={row["M"]}'
 
 
-def wgmma_summary(build, gemm, probes):
-    """The B1 and B4 entries that go before the ``kernels`` line: each
-    kernel's registers and spills, its host microseconds a launch at every
-    timed shape and its device time through a CUDA graph up to M=128 (B1
-    beside its old design), and B1's old design from the probes phase
-    (``w4_current``, gate_up, M = 64, 128, 4096)."""
+def wgmma_summary(build, gemm, fp8_rows, probes):
+    """The B1, B3, B4 and B6 entries that go before the ``kernels`` line:
+    each kernel's registers and spills, its host microseconds a launch at
+    every timed shape and its device time through a CUDA graph up to M=128
+    (B1 beside its old design, B3 also with its quantizer), and B1's old
+    design from the probes phase (``w4_current``, gate_up, M = 64, 128,
+    4096)."""
     rec = {}
     for kind, name in (('w4', 'w4_dequant_matmul'),
-                       ('w8', 'w8_dequant_matmul')):
-        rows = [r for r in gemm[kind][0] if 'kernel_ms' in r]
+                       ('w4a8', 'w4a8_dequant_matmul'),
+                       ('w8', 'w8_dequant_matmul'),
+                       ('fp8', 'fp8_block_gemm')):
+        rows = [r for r in (fp8_rows if kind == 'fp8' else gemm[kind][0])
+                if 'kernel_ms' in r]
         rec[name] = dict(
             registers=sorted({v['registers'] for v in build[name].values()}),
             spill_bytes=sum(v.get('spill_stores', 0) + v.get('spill_loads', 0)
@@ -1632,6 +1714,11 @@ def wgmma_summary(build, gemm, probes):
             host_us={_at(r): r['host_us'] for r in rows},
             device_ms={_at(r): r['device_ms'] for r in rows
                        if 'device_ms' in r})
+    rows = [r for r in gemm['w4a8'][0] if 'kernel_ms' in r]
+    rec['w4a8_dequant_matmul'].update(
+        path_ms={_at(r): r['path_ms'] for r in rows},
+        path_device_ms={_at(r): r['path_device_ms'] for r in rows
+                        if 'path_device_ms' in r})
     rows = [r for r in gemm['w4'][0] if 'kernel_ms' in r]
     rec['w4_dequant_matmul'].update(
         old_design_host_us={_at(r): r['old_design_host_us'] for r in rows},
@@ -1716,23 +1803,30 @@ def main(argv=None) -> int:
               **_build.BUILD_INFO))
     wg_build = wgmma_build(_build.BUILD_INFO)
 
-    # B1 and B4 also at M=64 (timed: the probes' M) and M=77 (rows off
-    # every token tile), and B1 at group size 64 (half groups of 64
-    # columns, and a single group of K=128)
+    # the GEMMs also at M=64 (timed: the probes' M) and M=77 (rows off
+    # every token tile); B1 and B3 at group size 64 (half groups of 64
+    # columns, and a single group of K=128); B4 at group sizes 64 and 32
+    # (a 64-column unit in two groups)
     gemm = {kind_: check_gemm(kind_, dev, peaks, MAIN_SHAPES,
-                              (1, 128, 4096) if kind_ == 'w4a8'
-                              else (1, 64, 77, 128, 4096),
-                              (1, 128, 4096) if kind_ == 'w4a8'
-                              else (1, 64, 128, 4096))
+                              (1, 64, 77, 128, 4096), (1, 64, 128, 4096))
             for kind_ in ('w4', 'w4a8', 'w8')}
-    gs64 = [check_gemm('w4', dev, peaks, shapes, (1, 77, 128), timed_ms=(),
-                       gs=gs)
-            for shapes, gs in (([(22016, 4096, False), (32000, 4096, True),
-                                 (4096, 128, False)], 64),
-                               ([(4096, 128, False)], 128))]
+    gs64 = {kind_: [check_gemm(kind_, dev, peaks, shapes, (1, 77, 128),
+                               timed_ms=(), gs=gs)
+                    for shapes, gs in (([(22016, 4096, False),
+                                         (32000, 4096, True),
+                                         (4096, 128, False)], 64),
+                                       ([(4096, 128, False)], 128))]
+            for kind_ in ('w4', 'w4a8')}
+    w8_small = [check_gemm('w8', dev, peaks, [(22016, 4096, False),
+                                              (4096, 11008, False),
+                                              (32000, 4096, True)],
+                           (1, 77, 128), timed_ms=(), gs=gs)
+                for gs in (64, 32)]
+    quant = check_quant_act_token(dev, peaks)
     attn = {name: check_attention(name, dev, peaks)
             for name in ('flash_decode', 'batch_decode')}
     fp8 = check_fp8(dev, peaks)
+    fp8_ragged = check_fp8(dev, peaks, FP8_RAGGED, (1, 77, 128), timed=())
     fp8_adder = fp8_adder_probe(dev)
     require(fp8_adder <= TOL_FP8_ORACLE,
             f'fp8_block_gemm on a block whose products span 20 bits: '
@@ -1740,15 +1834,23 @@ def main(argv=None) -> int:
             f'(limit {TOL_FP8_ORACLE})')
     emit(dict(phase='kernel_checks', sms=sm_count(0), **card,
               w4_dequant_matmul=gemm['w4'][0],
-              w4_dequant_matmul_half_group_64=gs64[0][0] + gs64[1][0],
+              w4_dequant_matmul_half_group_64=gs64['w4'][0][0]
+              + gs64['w4'][1][0],
               w4a8_dequant_matmul=gemm['w4a8'][0],
-              w4a8_worst_rel_err_vs_integer_oracle=gemm['w4a8'][3],
+              w4a8_dequant_matmul_half_group_64=gs64['w4a8'][0][0]
+              + gs64['w4a8'][1][0],
+              w4a8_worst_rel_err_vs_integer_oracle=max(
+                  gemm['w4a8'][3], gs64['w4a8'][0][3], gs64['w4a8'][1][3]),
+              quant_act_token=quant,
               w8_dequant_matmul=gemm['w8'][0],
+              w8_dequant_matmul_gs64_gs32=w8_small[0][0] + w8_small[1][0],
               flash_decode=attn['flash_decode'][0],
               batch_decode=attn['batch_decode'][0],
               batch_decode_sweep=sweep_batch_blocks(dev),
               fp8_block_gemm=fp8[0],
-              fp8_worst_rel_err_vs_float64_oracle=fp8[3],
+              fp8_block_gemm_ragged_n=fp8_ragged[0],
+              fp8_worst_rel_err_vs_float64_oracle=max(fp8[3],
+                                                      fp8_ragged[3]),
               fp8_adder_probe_rel_err_vs_float64_oracle=fp8_adder))
 
     probes = phase_probes(dev)
@@ -1837,22 +1939,33 @@ def main(argv=None) -> int:
                     if (r['N'], r['M']) == (22016, 128) and r['sym'])
     at_gemm = 'gate_up N=22016 K=4096 M=128 bf16'
     emit(dict(phase='wgmma_kernels', **card,
-              **wgmma_summary(wg_build, gemm, probes)))
-    w4_errs = [max(e) for e in zip(gemm['w4'][1:3], gs64[0][1:3],
-                                   gs64[1][1:3])]
+              **wgmma_summary(wg_build, gemm, fp8[0], probes)))
+
+    def errs(*recs):
+        return [max(e) for e in zip(*(r[1:3] for r in recs))]
+    quant_row = next(r for r in quant
+                     if (r['M'], r['K'], r['x']) == (128, 4096, 'bfloat16'))
     at_attn = 'B=128 Smax=96 KVH=32 hd=128 int8, 64 valid'
     dm = 'llmc_tpu/ops/dequant_matmul.py'
     emit({'kernels': [
         dict(kernel_record('w4_dequant_matmul', 'dequant_matmul_w4.cu',
                            f'{dm}:189', f'{dm}::_kernel_w4', launches,
-                           w4_errs, gemm_row('w4'), at_gemm),
+                           errs(gemm['w4'], *gs64['w4']), gemm_row('w4'),
+                           at_gemm),
              old_design_ms=old_design_ms(probes)),
         kernel_record('w4a8_dequant_matmul', 'dequant_matmul_w4a8.cu',
                       f'{dm}:236', f'{dm}::_kernel_w4a8', launches,
-                      gemm['w4a8'][1:3], gemm_row('w4a8'), at_gemm),
+                      errs(gemm['w4a8'], *gs64['w4a8']), gemm_row('w4a8'),
+                      at_gemm),
+        dict(kernel_record('quant_act_token', 'quant_act_token.cu',
+                           f'{dm}:143', f'{dm}::_quant_act_token', launches,
+                           (max(r['max_abs_err'] for r in quant), 0.0),
+                           quant_row, 'M=128 K=4096 bf16'),
+             replaces_note='no TPU kernel: XLA ops before the W4A8 '
+                           'kernel in the reference'),
         kernel_record('w8_dequant_matmul', 'dequant_matmul_w8.cu',
                       f'{dm}:274', f'{dm}::_kernel_w8', launches,
-                      gemm['w8'][1:3], gemm_row('w8'), at_gemm),
+                      errs(gemm['w8'], *w8_small), gemm_row('w8'), at_gemm),
         kernel_record('flash_decode', 'flash_decode.cu',
                       'llmc_tpu/ops/flash_decode.py:59',
                       'llmc_tpu/ops/flash_decode.py::_kernel', launches,
@@ -1866,8 +1979,9 @@ def main(argv=None) -> int:
         kernel_record('fp8_block_gemm', 'fp8_block_gemm.cu',
                       'llmc_tpu/ops/fp8_gemm.py:28',
                       'llmc_tpu/ops/fp8_gemm.py::_kernel_fp8', launches,
-                      fp8[1:3], next(r for r in fp8[0] if (r['N'], r['M'])
-                                     == (22016, 128)),
+                      errs(fp8, fp8_ragged), next(
+                          r for r in fp8[0] if (r['N'], r['M'])
+                          == (22016, 128)),
                       'N=22016 K=4096 M=128 e4m3, block 128, bf16 out'),
     ] + [probe_kernel_record(name, probes, launches)
          for name in PROBE_KERNELS]})

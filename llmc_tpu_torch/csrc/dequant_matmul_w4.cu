@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) w4_dequant_matmul_kernel(
     const float* __restrict__ zs, void* __restrict__ out,
     float* __restrict__ partial, int M, int N, int K, int gsl, int single,
     int units_per_split) {
-  using L = Layout<T, 2, true>;
+  using L = Layout<T, 2, 2>;
   constexpr int S = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -191,8 +191,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) w4_dequant_matmul_kernel(
           for (int q = 0; q < P; ++q) {
             // x rows sub * TN.. of the box: 128 bytes a row
             const uint64_t d =
-                desc_b128(smem + ((i + q) % S) * L::STAGE + L::W_BYTES +
-                          h * L::X_BYTES + sub * TN * 128);
+                desc_k<128>(smem + ((i + q) % S) * L::STAGE + L::W_BYTES +
+                            h * L::X_BYTES + sub * TN * 128);
 #pragma unroll
             for (int ks = 0; ks < 4; ++ks)
               wgmma_rs<TN>(part, a[4 * q + ks], d + 2 * ks, q + ks > 0);
@@ -220,8 +220,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) w4_dequant_matmul_kernel(
       for (int q = 0; q < P; ++q)
         release_stage(&empty[(i + q) % S], lane);
     }
-    store_tile<T, OUT_F32>(acc, smem, out, partial, M, N, m0, n0, blockIdx.z,
-                           r0, t);
+    store_tile<T, OUT_F32>(acc, smem, out, partial, nullptr, M, N, m0, n0,
+                           blockIdx.z, r0, t);
   }
 }
 
@@ -229,7 +229,7 @@ template <int T, bool OUT_F32>
 int launch(const void* x, const void* packed, const void* s, const void* zs,
            void* sums, void* out, void* partial, int M, int N, int K,
            int gsl, int single, int splits, cudaStream_t st) {
-  using L = Layout<T, 2, true>;
+  using L = Layout<T, 2, 2>;
   // two 64-column pieces an epilogue where a half group holds two
   auto kern = gsl % (2 * UNIT) == 0 ? w4_dequant_matmul_kernel<T, 2, OUT_F32>
                                     : w4_dequant_matmul_kernel<T, 1, OUT_F32>;

@@ -13,7 +13,9 @@
 //
 // Layout.  x [M, K] bf16; codes [N, K] int8 (signed); s, z [N, ng] f32, as
 // the packer stores them (z absent when has_z == 0); gs the group size, a
-// multiple of 64, so every 64-column unit lies in one group.
+// multiple of 32 that divides K, so each 32-column half of a 64-column
+// unit lies in one group: a unit spans one group, or two where gs is no
+// multiple of 64 (G2, which looks the scales up for each half).
 //
 // What bounds it on an H100: at decode (M <= 128) the weight stream, K
 // bytes per output column — the card's memory rate; at M = 4096 the bf16
@@ -57,14 +59,14 @@ __device__ __forceinline__ uint32_t dequant2(uint32_t w2, uint32_t sel0,
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int T, bool HAS_Z, bool OUT_F32>
+template <int T, bool HAS_Z, bool G2, bool OUT_F32>
 __global__ void __launch_bounds__(NTHREADS, 1) w8_dequant_matmul_kernel(
     const __grid_constant__ CUtensorMap tw,
     const __grid_constant__ CUtensorMap tx, const float* __restrict__ s,
     const float* __restrict__ z, void* __restrict__ out,
     float* __restrict__ partial, int M, int N, int K, int gs,
     int units_per_split) {
-  using L = Layout<T, 1, false>;
+  using L = Layout<T, 1, 0>;
   constexpr int S = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -110,17 +112,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) w8_dequant_matmul_kernel(
 #pragma unroll
     for (int i = 0; i < T / 2; ++i) acc[i] = 0.f;
 
-    // the scales of unit i's group, loaded a unit ahead of its decode
-    auto scales = [&](float(&dst)[4], int i) {
-      const int sg = ((u0 + i) * UNIT) / gs;
+    // the scales of unit i's group (of each 32-column half's group: G2),
+    // loaded a unit ahead of its decode
+    constexpr int G = G2 ? 2 : 1;
+    auto scales = [&](float(&dst)[G][4], int i) {
 #pragma unroll
-      for (int rh = 0; rh < 2; ++rh) {
-        const size_t o = (size_t)nr[rh] * ng + sg;
-        dst[rh] = nr[rh] < N ? __ldg(s + o) : 0.f;
-        dst[2 + rh] = (HAS_Z && nr[rh] < N) ? __ldg(z + o) : 0.f;
+      for (int hf = 0; hf < G; ++hf) {
+        const int sg = ((u0 + i) * UNIT + 32 * hf) / gs;
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const size_t o = (size_t)nr[rh] * ng + sg;
+          dst[hf][rh] = nr[rh] < N ? __ldg(s + o) : 0.f;
+          dst[hf][2 + rh] = (HAS_Z && nr[rh] < N) ? __ldg(z + o) : 0.f;
+        }
       }
     };
-    float sc[4], sc_next[4];
+    float sc[G][4], sc_next[G][4];
     // A fragments of unit i (k16 step ks: {row g, g+8} x {k 2t..,
     // k 2t+8..}), dequantized while the tensor cores work on unit i - 1
     auto decode = [&](uint32_t(&a)[4][4], int i) {
@@ -132,20 +139,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) w8_dequant_matmul_kernel(
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int rh = 0; rh < 2; ++rh) {
+          const float* c = sc[G2 ? ks >> 1 : 0];  // k16 step ks's group
           const uint32_t w2 =
               frag_bytes(buf, r0 + 8 * rh, ks, t) ^ 0x80808080u;
-          a[ks][rh] =
-              dequant2<HAS_Z>(w2, 0x7540, 0x7541, sc[rh], sc[2 + rh]);
+          a[ks][rh] = dequant2<HAS_Z>(w2, 0x7540, 0x7541, c[rh], c[2 + rh]);
           a[ks][2 + rh] =
-              dequant2<HAS_Z>(w2, 0x7542, 0x7543, sc[rh], sc[2 + rh]);
+              dequant2<HAS_Z>(w2, 0x7542, 0x7543, c[rh], c[2 + rh]);
         }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[e] = sc_next[e];
+      for (int hf = 0; hf < G; ++hf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[hf][e] = sc_next[hf][e];
     };
     // issue unit i's wgmma on fragments a; then, with it in flight, wait
     // for unit i - 1, release its stage, and decode unit i + 1 into b
     auto step = [&](uint32_t(&a)[4][4], uint32_t(&b)[4][4], int i) {
-      const uint64_t d = desc_b128(smem + (i % S) * L::STAGE + L::W_BYTES);
+      const uint64_t d = desc_k<128>(smem + (i % S) * L::STAGE + L::W_BYTES);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
@@ -168,8 +177,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) w8_dequant_matmul_kernel(
     fence_regs(a0);
     fence_regs(a1);
     if (nu > 0) release_stage(&empty[(nu - 1) % S], lane);
-    store_tile<T, OUT_F32>(acc, smem, out, partial, M, N, m0, n0, blockIdx.z,
-                           r0, t);
+    store_tile<T, OUT_F32>(acc, smem, out, partial, nullptr, M, N, m0, n0,
+                           blockIdx.z, r0, t);
   }
 }
 
@@ -177,14 +186,20 @@ template <int T, bool OUT_F32>
 int launch(const void* x, const void* codes, const void* s, const void* z,
            void* out, void* partial, int M, int N, int K, int gs, int has_z,
            int splits, cudaStream_t st) {
-  using L = Layout<T, 1, false>;
-  auto kern = has_z ? w8_dequant_matmul_kernel<T, true, OUT_F32>
-                    : w8_dequant_matmul_kernel<T, false, OUT_F32>;
-  static bool attr[2] = {false, false};
-  if (!attr[has_z != 0]) {
+  using L = Layout<T, 1, 0>;
+  // a unit can span two groups; where it cannot, one scale lookup a unit
+  // reads faster (tools/wgmma_variants.py's two_group_lookup, PERF.md)
+  const bool g2 = gs % UNIT != 0;
+  auto kern = has_z ? (g2 ? w8_dequant_matmul_kernel<T, true, true, OUT_F32>
+                          : w8_dequant_matmul_kernel<T, true, false, OUT_F32>)
+                    : (g2 ? w8_dequant_matmul_kernel<T, false, true, OUT_F32>
+                          : w8_dequant_matmul_kernel<T, false, false, OUT_F32>);
+  const int which = 2 * (has_z != 0) + g2;
+  static bool attr[4] = {false, false, false, false};
+  if (!attr[which]) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          L::SMEM);
-    attr[has_z != 0] = true;
+    attr[which] = true;
   }
   CUtensorMap tw, tx;
   int e = encode_2d(&tw, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K,
@@ -206,7 +221,8 @@ int launch(const void* x, const void* codes, const void* s, const void* z,
 
 }  // namespace
 
-// tok_tile in {8, 16, 32, 64, 128}; gs a multiple of 64 that divides K;
+// tok_tile in {8, 16, 32, 64, 128}; gs a multiple of 32 that divides K, K
+// a multiple of 64;
 // splits >= 1 K-splits (partial: [splits, M, N] f32 scratch when
 // splits > 1).
 extern "C" int llmc_w8_dequant_matmul(const void* x, const void* codes,

@@ -8,197 +8,225 @@
 // running sum.
 //
 // Layout.  x [M, K] e4m3; xs [M, K/128] f32; w [N, K] e4m3; ws
-// [N/128, K/128] f32 (the checkpoint's weight_scale_inv); all as stored:
-// the wrapper runs no torch op before the launch.  K % 128 == 0 and
-// N % 128 == 0, so an output tile of BN = 128 columns lies in one row of
-// ws and a chunk of KC = 128 columns is one scale block: per chunk the CTA
-// needs one ws value and one xs value per row.
+// [ceil(N/128), K/128] f32 (the checkpoint's weight_scale_inv); all as
+// stored.  K % 128 == 0; N takes any value: TMA zero-fills the weight rows
+// past N, and the epilogue writes none.  A CTA's 128 weight rows lie in one
+// row of ws, and a step of 128 columns (two 64-column units) is one scale
+// block: per step the CTA needs one ws value and one xs value a token.
 //
 // What bounds it on an H100: below about M = 600 the weight stream, one
-// byte per weight — the card's memory rate; above it the FP8 tensor-core
-// rate.  Design: the W8 kernel's (dequant_matmul_w8.cu) — 256 threads on a
-// BM x 128 tile, BM in {16, 32, 64} from M, a ring of STAGES cp.async
-// buffers over 128-column chunks of x and w, 8 warps side by side along N,
-// A fragments by ldmatrix, rows beyond M zero-filled and never written,
-// split-K below one wave summed in a fixed order.  The TPU kernel's
-// sequential K grid axis with a VMEM accumulator is the chunk loop here; a
-// FRESH accumulator fragment per chunk takes the block's sum, and
-// acc += part * xs * ws runs in f32 registers.
+// byte a weight — the card's memory rate; above it the tensor cores.  It
+// runs on the skeleton of wgmma_common.cuh with B1's loop: wgmma.mma_async
+// m64nTk16 f16 x f16 -> f32 in the RS form, the e4m3 weight codes decoded
+// in registers to f16 (exact: e4m3 is a subset of f16; one cvt per two
+// codes) as A, and x as B from shared memory by TMA, converted to f16 once
+// per call by a first kernel (e4m3_to_f16_kernel, 3 bytes an element).
+// Each scale block's eight k16 steps start from a fresh partial (scale-d 0
+// on the first), and acc += part * (xs[m,kb] * ws[n/128,kb]) runs in f32
+// registers.  xs is [M, K/128], strided by token, which TMA cannot take (a
+// row stride of 4 K / 128 bytes need not be a multiple of 16): the producer
+// warp's lanes load each block's T values with plain loads into the stage,
+// beside the TMA boxes, and arrive on the stage's barrier after them.
 //
-// The block's sum is mma.sync.m16n8k32 e4m3 x e4m3 -> f32, the tensor
-// cores' own FP8 path, with no conversion; chip_smoke.py holds it against a
-// float64 oracle, on random data and on a block whose products span 20
-// bits.  Not yet: wgmma, TMA, a warp layout in which each warp does not
-// read the whole A tile (eight warps side by side along N read it eight
-// times from shared memory).
+// Why not the fp8 tensor cores: wgmma m64nTk32 e4m3 x e4m3 -> f32 keeps
+// too few bits inside one instruction's sum (DeepSeek-V3's report reads
+// about 14 on an H800).  That design, both operands e4m3 by TMA in the SS
+// form, was faster and read off the float64 oracle by more than
+// chip_smoke.py's 1e-5 even with every k32 step promoted (PERF.md).
+// chip_smoke.py holds the kernel against that oracle on random data and
+// on a block whose products span 20 bits (fp8_adder_probe).
 
-#include "gemm_common.cuh"
+#include <cuda_fp8.h>
+
+#include "wgmma_common.cuh"
 
 namespace {
 
-// 16 x 32 e4m3 (row) times 32 x 8 e4m3 (col) into 16 x 8 f32
-__device__ __forceinline__ void mma16832_e4m3(float* c, const uint32_t* a,
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+using namespace wg;
+
+constexpr int BLK = 128;  // scale block: K columns a step, weight rows a CTA
+
+// two e4m3 codes (the low byte first) -> f16x2, exactly
+__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(v & 0xFFFFu), __NV_E4M3);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
 }
 
-template <int BM>
-struct Tile {
-  static constexpr int WN = BN / 8;
-  static constexpr int MI = BM / 16, NJ = WN / 8;
-  static constexpr int RS = KC + 16;  // smem row stride of x and w, bytes
-  static constexpr int X_BYTES = BM * RS;
-  static constexpr int W_BYTES = BN * RS;
-  static constexpr int STAGE = X_BYTES + W_BYTES;
-  static constexpr int SMEM = STAGES * STAGE;
-  static_assert(X_BYTES % 16 == 0 && W_BYTES % 16 == 0, "alignment");
-};
-
-template <int BM, bool OUT_F32>
-__global__ void __launch_bounds__(NT, min_blocks<BM>())
-fp8_block_gemm_kernel(const uint8_t* __restrict__ x,
-                      const float* __restrict__ xs,
-                      const uint8_t* __restrict__ w,
-                      const float* __restrict__ ws, void* __restrict__ out,
-                      float* __restrict__ partial, int M, int N, int K,
-                      int chunks_per_split) {
-  using T = Tile<BM>;
-  extern __shared__ __align__(16) uint8_t smem[];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wn = warp * T::WN;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int kb = K / KC;  // scale blocks along K
-  const int c_begin = blockIdx.z * chunks_per_split;
-  const int c_end = min(kb, c_begin + chunks_per_split);
-  const int n_chunks = c_end - c_begin;
-
-  auto stage_x = [&](int st) { return smem + st * T::STAGE; };
-  auto stage_w = [&](int st) { return smem + st * T::STAGE + T::X_BYTES; };
-
-  auto load_chunk = [&](int st, int i) {
-    const size_t k0 = (size_t)(c_begin + i) * KC;
-    uint8_t* sx = stage_x(st);
-    uint8_t* sw = stage_w(st);
-    constexpr int V = KC / 16;  // 16-byte vectors per row
-    for (int v = tid; v < BM * V; v += NT) {
-      const int r = v / V, col = (v % V) * 16;
-      const int m = m0 + r;
-      cp_async16(&sx[r * T::RS + col],
-                 x + (size_t)min(m, M - 1) * K + k0 + col, m < M);
-    }
-    for (int v = tid; v < BN * V; v += NT) {
-      const int r = v / V, col = (v % V) * 16;
-      const int n = n0 + r;
-      cp_async16(&sw[r * T::RS + col],
-                 w + (size_t)min(n, N - 1) * K + k0 + col, n < N);
-    }
-  };
-
-  float acc[T::MI][T::NJ][4];
+// x [n16 x 16] e4m3 -> f16, 16 codes a thread
+__global__ void __launch_bounds__(256) e4m3_to_f16_kernel(
+    const uint4* __restrict__ x, uint4* __restrict__ y, size_t n16) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n16) return;
+  const uint4 v = x[i];
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[8];
 #pragma unroll
-  for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < T::NJ; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-
-#pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < n_chunks) load_chunk(j, j);
-    cp_async_commit();
+  for (int k = 0; k < 4; ++k) {
+    o[2 * k] = e4m3x2_to_f16x2(w[k]);
+    o[2 * k + 1] = e4m3x2_to_f16x2(w[k] >> 16);
   }
-  for (int i = 0; i < n_chunks; ++i) {
-    const int st = i % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // chunk i landed; every warp is done with chunk i-1
-    if (i + STAGES - 1 < n_chunks)
-      load_chunk((i + STAGES - 1) % STAGES, i + STAGES - 1);
-    cp_async_commit();
-
-    const uint8_t* sx = stage_x(st);
-    const uint8_t* sw = stage_w(st);
-
-    // this block's scales: one of the weight for the whole tile, one of
-    // the activation per row of the fragment (rows g and g + 8)
-    const int c = c_begin + i;
-    const float wsv = ws[(size_t)blockIdx.x * kb + c];
-    float xsv[T::MI][2];
-#pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = m0 + mi * 16 + g + 8 * r;
-        xsv[mi][r] = m < M ? xs[(size_t)m * kb + c] : 0.f;
-      }
-
-    float part[T::MI][T::NJ][4];
-#pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < T::NJ; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mi][nj][e] = 0.f;
-
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 32) {
-      // rows g, g + 8 at bytes 4t..4t+3 (a[0], a[1]) and 16+4t.. (a[2], a[3])
-      uint32_t a[T::MI][4];
-#pragma unroll
-      for (int mi = 0; mi < T::MI; ++mi)
-        ldmatrix_x4(a[mi], &sx[(mi * 16 + (lane & 15)) * T::RS + kk +
-                               16 * (lane >> 4)]);
-#pragma unroll
-      for (int nj = 0; nj < T::NJ; ++nj) {
-        // column n = g at bytes 4t..4t+3 and 16+4t..
-        const uint8_t* wb = &sw[(wn + nj * 8 + g) * T::RS + kk + 4 * t];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wb);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wb + 16);
-#pragma unroll
-        for (int mi = 0; mi < T::MI; ++mi)
-          mma16832_e4m3(part[mi][nj], a[mi], b0, b1);
-      }
-    }
-
-    // acc += part * xs[m, kb] * ws[n / 128, kb], in f32
-#pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < T::NJ; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mi][nj][e] += __fmul_rn(__fmul_rn(part[mi][nj][e],
-                                                xsv[mi][e >> 1]), wsv);
-  }
-
-  write_tile<T::MI, T::NJ, OUT_F32>(acc, out, partial, nullptr, M, N, m0,
-                                     n0 + wn, lane, blockIdx.z);
+  y[2 * i] = make_uint4(o[0], o[1], o[2], o[3]);
+  y[2 * i + 1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-template <int BM, bool OUT_F32>
+template <int T, bool OUT_F32>
+__global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
+    const __grid_constant__ CUtensorMap tw,
+    const __grid_constant__ CUtensorMap tx, const float* __restrict__ xs,
+    const float* __restrict__ ws, void* __restrict__ out,
+    float* __restrict__ partial, int M, int N, int K, int units_per_split) {
+  // a stage: the weight tile [128 x 64 e4m3] and the x box [T x 64 f16]
+  using L = Layout<T, 1, 1>;
+  constexpr int S = L::STAGES;
+  constexpr int BOX = L::SUM_BOX / 4;  // floats a box of token scales
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* xsb = reinterpret_cast<float*>(smem + L::RING);  // [S] boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x;
+  // output tiles with the weight-row tiles fastest
+  const int nt = (N + ROWS - 1) / ROWS;
+  const int m0 = (blockIdx.x / nt) * T, n0 = (blockIdx.x % nt) * ROWS;
+  const int kb = K / BLK, units = K / UNIT;
+  const int u0 = blockIdx.z * units_per_split;  // even: whole blocks
+  const int nu = max(0, min(units, u0 + units_per_split) - u0);
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      // the TMA thread's arrival with the bytes, then all 32 producer
+      // lanes' after their token scales
+      mbar_init(&full[i], 1 + 32);
+      mbar_init(&empty[i], CONSUMERS / 32);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer warp: lane 0 issues the TMA loads; with a block's first
+    // unit every lane stores the block's token scales
+    const int lane = tid - CONSUMERS;
+    for (int i = 0; i < nu; ++i) {
+      const int st = i % S, u = u0 + i;
+      mbar_wait(&empty[st], ((i / S) & 1) ^ 1);
+      uint8_t* buf = smem + st * L::STAGE;
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], L::STAGE);
+        tma_load_2d(buf, &tw, &full[st], u * UNIT, n0);
+        tma_load_2d(buf + L::W_BYTES, &tx, &full[st], u * UNIT, m0);
+      }
+      if (i % 2 == 0)
+        for (int tok = lane; tok < T; tok += 32) {
+          const int m = m0 + tok;
+          xsb[st * BOX + tok] =
+              m < M ? __ldg(xs + (size_t)m * kb + u / 2) : 0.f;
+        }
+      mbar_arrive(&full[st]);
+    }
+  } else {
+    // consumer warpgroups: 64 weight rows each
+    const int wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = wgi * 64 + warp * 16 + g;  // tile rows r0 and r0 + 8
+    // the fresh partial covers TN tokens at a time, NSUB sub-tiles of T
+    constexpr int TN = T < 64 ? T : 64, NSUB = T / TN;
+    float acc[T / 2], part[TN / 2];
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) acc[i] = 0.f;
+    const float* wsrow = ws + (size_t)(n0 / BLK) * kb;
+
+    // one scale block a step: two units
+    for (int i = 0; i < nu; i += 2) {
+      const float wsv = __ldg(wsrow + (u0 + i) / 2);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        mbar_wait(&full[(i + q) % S], ((i + q) / S) & 1);
+      // A fragment of k16 step ks: {row g, g+8} x {k 2t.., k 2t+8..}, the
+      // codes at bytes 2t, 2t+1 and 2t+8, 2t+9 of the step
+      uint32_t a[8][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const uint32_t v = frag_bytes(smem + ((i + q) % S) * L::STAGE,
+                                          r0 + 8 * rh, ks, t);
+            a[4 * q + ks][rh] = e4m3x2_to_f16x2(v);
+            a[4 * q + ks][2 + rh] = e4m3x2_to_f16x2(v >> 16);
+          }
+      const float* xsv = xsb + (i % S) * BOX;  // the block's token scales
+#pragma unroll
+      for (int sub = 0; sub < NSUB; ++sub) {
+        fence_regs(part);
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          // x rows sub * TN.. of the box: 128 bytes a row
+          const uint64_t d = desc_k<128>(smem + ((i + q) % S) * L::STAGE +
+                                         L::W_BYTES + sub * TN * 128);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_f16_rs<TN>(part, a[4 * q + ks], d + 2 * ks, q + ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+        // promote the block's sum: acc += part * xs * ws, in f32
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          const float2 xv = *reinterpret_cast<const float2*>(
+              xsv + sub * TN + 8 * j + 2 * t);
+          const float w0 = xv.x * wsv, w1 = xv.y * wsv;
+          const int c = sub * (TN / 2) + 4 * j;
+          acc[c + 0] = fmaf(part[4 * j + 0], w0, acc[c + 0]);
+          acc[c + 1] = fmaf(part[4 * j + 1], w1, acc[c + 1]);
+          acc[c + 2] = fmaf(part[4 * j + 2], w0, acc[c + 2]);
+          acc[c + 3] = fmaf(part[4 * j + 3], w1, acc[c + 3]);
+        }
+      }
+      fence_regs(a);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        release_stage(&empty[(i + q) % S], lane);
+    }
+    store_tile<T, OUT_F32>(acc, smem, out, partial, nullptr, M, N, m0, n0,
+                           blockIdx.z, r0, t);
+  }
+}
+
+template <int T, bool OUT_F32>
 int launch(const void* x, const void* xs, const void* w, const void* ws,
-           void* out, void* partial, int M, int N, int K, int splits,
-           cudaStream_t st) {
-  using T = Tile<BM>;
-  auto kern = fp8_block_gemm_kernel<BM, OUT_F32>;
+           void* x16, void* out, void* partial, int M, int N, int K,
+           int splits, cudaStream_t st) {
+  using L = Layout<T, 1, 1>;
+  auto kern = fp8_block_gemm_kernel<T, OUT_F32>;
   static bool attr = false;
   if (!attr) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         T::SMEM);
+                         L::SMEM);
     attr = true;
   }
-  const int kb = K / KC;
-  const int cps = (kb + splits - 1) / splits;
-  const dim3 grid(N / BN, (M + BM - 1) / BM, splits);
-  kern<<<grid, NT, T::SMEM, st>>>(
-      static_cast<const uint8_t*>(x), static_cast<const float*>(xs),
-      static_cast<const uint8_t*>(w), static_cast<const float*>(ws), out,
-      splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, cps);
+  CUtensorMap tw, tx;
+  int e = encode_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, ROWS,
+                    UNIT, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = encode_2d(&tx, x16, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, M, K, T, 64,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != 0) return e;
+  const size_t n16 = (size_t)M * K / 16;
+  e4m3_to_f16_kernel<<<(unsigned)((n16 + 255) / 256), 256, 0, st>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(x16), n16);
+  const int kb = K / BLK;
+  const int ups = (kb + splits - 1) / splits * 2;  // units: whole blocks
+  const dim3 grid(((M + T - 1) / T) * ((N + ROWS - 1) / ROWS), 1, splits);
+  kern<<<grid, NTHREADS, L::SMEM, st>>>(
+      tw, tx, static_cast<const float*>(xs), static_cast<const float*>(ws),
+      out, splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, ups);
   if (splits > 1)
     launch_split_sum<OUT_F32>(partial, out, nullptr, splits, M, N, st);
   return static_cast<int>(cudaGetLastError());
@@ -206,17 +234,18 @@ int launch(const void* x, const void* xs, const void* w, const void* ws,
 
 }  // namespace
 
-// bm in {16, 32, 64}; N and K multiples of 128; splits >= 1 K-splits
-// (partial: [splits, M, N] f32 scratch when splits > 1).
+// tok_tile in {8, 16, 32, 64, 128}; K a multiple of 128, N >= 1; x16: [M, K]
+// f16 scratch (x converted); splits >= 1 K-splits (partial: [splits, M, N]
+// f32 scratch when splits > 1).
 extern "C" int llmc_fp8_block_gemm(const void* x, const void* xs,
-                                   const void* w, const void* ws, void* out,
-                                   void* partial, int M, int N, int K,
-                                   int out_f32, int bm, int splits,
-                                   void* stream) {
+                                   const void* w, const void* ws, void* x16,
+                                   void* out, void* partial, int M, int N,
+                                   int K, int out_f32, int tok_tile,
+                                   int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_f32)
-    return LLMC_DISPATCH_BM(bm, true, launch, x, xs, w, ws, out, partial, M,
-                            N, K, splits, st);
-  return LLMC_DISPATCH_BM(bm, false, launch, x, xs, w, ws, out, partial, M, N,
-                          K, splits, st);
+    return LLMC_DISPATCH_T(tok_tile, true, launch, x, xs, w, ws, x16, out,
+                           partial, M, N, K, splits, st);
+  return LLMC_DISPATCH_T(tok_tile, false, launch, x, xs, w, ws, x16, out,
+                         partial, M, N, K, splits, st);
 }

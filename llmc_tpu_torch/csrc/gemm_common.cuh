@@ -1,9 +1,8 @@
-// Pieces shared by the mma.sync GEMM kernels (dequant_matmul_w4a8.cu,
-// fp8_block_gemm.cu, the probes of probe_gemm.cu and B1's old design in
-// dequant_matmul_w4_mma.cu): the cp.async ring's primitives, the
-// tensor-core fragments, the output write and the split-K sum.  The wgmma
-// kernels (wgmma_common.cuh: dequant_matmul_w4.cu, dequant_matmul_w8.cu)
-// use only the split-K sum.  Everything sits in an anonymous namespace, so
+// Pieces shared by the mma.sync GEMM kernels (the probes of probe_gemm.cu
+// and B1's old design in dequant_matmul_w4_mma.cu): the cp.async ring's
+// primitives, the tensor-core fragments, the output write and the split-K
+// sum.  The wgmma kernels (wgmma_common.cuh: B1, B3, B4, B6) use only the
+// split-K sum.  Everything sits in an anonymous namespace, so
 // each source gets its own copy.
 
 #pragma once
@@ -112,13 +111,26 @@ __device__ __forceinline__ void write_tile(
 }
 
 // Sum the split-K partials [splits, M*N] in split order into the output
-// (deterministic), each row times row_scale[m] when given.
+// (deterministic), each row times row_scale[m] when given.  A thread takes
+// two neighbouring elements (as float2 where M*N and N are even).
 template <bool OUT_F32>
 __global__ void __launch_bounds__(256) split_sum_kernel(
     const float* __restrict__ partial, void* __restrict__ out,
     const float* __restrict__ row_scale, int splits, size_t mn, int N) {
   const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 2;
   if (i >= mn) return;
+  if (mn % 2 || N % 2) {  // an odd N: one element at a time
+    for (size_t e = i; e < i + 2 && e < mn; ++e) {
+      float a = partial[e];
+      for (int z = 1; z < splits; ++z) a += partial[z * mn + e];
+      if (row_scale != nullptr) a *= row_scale[e / N];
+      if (OUT_F32)
+        static_cast<float*>(out)[e] = a;
+      else
+        static_cast<__nv_bfloat16*>(out)[e] = __float2bfloat16_rn(a);
+    }
+    return;
+  }
   float2 a = *reinterpret_cast<const float2*>(partial + i);
   for (int z = 1; z < splits; ++z) {
     const float2 b = *reinterpret_cast<const float2*>(partial + z * mn + i);

@@ -43,17 +43,20 @@ SIGNATURES = {
     # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
     # kv_kind, chunk, stream
     'llmc_flash_decode': [_VP] * 7 + [_I] * 8 + [_VP],
-    # x, packed, s, zs, sx, out, partial, M, N, K, gsl, single, out_f32,
-    # bm, splits, stream
-    'llmc_w4a8_dequant_matmul': [_VP] * 7 + [_I] * 8 + [_VP],
+    # xq, packed, s, zs, sums, sx, out, partial, M, N, K, gsl, single,
+    # out_f32, tok_tile, splits, stream
+    'llmc_w4a8_dequant_matmul': [_VP] * 8 + [_I] * 8 + [_VP],
+    # x, xq, sx, sums, M, K, Mp, x_f32, stream
+    'llmc_quant_act_token': [_VP] * 4 + [_I] * 4 + [_VP],
     # x, codes, s, z, out, partial, M, N, K, gs, has_z, out_f32, tok_tile,
     # splits, stream
     'llmc_w8_dequant_matmul': [_VP] * 6 + [_I] * 8 + [_VP],
     # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
     # kv_kind, b_blk, wps, chunk, stream
     'llmc_batch_decode': [_VP] * 7 + [_I] * 10 + [_VP],
-    # x, xs, w, ws, out, partial, M, N, K, out_f32, bm, splits, stream
-    'llmc_fp8_block_gemm': [_VP] * 6 + [_I] * 6 + [_VP],
+    # x, xs, w, ws, x16, out, partial, M, N, K, out_f32, tok_tile, splits,
+    # stream
+    'llmc_fp8_block_gemm': [_VP] * 7 + [_I] * 6 + [_VP],
     # kind, x, x2, w, s, out, partial, M, N, K, splits, stream
     'llmc_probe_gemm': [_I] + [_VP] * 6 + [_I] * 4 + [_VP],
 }

@@ -9,11 +9,14 @@ reference's XLA paths (``_dequant_matmul_xla``, ``_dequant_matmul_xla_a8``,
 ``_dequant_matmul_a8_staged``) including the ``pre_t`` un-fold
 ``z_eff = zs / clip(s, 1e-9)``.
 
-Kernels, one wrapper each, every one the Hopper port of a TPU kernel:
+Kernels, one wrapper each, every GEMM the Hopper port of a TPU kernel:
 
 - ``w4_dequant_matmul``   -> ``csrc/dequant_matmul_w4.cu``   (``_kernel_w4``)
 - ``w4a8_dequant_matmul`` -> ``csrc/dequant_matmul_w4a8.cu`` (``_kernel_w4a8``)
 - ``w8_dequant_matmul``   -> ``csrc/dequant_matmul_w8.cu``   (``_kernel_w8``)
+- ``quant_act_token``     -> ``csrc/quant_act_token.cu``: W4A8's activation
+  quantizer (XLA ops in the reference, no TPU kernel), with the int32 piece
+  sums the W4A8 kernel's zero term reads
 
 ``dequant_matmul`` keeps the reference's dispatch and decides by the
 tensor's device: a kernel for a CUDA tensor, the plain version for a CPU
@@ -48,7 +51,7 @@ F32 = torch.float32
 
 # Launches of the CUDA kernel (the plain version never counts).
 LAUNCHES = {'w4_dequant_matmul': 0, 'w4a8_dequant_matmul': 0,
-            'w8_dequant_matmul': 0}
+            'w8_dequant_matmul': 0, 'quant_act_token': 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,15 +184,70 @@ def dequant_matmul_plain(x, packed, scales, zeros, meta: QMeta,
     return y.to(out_dtype or x.dtype)
 
 
-def _quant_act_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quant_act_token(x: torch.Tensor, folded: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-token symmetric int8 (the W4A8 runtime's activation
     quantizer, and per-'row' the w8 companion's).  Returns (xq int8,
-    sx [M, 1] f32)."""
+    sx [M, 1] f32).
+
+    The reference runs its serving steps under ``jax.jit``, where XLA
+    folds ``max(ax, 1e-8) / 127.0`` into a multiply by the f32
+    reciprocal of 127: ``folded`` computes the scale so on either device
+    (``tensor / scalar`` is a true division on the CPU and a reciprocal
+    multiply on the card, so neither spelling of the division is right on
+    both).  ``folded=False`` is the true division of the reference run
+    eagerly, as its packer runs ``w8_companion``.  ``x / sx`` stays a true
+    division in both."""
     xf = x.to(F32)
-    ax = xf.abs().amax(dim=-1, keepdim=True)
-    sx = torch.clamp(ax, min=1e-8) / 127.0
+    ax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    sx = ax * (1.0 / 127.0) if folded else \
+        ax / torch.full_like(ax, 127.0)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
+
+
+def quant_act_token_plain(x: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The quantizer kernel's function: ``_quant_act_token``'s (xq, sx)
+    and the exact int32 sums of xq over each 64-column piece, [K/64, Mp]
+    with Mp = M rounded up to a multiple of 4 (zeros past M)."""
+    xq, sx = _quant_act_token(x)
+    M, K = xq.shape
+    sums = torch.zeros((K // WG_UNIT, -(-M // 4) * 4), dtype=torch.int32,
+                       device=x.device)
+    sums[:, :M] = xq.to(torch.int32).reshape(M, K // WG_UNIT, WG_UNIT
+                                             ).sum(-1).T
+    return xq, sx, sums
+
+
+def quant_act_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """(xq int8 [M, K], sx f32 [M, 1], sums int32 [K/64, Mp]) of x [M, K]
+    (bf16 or f32, K a multiple of 64): ``csrc/quant_act_token.cu`` in one
+    launch for a CUDA tensor, ``quant_act_token_plain`` for a CPU one."""
+    M, K = x.shape
+    if not x.is_cuda:
+        return quant_act_token_plain(x)
+    if x.dtype not in (torch.bfloat16, F32):
+        raise ValueError(f'quant_act_token takes bf16 or f32 x, got '
+                         f'{x.dtype}')
+    if K % WG_UNIT or M < 1:
+        raise ValueError(f'quant_act_token needs M >= 1 and K a multiple of '
+                         f'{WG_UNIT} (M={M}, K={K})')
+    _check_operands(x, {'x': (x, x.dtype, (M, K))}, None)
+    Mp = -(-M // 4) * 4
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M, 1), dtype=F32, device=x.device)
+    sums = torch.empty((K // WG_UNIT, Mp), dtype=torch.int32,
+                       device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _build.lib().llmc_quant_act_token(
+        x.data_ptr(), xq.data_ptr(), sx.data_ptr(), sums.data_ptr(), M, K,
+        Mp, int(x.dtype == F32), stream)
+    _build.check(err, 'quant_act_token')
+    LAUNCHES['quant_act_token'] += 1
+    return xq, sx, sums
 
 
 def dequant_matmul_plain_a8(x, packed, scales, zeros, meta: QMeta,
@@ -268,7 +326,8 @@ def _check_kernel_meta(meta: QMeta, M: int, K: int, span: int = 64,
                        item: str = 'B1') -> Tuple[int, bool]:
     """Raise on a weight the kernel does not take; returns (gsl, single).
     ``span``: the columns of a half group the kernel reads at a time (64
-    for the W4A16 kernel, ROADMAP ``item``; 128 for W4A8's)."""
+    for the W4A16 and W4A8 kernels, 128 for B1's old design), ROADMAP
+    ``item`` naming it."""
     N = meta.out_features
     gsl, single = _half_group(meta)
     if meta.bits != 4 or K != meta.in_features:
@@ -286,9 +345,9 @@ def _check_kernel_meta(meta: QMeta, M: int, K: int, span: int = 64,
     return gsl, single
 
 
-# CTAs the card keeps resident per SM for each row tile (shared memory
-# and registers): below one full wave of tiles the K loop is split
-# across CTAs
+# CTAs the card keeps resident per SM for each row tile of the mma.sync
+# probes (shared memory and registers): below one full wave of tiles the
+# K loop is split across CTAs
 _RESIDENT = {16: 2, 32: 1, 64: 1}
 
 
@@ -303,9 +362,9 @@ def _even_splits(units: int, splits: int) -> int:
 
 def _tiling(M: int, N: int, units: int, sms: int,
             bm: Optional[int] = None) -> Tuple[int, int]:
-    """(row tile BM, K splits) of the mma.sync kernels (W4A8, FP8-block,
-    the probes) when the K loop has ``units`` steps that can be dealt out
-    to CTAs; ``bm`` fixes the row tile (else it follows M)."""
+    """(row tile BM, K splits) of the mma.sync kernels (the probes) when
+    the K loop has ``units`` steps that can be dealt out to CTAs; ``bm``
+    fixes the row tile (else it follows M)."""
     bm = bm or next(b for b in (16, 32, 64) if M <= b or b == 64)
     tiles = -(-N // 128) * -(-M // bm)
     want = sms * _RESIDENT[bm]
@@ -315,15 +374,17 @@ def _tiling(M: int, N: int, units: int, sms: int,
 
 def kernel_tiling(M: int, N: int, K: int, gsl: int,
                   sms: int) -> Tuple[int, int]:
-    """(row tile BM, K splits) for the W4A8 kernel on a card of ``sms``
-    SMs: the K loop is dealt out in group pairs."""
+    """(row tile BM, K splits) for a W4 mma.sync kernel (B1's old design,
+    a probe) on a card of ``sms`` SMs: the K loop is dealt out in group
+    pairs."""
     return _tiling(M, N, (K // 2) // gsl, sms)
 
 
-# The wgmma kernels (W4A16, W8A16): a CTA covers WG_ROWS weight rows by a
-# token tile from TOKEN_TILES (wgmma's N), and its K loop walks units of
-# WG_UNIT weight bytes a row (64 columns of each half group for W4, 64
-# columns for W8).
+# The wgmma kernels (W4A16, W4A8, W8A16, FP8-block): a CTA covers WG_ROWS
+# weight rows by a token tile from TOKEN_TILES (wgmma's N), and its K loop
+# walks units of WG_UNIT weight bytes a row (64 columns of each half group
+# for W4 and W4A8, 64 columns for W8; 128 columns, one scale block, for
+# FP8-block).
 WG_ROWS = 128
 WG_UNIT = 64
 TOKEN_TILES = (8, 16, 32, 64, 128)
@@ -421,39 +482,44 @@ def w4_dequant_matmul(x: torch.Tensor, packed: torch.Tensor,
 
 
 def w4a8_dequant_matmul(xq: torch.Tensor, sx: torch.Tensor,
-                        packed: torch.Tensor, s_t: torch.Tensor,
-                        zs_t: torch.Tensor, meta: QMeta,
+                        sums: torch.Tensor, packed: torch.Tensor,
+                        s_t: torch.Tensor, zs_t: torch.Tensor, meta: QMeta,
                         out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the W4A8 Hopper kernel: xq [M, K] int8 per-token codes and
-    sx [M, 1] f32 (from ``_quant_act_token``, made before the launch as
-    the reference does), packed [N, K/2] uint8, s_t / zs_t [ng, N] f32
-    -> [M, N] ``out_dtype``.  The kernel also applies the zero /
-    excess-8 correction and the per-token scale."""
+    """Launch the W4A8 Hopper kernel on ``quant_act_token``'s outputs: xq
+    [M, K] int8 per-token codes, sx [M, 1] f32 and sums [K/64, Mp] int32
+    (made before the launch, as the reference quantizes before its
+    kernel), packed [N, K/2] uint8, s_t / zs_t [ng, N] f32 -> [M, N]
+    ``out_dtype``.  The kernel also applies the zero / excess-8
+    correction and the per-token scale."""
     M, K = xq.shape
     N = meta.out_features
     if not xq.is_cuda:
         raise ValueError('w4a8_dequant_matmul launches a CUDA kernel; '
                          'xq is on the CPU')
-    gsl, single = _check_kernel_meta(meta, M, K, span=128, item='B3')
+    gsl, single = _check_kernel_meta(meta, M, K, span=WG_UNIT, item='B3')
     ng = 1 if single else K // gsl
     _check_operands(xq, {'xq': (xq, torch.int8, (M, K)),
                          'sx': (sx, F32, (M, 1)),
+                         'sums': (sums, torch.int32,
+                                  (K // WG_UNIT, -(-M // 4) * 4)),
                          'packed': (packed, torch.uint8, (N, K // 2)),
                          's': (s_t, F32, (ng, N)),
                          'zs': (zs_t, F32, (ng, N))}, out_dtype)
-    bm, splits = kernel_tiling(M, N, K, gsl, sm_count(xq.device.index))
+    tt, splits = wgmma_tiling(M, N, w4_steps(K, gsl),
+                              sm_count(xq.device.index))
     out, partial = _out_and_partial(M, N, splits, out_dtype, xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = _build.lib().llmc_w4a8_dequant_matmul(
         xq.data_ptr(), packed.data_ptr(), s_t.data_ptr(), zs_t.data_ptr(),
-        sx.data_ptr(), out.data_ptr(), partial.data_ptr(), M, N, K, gsl,
-        int(single), int(out_dtype == F32), bm, splits, stream)
+        sums.data_ptr(), sx.data_ptr(), out.data_ptr(), partial.data_ptr(),
+        M, N, K, gsl, int(single), int(out_dtype == F32), tt, splits,
+        stream)
     _build.check(err, 'w4a8_dequant_matmul')
     LAUNCHES['w4a8_dequant_matmul'] += 1
     return out
 
 
-W8_CHUNK = 128   # the W8 kernel's scale groups: a multiple of this
+W8_GROUP = 32   # the W8 kernel's scale groups: a multiple of this
 
 
 def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
@@ -463,11 +529,11 @@ def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
     if meta.bits != 8 or K != meta.in_features:
         raise ValueError(f'kernel takes bits=8 with K={meta.in_features}; '
                          f'got bits={meta.bits}, K={K}')
-    if gs % W8_CHUNK or K % gs:
+    if gs % W8_GROUP or K % gs or K % WG_UNIT:
         raise NotImplementedError(
-            f'the W8 kernel takes scale groups of a multiple of {W8_CHUNK} '
-            f'columns (the reference kernel\'s rule); group size {gs} at '
-            f'K={K} is not ported (ROADMAP B4)')
+            f'the W8 kernel takes scale groups of a multiple of {W8_GROUP} '
+            f'columns that divide K, K a multiple of {WG_UNIT}; group size '
+            f'{gs} at K={K} is not ported (ROADMAP B4)')
     if N % 2 or M < 1:
         raise ValueError(f'kernel needs an even N and M >= 1 (N={N}, M={M})')
     return gs
@@ -522,9 +588,11 @@ def _dequant_matmul_cuda(x2, packed, scales, zeros, meta: QMeta, out_dtype,
     if meta.bits == 4:
         s_t, zs_t = _kernel_operands(scales, zeros, meta)
         if a_int8:
-            xq, sx = _quant_act_token(x2)
-            return w4a8_dequant_matmul(xq.contiguous(), sx.contiguous(),
-                                       packed, s_t, zs_t, meta, out_dtype)
+            if x2.dtype not in (torch.bfloat16, F32):
+                x2 = x2.to(F32)
+            xq, sx, sums = quant_act_token(x2.contiguous())
+            return w4a8_dequant_matmul(xq, sx, sums, packed, s_t, zs_t, meta,
+                                       out_dtype)
         return w4_dequant_matmul(x2.to(torch.bfloat16).contiguous(), packed,
                                  s_t, zs_t, meta, out_dtype)
     if meta.bits == 8:

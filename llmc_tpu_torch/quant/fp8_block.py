@@ -61,13 +61,16 @@ def weight_cast_to_bf16(codes: torch.Tensor, scale_inv: torch.Tensor,
 
 def act_quant_per_group(x: torch.Tensor, group: int = 128
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-128-group activation -> (e4m3 codes, f32 scales [..., n/group])."""
+    """Per-128-group activation -> (e4m3 codes, f32 scales [..., n/group]).
+    The scale is ``amax`` times the f32 reciprocal of 448, as ``jax.jit``
+    of the reference computes ``amax / 448.0`` (XLA folds a division by a
+    constant into that multiply); ``xg / scale`` stays a true division."""
     lead = x.shape[:-1]
     n = x.shape[-1]
     xg = x.to(F32).reshape(-1, n // group, group)
     amax = torch.clamp(torch.amax(torch.abs(xg), dim=-1, keepdim=True),
                        min=1e-12)
-    scale = amax / E4M3_MAX
+    scale = amax * (1.0 / E4M3_MAX)
     codes = float_cast(xg / scale, 4, 3, E4M3_MAX)
     return (codes.reshape(*lead, n).to(E4M3),
             scale.reshape(*lead, n // group))
@@ -83,7 +86,7 @@ def fp8_block_matmul(x_codes, x_scales, w_codes, w_scale_inv,
     scales; w: [N, K] codes + [ceil(N/bs), K/bs] scale_inv.
 
     A CUDA tensor launches the Hopper kernel, which takes block size 128
-    with N and K in multiples of 128 and raises on anything else; a CPU
+    with K a multiple of 128 (any N) and raises on anything else; a CPU
     tensor takes the plain version.  ``force_plain`` (the reference's
     ``force_xla``) takes the plain version on either device."""
     if x_codes.device.type not in ('cuda', 'cpu'):

@@ -103,8 +103,10 @@ def prefill_qmap_from(qmap: QMap) -> QMap:
 def w8_companion(w: torch.Tensor):
     """(codes int8 [N, K], scales [N]) per-channel symmetric int8 of a
     weight: the companion copy, by the activation quantizer's recipe
-    (per 'row' symmetric, / 127) so that all int8 paths share one."""
-    q, s8 = _quant_act_token(w)
+    (per 'row' symmetric, / 127) so that all int8 paths share one.  The
+    reference packs eagerly, where ``max(ax, 1e-8) / 127.0`` is a true
+    division: so is this one (``folded=False``)."""
+    q, s8 = _quant_act_token(w, folded=False)
     return q, s8[:, 0]
 
 

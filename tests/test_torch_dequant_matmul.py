@@ -193,19 +193,23 @@ def test_kernel_takes_only_128_column_half_groups(gs, K, ok):
 
 
 @pytest.mark.parametrize('gs, K, ok', [(128, 512, True), (256, 256, True),
-                                       (64, 256, False), (128, 128, False)])
+                                       (64, 256, True), (128, 128, True),
+                                       (192, 192, False), (96, 384, False)])
 def test_w4a8_kernel_takes_only_128_column_half_groups(gs, K, ok):
-    """The W4A8 kernel (not yet on the wgmma skeleton) still reads each
-    half group in 128-column chunks: group size 64, or a single group
-    narrower than 256, raises."""
+    """The W4A8 kernel on the wgmma skeleton reads each half group in
+    64-column pieces, as the W4A16 kernel does (the wrapper's rule, span
+    64): group size 64 and a single group of 128 columns are taken, where
+    the old kernel's 128-column chunks refused them; a half group of 96
+    columns raises."""
     meta = TD.QMeta(bits=4, group_size=gs, symmetric=True, out_features=64,
                     in_features=K)
     if ok:
-        assert TD._check_kernel_meta(meta, 8, K, span=128,
-                                     item='B3')[0] % 128 == 0
+        gsl, single = TD._check_kernel_meta(meta, 8, K, span=TD.WG_UNIT,
+                                            item='B3')
+        assert gsl % 64 == 0 and single == (gs == K)
     else:
         with pytest.raises(NotImplementedError, match='B3'):
-            TD._check_kernel_meta(meta, 8, K, span=128, item='B3')
+            TD._check_kernel_meta(meta, 8, K, span=TD.WG_UNIT, item='B3')
 
 
 @pytest.mark.parametrize('sms', [114, 132])

@@ -5,6 +5,7 @@ against the reference's XLA branch and its Pallas kernel in interpret
 mode.  The Hopper kernel itself is held against the plain version and a
 float64 oracle on the card (``gpu`` marker)."""
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -108,16 +109,24 @@ def test_e4m3_codes_cross_the_converter_unchanged():
     np.testing.assert_array_equal(bits(back), bits(a))
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'randn64x1024'])
 def test_act_quant_per_group_bit_equal(dtype):
+    """Codes and scales equal the reference's under ``jax.jit``, where XLA
+    folds ``amax / 448.0`` into a multiply by the f32 reciprocal of 448
+    (the 64 x 1024 case: 248 of its 512 scales differ from a true
+    division)."""
     x = (np.random.RandomState(3).standard_normal((3, 5, 256)) * 2
          ).astype(np.float32)
     x[0, 0, :128] = 0.0                      # an all-zero group
+    if dtype == 'randn64x1024':
+        x = (np.random.RandomState(1).randn(64, 1024) * 3).astype(np.float32)
+        dtype = 'float32'
     jx = jnp.asarray(x).astype(dtype)
     tx = t(x).to(getattr(torch, dtype))
-    jc, js = JF.act_quant_per_group(jx, 128)
+    jc, js = jax.jit(JF.act_quant_per_group, static_argnums=1)(jx, 128)
     tc, ts = act_quant_per_group(tx, 128)
-    assert tuple(tc.shape) == (3, 5, 256) and tuple(ts.shape) == (3, 5, 2)
+    assert tuple(tc.shape) == x.shape
+    assert tuple(ts.shape) == x.shape[:-1] + (x.shape[-1] // 128,)
     np.testing.assert_array_equal(bits(tensor_to_numpy(tc)),
                                   bits(np.asarray(jc)))
     np.testing.assert_array_equal(bits(ts.numpy()), bits(np.asarray(js)))
@@ -177,6 +186,27 @@ def test_float64_oracle_is_the_plain_version_in_float64():
     assert rel_err(got.numpy(), oracle.numpy()) <= 1e-6
 
 
+@pytest.mark.parametrize('M,N,K', [(5, 200, 256), (3, 201, 384),
+                                   (9, 1000, 128)])
+def test_fp8_plain_matches_xla_branch_at_ragged_n(M, N, K):
+    """N off the 128-row scale block, which the reference serves through
+    its XLA branch and the card's kernel now takes: the plain version
+    against that branch, at f32, to 1e-5; and the kernel's shape rule
+    accepts it."""
+    j, p = _gemm_case(M, N, K, 128, seed=9)
+    assert tuple(p[3].shape) == (-(-N // 128), K // 128)
+    want = np.asarray(JF.fp8_block_matmul(*j, block_size=128,
+                                          out_dtype=jnp.float32,
+                                          force_xla=True))
+    got = fp8_block_matmul(*p, out_dtype=F32).numpy()
+    assert got.shape == (M, N) and rel_err(got, want) <= 1e-5
+    assert G._check_fp8_meta(M, N, K, 128) == K // 128
+    with pytest.raises(NotImplementedError, match='ROADMAP B6'):
+        G._check_fp8_meta(M, N, K, 64)
+    with pytest.raises(ValueError, match='multiple'):
+        G._check_fp8_meta(M, N, K + 64, 128)
+
+
 def test_cuda_wrapper_refuses_a_cpu_tensor_and_dispatch_checks_device():
     _, p = _gemm_case(4, 128, 128, 128)
     with pytest.raises(ValueError, match='CUDA kernel'):
@@ -225,13 +255,49 @@ def test_kernel_matches_plain_and_oracle_on_card(cuda_device, N, K, M):
 
 @pytest.mark.gpu
 def test_kernel_route_raises_on_what_it_does_not_take(cuda_device):
+    """Block size 32 and a bf16 x raise on the card; N=100, which raised
+    before the kernel took ragged N, launches and matches the float64
+    oracle."""
     _, p = _gemm_case(4, 96, 128, 32)
     p = tuple(a.to(cuda_device) for a in p)
     with pytest.raises(NotImplementedError, match='ROADMAP B6'):
         fp8_block_matmul(*p, block_size=32)
     _, p = _gemm_case(4, 128, 256, 128)
     xc, xs, wc, ws = (a.to(cuda_device) for a in p)
-    with pytest.raises(ValueError, match='multiples'):
-        fp8_block_matmul(xc, xs, wc[:100], ws)
     with pytest.raises((ValueError, TypeError)):
         fp8_block_matmul(xc.to(torch.bfloat16), xs, wc, ws)
+    before = G.LAUNCHES['fp8_block_gemm']
+    got = fp8_block_matmul(xc, xs, wc[:100], ws, out_dtype=F32)
+    oracle = G.fp8_block_matmul_plain(xc, xs, wc[:100], ws,
+                                      out_dtype=torch.float64,
+                                      acc_dtype=torch.float64)
+    assert G.LAUNCHES['fp8_block_gemm'] == before + 1
+    assert got.shape == (4, 100)
+    assert rel_err(got.cpu().numpy(), oracle.cpu().numpy()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('M', [1, 8, 37, 128, 300])
+@pytest.mark.parametrize('N,K', [(200, 256), (201, 384), (1000, 1024)])
+def test_kernel_matches_oracle_at_ragged_n_on_card(cuda_device, N, K, M):
+    """N off the 128-row block and the tile (odd too): f32 output within
+    1e-5 of the float64 oracle, bf16 within 1e-2 of the plain version."""
+    _, p = _gemm_case(M, N, K, 128, seed=10)
+    p = tuple(a.to(cuda_device).contiguous() for a in p)
+    oracle = G.fp8_block_matmul_plain(*p, out_dtype=torch.float64,
+                                      acc_dtype=torch.float64).cpu().numpy()
+    plain = G.fp8_block_matmul_plain(*p, out_dtype=F32).cpu().numpy()
+    got = G.fp8_block_matmul_cuda(*p, out_dtype=F32)
+    got16 = G.fp8_block_matmul_cuda(*p)
+    assert got.shape == (M, N)
+    assert rel_err(got.cpu().numpy(), oracle) <= 1e-5
+    assert rel_err(got16.float().cpu().numpy(), plain) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_kernel_keeps_every_bit_of_a_block_sum_on_card(cuda_device):
+    """chip_smoke's adder probe (products spanning 20 bits in every k32
+    step) within 1e-5 of the float64 oracle: the kernel sums a block in
+    f32, not in the fp8 tensor cores' shorter adder."""
+    import chip_smoke
+    assert chip_smoke.fp8_adder_probe(cuda_device) <= 1e-5

@@ -182,7 +182,8 @@ def test_chip_smoke_cpu_phases_tiny_w4a8_and_w8(mode):
     fw, steps = rec['prefill_forwards'] + rec['decode_steps'], \
         rec['decode_steps']
     want = {'w4a8': dict(ZERO_LAUNCHES, w4a8_dequant_matmul=4 * L * fw,
-                         w4_dequant_matmul=fw, batch_decode=L * steps),
+                         quant_act_token=4 * L * fw, w4_dequant_matmul=fw,
+                         batch_decode=L * steps),
             'w8a16': dict(ZERO_LAUNCHES, w8_dequant_matmul=(4 * L + 1) * fw,
                           flash_decode=L * steps)}[mode]
     assert rec['expected_launches'] == want
@@ -372,3 +373,28 @@ def test_fp8_bound_follows_the_data_sheet():
     assert 0.0269 < chip_smoke.fp8_bound(1, N, K, 2, peaks)[0] < 0.0270
     assert 0.373 < chip_smoke.fp8_bound(4096, N, K, 2, peaks)[0] < 0.374
     assert chip_smoke.KERNEL_NAMES[-1] == 'fp8_block_gemm'
+
+
+def test_chip_smoke_lists_seventeen_kernels_and_the_wgmma_builds():
+    """The kernels line's names: the nine probes, B1's old design and the
+    main paths' seven, the W4A8 quantizer after its GEMM; the wgmma
+    kernels whose ptxas report the build phase holds to no spill, with
+    their instantiation counts; and the quantizer's byte bound."""
+    names = chip_smoke.KERNEL_NAMES
+    assert len(names) == len(set(names)) == 17
+    assert names.index('quant_act_token') == \
+        names.index('w4a8_dequant_matmul') + 1
+    assert chip_smoke.WGMMA_KERNELS == {
+        'w4_dequant_matmul': 20, 'w4a8_dequant_matmul': 20,
+        'w8_dequant_matmul': 40, 'fp8_block_gemm': 10}
+    info = {'kernels': {f'_Z{i}{n}_kernelILi8EEv': {'registers': 90}
+                        for n, k in chip_smoke.WGMMA_KERNELS.items()
+                        for i in range(k)}}
+    assert set(chip_smoke.wgmma_build(info)) == set(chip_smoke.WGMMA_KERNELS)
+    info['kernels']['_Z0fp8_block_gemm_kernelILi8EEv']['spill_stores'] = 8
+    with pytest.raises(chip_smoke.CheckFailed, match='spills'):
+        chip_smoke.wgmma_build(info)
+    peaks = chip_smoke.PEAKS['H100 SXM']
+    ms, by = chip_smoke.quant_bound(128, 4096, 2, peaks)
+    nbytes = 128 * 4096 * 3 + 4 * 128 + 4 * 64 * 128
+    assert by == 'bytes' and abs(ms - nbytes / 3.35e12 * 1e3) < 1e-12

@@ -311,7 +311,8 @@ def test_ab_serve_needs_a_card_and_runs_each_tree_in_its_root(tmp_path,
 
 @pytest.mark.parametrize('kernel, variant', [
     (k, v) for k in ('w4_dequant_matmul', 'w8_dequant_matmul')
-    for v in ('no_decode', 'no_wgmma')])
+    for v in ('no_decode', 'no_wgmma')] + [
+    ('w8_dequant_matmul', 'two_group_lookup')])
 def test_wgmma_variants_cut_the_shipping_sources(kernel, variant):
     """Each attribution variant finds its anchors once in the shipping
     source and changes it (a stale variant would raise, not time the
@@ -323,6 +324,56 @@ def test_wgmma_variants_cut_the_shipping_sources(kernel, variant):
     assert cut != (_build.CSRC / source).read_text()
     for old, new in V.VARIANTS[kernel][1][variant]:
         assert old not in cut and new in cut
+
+
+@pytest.mark.parametrize('kernel, variant', [
+    ('w4a8_dequant_matmul', 'no_decode'), ('w4a8_dequant_matmul', 'no_wgmma'),
+    ('w4a8_dequant_matmul', 'no_epilogue'),
+    ('fp8_block_gemm', 'no_promotion')])
+def test_wgmma_variants_of_b3_and_b6(kernel, variant):
+    """B3's and B6's variants: a text cut finds its anchors once and
+    changes the source."""
+    from llmc_tpu_torch.ops import _build
+    from llmc_tpu_torch.tools import wgmma_variants as V
+    source, variants = V.VARIANTS[kernel]
+    text = (_build.CSRC / source).read_text()
+    cut = V.variant_source(kernel, variant)
+    assert cut != text
+    for old, new in variants[variant]:
+        assert old not in cut and new in cut
+
+
+def test_wgmma_variants_times_only_the_kernels_asked_for(monkeypatch):
+    """``--kernels`` and ``--M`` narrow the run: only the named kernels'
+    variants are built, and each is timed at each M in turns with the
+    library as built (built, variant, variant, built), which is loaded
+    again at the end; an unknown kernel is refused."""
+    from llmc_tpu_torch.tools import wgmma_variants as V
+    built, order = object(), []
+    monkeypatch.setattr(V._build, '_LIB', None)
+    monkeypatch.setattr(V._build, 'lib', lambda: built)
+    monkeypatch.setattr(V.torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(V.torch, 'Generator',
+                        lambda device: types.SimpleNamespace(
+                            manual_seed=lambda seed: None))
+    monkeypatch.setattr(V, 'build_variant', lambda k, v: (k, v))
+    monkeypatch.setattr(V, '_operands', lambda *a: (None,) * 4)
+    monkeypatch.setattr(V, '_timer', lambda *a: None)
+
+    def fake_ms(call, iters):
+        order.append(V._build._LIB)
+        return 1.0
+    monkeypatch.setattr(V, 'cuda_ms', fake_ms)
+    kernel = 'w8_dequant_matmul'
+    variants = list(V.VARIANTS[kernel][1])
+    recs = V.run(Ms=(1, 128), kernels=[kernel])
+    assert [(r['kernel'], r['variant'], r['M']) for r in recs] == [
+        (kernel, v, M) for M in (1, 128) for v in variants]
+    assert order == [lib for M in (1, 128) for v in variants
+                     for lib in (built, (kernel, v), (kernel, v), built)]
+    assert V._build._LIB is built
+    with pytest.raises(SystemExit):
+        V.main(['--kernels', 'no_such_kernel'])
 
 
 def test_bounds_follow_the_data_sheet():
