@@ -28,7 +28,13 @@ Phases, each printing one JSON line, all of them on every run:
                   timed beside its old mma.sync design on the same
                   operands.  Also the staged W4A8 prefill beside the
                   kernel at M=4096, and a sweep of the serving-batch
-                  kernel's two launch arguments.
+                  kernel's two launch arguments.  The flash-decode kernel
+                  (split over the cache) at ``FLASH_SHAPES``: the bench's
+                  decode shape, B=8 at Smax=1024, and Llama-2-7B's full
+                  context of 4096 at B = 1 and 8 and Llama-3-8B's 8 kv
+                  heads at B = 8; the serving-batch kernel at the first
+                  two.  The FP8-block kernel also at block sizes 64, 256
+                  and the whole K.
 4. ``probes``     the w4 design probes (``ops/probe_gemm.py``, nine kernels
                   of ``csrc/probe_gemm.cu`` and B1's old design
                   ``w4_current``) through their entry points
@@ -53,7 +59,10 @@ Phases, each printing one JSON line, all of them on every run:
                   greedy decode steps after one warm-up prefill and step
                   (a record, not a claim).
 8. ``profile``    torch.profiler over 8 decode steps at that shape: device
-                  time by kernel and the device's idle share.
+                  time by kernel, attention's share and the device's idle
+                  share; for W4A16 also at B=8 after a prefill of 1024
+                  tokens (``LONG_PROFILE``), where a step is mostly
+                  attention.
 9. ``serve_w4a8`` + its ``throughput`` and ``profile``: the same engine
                   and bench shape with per-token int8 activations (every
                   block linear through the quantizer and the W4A8 kernel,
@@ -90,7 +99,10 @@ Phases, each printing one JSON line, all of them on every run:
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
-and fails unless they equal what its path implies.  Then the
+and fails unless they equal what its path implies and no call ran the
+reference's XLA branch in torch ops (``xla_branch_calls`` 0: every weight
+of every path goes to a kernel).  The flash-decode kernel combines its
+splits inside its one launch: no combine launch to count.  Then the
 ``wgmma_kernels`` line (B1's, B3's, B4's and B6's registers, spills, host
 microseconds a launch and graph times, B1's old design), the
 ``{"kernels": [...]}`` line (seventeen kernels: each of the main paths'
@@ -656,24 +668,33 @@ def _attn_positions(B, smax, chunk, dev):
     rng = np.random.RandomState(3)
     special = [0, chunk - 1, chunk, chunk + 1, smax - 1, 31, 32, 1]
     rnd = rng.randint(0, smax, B)
-    rnd[:len(special)] = [min(p, smax - 1) for p in special]
+    rnd[:len(special)] = [min(p, smax - 1) for p in special][:B]
     every = rng.randint(0, 3, B)
     every[::8] = smax - 1
     first = rng.randint(0, 3, B)
-    first[3] = smax - 1
+    first[min(3, B - 1)] = smax - 1
     return {name: torch.as_tensor(v, dtype=torch.int32, device=dev)
             for name, v in (('random', rnd), ('skew_every_block', every),
                             ('skew_one_block', first))}
 
 
-def check_attention(name, dev, peaks, shapes=((128, 96), (8, 1024)), kvh=32,
-                    H=32, hd=128):
+# check_attention's rows: (B, Smax, KVH, H, valid positions timed).  The
+# bench's decode shape (64 valid: the ``kernels`` line's row), a small
+# batch with a long cache, and Llama-2-7B's full context of 4096 at B = 1
+# and 8 (32 kv heads) and Llama-3-8B's attention widths (8 kv heads for 32
+# query heads) at B = 8.
+FLASH_SHAPES = ((128, 96, 32, 32, (64,)), (8, 1024, 32, 32, (64, 1000)),
+                (1, 4096, 32, 32, (4000,)), (8, 4096, 32, 32, (4000,)),
+                (8, 4096, 8, 32, (4000,)))
+BATCH_SHAPES = FLASH_SHAPES[:2]
+
+
+def check_attention(name, dev, peaks, shapes=FLASH_SHAPES, hd=128):
     """A decode-attention kernel ('flash_decode' or 'batch_decode') against
-    its plain version at the bench's decode shape and at a small batch
-    with a long cache, int8 and bf16 caches, over ``_attn_positions``;
-    timed at the bench's mid-run state, 64 valid positions a slot (the
-    first row, which the ``kernels`` line reads), and the long cache also
-    at 1000."""
+    its plain version at each of ``shapes``, int8 and bf16 caches, over
+    ``_attn_positions``; timed at each shape's valid positions a slot
+    (the first row, which the ``kernels`` line reads, at the bench's
+    mid-run state) beside the bound, the plain version and SDPA."""
     if name == 'flash_decode':
         from llmc_tpu_torch.ops.flash_decode import (
             KERNEL_CHUNK as chunk, flash_decode_cuda as kernel,
@@ -683,7 +704,7 @@ def check_attention(name, dev, peaks, shapes=((128, 96), (8, 1024)), kvh=32,
             KERNEL_CHUNK as chunk, batch_decode_cuda as kernel,
             batch_decode_plain as plain)
     rows, worst_abs, worst_rel = [], 0.0, 0.0
-    for B, smax in shapes:
+    for B, smax, kvh, H, timed in shapes:
         for quant in (True, False):
             q, kb, vb, ks, vs = flash_inputs(dev, B, smax, kvh, H, hd,
                                              quant=quant)
@@ -696,12 +717,10 @@ def check_attention(name, dev, peaks, shapes=((128, 96), (8, 1024)), kvh=32,
                 worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
                                                                 rel)
                 require(bool(torch.isfinite(got).all()) and rel <= TOL_FLASH,
-                        f'{name} B={B} Smax={smax} quant={quant} {pname}: '
-                        f'rel err {rel:.3g} > {TOL_FLASH}')
+                        f'{name} B={B} Smax={smax} KVH={kvh} quant={quant} '
+                        f'{pname}: rel err {rel:.3g} > {TOL_FLASH}')
                 errs[pname] = rel
-            # the long cache is also timed nearly full, where the kernels
-            # are bound by the rows they read and not by their launch
-            for valid in (64, smax - 24) if smax > 128 else (64,):
+            for valid in timed:
                 pos_t = torch.full((B,), valid - 1, dtype=torch.int32,
                                    device=dev)
                 it = [0]
@@ -722,8 +741,11 @@ def check_attention(name, dev, peaks, shapes=((128, 96), (8, 1024)), kvh=32,
                                  timed_valid_positions=valid,
                                  kernel_ms=kernel_ms, plain_ms=plain_ms,
                                  library_ms=library_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by))
+                                 bound_by=bound_by,
+                                 x_bound=kernel_ms / bound_ms,
+                                 x_library=kernel_ms / library_ms))
             del q, kb, vb, ks, vs
+            torch.cuda.empty_cache()
     return rows, worst_abs, worst_rel
 
 
@@ -797,14 +819,15 @@ def fp8_bound(M, N, K, out_bytes, peaks, bs=128):
     return max(t_b, t_o), ('bytes' if t_b >= t_o else 'operations')
 
 
-def _fp8_case(N, K, M, gen, dev):
+def _fp8_case(N, K, M, gen, dev, bs=128):
     """(x bf16, its codes and scales, the weight's codes and scale_inv):
-    random activations and weights through the port's own quantizers."""
+    random activations and weights through the port's own quantizers, in
+    blocks of ``bs``."""
     from llmc_tpu_torch.quant import act_quant_per_group, weight_cast_to_fp8
     x = torch.randn((M, K), generator=gen, device=dev).to(BF16)
     w = torch.randn((N, K), generator=gen, device=dev) * 0.02
-    xc, xs = act_quant_per_group(x)
-    wc, ws = weight_cast_to_fp8(w)
+    xc, xs = act_quant_per_group(x, bs)
+    wc, ws = weight_cast_to_fp8(w, bs)
     return x, xc, xs.contiguous(), wc, ws.contiguous()
 
 
@@ -836,11 +859,12 @@ def _fp8_library(case):
 
 
 def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 64, 77, 128, 4096),
-              timed=(1, 64, 128, 4096)):
-    """The FP8-block kernel at every (N, K) and M, f32 and bf16 output,
-    against its plain version and the float64 oracle.  Times by CUDA
-    events at the ``timed`` Ms, with the host's microseconds a launch and,
-    up to M=128, the device time through a CUDA graph."""
+              timed=(1, 64, 128, 4096), bs=128):
+    """The FP8-block kernel at every (N, K) and M, f32 and bf16 output, in
+    scale blocks of ``bs`` (the whole K where ``bs`` is 'K'), against its
+    plain version and the float64 oracle.  Times by CUDA events at the
+    ``timed`` Ms (block size 128), with the host's microseconds a launch
+    and, up to M=128, the device time through a CUDA graph."""
     from llmc_tpu_torch.ops import fp8_gemm as G
     from llmc_tpu_torch.ops.dequant_matmul import wgmma_tiling
     from llmc_tpu_torch.quant import act_quant_per_group, fp8_block_matmul
@@ -848,19 +872,20 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 64, 77, 128, 4096),
     gen = torch.Generator(device=dev).manual_seed(4)
     rows, worst_abs, worst_rel, worst_oracle = [], 0.0, 0.0, 0.0
     for (N, K), M in itertools.product(shapes, ms_list):
-        case = _fp8_case(N, K, M, gen, dev)
+        b = K if bs == 'K' else bs
+        case = _fp8_case(N, K, M, gen, dev, b)
         x, xc, xs, wc, ws = case
-        plain = G.fp8_block_matmul_plain(xc, xs, wc, ws, out_dtype=F32)
-        oracle = G.fp8_block_matmul_plain(xc, xs, wc, ws,
+        plain = G.fp8_block_matmul_plain(xc, xs, wc, ws, b, out_dtype=F32)
+        oracle = G.fp8_block_matmul_plain(xc, xs, wc, ws, b,
                                           out_dtype=torch.float64,
                                           acc_dtype=torch.float64)
-        got32 = G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=F32)
-        got16 = G.fp8_block_matmul_cuda(xc, xs, wc, ws, out_dtype=BF16)
+        got32 = G.fp8_block_matmul_cuda(xc, xs, wc, ws, b, out_dtype=F32)
+        got16 = G.fp8_block_matmul_cuda(xc, xs, wc, ws, b, out_dtype=BF16)
         torch.cuda.synchronize()
         err, rel_p = _rel(got32, plain)
         _, rel_o = _rel(got32, oracle)
         err16, rel16 = _rel(got16, plain)
-        what = f'fp8_block_gemm N={N} K={K} M={M}'
+        what = f'fp8_block_gemm N={N} K={K} M={M} block {b}'
         finite = bool(torch.isfinite(got32).all()
                       and torch.isfinite(got16).all())
         require(finite and rel_o <= TOL_FP8_ORACLE
@@ -870,12 +895,12 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 64, 77, 128, 4096),
                 f'{rel16:.3g} (limit {TOL_W4_BF16})')
         worst_abs, worst_rel = max(worst_abs, err16), max(worst_rel, rel16)
         worst_oracle = max(worst_oracle, rel_o)
-        tt, splits = wgmma_tiling(M, N, K // 128, sm_count(dev.index or 0))
-        row = dict(N=N, K=K, M=M, tok_tile=tt, splits=splits,
+        tt, splits = wgmma_tiling(M, N, K // b, sm_count(dev.index or 0))
+        row = dict(N=N, K=K, M=M, block=b, tok_tile=tt, splits=splits,
                    f32_rel_err_oracle=rel_o, f32_rel_err_plain=rel_p,
                    max_abs_err=err16, max_rel_err=rel16)
         del plain, oracle, got32, got16
-        if M in timed:
+        if M in timed and b == 128:
             n_copy = max(1, min(8, -(-160_000_000 // wc.numel())))
             copies = [wc] + [wc.clone() for _ in range(n_copy - 1)]
             it = [0]
@@ -1063,7 +1088,7 @@ def phase_parity(dev, ref_dev, cfg_kw, prompt_len=32, steps=8, seed=0,
     (f32).  The reference is teacher-forced on ``dev``'s greedy tokens,
     so every step's logits compare like with like."""
     from llmc_tpu_torch.models import LlamaAdapter
-    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.serve import KVCachePolicy
     from llmc_tpu_torch.serve.decode import forward_cached, init_cache
     src, qmap = make_model(mode, cfg_kw, 'cpu', seed, group_size)
@@ -1102,7 +1127,7 @@ def phase_parity(dev, ref_dev, cfg_kw, prompt_len=32, steps=8, seed=0,
     with torch.no_grad(), attn_impl(MODES[mode].attn):
         reset_launch_counts()
         got, toks = run(m_dev, dev)
-        counts = launch_counts()
+        counts, xla = read_counts()
         want, ref_toks = run(m_ref, ref_dev, feed=toks)
         # control runs on ``dev``: the same bf16 activations through the
         # plain linears, to tell the kernels' share of the error from the
@@ -1137,7 +1162,7 @@ def phase_parity(dev, ref_dev, cfg_kw, prompt_len=32, steps=8, seed=0,
                                 for c in controls.values())
                         and (same_fn is None
                              or same_fn <= TOL_VS_CONTROL[mode])),
-                launches=counts, expected_launches=expected_launches(
+                launches=counts, xla_branch_calls=xla, expected_launches=expected_launches(
                     cfg.num_hidden_layers, 1 + steps, steps, mode))
 
 
@@ -1158,7 +1183,7 @@ def phase_serve(dev, model, qmap, n_requests=10, max_batch=8, max_len=256,
     the launch counts the path implies.  ``w8_flag`` ('prefill_w8' or
     'decode_w8') sends those forwards through the model's w8 companion,
     whose block linears launch no kernel of the port."""
-    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.serve import KVCachePolicy, ServingEngine
     cfg = model.cfg
     with attn_impl(MODES[mode].attn):
@@ -1173,7 +1198,7 @@ def phase_serve(dev, model, qmap, n_requests=10, max_batch=8, max_len=256,
         if dev.type == 'cuda':
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = launch_counts()
+        counts, xla = read_counts()
     L = cfg.num_hidden_layers
     prefills, steps = eng.stats['prefill_forwards'], eng.stats['decode_steps']
     block_forwards = {None: None, 'prefill_w8': steps, 'decode_w8': 0}[w8_flag]
@@ -1188,7 +1213,7 @@ def phase_serve(dev, model, qmap, n_requests=10, max_batch=8, max_len=256,
     return dict(phase=name, mode=mode, layers=L, requests=len(reqs),
                 prompt_lens=[len(r.prompt_ids) for r in reqs],
                 tokens=sum(len(r.output_ids) for r in reqs),
-                wall_s=wall, **eng.stats, launches=counts,
+                wall_s=wall, **eng.stats, launches=counts, xla_branch_calls=xla,
                 expected_launches=expect, all_done=done)
 
 
@@ -1210,7 +1235,7 @@ def phase_throughput(dev, model, qmap, B=128, prefill=32, steps=64, seed=0,
     decode steps, timed with host clocks around synchronised work.  One
     prefill and one step on a throwaway cache first take the first-use
     costs (allocator growth, library handles) out of TTFT."""
-    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.serve import KVCachePolicy
     from llmc_tpu_torch.serve.decode import forward_cached, init_cache
     cfg = model.cfg
@@ -1245,20 +1270,22 @@ def phase_throughput(dev, model, qmap, B=128, prefill=32, steps=64, seed=0,
             tok = logits[:, -1].argmax(-1)
         sync()
         dec = time.perf_counter() - t0
-        counts = launch_counts()
+        counts, xla = read_counts()
     return dict(phase='throughput', mode=mode, B=B, prefill=prefill,
                 steps=steps, tokens_per_s=B * steps / dec,
                 ttft_ms=ttft * 1e3, step_ms=dec / steps * 1e3,
-                launches=counts, expected_launches=expected_launches(
+                launches=counts, xla_branch_calls=xla, expected_launches=expected_launches(
                     cfg.num_hidden_layers, 1 + steps, steps, mode))
 
 
 def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12,
                   mode='w4a16'):
-    """torch.profiler over ``steps`` decode steps at the bench's shape:
-    device time by kernel, and the device's busy share of the wall."""
+    """torch.profiler over ``steps`` decode steps after a prefill of
+    ``prefill`` tokens a slot (the bench's shape by default): device time
+    by kernel, the decode attention's share of it, and the device's busy
+    share of the wall."""
     from torch.profiler import ProfilerActivity, profile
-    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.serve import KVCachePolicy
     from llmc_tpu_torch.serve.decode import forward_cached, init_cache
     cfg = model.cfg
@@ -1281,7 +1308,7 @@ def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12,
                 tok = logits[:, -1].argmax(-1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        counts = launch_counts()
+        counts, xla = read_counts()
     # device-side events only: a host op (aten::mean) also reports the
     # device time of the kernel it launched, which would count it twice
     from torch.autograd import DeviceType
@@ -1293,14 +1320,18 @@ def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12,
             rows.append((dt, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3          # ms
-    return dict(phase='profile', mode=mode, B=B, steps=steps,
-                wall_ms=wall * 1e3, device_busy_ms=busy,
+    attn = sum(r[0] for r in rows
+               if 'flash_decode' in r[1] or 'batch_decode' in r[1]) / 1e3
+    return dict(phase='profile', mode=mode, B=B, prefill=prefill,
+                steps=steps, wall_ms=wall * 1e3, device_busy_ms=busy,
                 device_busy_ms_per_step=busy / steps,
+                attention_ms_per_step=attn / steps,
+                attention_share=attn / busy if busy else 0.0,
                 device_idle_share=max(0.0, 1 - busy / (wall * 1e3)),
                 per_step_ms=wall * 1e3 / steps,
                 top=[dict(kernel=k[:80], ms=dt / 1e3, calls=c)
                      for dt, k, c in rows[:top]],
-                launches=counts, expected_launches=expected_launches(
+                launches=counts, xla_branch_calls=xla, expected_launches=expected_launches(
                     cfg.num_hidden_layers, 1 + steps, steps, mode))
 
 
@@ -1353,7 +1384,7 @@ def phase_fp8_linear(dev, cfg_kw, M=128, seed=0, block_size=128):
     against the plain version on the same codes."""
     from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
     from llmc_tpu_torch.models.base import get_path
-    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.quant import (act_quant_per_group, fp8_block_matmul,
                                       weight_cast_to_bf16, weight_cast_to_fp8)
     model = LlamaAdapter.random(
@@ -1372,7 +1403,7 @@ def phase_fp8_linear(dev, cfg_kw, M=128, seed=0, block_size=128):
             codes, scale_inv = stored[p]
             xc, xs = act_quant_per_group(xs_in[p], block_size)
             outs[p] = fp8_block_matmul(xc, xs, codes, scale_inv, block_size)
-        counts = launch_counts()
+        counts, xla = read_counts()
         rows = []
         for p in paths:
             codes, scale_inv = stored[p]
@@ -1395,7 +1426,7 @@ def phase_fp8_linear(dev, cfg_kw, M=128, seed=0, block_size=128):
                 ok=all(r['finite'] and r['rel_err_vs_plain'] <= TOL_W4_BF16
                        and r['rel_err_vs_dense_bf16_weight'] <= TOL_FP8_LINEAR
                        for r in rows),
-                launches=counts, expected_launches=expect)
+                launches=counts, xla_branch_calls=xla, expected_launches=expect)
 
 
 def _fp8_ingest_model_type():
@@ -1526,11 +1557,11 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
     block.  Returns the phase record and the pipeline's result (the
     compressed model and its algorithm object)."""
     from llmc_tpu_torch.main import run_pipeline
-    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.ops import reset_launch_counts
     config = compress_config(cfg_kw, method, special, fp8_ingest, **sizes)
     reset_launch_counts()
     res = run_pipeline(config, device=dev)
-    counts = launch_counts()
+    counts, xla = read_counts()
     ppl = {k: res[k] for k in ('ppl_pretrain', 'ppl_transformed',
                                'ppl_fake_quant')}
     drift = abs(ppl['ppl_transformed'] - ppl['ppl_pretrain']) \
@@ -1550,7 +1581,7 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
                block_output_mse=searched,
                tolerance_searched_over_rtn=TOL_SEARCH_VS_RTN,
                phase_times_s=times, block_loop_s_per_block=calib / L,
-               wall_s=res['wall_s'], launches=counts,
+               wall_s=res['wall_s'], launches=counts, xla_branch_calls=xla,
                ok=bool(all(np.isfinite(v) for v in ppl.values())
                        and drift <= TOL_PPL_TRANSFORMED
                        and all(r['searched_over_rtn'] <= TOL_SEARCH_VS_RTN
@@ -1616,20 +1647,20 @@ def phase_probes(dev, Ms=PROBE_MS, K=4096, N=22016):
     ``probe_gemm.TOL_BF16`` of the largest output, the int8 dot's int32
     equal) and raises when one is off; the launches must equal the calls
     the tools made."""
-    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.tools import kernel_bench, w4_probe
     t0 = time.perf_counter()
     reset_launch_counts()
     kb = kernel_bench.run(dev, M=Ms, K=K, N=N)
     wp = w4_probe.run(dev, M=Ms, K=K, N=N)
-    counts = launch_counts()
+    counts, xla = read_counts()
     wall = time.perf_counter() - t0
     expect = dict.fromkeys(KERNEL_NAMES, 0)
     for r in kb + wp:
         if r['kernel']:
             expect[r['kernel']] += r['calls']
     return dict(phase='probes', K=K, N=N, Ms=list(Ms), wall_s=wall,
-                kernel_bench=kb, w4_probe=wp, launches=counts,
+                kernel_bench=kb, w4_probe=wp, launches=counts, xla_branch_calls=xla,
                 expected_launches=expect)
 
 
@@ -1653,10 +1684,20 @@ def probe_kernel_record(name, rec, launches, M=128):
                 at=f'{row["name"]} N={rec["N"]} K={rec["K"]} M={M}')
 
 
+def read_counts():
+    """(kernel launches, calls that ran the reference's XLA branch on the
+    card) since the last ``reset_launch_counts``."""
+    from llmc_tpu_torch.ops import launch_counts, xla_branch_calls
+    return launch_counts(), xla_branch_calls()
+
+
 def require_launches(rec) -> None:
     require(rec['launches'] == rec['expected_launches'],
             f'{rec["phase"]}: launches {rec["launches"]} != expected '
             f'{rec["expected_launches"]}')
+    require(rec['xla_branch_calls'] == 0,
+            f'{rec["phase"]}: {rec["xla_branch_calls"]} calls ran the XLA '
+            f'branch in torch ops: a weight of the path no kernel takes')
 
 
 def require_served(rec) -> None:
@@ -1667,9 +1708,10 @@ def require_served(rec) -> None:
 
 
 # instantiations: 5 token tiles x 2 outputs x (B1, B3) 1 or 2 pieces a
-# step, (B4) with or without zeros x one or two groups a unit, (B6) one
+# step, (B4) with or without zeros x one or two groups a unit, (B6) 1 or 2
+# units a step
 WGMMA_KERNELS = {'w4_dequant_matmul': 20, 'w4a8_dequant_matmul': 20,
-                 'w8_dequant_matmul': 40, 'fp8_block_gemm': 10}
+                 'w8_dequant_matmul': 40, 'fp8_block_gemm': 20}
 
 
 def wgmma_build(build_info):
@@ -1735,9 +1777,15 @@ def old_design_ms(probes):
             if r['kernel'] == 'w4_mma_sync' and r['M'] in (64, 128, 4096)}
 
 
+# the long-context profile row of W4A16 + flash: a small batch deep into a
+# long cache, where a decode step is mostly attention
+LONG_PROFILE = dict(B=8, prefill=1024, steps=8)
+
+
 def drive_mode(mode, dev, peaks, card):
     """The model phases of one serving mode at Llama-2-7B width and depth:
-    serve, throughput, profile.  Returns the serve phase's launches."""
+    serve, throughput, profile (for W4A16 also at ``LONG_PROFILE``).
+    Returns the serve phase's launches."""
     model, qmap = make_model(mode, LLAMA2_7B, dev)
     rec = phase_serve(dev, model, qmap, mode=mode)
     emit(rec)
@@ -1750,6 +1798,13 @@ def drive_mode(mode, dev, peaks, card):
     rec = phase_profile(dev, model, qmap, mode=mode)
     emit(rec)
     require_launches(rec)
+    if mode == 'w4a16':
+        rec = phase_profile(dev, model, qmap, mode=mode, **LONG_PROFILE)
+        rec.update(step_bound(model, LONG_PROFILE['B'],
+                              LONG_PROFILE['prefill'], LONG_PROFILE['steps'],
+                              peaks, mode), **card)
+        emit(rec)
+        require_launches(rec)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -1823,10 +1878,16 @@ def main(argv=None) -> int:
                            (1, 77, 128), timed_ms=(), gs=gs)
                 for gs in (64, 32)]
     quant = check_quant_act_token(dev, peaks)
-    attn = {name: check_attention(name, dev, peaks)
-            for name in ('flash_decode', 'batch_decode')}
+    attn = {'flash_decode': check_attention('flash_decode', dev, peaks),
+            'batch_decode': check_attention('batch_decode', dev, peaks,
+                                            BATCH_SHAPES)}
     fp8 = check_fp8(dev, peaks)
     fp8_ragged = check_fp8(dev, peaks, FP8_RAGGED, (1, 77, 128), timed=())
+    # block sizes other than 128: 64 (two rows of ws under a CTA), 256 (a
+    # block over two K steps), the whole K
+    fp8_blocks = [check_fp8(dev, peaks, FP8_SHAPES[:1] + FP8_RAGGED,
+                            (1, 77, 128), timed=(), bs=bs)
+                  for bs in (64, 256, 'K')]
     fp8_adder = fp8_adder_probe(dev)
     require(fp8_adder <= TOL_FP8_ORACLE,
             f'fp8_block_gemm on a block whose products span 20 bits: '
@@ -1849,8 +1910,10 @@ def main(argv=None) -> int:
               batch_decode_sweep=sweep_batch_blocks(dev),
               fp8_block_gemm=fp8[0],
               fp8_block_gemm_ragged_n=fp8_ragged[0],
-              fp8_worst_rel_err_vs_float64_oracle=max(fp8[3],
-                                                      fp8_ragged[3]),
+              fp8_block_gemm_block_sizes=[r for rec in fp8_blocks
+                                          for r in rec[0]],
+              fp8_worst_rel_err_vs_float64_oracle=max(
+                  [fp8[3], fp8_ragged[3]] + [r[3] for r in fp8_blocks]),
               fp8_adder_probe_rel_err_vs_float64_oracle=fp8_adder))
 
     probes = phase_probes(dev)
@@ -1979,7 +2042,7 @@ def main(argv=None) -> int:
         kernel_record('fp8_block_gemm', 'fp8_block_gemm.cu',
                       'llmc_tpu/ops/fp8_gemm.py:28',
                       'llmc_tpu/ops/fp8_gemm.py::_kernel_fp8', launches,
-                      errs(fp8, fp8_ragged), next(
+                      errs(fp8, fp8_ragged, *fp8_blocks), next(
                           r for r in fp8[0] if (r['N'], r['M'])
                           == (22016, 128)),
                       'N=22016 K=4096 M=128 e4m3, block 128, bf16 out'),

@@ -1,18 +1,28 @@
 // fp8_block_gemm: the blockwise-scaled FP8 GEMM on Hopper (sm_90a).
 //
 // Replaces: llmc_tpu/ops/fp8_gemm.py::_kernel_fp8 (the Pallas TPU kernel,
-// pallas_call at :73).  Same function, with kb = k / 128:
-//   y[m,n] = sum_kb ( sum_{k in kb} x[m,k] * w[n,k] ) * xs[m,kb] * ws[n/128,kb]
-// x, w are e4m3 codes, every product is exact in f32, each 128-wide block
+// pallas_call at :73).  Same function, with scale blocks of bs columns and
+// bs weight rows, kb = k / bs:
+//   y[m,n] = sum_kb ( sum_{k in kb} x[m,k] * w[n,k] ) * xs[m,kb] * ws[n/bs,kb]
+// x, w are e4m3 codes, every product is exact in f32, each bs-wide block
 // is summed in f32, scaled by its two f32 scales, and added to an f32
 // running sum.
 //
-// Layout.  x [M, K] e4m3; xs [M, K/128] f32; w [N, K] e4m3; ws
-// [ceil(N/128), K/128] f32 (the checkpoint's weight_scale_inv); all as
-// stored.  K % 128 == 0; N takes any value: TMA zero-fills the weight rows
-// past N, and the epilogue writes none.  A CTA's 128 weight rows lie in one
-// row of ws, and a step of 128 columns (two 64-column units) is one scale
-// block: per step the CTA needs one ws value and one xs value a token.
+// Layout.  x [M, K] e4m3; xs [M, K/bs] f32; w [N, K] e4m3; ws
+// [ceil(N/bs), K/bs] f32 (the checkpoint's weight_scale_inv); all as
+// stored.  bs is a multiple of 64 that divides K, or K itself (then K need
+// only be a multiple of 16: TMA zero-fills the last unit's columns past
+// K).  N takes any value: TMA zero-fills the weight rows past N, and the
+// epilogue writes none.  A block is bu = ceil(bs / 64) units of the K
+// loop.  A step takes SU units: two where bs is a multiple of 128, else
+// one (a template argument: no branch between the wgmma instructions of a
+// step).  Every
+// step starts a fresh partial (scale-d 0) and promotes it,
+// acc += part * xs[m,kb] * ws[n/bs,kb], with its block's scales.  A block
+// of 256 columns or more is thus promoted in pieces of 128, with the same
+// scales: the same function, summed in shorter f32 pieces.  bs is a
+// multiple of 16, so each 16-row group of the CTA's 128 weight rows lies
+// in one row of ws (bs = 64 puts two rows of ws under a CTA).
 //
 // What bounds it on an H100: below about M = 600 the weight stream, one
 // byte a weight — the card's memory rate; above it the tensor cores.  It
@@ -21,12 +31,13 @@
 // in registers to f16 (exact: e4m3 is a subset of f16; one cvt per two
 // codes) as A, and x as B from shared memory by TMA, converted to f16 once
 // per call by a first kernel (e4m3_to_f16_kernel, 3 bytes an element).
-// Each scale block's eight k16 steps start from a fresh partial (scale-d 0
-// on the first), and acc += part * (xs[m,kb] * ws[n/128,kb]) runs in f32
-// registers.  xs is [M, K/128], strided by token, which TMA cannot take (a
-// row stride of 4 K / 128 bytes need not be a multiple of 16): the producer
-// warp's lanes load each block's T values with plain loads into the stage,
-// beside the TMA boxes, and arrive on the stage's barrier after them.
+// xs is [M, K/bs], strided by token, which TMA cannot take (a row stride
+// of 4 K / bs bytes need not be a multiple of 16): the producer warp's
+// lanes copy a step's T values by cp.async into a box beside the stage of
+// the step's first unit, with the step's ws value of each 16-row group in
+// a second box, and the copies arrive on the stage's barrier as they land.
+// The producer never waits on a load, and neither loop divides (the block
+// counts come from the host).
 //
 // Why not the fp8 tensor cores: wgmma m64nTk32 e4m3 x e4m3 -> f32 keeps
 // too few bits inside one instruction's sum (DeepSeek-V3's report reads
@@ -43,8 +54,6 @@
 namespace {
 
 using namespace wg;
-
-constexpr int BLK = 128;  // scale block: K columns a step, weight rows a CTA
 
 // two e4m3 codes (the low byte first) -> f16x2, exactly
 __device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t v) {
@@ -70,20 +79,39 @@ __global__ void __launch_bounds__(256) e4m3_to_f16_kernel(
   y[2 * i + 1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-template <int T, bool OUT_F32>
+// 4-byte asynchronous copy global -> shared
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies land
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+template <int T, bool OUT_F32, int SU>
 __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
     const __grid_constant__ CUtensorMap tw,
     const __grid_constant__ CUtensorMap tx, const float* __restrict__ xs,
     const float* __restrict__ ws, void* __restrict__ out,
-    float* __restrict__ partial, int M, int N, int K, int units_per_split) {
-  // a stage: the weight tile [128 x 64 e4m3] and the x box [T x 64 f16]
-  using L = Layout<T, 1, 1>;
+    float* __restrict__ partial, int M, int N, int K, int bs, int kb, int bu,
+    int blocks_per_split) {
+  // a stage: the weight tile [128 x 64 e4m3] and the x box [T x 64 f16];
+  // beside the ring two boxes a stage: the step's T token scales and the
+  // ws value of each 16-row group of the CTA's weight rows
+  using L = Layout<T, 1, 2>;
   constexpr int S = L::STAGES;
-  constexpr int BOX = L::SUM_BOX / 4;  // floats a box of token scales
+  constexpr int BOX = L::SUM_BOX / 4;  // floats a box
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  float* xsb = reinterpret_cast<float*>(smem + L::RING);  // [S] boxes
+  float* xsb = reinterpret_cast<float*>(smem + L::RING);  // [S][2] boxes
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* empty = full + S;
 
@@ -91,14 +119,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
   // output tiles with the weight-row tiles fastest
   const int nt = (N + ROWS - 1) / ROWS;
   const int m0 = (blockIdx.x / nt) * T, n0 = (blockIdx.x % nt) * ROWS;
-  const int kb = K / BLK, units = K / UNIT;
-  const int u0 = blockIdx.z * units_per_split;  // even: whole blocks
-  const int nu = max(0, min(units, u0 + units_per_split) - u0);
+  // kb blocks of bu units, from the host: no division in the loops
+  const int units = (K + UNIT - 1) / UNIT;
+  const int b0 = blockIdx.z * blocks_per_split, u0 = b0 * bu;
+  const int nu = max(0, min(units, u0 + blocks_per_split * bu) - u0);
 
   if (tid == 0) {
     for (int i = 0; i < S; ++i) {
       // the TMA thread's arrival with the bytes, then all 32 producer
-      // lanes' after their token scales
+      // lanes' as their scales land
       mbar_init(&full[i], 1 + 32);
       mbar_init(&empty[i], CONSUMERS / 32);  // one arrival a warp
     }
@@ -107,9 +136,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
   __syncthreads();
 
   if (tid >= CONSUMERS) {
-    // producer warp: lane 0 issues the TMA loads; with a block's first
-    // unit every lane stores the block's token scales
+    // producer warp: lane 0 issues the TMA loads; with a step's first unit
+    // the lanes copy the step's token scales (rows past M repeat row M - 1:
+    // their outputs are never stored) and lanes 0-7 the ws value of their
+    // 16-row group (clamped past N) by cp.async, which arrives on the
+    // stage's barrier as they land: the warp never waits on a load
     const int lane = tid - CONSUMERS;
+    const float* wsrow =
+        ws + (size_t)(min(n0 + 16 * (lane & 7), N - 1) / bs) * kb;
+    int blk = b0, left = bu;  // the block of unit u0 + i, its units left
     for (int i = 0; i < nu; ++i) {
       const int st = i % S, u = u0 + i;
       mbar_wait(&empty[st], ((i / S) & 1) ^ 1);
@@ -119,13 +154,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
         tma_load_2d(buf, &tw, &full[st], u * UNIT, n0);
         tma_load_2d(buf + L::W_BYTES, &tx, &full[st], u * UNIT, m0);
       }
-      if (i % 2 == 0)
-        for (int tok = lane; tok < T; tok += 32) {
-          const int m = m0 + tok;
-          xsb[st * BOX + tok] =
-              m < M ? __ldg(xs + (size_t)m * kb + u / 2) : 0.f;
-        }
-      mbar_arrive(&full[st]);
+      if (i % SU == 0) {
+        for (int tok = lane; tok < T; tok += 32)
+          cp_async4(xsb + 2 * st * BOX + tok,
+                    xs + (size_t)min(m0 + tok, M - 1) * kb + blk);
+        if (lane < 8) cp_async4(xsb + (2 * st + 1) * BOX + lane, wsrow + blk);
+      }
+      cp_async_arrive(&full[st]);
+      if (--left == 0) {
+        left = bu;
+        ++blk;
+      }
     }
   } else {
     // consumer warpgroups: 64 weight rows each
@@ -137,19 +176,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
     float acc[T / 2], part[TN / 2];
 #pragma unroll
     for (int i = 0; i < T / 2; ++i) acc[i] = 0.f;
-    const float* wsrow = ws + (size_t)(n0 / BLK) * kb;
 
-    // one scale block a step: two units
-    for (int i = 0; i < nu; i += 2) {
-      const float wsv = __ldg(wsrow + (u0 + i) / 2);
+    for (int i = 0; i < nu; i += SU) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
+      for (int q = 0; q < SU; ++q)
         mbar_wait(&full[(i + q) % S], ((i + q) / S) & 1);
       // A fragment of k16 step ks: {row g, g+8} x {k 2t.., k 2t+8..}, the
       // codes at bytes 2t, 2t+1 and 2t+8, 2t+9 of the step
-      uint32_t a[8][4];
+      uint32_t a[4 * SU][4];
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
+      for (int q = 0; q < SU; ++q)
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -159,13 +195,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
             a[4 * q + ks][rh] = e4m3x2_to_f16x2(v);
             a[4 * q + ks][2 + rh] = e4m3x2_to_f16x2(v >> 16);
           }
-      const float* xsv = xsb + (i % S) * BOX;  // the block's token scales
+      // the step's token scales and its ws value for the thread's rows, in
+      // the stage of its first unit
+      const float* xsv = xsb + 2 * (i % S) * BOX;
+      const float wsv = xsv[BOX + (r0 >> 4)];
 #pragma unroll
       for (int sub = 0; sub < NSUB; ++sub) {
         fence_regs(part);
         wgmma_fence();
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
+        for (int q = 0; q < SU; ++q) {
           // x rows sub * TN.. of the box: 128 bytes a row
           const uint64_t d = desc_k<128>(smem + ((i + q) % S) * L::STAGE +
                                          L::W_BYTES + sub * TN * 128);
@@ -176,7 +215,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(part);
-        // promote the block's sum: acc += part * xs * ws, in f32
+        // promote the step's sum: acc += part * xs * ws, in f32
 #pragma unroll
         for (int j = 0; j < TN / 8; ++j) {
           const float2 xv = *reinterpret_cast<const float2*>(
@@ -191,8 +230,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
       }
       fence_regs(a);
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-        release_stage(&empty[(i + q) % S], lane);
+      for (int q = 0; q < SU; ++q) release_stage(&empty[(i + q) % S], lane);
     }
     store_tile<T, OUT_F32>(acc, smem, out, partial, nullptr, M, N, m0, n0,
                            blockIdx.z, r0, t);
@@ -201,15 +239,20 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
 
 template <int T, bool OUT_F32>
 int launch(const void* x, const void* xs, const void* w, const void* ws,
-           void* x16, void* out, void* partial, int M, int N, int K,
+           void* x16, void* out, void* partial, int M, int N, int K, int bs,
            int splits, cudaStream_t st) {
-  using L = Layout<T, 1, 1>;
-  auto kern = fp8_block_gemm_kernel<T, OUT_F32>;
-  static bool attr = false;
-  if (!attr) {
+  const int bu = (bs + UNIT - 1) / UNIT;  // units a block
+  // two units a step where a block holds whole steps (bs a multiple of
+  // 128), else one
+  const bool two = bs % 128 == 0;
+  auto kern = two ? fp8_block_gemm_kernel<T, OUT_F32, 2>
+                  : fp8_block_gemm_kernel<T, OUT_F32, 1>;
+  const int smem_bytes = Layout<T, 1, 2>::SMEM;
+  static bool attr[2] = {false, false};
+  if (!attr[two]) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         L::SMEM);
-    attr = true;
+                         smem_bytes);
+    attr[two] = true;
   }
   CUtensorMap tw, tx;
   int e = encode_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, ROWS,
@@ -221,12 +264,13 @@ int launch(const void* x, const void* xs, const void* w, const void* ws,
   const size_t n16 = (size_t)M * K / 16;
   e4m3_to_f16_kernel<<<(unsigned)((n16 + 255) / 256), 256, 0, st>>>(
       static_cast<const uint4*>(x), static_cast<uint4*>(x16), n16);
-  const int kb = K / BLK;
-  const int ups = (kb + splits - 1) / splits * 2;  // units: whole blocks
+  const int kb = K / bs;
+  const int bps = (kb + splits - 1) / splits;  // blocks a split
   const dim3 grid(((M + T - 1) / T) * ((N + ROWS - 1) / ROWS), 1, splits);
-  kern<<<grid, NTHREADS, L::SMEM, st>>>(
+  kern<<<grid, NTHREADS, smem_bytes, st>>>(
       tw, tx, static_cast<const float*>(xs), static_cast<const float*>(ws),
-      out, splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, ups);
+      out, splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, bs,
+      kb, bu, bps);
   if (splits > 1)
     launch_split_sum<OUT_F32>(partial, out, nullptr, splits, M, N, st);
   return static_cast<int>(cudaGetLastError());
@@ -234,18 +278,21 @@ int launch(const void* x, const void* xs, const void* w, const void* ws,
 
 }  // namespace
 
-// tok_tile in {8, 16, 32, 64, 128}; K a multiple of 128, N >= 1; x16: [M, K]
-// f16 scratch (x converted); splits >= 1 K-splits (partial: [splits, M, N]
-// f32 scratch when splits > 1).
+// tok_tile in {8, 16, 32, 64, 128}; block: a multiple of 64 that divides
+// K, or K (a multiple of 16); N >= 1; x16: [M, K] f16 scratch (x converted);
+// splits >= 1 K-splits of whole blocks (partial: [splits, M, N] f32
+// scratch when splits > 1).
 extern "C" int llmc_fp8_block_gemm(const void* x, const void* xs,
                                    const void* w, const void* ws, void* x16,
                                    void* out, void* partial, int M, int N,
-                                   int K, int out_f32, int tok_tile,
-                                   int splits, void* stream) {
+                                   int K, int block, int out_f32,
+                                   int tok_tile, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K % 16 || K % block || (block % UNIT && block != K))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (out_f32)
     return LLMC_DISPATCH_T(tok_tile, true, launch, x, xs, w, ws, x16, out,
-                           partial, M, N, K, splits, st);
+                           partial, M, N, K, block, splits, st);
   return LLMC_DISPATCH_T(tok_tile, false, launch, x, xs, w, ws, x16, out,
-                         partial, M, N, K, splits, st);
+                         partial, M, N, K, block, splits, st);
 }

@@ -40,9 +40,9 @@ SIGNATURES = {
     # x, packed, s, zs, out, partial, M, N, K, gsl, single, out_f32, bm,
     # splits, stream (B1's mma.sync design, a probe)
     'llmc_w4_mma_sync': [_VP] * 6 + [_I] * 8 + [_VP],
-    # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
-    # kv_kind, chunk, stream
-    'llmc_flash_decode': [_VP] * 7 + [_I] * 8 + [_VP],
+    # q, kbuf, vbuf, ks, vs, pos, out, work, arrivals, B, H, KVH, hd, Smax,
+    # L, layer, kv_kind, splits, cps, stream
+    'llmc_flash_decode': [_VP] * 9 + [_I] * 10 + [_VP],
     # xq, packed, s, zs, sums, sx, out, partial, M, N, K, gsl, single,
     # out_f32, tok_tile, splits, stream
     'llmc_w4a8_dequant_matmul': [_VP] * 8 + [_I] * 8 + [_VP],
@@ -54,9 +54,9 @@ SIGNATURES = {
     # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
     # kv_kind, b_blk, wps, chunk, stream
     'llmc_batch_decode': [_VP] * 7 + [_I] * 10 + [_VP],
-    # x, xs, w, ws, x16, out, partial, M, N, K, out_f32, tok_tile, splits,
-    # stream
-    'llmc_fp8_block_gemm': [_VP] * 7 + [_I] * 6 + [_VP],
+    # x, xs, w, ws, x16, out, partial, M, N, K, block, out_f32, tok_tile,
+    # splits, stream
+    'llmc_fp8_block_gemm': [_VP] * 7 + [_I] * 7 + [_VP],
     # kind, x, x2, w, s, out, partial, M, N, K, splits, stream
     'llmc_probe_gemm': [_I] + [_VP] * 6 + [_I] * 4 + [_VP],
 }

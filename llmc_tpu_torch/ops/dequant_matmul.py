@@ -18,11 +18,18 @@ Kernels, one wrapper each, every GEMM the Hopper port of a TPU kernel:
   quantizer (XLA ops in the reference, no TPU kernel), with the int32 piece
   sums the W4A8 kernel's zero term reads
 
-``dequant_matmul`` keeps the reference's dispatch and decides by the
-tensor's device: a kernel for a CUDA tensor, the plain version for a CPU
-tensor.  There is no fallback from a kernel to its plain version.  Two
-branches are plain torch on both devices because the reference runs them
-in XLA and has no Pallas kernel for them: the per-channel W8A8 dot
+``dequant_matmul`` keeps the reference's dispatch.  A CPU tensor takes the
+plain version.  On a CUDA tensor one rule decides, by the weight's
+metadata alone (``kernel_takes``): the port runs its hand kernel for every
+weight that a TPU kernel of the reference takes, and more; a weight that
+no TPU kernel of the reference takes (the reference's ``pallas_ok`` fails,
+``llmc_tpu/ops/dequant_matmul.py:514-517``) and no kernel of the port
+takes runs the plain version, the counterpart of the reference's XLA
+branch, in torch ops on the card, and adds one to
+``XLA_BRANCH['xla_branch_calls']``.  Nothing is chosen by a failed build
+or launch: a kernel that the rule picks launches or raises.  Two branches
+are plain torch on both devices because the reference runs them in XLA
+and has no Pallas kernel for them: the per-channel W8A8 dot
 (``_int8_dot``: ``torch._int_mm`` on the card, an exact int32 matmul on
 the CPU) and the per-group W8A8 emulation.
 
@@ -52,6 +59,10 @@ F32 = torch.float32
 # Launches of the CUDA kernel (the plain version never counts).
 LAUNCHES = {'w4_dequant_matmul': 0, 'w4a8_dequant_matmul': 0,
             'w8_dequant_matmul': 0, 'quant_act_token': 0}
+# Calls on a CUDA tensor that ran the reference's XLA branch in torch ops,
+# for a weight that no kernel takes (here and in ``quant/fp8_block.py``);
+# ``ops.reset_launch_counts`` resets it with the launch counters.
+XLA_BRANCH = {'xla_branch_calls': 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -522,6 +533,38 @@ def w4a8_dequant_matmul(xq: torch.Tensor, sx: torch.Tensor,
 W8_GROUP = 32   # the W8 kernel's scale groups: a multiple of this
 
 
+def _w4_takes(meta: QMeta) -> bool:
+    """B1 and B3 take a group-pair weight whose half groups (or single
+    group's halves) are whole 64-column pieces."""
+    K = meta.in_features
+    gs = meta.group_size if meta.group_size > 0 else K
+    gsl, single = _half_group(meta)
+    return (K % gs == 0 and (single or (K // gs) % 2 == 0)
+            and gsl % WG_UNIT == 0)
+
+
+def _w8_takes(meta: QMeta) -> bool:
+    """B4 takes scale groups of a multiple of 32 columns that divide K, K a
+    multiple of its 64-column unit."""
+    K = meta.in_features
+    gs = meta.group_size if meta.group_size > 0 else K
+    return gs % W8_GROUP == 0 and K % gs == 0 and K % WG_UNIT == 0
+
+
+def kernel_takes(meta: QMeta, a_int8: bool = False) -> bool:
+    """The dispatch rule on a CUDA tensor, by the weight's metadata alone:
+    whether a hand kernel of the port takes the weight (bits=4: B1, or B3
+    with ``a_int8``; bits=8 weight-only: B4).  It takes every weight that
+    the reference's ``pallas_ok`` takes (half groups of a multiple of 128
+    columns, W8 groups of a multiple of 128), and more; what it refuses
+    runs the reference's XLA branch in torch ops.  bits=8 with ``a_int8``
+    has no kernel in either package.  An odd N is no metadata rule: the
+    kernels' wrappers raise on it."""
+    if meta.bits == 4:
+        return _w4_takes(meta)
+    return meta.bits == 8 and not a_int8 and _w8_takes(meta)
+
+
 def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
     """Raise on a weight the W8 kernel does not take; returns gs."""
     N = meta.out_features
@@ -529,7 +572,7 @@ def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
     if meta.bits != 8 or K != meta.in_features:
         raise ValueError(f'kernel takes bits=8 with K={meta.in_features}; '
                          f'got bits={meta.bits}, K={K}')
-    if gs % W8_GROUP or K % gs or K % WG_UNIT:
+    if not _w8_takes(meta):
         raise NotImplementedError(
             f'the W8 kernel takes scale groups of a multiple of {W8_GROUP} '
             f'columns that divide K, K a multiple of {WG_UNIT}; group size '
@@ -584,7 +627,16 @@ def _kernel_operands(scales, zeros, meta: QMeta):
 
 def _dequant_matmul_cuda(x2, packed, scales, zeros, meta: QMeta, out_dtype,
                          a_int8: bool) -> torch.Tensor:
-    """The kernel for (bits, a_int8), or a raise."""
+    """On the card: the kernel of (bits, a_int8) for a weight that
+    ``kernel_takes``, else the reference's XLA branch in torch ops
+    (counted in ``XLA_BRANCH``)."""
+    if meta.bits not in (4, 8):
+        raise NotImplementedError(f'bits={meta.bits}: no kernel for the '
+                                  f'card (only 4 and 8 are served)')
+    if not kernel_takes(meta, a_int8):
+        XLA_BRANCH['xla_branch_calls'] += 1
+        plain = dequant_matmul_plain_a8 if a_int8 else dequant_matmul_plain
+        return plain(x2, packed, scales, zeros, meta, out_dtype=out_dtype)
     if meta.bits == 4:
         s_t, zs_t = _kernel_operands(scales, zeros, meta)
         if a_int8:
@@ -595,17 +647,14 @@ def _dequant_matmul_cuda(x2, packed, scales, zeros, meta: QMeta, out_dtype,
                                        out_dtype)
         return w4_dequant_matmul(x2.to(torch.bfloat16).contiguous(), packed,
                                  s_t, zs_t, meta, out_dtype)
-    if meta.bits == 8:
-        if meta.pre_t:
-            raise ValueError('bits=8 weights have no pre_t layout')
-        # the kernel reads the stored [N, ng] layout: no torch op here
-        N = meta.out_features
-        return w8_dequant_matmul(
-            x2.to(torch.bfloat16).contiguous(), packed, scales.reshape(N, -1),
-            zeros.reshape(N, -1) if zeros is not None else None, meta,
-            out_dtype)
-    raise NotImplementedError(
-        f'bits={meta.bits}: no kernel for the card (only 4 and 8 are served)')
+    if meta.pre_t:
+        raise ValueError('bits=8 weights have no pre_t layout')
+    # the kernel reads the stored [N, ng] layout: no torch op here
+    N = meta.out_features
+    return w8_dequant_matmul(
+        x2.to(torch.bfloat16).contiguous(), packed, scales.reshape(N, -1),
+        zeros.reshape(N, -1) if zeros is not None else None, meta,
+        out_dtype)
 
 
 def dequant_matmul(x, packed, scales, zeros, meta: QMeta, out_dtype=None,
@@ -620,8 +669,10 @@ def dequant_matmul(x, packed, scales, zeros, meta: QMeta, out_dtype=None,
       (the reference has no kernel for it either).
     - bits=4, ``a_int8``, at least ``A8_STAGE_MIN_M`` rows: the staged
       per-channel dot, plain torch.
-    - else a CUDA tensor launches the kernel of (bits, a_int8) and a CPU
-      tensor takes its plain version."""
+    - else a CUDA tensor launches the kernel of (bits, a_int8) for a weight
+      that ``kernel_takes`` and runs the plain version (the reference's
+      XLA branch) on the card for any other; a CPU tensor takes the plain
+      version."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type not in ('cuda', 'cpu'):

@@ -6,7 +6,11 @@ tensor cores: exact, where the e4m3 ones keep too few bits of a sum);
 ``fp8_block_matmul_plain`` is the same function in plain torch (the
 reference's XLA branch, ``quant/fp8_block.py:92-103``), used by the tests
 and for CPU tensors.
-The dispatch between them is ``quant/fp8_block.py::fp8_block_matmul``.
+The dispatch between them is ``quant/fp8_block.py::fp8_block_matmul``:
+on a CUDA tensor the kernel takes every block size that
+``kernel_takes_block`` allows, a superset of what the reference's Pallas
+kernel lowers on a TPU (a multiple of 128 columns, or the whole K), and
+the plain version runs the rest in torch ops on the card.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from .dequant_matmul import _check_operands, _out_and_partial, wgmma_tiling
 
 F32 = torch.float32
 E4M3 = torch.float8_e4m3fn
-BLOCK = 128   # the scale block the kernel is written for
+UNIT = 64     # the kernel's K unit: 64 columns
 
 # Launches of the CUDA kernel (the plain version never counts).
 LAUNCHES = {'fp8_block_gemm': 0}
@@ -50,26 +54,37 @@ def fp8_block_matmul_plain(x_codes, x_scales, w_codes, w_scale_inv,
     return y.to(out_dtype)
 
 
+def kernel_takes_block(K: int, block_size: int) -> bool:
+    """Whether the kernel takes a scale block of ``block_size`` columns at
+    this K: a multiple of 64 that divides K, or the whole K, with K a
+    multiple of 16 (the codes' 16-byte rows for TMA).  Every block that
+    Mosaic lowers for the reference (a multiple of 128, or K) is one."""
+    return (K % 16 == 0 and K % block_size == 0
+            and (block_size % UNIT == 0 or block_size == K))
+
+
 def _check_fp8_meta(M: int, N: int, K: int, block_size: int) -> int:
-    """Raise on a shape the kernel does not take; returns K / 128."""
-    if block_size != BLOCK:
-        raise NotImplementedError(
-            f'the FP8 kernel is written for scale blocks of {BLOCK}; block '
-            f'size {block_size} is not ported (ROADMAP B6)')
-    if K % BLOCK or M < 1 or N < 1:
+    """Raise on a shape the kernel does not take; returns K / block."""
+    if M < 1 or N < 1 or K % block_size or K % 16:
         raise ValueError(f'the FP8 kernel needs M, N >= 1 and K a multiple '
-                         f'of {BLOCK} (M={M}, N={N}, K={K})')
-    return K // BLOCK
+                         f'of the block size and of 16 (M={M}, N={N}, K={K}, '
+                         f'block {block_size})')
+    if not kernel_takes_block(K, block_size):
+        raise NotImplementedError(
+            f'the FP8 kernel takes scale blocks of a multiple of {UNIT} '
+            f'columns or the whole K; block size {block_size} at K={K} runs '
+            f'the XLA-branch counterpart (ROADMAP B6)')
+    return K // block_size
 
 
 def fp8_block_matmul_cuda(x_codes, x_scales, w_codes, w_scale_inv,
                           block_size: int = 128,
                           out_dtype: torch.dtype = torch.bfloat16
                           ) -> torch.Tensor:
-    """Launch the Hopper kernel: x_codes [M, K] e4m3, x_scales [M, K/128]
-    f32, w_codes [N, K] e4m3, w_scale_inv [ceil(N/128), K/128] f32, all as
-    stored -> [M, N] ``out_dtype`` (bf16 or f32).  Checks what the kernel
-    takes and raises on anything else."""
+    """Launch the Hopper kernel: x_codes [M, K] e4m3, x_scales [M, K/bs]
+    f32, w_codes [N, K] e4m3, w_scale_inv [ceil(N/bs), K/bs] f32, all as
+    stored, bs = ``block_size`` -> [M, N] ``out_dtype`` (bf16 or f32).
+    Checks what the kernel takes and raises on anything else."""
     if not x_codes.is_cuda:
         raise ValueError('fp8_block_matmul_cuda launches a CUDA kernel; '
                          'x_codes is on the CPU')
@@ -80,7 +95,7 @@ def fp8_block_matmul_cuda(x_codes, x_scales, w_codes, w_scale_inv,
                               'x_scales': (x_scales, F32, (M, kb)),
                               'w_codes': (w_codes, E4M3, (N, K)),
                               'w_scale_inv': (w_scale_inv, F32,
-                                              (-(-N // BLOCK), kb))},
+                                              (-(-N // block_size), kb))},
                     out_dtype)
     tt, splits = wgmma_tiling(M, N, kb, sm_count(x_codes.device.index))
     out, partial = _out_and_partial(M, N, splits, out_dtype, x_codes.device)
@@ -90,8 +105,8 @@ def fp8_block_matmul_cuda(x_codes, x_scales, w_codes, w_scale_inv,
     err = _build.lib().llmc_fp8_block_gemm(
         x_codes.data_ptr(), x_scales.data_ptr(), w_codes.data_ptr(),
         w_scale_inv.data_ptr(), x16.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), M, N, K, int(out_dtype == F32), tt, splits,
-        stream)
+        partial.data_ptr(), M, N, K, block_size, int(out_dtype == F32), tt,
+        splits, stream)
     _build.check(err, 'fp8_block_gemm')
     LAUNCHES['fp8_block_gemm'] += 1
     return out

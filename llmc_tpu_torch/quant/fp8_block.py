@@ -8,8 +8,12 @@ they are XLA ops in the reference.  Codes are computed with the ported
 ``float_cast`` and only then stored as ``torch.float8_e4m3fn``, so that
 saturation and ties are the reference's and not the cast's.
 
-``fp8_block_matmul`` decides by the tensor's device: a CUDA tensor
-launches the Hopper kernel (``ops/fp8_gemm.py``) or raises, a CPU tensor
+``fp8_block_matmul`` decides by the tensor's device and, on the card, by
+the block size alone (``ops/fp8_gemm.py::kernel_takes_block``): the port's
+rule of ``ops/dequant_matmul.py``.  A CUDA tensor launches the Hopper
+kernel for every block the reference's Pallas kernel takes, and more; any
+other block size runs the plain version, the reference's XLA branch, in
+torch ops on the card (counted in ``xla_branch_calls``).  A CPU tensor
 takes the plain version.
 """
 
@@ -19,7 +23,9 @@ from typing import Tuple
 
 import torch
 
-from ..ops.fp8_gemm import fp8_block_matmul_cuda, fp8_block_matmul_plain
+from ..ops.dequant_matmul import XLA_BRANCH
+from ..ops.fp8_gemm import (fp8_block_matmul_cuda, fp8_block_matmul_plain,
+                            kernel_takes_block)
 from .fp_formats import float_cast
 
 F32 = torch.float32
@@ -85,13 +91,18 @@ def fp8_block_matmul(x_codes, x_scales, w_codes, w_scale_inv,
     block's sum, and an f32 running sum.  x: [M, K] codes + [M, K/bs]
     scales; w: [N, K] codes + [ceil(N/bs), K/bs] scale_inv.
 
-    A CUDA tensor launches the Hopper kernel, which takes block size 128
-    with K a multiple of 128 (any N) and raises on anything else; a CPU
-    tensor takes the plain version.  ``force_plain`` (the reference's
-    ``force_xla``) takes the plain version on either device."""
+    A CUDA tensor launches the Hopper kernel where it takes the block
+    size (any N), else runs the plain version on the card and counts the
+    call in ``xla_branch_calls``; a CPU tensor takes the plain version.
+    ``force_plain`` (the reference's ``force_xla``) takes the plain version
+    on either device."""
     if x_codes.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {x_codes.device}')
     if force_plain or not x_codes.is_cuda:
+        return fp8_block_matmul_plain(x_codes, x_scales, w_codes,
+                                      w_scale_inv, block_size, out_dtype)
+    if not kernel_takes_block(x_codes.shape[1], block_size):
+        XLA_BRANCH['xla_branch_calls'] += 1
         return fp8_block_matmul_plain(x_codes, x_scales, w_codes,
                                       w_scale_inv, block_size, out_dtype)
     return fp8_block_matmul_cuda(x_codes, x_scales, w_codes, w_scale_inv,

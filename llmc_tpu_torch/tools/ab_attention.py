@@ -1,0 +1,69 @@
+"""Time the decode-attention kernel B2 (``flash_decode_cuda``) of two
+checkouts of the repository on one card, in turns, at the attention rows
+of ``chip_smoke.py`` (``FLASH_SHAPES``), so that a redesign is read beside
+its parent inside one run.
+
+    python -m llmc_tpu_torch.tools.ab_attention TREE_A TREE_B
+
+Each run is a subprocess in a tree's root that builds that tree's kernels
+and times its ``flash_decode_cuda`` on ``chip_smoke.flash_inputs`` (seed
+2, two layers, alternated) at each row's valid positions: int8 and bf16
+caches, CUDA events over 200 launches.  The trees run in the order A, B,
+B, A; one JSON line a row, tagged with its tree and turn, the card's name
+and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+from .ab_serve import in_turns, run_code
+
+# (B, Smax, KVH, H, valid positions timed): chip_smoke.FLASH_SHAPES
+ROWS = ((128, 96, 32, 32, (64,)), (8, 1024, 32, 32, (64, 1000)),
+        (1, 4096, 32, 32, (4000,)), (8, 4096, 32, 32, (4000,)),
+        (8, 4096, 8, 32, (4000,)))
+
+_RUN = '''
+import json, torch
+import chip_smoke as C
+from llmc_tpu_torch.ops import _build
+from llmc_tpu_torch.ops.flash_decode import flash_decode_cuda
+from llmc_tpu_torch.utils.profiler import cuda_ms
+dev = torch.device('cuda')
+_build.lib()
+for B, smax, kvh, H, valids in {rows!r}:
+    for quant in (True, False):
+        q, kb, vb, ks, vs = C.flash_inputs(dev, B, smax, kvh, H, 128,
+                                           quant=quant)
+        for valid in valids:
+            pos = torch.full((B,), valid - 1, dtype=torch.int32, device=dev)
+            it = [0]
+
+            def kern():
+                it[0] += 1
+                return flash_decode_cuda(q, kb, vb, ks, vs, pos, it[0] % 2)
+            print(json.dumps(dict(B=B, smax=smax, kvh=kvh, H=H,
+                                  cache='int8' if quant else 'bf16',
+                                  valid=valid,
+                                  kernel_ms=cuda_ms(kern, 200, 5))),
+                  flush=True)
+        del q, kb, vb, ks, vs
+        torch.cuda.empty_cache()
+'''
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('tree_a', type=Path)
+    ap.add_argument('tree_b', type=Path)
+    args = ap.parse_args(argv)
+    code = _RUN.format(rows=ROWS)
+    return in_turns('ab_attention', args.tree_a, args.tree_b,
+                    lambda tree, tag, turn: run_code(tree, code, tag, turn))
+
+
+if __name__ == '__main__':
+    sys.exit(main())

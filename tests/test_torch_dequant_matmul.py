@@ -194,15 +194,18 @@ def test_kernel_takes_only_128_column_half_groups(gs, K, ok):
 
 @pytest.mark.parametrize('gs, K, ok', [(128, 512, True), (256, 256, True),
                                        (64, 256, True), (128, 128, True),
-                                       (192, 192, False), (96, 384, False)])
-def test_w4a8_kernel_takes_only_128_column_half_groups(gs, K, ok):
-    """The W4A8 kernel on the wgmma skeleton reads each half group in
-    64-column pieces, as the W4A16 kernel does (the wrapper's rule, span
-    64): group size 64 and a single group of 128 columns are taken, where
-    the old kernel's 128-column chunks refused them; a half group of 96
-    columns raises."""
+                                       (192, 192, False), (96, 384, False),
+                                       (32, 256, False)])
+def test_w4_half_groups_off_64_columns_go_to_the_xla_branch(gs, K, ok):
+    """The W4A16 and W4A8 kernels on the wgmma skeleton read each half
+    group in 64-column pieces (the wrapper's rule, span 64): group size 64
+    and a single group of 128 columns are taken; a half group of 96 or 32
+    columns is refused by the wrappers, and ``kernel_takes`` sends it to
+    the reference's XLA branch on the card, as the reference's own rule
+    does (its Pallas kernels want half groups of 128)."""
     meta = TD.QMeta(bits=4, group_size=gs, symmetric=True, out_features=64,
                     in_features=K)
+    assert TD.kernel_takes(meta) == ok and TD.kernel_takes(meta, True) == ok
     if ok:
         gsl, single = TD._check_kernel_meta(meta, 8, K, span=TD.WG_UNIT,
                                             item='B3')

@@ -93,7 +93,7 @@ def test_cpu_tensors_take_plain_version_without_launch():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('quantized', [True, False])
-@pytest.mark.parametrize('g', [1, 4])
+@pytest.mark.parametrize('g', [1, 3, 4, 8])
 @pytest.mark.parametrize('hd', [64, 128])
 def test_kernel_matches_plain_on_card(cuda_device, quantized, g, hd):
     """The Hopper kernel vs the plain version on the card (f32 both): 2e-4
@@ -114,3 +114,109 @@ def test_kernel_matches_plain_on_card(cuda_device, quantized, g, hd):
     torch.cuda.synchronize()
     assert TF.LAUNCHES['flash_decode'] == before + 1
     assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-4
+
+
+@pytest.mark.parametrize('B, kvh, smax, quant, want', [
+    (128, 32, 96, True, (1, 2)), (8, 32, 1024, True, (4, 4)),
+    (1, 32, 4096, True, (32, 2)), (8, 32, 4096, True, (5, 13)),
+    (8, 8, 4096, True, (16, 4)), (128, 32, 96, False, (1, 2)),
+    (8, 32, 1024, False, (3, 6)), (1, 32, 4096, False, (16, 4)),
+    (8, 32, 4096, False, (3, 22)), (8, 8, 4096, False, (8, 8))])
+def test_split_plan_fills_the_card_twice(B, kvh, smax, quant, want):
+    """The kernel's (splits, chunks a split) on 132 SMs at the bench shape,
+    the long caches of ``chip_smoke`` and Llama-3-8B's 8 kv heads: one
+    split where the slots and kv heads fill twice the resident CTAs (the
+    bench shape: no combine), else about that many CTAs, every split
+    holding a chunk and the splits covering the cache."""
+    splits, cps = TF.split_plan(B, kvh, smax, 132, quant)
+    assert (splits, cps) == want
+    nch = -(-smax // TF.KERNEL_CHUNK)
+    assert (splits - 1) * cps < nch <= splits * cps
+    if splits > 1:
+        assert B * kvh * splits >= 2 * 132 * TF.RESIDENT[quant] * 0.7
+
+
+def test_splits_past_pos_exit():
+    """A split holds a valid position only up to the one that holds pos:
+    the later ones exit at once (the kernel's ``c0 > pos / 64``), and the
+    plain twin's states for them are empty."""
+    pos = torch.tensor([0, 63, 64, 127, 128, 4095], dtype=torch.int32)
+    assert TF.active_splits(pos, 32, 2).tolist() == [1, 1, 1, 1, 2, 32]
+    assert TF.active_splits(pos, 5, 13).tolist() == [1, 1, 1, 1, 1, 5]
+
+
+@pytest.mark.parametrize('splits, cps', [(2, 2), (4, 1), (3, 2), (1, 4)])
+@pytest.mark.parametrize('quantized', [True, False])
+@pytest.mark.parametrize('g', [1, 4])
+def test_split_combine_equals_one_pass(splits, cps, quantized, g):
+    """The kernel's arithmetic in its plain twin: each split's own online
+    softmax, the splits merged in split order, against the one-pass plain
+    version, f32, to 1e-6 relative; positions inside the first split, at
+    chunk and split boundaries and at the end of the cache."""
+    smax = 256
+    rng = np.random.default_rng(7)
+    shape = (2, 5, smax, 2, HD)
+    if quantized:
+        k = torch.as_tensor(rng.integers(-127, 128, shape).astype(np.int8))
+        v = torch.as_tensor(rng.integers(-127, 128, shape).astype(np.int8))
+        ks = torch.as_tensor(rng.uniform(.01, .03, shape[:-1]).astype(
+            np.float32))
+        vs = torch.as_tensor(rng.uniform(.01, .03, shape[:-1]).astype(
+            np.float32))
+    else:
+        k = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+        v = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+        ks = vs = None
+    q = torch.as_tensor(rng.normal(size=(5, 2 * g, HD)).astype(np.float32))
+    pos = torch.tensor([0, 63, 64, 130, smax - 1], dtype=torch.int32)
+    want = TF.flash_decode_plain(q, k, v, ks, vs, pos, 1)
+    got = TF.flash_decode_split_plain(q, k, v, ks, vs, pos, 1, splits, cps)
+    assert rel_err(got.numpy(), want.numpy()) < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('quantized', [True, False])
+@pytest.mark.parametrize('B, smax, kvh, H', [(1, 4096, 32, 32),
+                                             (8, 4096, 32, 32),
+                                             (8, 4096, 8, 32),
+                                             (8, 1024, 32, 32),
+                                             (128, 96, 32, 32)])
+def test_kernel_matches_plain_at_the_long_cache_on_card(cuda_device,
+                                                        quantized, B, smax,
+                                                        kvh, H):
+    """The split kernel at Llama-2-7B's and Llama-3-8B's attention widths
+    and full context against the plain version (f32 both, 2e-4 of the
+    output scale): positions inside the first split, at a split's last
+    position and the next one's first, random, and at the end of the
+    cache; twice, to the same bits (the splits merge in a fixed order)."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = (2, B, smax, kvh, 128)
+    if quantized:
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
+        vs = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
+    else:
+        k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        ks = vs = None
+    q = torch.randn((B, H, 128), generator=gen, device=dev) / 128 ** 0.5
+    splits, cps = TF.split_plan(B, kvh, smax,
+                                torch.cuda.get_device_properties(
+                                    dev).multi_processor_count, quantized)
+    edge = cps * TF.KERNEL_CHUNK
+    for p in ([0] * B, [min(edge - 1, smax - 1)] * B,
+              [min(edge, smax - 1)] * B, [smax - 1] * B,
+              np.random.RandomState(B).randint(0, smax, B).tolist()):
+        pos = torch.tensor(p, dtype=torch.int32, device=dev)
+        before = TF.LAUNCHES['flash_decode']
+        got = TF.flash_decode_attention(q, k, v, ks, vs, pos, 1)
+        again = TF.flash_decode_attention(q, k, v, ks, vs, pos, 1)
+        want = TF.flash_decode_plain(q, k, v, ks, vs, pos, 1)
+        torch.cuda.synchronize()
+        assert TF.LAUNCHES['flash_decode'] == before + 2
+        assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-4, p[:4]

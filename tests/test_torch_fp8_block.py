@@ -174,6 +174,25 @@ def test_fp8_block_matmul_plain_matches_pallas_interpret(M):
             <= 2.0 ** -7 * np.abs(want16) + 1e-30).all()
 
 
+@pytest.mark.parametrize('bs', [64, 256])
+@pytest.mark.parametrize('M', [3, 16])
+def test_fp8_plain_matches_xla_and_pallas_at_block_sizes(bs, M):
+    """Block sizes 64 and 256, which the card's kernel now takes: the plain
+    version against the reference's XLA branch and its Pallas kernel in
+    interpret mode (which takes any block size), at f32, to 1e-5."""
+    j, p = _gemm_case(M, 256, 512, bs, seed=12)
+    assert tuple(p[3].shape) == (256 // bs, 512 // bs)
+    got = fp8_block_matmul(*p, block_size=bs, out_dtype=F32).numpy()
+    xla = np.asarray(JF.fp8_block_matmul(*j, block_size=bs,
+                                         out_dtype=jnp.float32,
+                                         force_xla=True))
+    pallas = np.asarray(fp8_block_matmul_pallas(
+        *j, block_size=bs, tm=16, tn=128, out_dtype=jnp.float32,
+        interpret=True))
+    assert rel_err(got, xla) <= 1e-5 and rel_err(got, pallas) <= 1e-5
+    assert G.kernel_takes_block(512, bs)
+
+
 def test_float64_oracle_is_the_plain_version_in_float64():
     _, p = _gemm_case(9, 128, 256, 128, seed=6)
     oracle = G.fp8_block_matmul_plain(*p, out_dtype=torch.float64,
@@ -190,9 +209,11 @@ def test_float64_oracle_is_the_plain_version_in_float64():
                                    (9, 1000, 128)])
 def test_fp8_plain_matches_xla_branch_at_ragged_n(M, N, K):
     """N off the 128-row scale block, which the reference serves through
-    its XLA branch and the card's kernel now takes: the plain version
-    against that branch, at f32, to 1e-5; and the kernel's shape rule
-    accepts it."""
+    its XLA branch and the card's kernel takes: the plain version against
+    that branch, at f32, to 1e-5; and the kernel's shape rule accepts it,
+    at block size 128 and, since the kernel takes every multiple of 64
+    that divides K, at 64 too.  A block of 32 columns is still refused by
+    the kernel's wrapper (the dispatch sends it to the XLA branch)."""
     j, p = _gemm_case(M, N, K, 128, seed=9)
     assert tuple(p[3].shape) == (-(-N // 128), K // 128)
     want = np.asarray(JF.fp8_block_matmul(*j, block_size=128,
@@ -201,8 +222,9 @@ def test_fp8_plain_matches_xla_branch_at_ragged_n(M, N, K):
     got = fp8_block_matmul(*p, out_dtype=F32).numpy()
     assert got.shape == (M, N) and rel_err(got, want) <= 1e-5
     assert G._check_fp8_meta(M, N, K, 128) == K // 128
+    assert G._check_fp8_meta(M, N, K, 64) == K // 64
     with pytest.raises(NotImplementedError, match='ROADMAP B6'):
-        G._check_fp8_meta(M, N, K, 64)
+        G._check_fp8_meta(M, N, K, 32)
     with pytest.raises(ValueError, match='multiple'):
         G._check_fp8_meta(M, N, K + 64, 128)
 
@@ -255,13 +277,20 @@ def test_kernel_matches_plain_and_oracle_on_card(cuda_device, N, K, M):
 
 @pytest.mark.gpu
 def test_kernel_route_raises_on_what_it_does_not_take(cuda_device):
-    """Block size 32 and a bf16 x raise on the card; N=100, which raised
-    before the kernel took ragged N, launches and matches the float64
-    oracle."""
+    """The kernel's wrapper raises on block size 32, which the dispatch
+    sends to the XLA branch on the card (no launch, one count, the plain
+    version's result); a bf16 x raises; N=100, which raised before the
+    kernel took ragged N, launches and matches the float64 oracle."""
+    from llmc_tpu_torch.ops import reset_launch_counts, xla_branch_calls
     _, p = _gemm_case(4, 96, 128, 32)
     p = tuple(a.to(cuda_device) for a in p)
     with pytest.raises(NotImplementedError, match='ROADMAP B6'):
-        fp8_block_matmul(*p, block_size=32)
+        G.fp8_block_matmul_cuda(*p, block_size=32)
+    reset_launch_counts()
+    got = fp8_block_matmul(*p, block_size=32, out_dtype=F32)
+    want = G.fp8_block_matmul_plain(*p, block_size=32, out_dtype=F32)
+    assert xla_branch_calls() == 1 and G.LAUNCHES['fp8_block_gemm'] == 0
+    assert torch.equal(got, want)
     _, p = _gemm_case(4, 128, 256, 128)
     xc, xs, wc, ws = (a.to(cuda_device) for a in p)
     with pytest.raises((ValueError, TypeError)):
@@ -290,6 +319,35 @@ def test_kernel_matches_oracle_at_ragged_n_on_card(cuda_device, N, K, M):
     got = G.fp8_block_matmul_cuda(*p, out_dtype=F32)
     got16 = G.fp8_block_matmul_cuda(*p)
     assert got.shape == (M, N)
+    assert rel_err(got.cpu().numpy(), oracle) <= 1e-5
+    assert rel_err(got16.float().cpu().numpy(), plain) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('M', [1, 37, 128, 300])
+@pytest.mark.parametrize('N,K,bs', [(256, 512, 64), (200, 1024, 64),
+                                    (512, 1024, 256), (201, 768, 256),
+                                    (256, 384, 384), (130, 192, 192),
+                                    (256, 96, 96)])
+def test_kernel_matches_oracle_at_other_block_sizes_on_card(cuda_device, N,
+                                                            K, bs, M):
+    """Block sizes 64 (two rows of ws under a CTA's 128 weight rows), 256
+    (a block over two K steps), the whole K (384; 192, one unit a step; 96,
+    a last unit that TMA fills past K), at ragged N too: f32 output within
+    1e-5 of the float64 oracle, bf16 within 1e-2 of the plain version,
+    one launch each."""
+    _, p = _gemm_case(M, N, K, bs, seed=13)
+    p = tuple(a.to(cuda_device).contiguous() for a in p)
+    oracle = G.fp8_block_matmul_plain(*p, block_size=bs,
+                                      out_dtype=torch.float64,
+                                      acc_dtype=torch.float64).cpu().numpy()
+    plain = G.fp8_block_matmul_plain(*p, block_size=bs,
+                                      out_dtype=F32).cpu().numpy()
+    before = G.LAUNCHES['fp8_block_gemm']
+    got = fp8_block_matmul(*p, block_size=bs, out_dtype=F32)
+    got16 = fp8_block_matmul(*p, block_size=bs)
+    assert G.LAUNCHES['fp8_block_gemm'] == before + 2
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
     assert rel_err(got.cpu().numpy(), oracle) <= 1e-5
     assert rel_err(got16.float().cpu().numpy(), plain) <= 1e-2
 

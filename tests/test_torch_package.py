@@ -379,14 +379,15 @@ def test_chip_smoke_lists_seventeen_kernels_and_the_wgmma_builds():
     """The kernels line's names: the nine probes, B1's old design and the
     main paths' seven, the W4A8 quantizer after its GEMM; the wgmma
     kernels whose ptxas report the build phase holds to no spill, with
-    their instantiation counts; and the quantizer's byte bound."""
+    their instantiation counts (B6: one or two 64-column units a step);
+    and the quantizer's byte bound."""
     names = chip_smoke.KERNEL_NAMES
     assert len(names) == len(set(names)) == 17
     assert names.index('quant_act_token') == \
         names.index('w4a8_dequant_matmul') + 1
     assert chip_smoke.WGMMA_KERNELS == {
         'w4_dequant_matmul': 20, 'w4a8_dequant_matmul': 20,
-        'w8_dequant_matmul': 40, 'fp8_block_gemm': 10}
+        'w8_dequant_matmul': 40, 'fp8_block_gemm': 20}
     info = {'kernels': {f'_Z{i}{n}_kernelILi8EEv': {'registers': 90}
                         for n, k in chip_smoke.WGMMA_KERNELS.items()
                         for i in range(k)}}

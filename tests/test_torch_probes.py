@@ -309,6 +309,54 @@ def test_ab_serve_needs_a_card_and_runs_each_tree_in_its_root(tmp_path,
         ('B', 2, 'throughput'), ('A', 3, 'throughput')]
 
 
+def test_ab_serve_takes_the_batch_and_prefill_of_both_phases(monkeypatch):
+    """``--batch 8 --prefill 1024`` reaches the throughput and the profile
+    phase of every tree (the long-context row of chip_smoke's profile)."""
+    from llmc_tpu_torch.tools import ab_serve
+    codes = []
+
+    class Done:
+        returncode, stderr, stdout = 0, '', '{"phase": "profile"}\n'
+
+    def fake_run(cmd, cwd, **kw):
+        codes.append(cmd[-1])
+        return Done()
+    monkeypatch.setattr(ab_serve.subprocess, 'run', fake_run)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'get_device_name', lambda i=0: 'card')
+    monkeypatch.setattr(ab_serve, 'nvidia_smi_line', lambda: 'card, 700 W')
+    assert ab_serve.main(['a', 'b', '--modes', 'w4a16', '--batch', '8',
+                          '--prefill', '1024']) == 0
+    assert len(codes) == 4
+    for code in codes:
+        assert code.count('B=8,') == 2 and code.count('prefill=1024,') == 2
+        compile(code, 'ab_serve', 'exec')
+
+
+def test_ab_attention_times_chip_smokes_attention_rows(monkeypatch):
+    """The A/B attention tool's rows are chip_smoke's ``FLASH_SHAPES``, and
+    each tree's subprocess times its own ``flash_decode_cuda``."""
+    import chip_smoke
+    from llmc_tpu_torch.tools import ab_attention, ab_serve
+    assert ab_attention.ROWS == chip_smoke.FLASH_SHAPES
+    codes = []
+
+    class Done:
+        returncode, stderr, stdout = 0, '', '{"B": 8, "kernel_ms": 0.1}\n'
+
+    def fake_run(cmd, cwd, **kw):
+        codes.append((cwd, cmd[-1]))
+        return Done()
+    monkeypatch.setattr(ab_serve.subprocess, 'run', fake_run)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'get_device_name', lambda i=0: 'card')
+    monkeypatch.setattr(ab_serve, 'nvidia_smi_line', lambda: 'card, 700 W')
+    assert ab_attention.main(['a', 'b']) == 0
+    assert [c[0].name for c in codes] == ['a', 'b', 'b', 'a']
+    assert all('flash_decode_cuda' in c[1] and '(1, 4096, 32, 32' in c[1]
+               for c in codes)
+
+
 @pytest.mark.parametrize('kernel, variant', [
     (k, v) for k in ('w4_dequant_matmul', 'w8_dequant_matmul')
     for v in ('no_decode', 'no_wgmma')] + [

@@ -331,14 +331,16 @@ def test_cpu_tensors_take_plain_versions_without_launch():
                                        (64, 256, True), (96, 192, True),
                                        (32, 128, True), (48, 192, False),
                                        (96, 256, False), (32, 96, False)])
-def test_w8_kernel_takes_only_128_column_groups(gs, K, ok):
+def test_w8_groups_off_the_kernel_go_to_the_xla_branch(gs, K, ok):
     """The W8 kernel takes every scale group of a multiple of 32 columns
     that divides K (K a multiple of its 64-column unit), where the
     reference's Pallas rule takes multiples of 128 and sends the rest to
-    XLA: a group of 48 columns, one that does not divide K, and K=96
-    raise."""
+    XLA: its wrapper raises on a group of 48 columns, one that does not
+    divide K, and K=96, and ``kernel_takes`` sends those to the XLA branch
+    on the card."""
     meta = TD.QMeta(bits=8, group_size=gs, symmetric=True, out_features=64,
                     in_features=K)
+    assert TD.kernel_takes(meta) == ok and not TD.kernel_takes(meta, True)
     if ok:
         assert TD._check_w8_meta(meta, 4, K) == gs
     else:
@@ -441,10 +443,11 @@ def test_w8_kernel_matches_bf16_weight_plain_on_card(cuda_device, sym, M,
 @pytest.mark.gpu
 def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     """Wrong dtype, non-contiguous operands and a group of 48 columns
-    raise on the card instead of launching or falling back; W4A8 at group
-    size 64 and W8 at 64, which raised before the kernels took them, now
-    launch and match their plain versions; the per-channel W8A8 dot runs
-    at 16 rows and fewer."""
+    raise at the kernels' wrappers instead of launching or falling back
+    (``dequant_matmul`` sends the group of 48 to the XLA branch, by the
+    weight's metadata); W4A8 at group size 64 and W8 at 64, which raised
+    before the kernels took them, launch and match their plain versions;
+    the per-channel W8A8 dot runs at 16 rows and fewer."""
     dev = cuda_device
     jp, js, jz, meta, tmeta = _case4(True, True, N=128, K=256, gs=128)
     packed, s_t, zs_t = _t(jp).to(dev), _t(js).to(dev), _t(jz).to(dev)
@@ -469,8 +472,10 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                              None, tmeta8, torch.bfloat16)
     m8_48 = dataclasses.replace(tmeta8, group_size=48, in_features=192)
     with pytest.raises(NotImplementedError, match='B4'):
-        TD.dequant_matmul(x[:, :192], c8[:, :192].contiguous(),
-                          torch.ones(128, 4, device=dev), None, m8_48)
+        TD.w8_dequant_matmul(x[:, :192].to(torch.bfloat16),
+                             c8[:, :192].contiguous(),
+                             torch.ones(128, 4, device=dev), None, m8_48,
+                             torch.bfloat16)
     m2 = dataclasses.replace(tmeta8, bits=2)
     with pytest.raises(NotImplementedError, match='bits=2'):
         TD.dequant_matmul(x, c8, s8, None, m2)
