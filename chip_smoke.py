@@ -26,15 +26,20 @@ Phases, each printing one JSON line, all of them on every run:
                   time through a CUDA graph.  B1 and B3 also at half
                   groups of 64 columns, B4 at groups of 64 and 32; B1
                   timed beside its old mma.sync design on the same
-                  operands.  Also the staged W4A8 prefill beside the
-                  kernel at M=4096, and a sweep of the serving-batch
-                  kernel's two launch arguments.  The flash-decode kernel
-                  (split over the cache) at ``FLASH_SHAPES``: the bench's
-                  decode shape, B=8 at Smax=1024, and Llama-2-7B's full
-                  context of 4096 at B = 1 and 8 and Llama-3-8B's 8 kv
-                  heads at B = 8; the serving-batch kernel at the first
-                  two.  The FP8-block kernel also at block sizes 64, 256
-                  and the whole K.
+                  operands.  B1, B3 and B4 also at an odd N (4095).
+                  Also the staged W4A8 prefill beside the kernel at
+                  M=4096, and a sweep of the serving-batch kernel's slots
+                  a CTA through CUDA graphs.  Both decode-attention
+                  kernels (split over the cache at small batch) at
+                  ``FLASH_SHAPES``: the bench's decode shape, B=8 at
+                  Smax=1024, and Llama-2-7B's full context of 4096 at
+                  B = 1 and 8 and Llama-3-8B's 8 kv heads at B = 8, int8
+                  and bf16 caches, each launch repeated to the same bits,
+                  a reading under 0.06 ms also through a CUDA graph; and
+                  each on an f32 cache and at 16 query heads a kv head
+                  (Llama-3.1-405B).  The FP8-block kernel also at block
+                  sizes 64, 256 and the whole K, also at K = 1000 (rows
+                  no whole 16 bytes).
 4. ``probes``     the w4 design probes (``ops/probe_gemm.py``, nine kernels
                   of ``csrc/probe_gemm.cu`` and B1's old design
                   ``w4_current``) through their entry points
@@ -158,6 +163,10 @@ TOL_A8_ORACLE = 1e-6
 # way: as the w4 kernel.
 # flash and batch kernels vs plain (all f32): exp and summation order only.
 TOL_FLASH = 2e-4
+# on a cache made by the port's KV quantizer: f32 rounding, which f16
+# halves that let p times its V scale fall below f16's normal range miss
+# (by about 1e-4 on ATTN_KVQ's row)
+TOL_ATTN_KVQ = 2e-5
 # FP8-block kernel at f32 output vs the float64 oracle on the same codes
 # and scales (and vs the plain f32 version): every e4m3 product is exact
 # in f32, so what is left is the order of the f32 sums inside a 128-wide
@@ -631,17 +640,35 @@ def _time_gemm(kind, case, out_dtype, peaks, kernel, plain, library, path,
 
 
 def flash_inputs(dev, B=128, smax=96, kvh=32, H=32, hd=128, L=2, quant=True,
-                 seed=2):
+                 seed=2, cache=None):
+    """q and a random cache: ``cache`` 'int8' (random codes and scales),
+    'int8_kv' (the port's KV quantizer on keys of std 1 and values of std
+    0.05, V scales about 1e-3, with q of scores that spread over a few
+    units: most p times its V scale lies far below f16's normal range),
+    'bf16' or 'f32' values; None takes ``quant`` (int8, else bf16)."""
+    cache = cache or ('int8' if quant else 'bf16')
     gen = torch.Generator(device=dev).manual_seed(seed)
     shape = (L, B, smax, kvh, hd)
     q = torch.randn((B, H, hd), generator=gen, device=dev) / hd ** 0.5
-    if quant:
+    if cache == 'f32':
+        kb = torch.randn(shape, generator=gen, device=dev)
+        vb = torch.randn(shape, generator=gen, device=dev)
+        ks = vs = None
+    elif cache == 'int8':
         kb = torch.randint(-127, 128, shape, generator=gen, device=dev,
                            dtype=torch.int8)
         vb = torch.randint(-127, 128, shape, generator=gen, device=dev,
                            dtype=torch.int8)
         ks = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 0.01
         vs = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 0.01
+    elif cache == 'int8_kv':
+        from llmc_tpu_torch.serve import KVCachePolicy
+        quant8 = KVCachePolicy(method='naive', bit=8)._quant
+        kb, ks, _ = quant8(torch.randn(shape, generator=gen, device=dev))
+        vb, vs, _ = quant8(torch.randn(shape, generator=gen, device=dev)
+                           * 0.05)
+        ks, vs = ks[..., 0], vs[..., 0]
+        q = q * 2
     else:
         kb = torch.randn(shape, generator=gen, device=dev).to(BF16)
         vb = torch.randn(shape, generator=gen, device=dev).to(BF16)
@@ -649,11 +676,13 @@ def flash_inputs(dev, B=128, smax=96, kvh=32, H=32, hd=128, L=2, quant=True,
     return q, kb, vb, ks, vs
 
 
-def flash_bound(pos, kvh, hd, H, quant, peaks):
+def flash_bound(pos, kvh, hd, H, quant, peaks, esize=None):
     """Least time of one decode attention: the valid rows of K and V of
-    this run's positions, q, the output and pos."""
+    this run's positions (``esize`` bytes an element: 1 with its 4-byte
+    scale where ``quant``, else 2 unless given), q, the output and pos."""
     valid = int((pos.to(torch.int64) + 1).sum())
-    per_row = hd * (1 if quant else 2) + (4 if quant else 0)
+    esize = esize or (1 if quant else 2)
+    per_row = hd * esize + (4 if quant else 0)
     B = pos.numel()
     nbytes = 2 * valid * kvh * per_row + 2 * B * H * hd * 4 + B * 4
     flops = 4 * valid * (H // kvh) * kvh * hd
@@ -686,15 +715,27 @@ def _attn_positions(B, smax, chunk, dev):
 FLASH_SHAPES = ((128, 96, 32, 32, (64,)), (8, 1024, 32, 32, (64, 1000)),
                 (1, 4096, 32, 32, (4000,)), (8, 4096, 32, 32, (4000,)),
                 (8, 4096, 8, 32, (4000,)))
-BATCH_SHAPES = FLASH_SHAPES[:2]
+BATCH_SHAPES = FLASH_SHAPES
+# one more case each for both kernels: a float32 model's f32 cache at
+# B=8 over 1000 of 1024 positions, and Llama-3.1-405B's attention widths
+# (128 query heads over 8 kv heads: 16 a kv head) at the same row
+ATTN_F32 = ((8, 1024, 32, 32, (1000,)),)
+ATTN_G16 = ((8, 1024, 8, 128, (1000,)),)
+# and an int8 cache made by the port's KV quantizer at Llama-3-8B's row
+# (``flash_inputs``' 'int8_kv': V scales and p as a model gives them)
+ATTN_KVQ = ((8, 4096, 8, 32, (4000,)),)
+GRAPH_BELOW_MS = 0.06   # a reading under this also gets its graph time
 
 
-def check_attention(name, dev, peaks, shapes=FLASH_SHAPES, hd=128):
+def check_attention(name, dev, peaks, shapes=FLASH_SHAPES, hd=128,
+                    caches=('int8', 'bf16'), tol=TOL_FLASH):
     """A decode-attention kernel ('flash_decode' or 'batch_decode') against
-    its plain version at each of ``shapes``, int8 and bf16 caches, over
-    ``_attn_positions``; timed at each shape's valid positions a slot
-    (the first row, which the ``kernels`` line reads, at the bench's
-    mid-run state) beside the bound, the plain version and SDPA."""
+    its plain version (within ``tol``) at each of ``shapes`` and
+    ``caches``, over ``_attn_positions``, each launched twice to the same
+    bits; timed at each shape's valid positions a slot (the first row,
+    which the ``kernels`` line reads, at the bench's mid-run state) beside
+    the bound, the plain version and SDPA, and through a CUDA graph where the reading
+    is under ``GRAPH_BELOW_MS`` (the host's enqueue rate)."""
     if name == 'flash_decode':
         from llmc_tpu_torch.ops.flash_decode import (
             KERNEL_CHUNK as chunk, flash_decode_cuda as kernel,
@@ -704,78 +745,87 @@ def check_attention(name, dev, peaks, shapes=FLASH_SHAPES, hd=128):
             KERNEL_CHUNK as chunk, batch_decode_cuda as kernel,
             batch_decode_plain as plain)
     rows, worst_abs, worst_rel = [], 0.0, 0.0
-    for B, smax, kvh, H, timed in shapes:
-        for quant in (True, False):
-            q, kb, vb, ks, vs = flash_inputs(dev, B, smax, kvh, H, hd,
-                                             quant=quant)
-            errs = {}
-            for pname, pos in _attn_positions(B, smax, chunk, dev).items():
-                got = kernel(q, kb, vb, ks, vs, pos, 1)
-                want = plain(q, kb, vb, ks, vs, pos, 1)
-                torch.cuda.synchronize()
-                err, rel = _rel(got, want)
-                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
-                                                                rel)
-                require(bool(torch.isfinite(got).all()) and rel <= TOL_FLASH,
-                        f'{name} B={B} Smax={smax} KVH={kvh} quant={quant} '
-                        f'{pname}: rel err {rel:.3g} > {TOL_FLASH}')
-                errs[pname] = rel
-            for valid in timed:
-                pos_t = torch.full((B,), valid - 1, dtype=torch.int32,
-                                   device=dev)
-                it = [0]
+    for (B, smax, kvh, H, timed), cache in itertools.product(shapes, caches):
+        quant = cache.startswith('int8')
+        q, kb, vb, ks, vs = flash_inputs(dev, B, smax, kvh, H, hd,
+                                         cache=cache)
+        errs = {}
+        for pname, pos in _attn_positions(B, smax, chunk, dev).items():
+            got = kernel(q, kb, vb, ks, vs, pos, 1)
+            again = kernel(q, kb, vb, ks, vs, pos, 1)
+            want = plain(q, kb, vb, ks, vs, pos, 1)
+            torch.cuda.synchronize()
+            err, rel = _rel(got, want)
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
+                                                            rel)
+            what = (f'{name} B={B} Smax={smax} KVH={kvh} H={H} {cache} '
+                    f'{pname}')
+            require(bool(torch.isfinite(got).all()) and rel <= tol,
+                    f'{what}: rel err {rel:.3g} > {tol}')
+            require(torch.equal(got, again),
+                    f'{what}: a second launch gave other bits')
+            errs[pname] = rel
+            del got, again, want
+        for valid in timed:
+            pos_t = torch.full((B,), valid - 1, dtype=torch.int32,
+                               device=dev)
+            it = [0]
 
-                def kern():
-                    it[0] += 1   # alternate layers: at B=128 each is beyond L2
-                    return kernel(q, kb, vb, ks, vs, pos_t, it[0] % 2)
-                kernel_ms = cuda_ms(kern, 200, 5)
-                plain_ms = cuda_ms(
-                    lambda: plain(q, kb, vb, ks, vs, pos_t, 1), 5, 1)
-                library_ms = _time_sdpa(q, kb, vb, ks, vs, pos_t, 1)
-                bound_ms, bound_by = flash_bound(pos_t, kvh, hd, H, quant,
-                                                 peaks)
-                rows.append(dict(B=B, smax=smax, kvh=kvh, H=H, hd=hd,
-                                 cache='int8' if quant else 'bf16',
-                                 max_rel_err=max(errs.values()),
-                                 rel_err_by_positions=errs,
-                                 timed_valid_positions=valid,
-                                 kernel_ms=kernel_ms, plain_ms=plain_ms,
-                                 library_ms=library_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by,
-                                 x_bound=kernel_ms / bound_ms,
-                                 x_library=kernel_ms / library_ms))
-            del q, kb, vb, ks, vs
-            torch.cuda.empty_cache()
+            def kern():
+                it[0] += 1   # alternate layers: at B=128 each is beyond L2
+                return kernel(q, kb, vb, ks, vs, pos_t, it[0] % 2)
+            kernel_ms = cuda_ms(kern, 200, 5)
+            plain_ms = cuda_ms(
+                lambda: plain(q, kb, vb, ks, vs, pos_t, 1), 5, 1)
+            library_ms = _time_sdpa(q, kb, vb, ks, vs, pos_t, 1)
+            bound_ms, bound_by = flash_bound(pos_t, kvh, hd, H, quant,
+                                             peaks, kb.element_size())
+            row = dict(B=B, smax=smax, kvh=kvh, H=H, hd=hd, cache=cache,
+                       max_rel_err=max(errs.values()),
+                       rel_err_by_positions=errs,
+                       timed_valid_positions=valid,
+                       kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, x_bound=kernel_ms / bound_ms,
+                       x_library=kernel_ms / library_ms)
+            if kernel_ms < GRAPH_BELOW_MS:
+                row['graph_ms'] = graph_ms(kern)
+            rows.append(row)
+        del q, kb, vb, ks, vs
+        torch.cuda.empty_cache()
     return rows, worst_abs, worst_rel
 
 
-def sweep_batch_blocks(dev, shapes=((128, 96, 64), (8, 1024, 64),
-                                    (8, 1024, 1000)), kvh=32, H=32, hd=128):
-    """The serving-batch kernel over its two launch arguments, slots a
-    CTA (``b_blk``) and warps a slot (``wps``), on an int8 cache at each
-    (B, Smax, valid positions a slot): one row a pair, ``picked`` on the
-    pair that ``_pick_blocks`` and ``_warps_per_slot`` choose."""
+def sweep_batch_blocks(dev, shapes=((128, 96, 32, 64), (8, 1024, 32, 64),
+                                    (8, 1024, 32, 1000), (8, 4096, 8, 4000)),
+                       H=32, hd=128):
+    """The serving-batch kernel over its launch argument, slots a CTA
+    (``b_blk``: how its warps are packed; the split plan follows the
+    kernel's occupancy in CTAs of that size), on an int8 cache at each
+    (B, Smax, kv heads, valid positions a slot: one query head a kv head
+    on the CUDA cores, and Llama-3-8B's four on the tensor cores), timed
+    through a CUDA graph (the device's time, not the host's enqueue rate):
+    one row a block size, ``picked`` on the one ``kernel_plan`` chooses."""
     from llmc_tpu_torch.ops import batch_decode as BD
-    from llmc_tpu_torch.utils.device import sm_count
-    sms = sm_count(dev.index or 0)
     rows = []
-    for B, smax, valid in shapes:
+    for B, smax, kvh, valid in shapes:
         q, kb, vb, ks, vs = flash_inputs(dev, B, smax, kvh, H, hd)
         pos = torch.full((B,), valid - 1, dtype=torch.int32, device=dev)
-        bb, chunk = BD._pick_blocks(B, smax, kvh, hd, 1, sms)
-        picked = (bb, BD._warps_per_slot(B, kvh, bb, sms))
-        for b_blk, wps in itertools.product((1, 2, 4, 8, 16), (1, 2, 4)):
-            if B % b_blk or b_blk * wps > BD.MAX_WARPS:
+        picked = BD.kernel_plan(q, kb)[0]
+        for b_blk in (1,) + tuple(reversed(BD.BLOCKS)):
+            if B % b_blk:
                 continue
             it = [0]
 
             def kern():
                 it[0] += 1
                 return BD.batch_decode_cuda(q, kb, vb, ks, vs, pos,
-                                            it[0] % 2, b_blk, chunk, wps)
-            rows.append(dict(B=B, smax=smax, valid=valid, b_blk=b_blk,
-                             wps=wps, picked=(b_blk, wps) == picked,
-                             kernel_ms=cuda_ms(kern, 200, 5)))
+                                            it[0] % 2, b_blk)
+            rows.append(dict(B=B, smax=smax, kvh=kvh, valid=valid,
+                             b_blk=b_blk,
+                             splits=BD.kernel_plan(q, kb, b_blk)[1],
+                             picked=b_blk == picked,
+                             graph_ms=graph_ms(kern)))
         del q, kb, vb, ks, vs
     return rows
 
@@ -859,10 +909,13 @@ def _fp8_library(case):
 
 
 def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 64, 77, 128, 4096),
-              timed=(1, 64, 128, 4096), bs=128):
+              timed=(1, 64, 128, 4096), bs=128, contiguous_w=False):
     """The FP8-block kernel at every (N, K) and M, f32 and bf16 output, in
     scale blocks of ``bs`` (the whole K where ``bs`` is 'K'), against its
-    plain version and the float64 oracle.  Times by CUDA events at the
+    plain version and the float64 oracle; with ``contiguous_w`` on the
+    weight codes in contiguous rows (not padded to 16 bytes as the cast
+    packs them: where K is no multiple of 16 the kernel reads them without
+    TMA).  Times by CUDA events at the
     ``timed`` Ms (block size 128), with the host's microseconds a launch
     and, up to M=128, the device time through a CUDA graph."""
     from llmc_tpu_torch.ops import fp8_gemm as G
@@ -874,6 +927,8 @@ def check_fp8(dev, peaks, shapes=FP8_SHAPES, ms_list=(1, 64, 77, 128, 4096),
     for (N, K), M in itertools.product(shapes, ms_list):
         b = K if bs == 'K' else bs
         case = _fp8_case(N, K, M, gen, dev, b)
+        if contiguous_w:
+            case = case[:3] + (case[3].contiguous(),) + case[4:]
         x, xc, xs, wc, ws = case
         plain = G.fp8_block_matmul_plain(xc, xs, wc, ws, b, out_dtype=F32)
         oracle = G.fp8_block_matmul_plain(xc, xs, wc, ws, b,
@@ -1881,6 +1936,21 @@ def main(argv=None) -> int:
     attn = {'flash_decode': check_attention('flash_decode', dev, peaks),
             'batch_decode': check_attention('batch_decode', dev, peaks,
                                             BATCH_SHAPES)}
+    # both kernels on a float32 model's cache, at 16 query heads a kv head
+    # and on a cache made by the port's KV quantizer
+    attn_more = {name: [check_attention(name, dev, peaks, ATTN_F32,
+                                        caches=('f32',)),
+                        check_attention(name, dev, peaks, ATTN_G16,
+                                        caches=('int8',)),
+                        check_attention(name, dev, peaks, ATTN_KVQ,
+                                        caches=('int8_kv',),
+                                        tol=TOL_ATTN_KVQ)]
+                 for name in attn}
+    # an odd N: every GEMM kernel at N = 4095 (no multiple of 2 or of the
+    # 128-row tile)
+    odd_n = {kind_: check_gemm(kind_, dev, peaks, [(4095, 4096, False)],
+                               (1, 77, 128), timed_ms=())
+             for kind_ in ('w4', 'w4a8', 'w8')}
     fp8 = check_fp8(dev, peaks)
     fp8_ragged = check_fp8(dev, peaks, FP8_RAGGED, (1, 77, 128), timed=())
     # block sizes other than 128: 64 (two rows of ws under a CTA), 256 (a
@@ -1888,6 +1958,14 @@ def main(argv=None) -> int:
     fp8_blocks = [check_fp8(dev, peaks, FP8_SHAPES[:1] + FP8_RAGGED,
                             (1, 77, 128), timed=(), bs=bs)
                   for bs in (64, 256, 'K')]
+    # the whole-K block at a K whose rows are no whole 16 bytes (the codes'
+    # rows padded when the weight is cast)
+    fp8_blocks.append(check_fp8(dev, peaks, [(4096, 1000)], (1, 77, 128),
+                                timed=(), bs='K'))
+    # and those codes in contiguous 1000-byte rows (a checkpoint's, or a
+    # padded cast moved by .to()), which TMA cannot read
+    fp8_blocks.append(check_fp8(dev, peaks, [(4096, 1000)], (1, 77, 128),
+                                timed=(), bs='K', contiguous_w=True))
     fp8_adder = fp8_adder_probe(dev)
     require(fp8_adder <= TOL_FP8_ORACLE,
             f'fp8_block_gemm on a block whose products span 20 bits: '
@@ -1905,8 +1983,13 @@ def main(argv=None) -> int:
               quant_act_token=quant,
               w8_dequant_matmul=gemm['w8'][0],
               w8_dequant_matmul_gs64_gs32=w8_small[0][0] + w8_small[1][0],
+              w4_w4a8_w8_odd_n={k: v[0] for k, v in odd_n.items()},
               flash_decode=attn['flash_decode'][0],
               batch_decode=attn['batch_decode'][0],
+              flash_decode_f32_g16_kvq=[
+                  r for rec in attn_more['flash_decode'] for r in rec[0]],
+              batch_decode_f32_g16_kvq=[
+                  r for rec in attn_more['batch_decode'] for r in rec[0]],
               batch_decode_sweep=sweep_batch_blocks(dev),
               fp8_block_gemm=fp8[0],
               fp8_block_gemm_ragged_n=fp8_ragged[0],
@@ -2013,12 +2096,14 @@ def main(argv=None) -> int:
     emit({'kernels': [
         dict(kernel_record('w4_dequant_matmul', 'dequant_matmul_w4.cu',
                            f'{dm}:189', f'{dm}::_kernel_w4', launches,
-                           errs(gemm['w4'], *gs64['w4']), gemm_row('w4'),
+                           errs(gemm['w4'], *gs64['w4'], odd_n['w4']),
+                           gemm_row('w4'),
                            at_gemm),
              old_design_ms=old_design_ms(probes)),
         kernel_record('w4a8_dequant_matmul', 'dequant_matmul_w4a8.cu',
                       f'{dm}:236', f'{dm}::_kernel_w4a8', launches,
-                      errs(gemm['w4a8'], *gs64['w4a8']), gemm_row('w4a8'),
+                      errs(gemm['w4a8'], *gs64['w4a8'], odd_n['w4a8']),
+                      gemm_row('w4a8'),
                       at_gemm),
         dict(kernel_record('quant_act_token', 'quant_act_token.cu',
                            f'{dm}:143', f'{dm}::_quant_act_token', launches,
@@ -2028,16 +2113,21 @@ def main(argv=None) -> int:
                            'kernel in the reference'),
         kernel_record('w8_dequant_matmul', 'dequant_matmul_w8.cu',
                       f'{dm}:274', f'{dm}::_kernel_w8', launches,
-                      errs(gemm['w8'], *w8_small), gemm_row('w8'), at_gemm),
+                      errs(gemm['w8'], *w8_small, odd_n['w8']),
+                      gemm_row('w8'), at_gemm),
         kernel_record('flash_decode', 'flash_decode.cu',
                       'llmc_tpu/ops/flash_decode.py:59',
                       'llmc_tpu/ops/flash_decode.py::_kernel', launches,
-                      attn['flash_decode'][1:3], attn['flash_decode'][0][0],
+                      errs(attn['flash_decode'],
+                           *attn_more['flash_decode']),
+                      attn['flash_decode'][0][0],
                       at_attn),
         kernel_record('batch_decode', 'batch_decode.cu',
                       'llmc_tpu/ops/batch_decode.py:88',
                       'llmc_tpu/ops/batch_decode.py::_kernel', launches,
-                      attn['batch_decode'][1:3], attn['batch_decode'][0][0],
+                      errs(attn['batch_decode'],
+                           *attn_more['batch_decode']),
+                      attn['batch_decode'][0][0],
                       at_attn),
         kernel_record('fp8_block_gemm', 'fp8_block_gemm.cu',
                       'llmc_tpu/ops/fp8_gemm.py:28',

@@ -10,19 +10,27 @@
 //
 // Layout.  x [M, K] e4m3; xs [M, K/bs] f32; w [N, K] e4m3; ws
 // [ceil(N/bs), K/bs] f32 (the checkpoint's weight_scale_inv); all as
-// stored.  bs is a multiple of 64 that divides K, or K itself (then K need
-// only be a multiple of 16: TMA zero-fills the last unit's columns past
-// K).  N takes any value: TMA zero-fills the weight rows past N, and the
-// epilogue writes none.  A block is bu = ceil(bs / 64) units of the K
-// loop.  A step takes SU units: two where bs is a multiple of 128, else
-// one (a template argument: no branch between the wgmma instructions of a
-// step).  Every
-// step starts a fresh partial (scale-d 0) and promotes it,
-// acc += part * xs[m,kb] * ws[n/bs,kb], with its block's scales.  A block
-// of 256 columns or more is thus promoted in pieces of 128, with the same
-// scales: the same function, summed in shorter f32 pieces.  bs is a
-// multiple of 16, so each 16-row group of the CTA's 128 weight rows lies
-// in one row of ws (bs = 64 puts two rows of ws under a CTA).
+// stored, but for two row strides: w's rows are ldw >= K bytes apart, and
+// x is converted into rows of ldx f16, ldx a multiple of 8.  TMA reads w
+// where ldw and w's address are multiples of 16 (its global stride's
+// unit; weight_cast_to_fp8 pads a row of any K to one with zero codes when
+// it packs the weight); else (a checkpoint's codes, or a padded cast moved
+// by .to(), which drops the padding) the producer warp loads each weight
+// tile itself into the layout TMA would give.  bs is a multiple of 64 that
+// divides K, or K itself (then K takes any value: the last unit's columns
+// past K are zero in both operands).  N takes any value: the weight rows
+// past N are zero, and the epilogue writes none.  A block is
+// bu = ceil(bs / 64) units of the K loop.  A step takes SU units: two where
+// bs is a multiple of 128, else one (a template argument: no branch between
+// the wgmma instructions of a step).  Every step starts a fresh partial
+// (scale-d 0) and promotes it, acc += part * xs[m,kb] * ws[n/bs,kb], with
+// its block's scales.  A block of 256 columns or more is thus promoted in
+// pieces of 128, with the same scales: the same function, summed in shorter
+// f32 pieces.  bs is a multiple of 16, so each 16-row group of the CTA's 128
+// weight rows lies in one row of ws (bs = 64 puts two rows of ws under a
+// CTA); a whole-K block of a K that is no multiple of 16 can end inside a
+// 16-row group, and there each thread reads its two rows' ws values before
+// the K loop.
 //
 // What bounds it on an H100: below about M = 600 the weight stream, one
 // byte a weight — the card's memory rate; above it the tensor cores.  It
@@ -48,6 +56,8 @@
 // on a block whose products span 20 bits (fp8_adder_probe).
 
 #include <cuda_fp8.h>
+
+#include <type_traits>
 
 #include "wgmma_common.cuh"
 
@@ -79,6 +89,46 @@ __global__ void __launch_bounds__(256) e4m3_to_f16_kernel(
   y[2 * i + 1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
+// x [M, K] e4m3 -> y [M, ldy] f16, an element a thread, zeros past K (a K
+// whose rows are no whole 16-byte pieces)
+__global__ void __launch_bounds__(256) e4m3_rows_to_f16_kernel(
+    const uint8_t* __restrict__ x, uint16_t* __restrict__ y, int M, int K,
+    int ldy) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * ldy) return;
+  const int m = (int)(i / ldy), k = (int)(i % ldy);
+  y[i] = k < K ? __nv_cvt_fp8_to_halfraw(x[(size_t)m * K + k], __NV_E4M3).x
+               : 0;
+}
+
+// The weight tile [ROWS x UNIT] of rows n0.. and columns k0.. of w (rows
+// ldw bytes apart) into dst as TMA would store it under the 64-byte
+// swizzle (16-byte chunk c of row r at chunk c ^ ((r >> 1) & 3)), zeros
+// past N and K, by the 32 lanes of a warp in loads of V bytes (V divides
+// ldw, K and w's address)
+template <int V>
+__device__ __forceinline__ void load_w_tile(uint8_t* dst,
+                                            const uint8_t* __restrict__ w,
+                                            int ldw, int N, int K, int n0,
+                                            int k0, int lane) {
+  using P = typename std::conditional<
+      V == 8, uint2,
+      typename std::conditional<
+          V == 4, uint32_t,
+          typename std::conditional<V == 2, uint16_t,
+                                    uint8_t>::type>::type>::type;
+  constexpr int PR = UNIT / V;  // pieces a row
+#pragma unroll 4
+  for (int i = lane; i < ROWS * PR; i += 32) {
+    const int r = i / PR, c = (i % PR) * V;
+    P v{};
+    if (n0 + r < N && k0 + c < K)
+      v = *reinterpret_cast<const P*>(w + (size_t)(n0 + r) * ldw + k0 + c);
+    *reinterpret_cast<P*>(dst + r * UNIT + (((c >> 4) ^ ((r >> 1) & 3)) << 4) +
+                          (c & 15)) = v;
+  }
+}
+
 // 4-byte asynchronous copy global -> shared
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
@@ -100,7 +150,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
     const __grid_constant__ CUtensorMap tw,
     const __grid_constant__ CUtensorMap tx, const float* __restrict__ xs,
     const float* __restrict__ ws, void* __restrict__ out,
-    float* __restrict__ partial, int M, int N, int K, int bs, int kb, int bu,
+    float* __restrict__ partial, const uint8_t* __restrict__ wp, int ldw,
+    int wv, int M, int N, int K, int bs, int kb, int bu,
     int blocks_per_split) {
   // a stage: the weight tile [128 x 64 e4m3] and the x box [T x 64 f16];
   // beside the ring two boxes a stage: the step's T token scales and the
@@ -136,7 +187,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
   __syncthreads();
 
   if (tid >= CONSUMERS) {
-    // producer warp: lane 0 issues the TMA loads; with a step's first unit
+    // producer warp: lane 0 issues the TMA loads (where wp is given, the
+    // lanes first store the weight tile themselves, before lane 0's
+    // arrival); with a step's first unit
     // the lanes copy the step's token scales (rows past M repeat row M - 1:
     // their outputs are never stored) and lanes 0-7 the ws value of their
     // 16-row group (clamped past N) by cp.async, which arrives on the
@@ -149,9 +202,20 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
       const int st = i % S, u = u0 + i;
       mbar_wait(&empty[st], ((i / S) & 1) ^ 1);
       uint8_t* buf = smem + st * L::STAGE;
+      if (wp != nullptr) {
+        if (wv == 8)
+          load_w_tile<8>(buf, wp, ldw, N, K, n0, u * UNIT, lane);
+        else if (wv == 4)
+          load_w_tile<4>(buf, wp, ldw, N, K, n0, u * UNIT, lane);
+        else if (wv == 2)
+          load_w_tile<2>(buf, wp, ldw, N, K, n0, u * UNIT, lane);
+        else
+          load_w_tile<1>(buf, wp, ldw, N, K, n0, u * UNIT, lane);
+        __syncwarp();
+      }
       if (lane == 0) {
-        mbar_expect_tx(&full[st], L::STAGE);
-        tma_load_2d(buf, &tw, &full[st], u * UNIT, n0);
+        mbar_expect_tx(&full[st], wp ? L::STAGE - L::W_BYTES : L::STAGE);
+        if (wp == nullptr) tma_load_2d(buf, &tw, &full[st], u * UNIT, n0);
         tma_load_2d(buf + L::W_BYTES, &tx, &full[st], u * UNIT, m0);
       }
       if (i % SU == 0) {
@@ -176,6 +240,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
     float acc[T / 2], part[TN / 2];
 #pragma unroll
     for (int i = 0; i < T / 2; ++i) acc[i] = 0.f;
+    // a block of bs rows that is no multiple of 16 (bs = K, one block in
+    // K) can end inside a 16-row group: then the thread's two rows take
+    // their own ws value, the same for the whole K loop
+    const bool row_ws = bs % 16 != 0;
+    const float ws_lo =
+        row_ws ? __ldg(ws + (size_t)(min(n0 + r0, N - 1) / bs) * kb) : 0.f;
+    const float ws_hi =
+        row_ws ? __ldg(ws + (size_t)(min(n0 + r0 + 8, N - 1) / bs) * kb) : 0.f;
 
     for (int i = 0; i < nu; i += SU) {
 #pragma unroll
@@ -199,6 +271,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
       // the stage of its first unit
       const float* xsv = xsb + 2 * (i % S) * BOX;
       const float wsv = xsv[BOX + (r0 >> 4)];
+      const float wlo = row_ws ? ws_lo : wsv, whi = row_ws ? ws_hi : wsv;
 #pragma unroll
       for (int sub = 0; sub < NSUB; ++sub) {
         fence_regs(part);
@@ -220,12 +293,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
         for (int j = 0; j < TN / 8; ++j) {
           const float2 xv = *reinterpret_cast<const float2*>(
               xsv + sub * TN + 8 * j + 2 * t);
-          const float w0 = xv.x * wsv, w1 = xv.y * wsv;
+          const float w0 = xv.x * wlo, w1 = xv.y * wlo;
+          const float w2 = xv.x * whi, w3 = xv.y * whi;
           const int c = sub * (TN / 2) + 4 * j;
           acc[c + 0] = fmaf(part[4 * j + 0], w0, acc[c + 0]);
           acc[c + 1] = fmaf(part[4 * j + 1], w1, acc[c + 1]);
-          acc[c + 2] = fmaf(part[4 * j + 2], w0, acc[c + 2]);
-          acc[c + 3] = fmaf(part[4 * j + 3], w1, acc[c + 3]);
+          acc[c + 2] = fmaf(part[4 * j + 2], w2, acc[c + 2]);
+          acc[c + 3] = fmaf(part[4 * j + 3], w3, acc[c + 3]);
         }
       }
       fence_regs(a);
@@ -240,7 +314,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fp8_block_gemm_kernel(
 template <int T, bool OUT_F32>
 int launch(const void* x, const void* xs, const void* w, const void* ws,
            void* x16, void* out, void* partial, int M, int N, int K, int bs,
-           int splits, cudaStream_t st) {
+           int ldw, int ldx, int splits, cudaStream_t st) {
   const int bu = (bs + UNIT - 1) / UNIT;  // units a block
   // two units a step where a block holds whole steps (bs a multiple of
   // 128), else one
@@ -254,22 +328,37 @@ int launch(const void* x, const void* xs, const void* w, const void* ws,
                          smem_bytes);
     attr[two] = true;
   }
-  CUtensorMap tw, tx;
-  int e = encode_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, ROWS,
-                    UNIT, CU_TENSOR_MAP_SWIZZLE_64B);
+  // TMA reads w where its row stride and address are 16-byte multiples;
+  // else the kernel loads it in pieces of wv bytes
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  const bool by_tma = ldw % 16 == 0 && wa % 16 == 0;
+  int wv = 8;
+  while ((ldw | K | static_cast<int>(wa & 7)) & (wv - 1)) wv >>= 1;
+  CUtensorMap tw = {}, tx;
+  int e = by_tma ? encode_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K,
+                             ROWS, UNIT, CU_TENSOR_MAP_SWIZZLE_64B, ldw)
+                 : 0;
   if (e == 0)
     e = encode_2d(&tx, x16, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, M, K, T, 64,
-                  CU_TENSOR_MAP_SWIZZLE_128B);
+                  CU_TENSOR_MAP_SWIZZLE_128B, ldx * 2);
   if (e != 0) return e;
-  const size_t n16 = (size_t)M * K / 16;
-  e4m3_to_f16_kernel<<<(unsigned)((n16 + 255) / 256), 256, 0, st>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(x16), n16);
+  if (K % 16 == 0 && ldx == K) {
+    const size_t n16 = (size_t)M * K / 16;
+    e4m3_to_f16_kernel<<<(unsigned)((n16 + 255) / 256), 256, 0, st>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(x16), n16);
+  } else {
+    const size_t n = (size_t)M * ldx;
+    e4m3_rows_to_f16_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        static_cast<const uint8_t*>(x), static_cast<uint16_t*>(x16), M, K,
+        ldx);
+  }
   const int kb = K / bs;
   const int bps = (kb + splits - 1) / splits;  // blocks a split
   const dim3 grid(((M + T - 1) / T) * ((N + ROWS - 1) / ROWS), 1, splits);
   kern<<<grid, NTHREADS, smem_bytes, st>>>(
       tw, tx, static_cast<const float*>(xs), static_cast<const float*>(ws),
-      out, splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, bs,
+      out, splits > 1 ? static_cast<float*>(partial) : nullptr,
+      by_tma ? nullptr : static_cast<const uint8_t*>(w), ldw, wv, M, N, K, bs,
       kb, bu, bps);
   if (splits > 1)
     launch_split_sum<OUT_F32>(partial, out, nullptr, splits, M, N, st);
@@ -279,20 +368,24 @@ int launch(const void* x, const void* xs, const void* w, const void* ws,
 }  // namespace
 
 // tok_tile in {8, 16, 32, 64, 128}; block: a multiple of 64 that divides
-// K, or K (a multiple of 16); N >= 1; x16: [M, K] f16 scratch (x converted);
-// splits >= 1 K-splits of whole blocks (partial: [splits, M, N] f32
-// scratch when splits > 1).
+// K, or K; N >= 1; w's rows ldw >= K bytes apart (by TMA where ldw and w
+// are 16-byte aligned, else by the kernel's own loads); x16:
+// [M, ldx] f16 scratch (x converted; ldx a multiple of 8, >= K); splits
+// >= 1 K-splits of whole blocks (partial: [splits, M, N] f32 scratch when
+// splits > 1).
 extern "C" int llmc_fp8_block_gemm(const void* x, const void* xs,
                                    const void* w, const void* ws, void* x16,
                                    void* out, void* partial, int M, int N,
-                                   int K, int block, int out_f32,
-                                   int tok_tile, int splits, void* stream) {
+                                   int K, int block, int ldw, int ldx,
+                                   int out_f32, int tok_tile, int splits,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K % 16 || K % block || (block % UNIT && block != K))
+  if (K % block || (block % UNIT && block != K) || ldw < K || ldx % 8 ||
+      ldx < K)
     return static_cast<int>(cudaErrorInvalidValue);
   if (out_f32)
     return LLMC_DISPATCH_T(tok_tile, true, launch, x, xs, w, ws, x16, out,
-                           partial, M, N, K, block, splits, st);
+                           partial, M, N, K, block, ldw, ldx, splits, st);
   return LLMC_DISPATCH_T(tok_tile, false, launch, x, xs, w, ws, x16, out,
-                         partial, M, N, K, block, splits, st);
+                         partial, M, N, K, block, ldw, ldx, splits, st);
 }

@@ -153,7 +153,8 @@ template <bool OUT_F32>
 void launch_split_sum(const void* partial, void* out, const float* row_scale,
                       int splits, int M, int N, cudaStream_t st) {
   const size_t mn = (size_t)M * N;
-  const unsigned blocks = (unsigned)((mn / 2 + 255) / 256);
+  // a thread takes two elements: (mn + 1) / 2 threads cover an odd mn too
+  const unsigned blocks = (unsigned)(((mn + 1) / 2 + 255) / 256);
   split_sum_kernel<OUT_F32><<<blocks, 256, 0, st>>>(
       static_cast<const float*>(partial), out, row_scale, splits, mn, N);
 }

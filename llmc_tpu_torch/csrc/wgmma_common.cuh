@@ -631,15 +631,16 @@ constexpr int ERR_NO_ENCODE = 9001;
 constexpr int ERR_ENCODE = 9002;
 
 // A 2-D row-major tensor map: `rows` x `cols` elements of `esize` bytes,
-// boxes of box_rows x box_cols, zero fill out of bounds.
+// rows `row_bytes` apart (0: cols * esize), boxes of box_rows x box_cols,
+// zero fill out of bounds.
 inline int encode_2d(CUtensorMap* map, const void* base,
                      CUtensorMapDataType type, int esize, uint64_t rows,
                      uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-                     CUtensorMapSwizzle swizzle) {
+                     CUtensorMapSwizzle swizzle, uint64_t row_bytes = 0) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return ERR_NO_ENCODE;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * esize};
+  const cuuint64_t strides[1] = {row_bytes ? row_bytes : cols * esize};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r =

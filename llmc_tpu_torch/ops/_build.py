@@ -51,12 +51,14 @@ SIGNATURES = {
     # x, codes, s, z, out, partial, M, N, K, gs, has_z, out_f32, tok_tile,
     # splits, stream
     'llmc_w8_dequant_matmul': [_VP] * 6 + [_I] * 8 + [_VP],
-    # q, kbuf, vbuf, ks, vs, pos, out, B, H, KVH, hd, Smax, layer,
-    # kv_kind, b_blk, wps, chunk, stream
-    'llmc_batch_decode': [_VP] * 7 + [_I] * 10 + [_VP],
-    # x, xs, w, ws, x16, out, partial, M, N, K, block, out_f32, tok_tile,
-    # splits, stream
-    'llmc_fp8_block_gemm': [_VP] * 7 + [_I] * 7 + [_VP],
+    # q, kbuf, vbuf, ks, vs, pos, out, work, arrivals, B, H, KVH, hd, Smax,
+    # L, layer, kv_kind, b_blk, splits, stream
+    'llmc_batch_decode': [_VP] * 9 + [_I] * 10 + [_VP],
+    # kv_kind, G, hd, b_blk, warps (out)
+    'llmc_batch_decode_occupancy': [_I] * 4 + [ctypes.POINTER(_I)],
+    # x, xs, w, ws, x16, out, partial, M, N, K, block, ldw, ldx, out_f32,
+    # tok_tile, splits, stream
+    'llmc_fp8_block_gemm': [_VP] * 7 + [_I] * 9 + [_VP],
     # kind, x, x2, w, s, out, partial, M, N, K, splits, stream
     'llmc_probe_gemm': [_I] + [_VP] * 6 + [_I] * 4 + [_VP],
 }

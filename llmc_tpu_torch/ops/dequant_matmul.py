@@ -351,8 +351,8 @@ def _check_kernel_meta(meta: QMeta, M: int, K: int, span: int = 64,
         raise NotImplementedError(
             f'the kernel reads {span}-column pieces of each half group; a '
             f'span of {gsl} is not ported yet (ROADMAP {item})')
-    if N % 2 or M < 1:
-        raise ValueError(f'kernel needs an even N and M >= 1 (N={N}, M={M})')
+    if N < 1 or M < 1:
+        raise ValueError(f'kernel needs M, N >= 1 (N={N}, M={M})')
     return gsl, single
 
 
@@ -558,8 +558,9 @@ def kernel_takes(meta: QMeta, a_int8: bool = False) -> bool:
     the reference's ``pallas_ok`` takes (half groups of a multiple of 128
     columns, W8 groups of a multiple of 128), and more; what it refuses
     runs the reference's XLA branch in torch ops.  bits=8 with ``a_int8``
-    has no kernel in either package.  An odd N is no metadata rule: the
-    kernels' wrappers raise on it."""
+    has no kernel in either package.  The kernels take any N (an odd one
+    too: TMA zero-fills the weight rows past N, and the epilogue and the
+    split-K sum store element by element where N is no multiple of 4)."""
     if meta.bits == 4:
         return _w4_takes(meta)
     return meta.bits == 8 and not a_int8 and _w8_takes(meta)
@@ -577,8 +578,8 @@ def _check_w8_meta(meta: QMeta, M: int, K: int) -> int:
             f'the W8 kernel takes scale groups of a multiple of {W8_GROUP} '
             f'columns that divide K, K a multiple of {WG_UNIT}; group size '
             f'{gs} at K={K} is not ported (ROADMAP B4)')
-    if N % 2 or M < 1:
-        raise ValueError(f'kernel needs an even N and M >= 1 (N={N}, M={M})')
+    if N < 1 or M < 1:
+        raise ValueError(f'kernel needs M, N >= 1 (N={N}, M={M})')
     return gs
 
 

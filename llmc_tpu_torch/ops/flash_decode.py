@@ -28,29 +28,49 @@ F32 = torch.float32
 # Launches of the CUDA kernel (the plain version never counts).
 LAUNCHES = {'flash_decode': 0}
 
-KERNEL_CHUNK = 64   # positions a chunk of the kernel (a TMA box's rows)
-# CTAs an SM holds with a full ring, int8 and bf16 caches
+KERNEL_CHUNK = 64   # positions a chunk (a TMA box's rows)
+# the cache kinds the kernels take, by (value dtype, scales given): int8
+# codes with f32 scales, or bf16 or f32 values; the C functions' kv_kind
+KINDS = {(torch.int8, True): 'int8', (torch.bfloat16, False): 'bf16',
+         (torch.float32, False): 'f32'}
+KIND_ID = {'int8': 0, 'bf16': 1, 'f32': 2}
+# CTAs an SM holds with a full ring at hd = 128, by cache kind
 # (csrc/flash_decode.cu, Ring)
-RESIDENT = {True: 4, False: 2}
-# per device: one int32 arrival counter a (slot, kv head), zero between
-# launches (each launch's last split resets its own)
-_ARRIVALS: Dict[torch.device, torch.Tensor] = {}
+RESIDENT = {'int8': 4, 'bf16': 2, 'f32': 1}
+HEAD_GROUP = 8      # query heads a CTA of this kernel: more, a grid dim
+# per device: the split workspace (f32) and one int32 arrival counter a
+# (slot, kv head, head group), shared by this kernel and batch_decode.cu.
+# They only grow, so their addresses stay put once the largest shape has
+# run (a captured CUDA graph keeps them); the counters are zero between
+# launches (each launch's last split resets its own).
+_SCRATCH: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
 
-def split_plan(B: int, kvh: int, smax: int, sms: int,
-               quant: bool = True) -> Tuple[int, int]:
-    """(splits S, chunks a split) of the kernel's grid (S, KVH, B).  Each
-    (slot, kv head) is cut into S splits of whole chunks so that the grid
-    holds about twice the CTAs the card keeps resident, and never into
-    more splits than chunks; where the slots and kv heads alone fill that,
-    S is 1.  Decided from shapes and the SM count only: the host never
-    reads ``pos``."""
+def cache_kind(kbuf: torch.Tensor, ks) -> str:
+    """'int8', 'bf16' or 'f32': the kernels' cache kind, or a raise."""
+    kind = KINDS.get((kbuf.dtype, ks is not None))
+    if kind is None:
+        raise ValueError(f'the decode kernels take an int8 cache with f32 '
+                         f'scales, or a bf16 or f32 cache without; got '
+                         f'{kbuf.dtype} with scales {ks is not None}')
+    return kind
+
+
+def split_plan(B: int, kvh: int, smax: int, sms: int, kind: str = 'int8',
+               groups: int = 1) -> Tuple[int, int]:
+    """(splits S, chunks a split) of the kernel's grid (S x head groups,
+    KVH, B).  Each (slot, kv head, head group) is cut into S splits of
+    whole chunks so that the grid holds about twice the CTAs the card
+    keeps resident (``RESIDENT``), and never into more splits than chunks;
+    where the slots, kv heads and head groups alone fill that, S is 1.
+    Decided from shapes and the SM count only: the host never reads
+    ``pos``."""
     nch = -(-smax // KERNEL_CHUNK)
-    target = 2 * sms * RESIDENT[quant]
-    pairs = B * kvh
-    if pairs >= target:
+    target = 2 * sms * RESIDENT[kind]
+    ctas = B * kvh * groups
+    if ctas >= target:
         return 1, nch
-    cps = -(-nch // min(nch, -(-target // pairs)))
+    cps = -(-nch // min(nch, -(-target // ctas)))
     return -(-nch // cps), cps
 
 
@@ -164,61 +184,79 @@ def flash_decode_split_plain(q, kbuf, vbuf, ks, vs, pos, layer: int,
     return combine_splits(m, l, acc).reshape(B, H, hd)
 
 
-def _arrivals(device: torch.device, n: int) -> torch.Tensor:
-    buf = _ARRIVALS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _ARRIVALS[device] = buf
-    return buf
+def decode_scratch(device: torch.device, n_work: int, n_arrivals: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(workspace of at least ``n_work`` f32, ``n_arrivals`` zero int32
+    counters) on ``device``: one pair per device, grown, never shrunk."""
+    bufs = _SCRATCH.setdefault(device, {})
+    work, arrivals = bufs.get('work'), bufs.get('arrivals')
+    if work is None or work.numel() < n_work:
+        work = bufs['work'] = torch.empty(max(n_work, 1 << 16), dtype=F32,
+                                          device=device)
+    if arrivals is None or arrivals.numel() < n_arrivals:
+        arrivals = bufs['arrivals'] = torch.zeros(
+            max(n_arrivals, 1024), dtype=torch.int32, device=device)
+    return work, arrivals
 
 
-def flash_decode_cuda(q, kbuf, vbuf, ks, vs, pos, layer: int
-                      ) -> torch.Tensor:
-    """Launch the Hopper kernel.  q [B, H, hd] f32; kbuf/vbuf
-    [L, B, Smax, KVH, hd] int8 (with ks/vs [L, B, Smax, KVH] f32) or
-    bf16 (ks/vs None); pos [B] int32 on the card; layer an int.  One
-    launch, split over the cache as ``split_plan`` says."""
+def check_cache_operands(q, kbuf, vbuf, ks, vs, pos, layer: int) -> str:
+    """The decode kernels' operand checks (both take the same); returns
+    the cache kind."""
     B, H, hd = q.shape
     L, Bk, smax, kvh, hdk = kbuf.shape
-    quant = ks is not None
-    if not q.is_cuda:
-        raise ValueError('flash_decode_cuda launches a CUDA kernel; q is '
-                         'on the CPU')
-    if (Bk, hdk) != (B, hd) or H % kvh or H // kvh > 8 or hd > 128 \
-            or hd % 16:
-        raise ValueError(f'kernel takes hd <= 128 (multiple of 16) and at '
-                         f'most 8 query heads per kv head; got q '
+    if (Bk, hdk) != (B, hd) or H % kvh or hd > 128 or hd % 16:
+        raise ValueError(f'the kernel takes a head dim of at most 128, a '
+                         f'multiple of 16, and H a multiple of KVH; got q '
                          f'{tuple(q.shape)}, cache {tuple(kbuf.shape)}')
     if not 0 <= int(layer) < L:
         raise ValueError(f'layer {layer} out of range [0, {L})')
-    want_kv = torch.int8 if quant else torch.bfloat16
+    if (ks is None) != (vs is None):
+        raise ValueError('ks and vs must both be given or both be None')
+    kind = cache_kind(kbuf, ks)
     checks = [('q', q, F32, (B, H, hd)), ('pos', pos, torch.int32, (B,)),
-              ('kbuf', kbuf, want_kv, tuple(kbuf.shape)),
-              ('vbuf', vbuf, want_kv, tuple(kbuf.shape))]
-    if quant:
+              ('kbuf', kbuf, kbuf.dtype, tuple(kbuf.shape)),
+              ('vbuf', vbuf, kbuf.dtype, tuple(kbuf.shape))]
+    if ks is not None:
         checks += [('ks', ks, F32, (L, B, smax, kvh)),
                    ('vs', vs, F32, (L, B, smax, kvh))]
-    elif vs is not None:
-        raise ValueError('ks and vs must both be given or both be None')
     for name, t, dt, shape in checks:
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f'{name}: want {dt} {shape}, got {t.dtype} '
                              f'{tuple(t.shape)}')
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f'{name}: must be contiguous on {q.device}')
-    splits, cps = split_plan(B, kvh, smax, sm_count(q.device.index), quant)
+        if name in ('q', 'kbuf', 'vbuf') and t.data_ptr() % 16:
+            raise ValueError(f'{name}: must be 16-byte aligned')
+    return kind
+
+
+def flash_decode_cuda(q, kbuf, vbuf, ks, vs, pos, layer: int
+                      ) -> torch.Tensor:
+    """Launch the Hopper kernel.  q [B, H, hd] f32; kbuf/vbuf
+    [L, B, Smax, KVH, hd] int8 (with ks/vs [L, B, Smax, KVH] f32), or bf16
+    or f32 (ks/vs None); pos [B] int32 on the card; layer an int.  One
+    launch, split over the cache as ``split_plan`` says."""
+    if not q.is_cuda:
+        raise ValueError('flash_decode_cuda launches a CUDA kernel; q is '
+                         'on the CPU')
+    kind = check_cache_operands(q, kbuf, vbuf, ks, vs, pos, layer)
+    B, H, hd = q.shape
+    L, _, smax, kvh, _ = kbuf.shape
+    groups = -(-(H // kvh) // HEAD_GROUP)
+    splits, cps = split_plan(B, kvh, smax, sm_count(q.device.index), kind,
+                             groups)
     out = torch.empty((B, H, hd), dtype=F32, device=q.device)
-    work = (torch.empty((B, kvh, splits, H // kvh, hd + 2), dtype=F32,
-                        device=q.device) if splits > 1 else out)
-    arrivals = _arrivals(q.device, B * kvh) if splits > 1 else out
-    dummy = kbuf  # never read when the cache is bf16
+    work, arrivals = (decode_scratch(q.device, B * H * splits * (hd + 2),
+                                     B * kvh * groups)
+                      if splits > 1 else (out, out))
+    dummy = kbuf  # never read without scales
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.lib().llmc_flash_decode(
         q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
-        (ks if quant else dummy).data_ptr(),
-        (vs if quant else dummy).data_ptr(), pos.data_ptr(),
+        (ks if ks is not None else dummy).data_ptr(),
+        (vs if vs is not None else dummy).data_ptr(), pos.data_ptr(),
         out.data_ptr(), work.data_ptr(), arrivals.data_ptr(), B, H, kvh, hd,
-        smax, L, int(layer), 0 if quant else 1, splits, cps, stream)
+        smax, L, int(layer), KIND_ID[kind], splits, cps, stream)
     _build.check(err, 'flash_decode')
     LAUNCHES['flash_decode'] += 1
     return out

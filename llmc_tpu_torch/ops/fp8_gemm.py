@@ -56,25 +56,41 @@ def fp8_block_matmul_plain(x_codes, x_scales, w_codes, w_scale_inv,
 
 def kernel_takes_block(K: int, block_size: int) -> bool:
     """Whether the kernel takes a scale block of ``block_size`` columns at
-    this K: a multiple of 64 that divides K, or the whole K, with K a
-    multiple of 16 (the codes' 16-byte rows for TMA).  Every block that
-    Mosaic lowers for the reference (a multiple of 128, or K) is one."""
-    return (K % 16 == 0 and K % block_size == 0
-            and (block_size % UNIT == 0 or block_size == K))
+    this K: a multiple of 64 that divides K, or the whole K (any K: the
+    columns past K are zero in both operands).  Every block that Mosaic
+    lowers for the reference (a multiple of 128, or K) is one."""
+    return K % block_size == 0 and (block_size % UNIT == 0
+                                    or block_size == K)
 
 
 def _check_fp8_meta(M: int, N: int, K: int, block_size: int) -> int:
     """Raise on a shape the kernel does not take; returns K / block."""
-    if M < 1 or N < 1 or K % block_size or K % 16:
+    if M < 1 or N < 1 or K < 1 or K % block_size:
         raise ValueError(f'the FP8 kernel needs M, N >= 1 and K a multiple '
-                         f'of the block size and of 16 (M={M}, N={N}, K={K}, '
-                         f'block {block_size})')
+                         f'of the block size (M={M}, N={N}, K={K}, block '
+                         f'{block_size})')
     if not kernel_takes_block(K, block_size):
         raise NotImplementedError(
             f'the FP8 kernel takes scale blocks of a multiple of {UNIT} '
             f'columns or the whole K; block size {block_size} at K={K} runs '
             f'the XLA-branch counterpart (ROADMAP B6)')
     return K // block_size
+
+
+def _check_weight_rows(w_codes: torch.Tensor) -> int:
+    """The weight codes' row stride in bytes: rows of unit column stride,
+    each at least K apart.  Where the stride and the address are multiples
+    of 16 (a contiguous [N, K] tensor with 16 | K, or the view
+    ``weight_cast_to_fp8`` returns for any other K, its rows padded with
+    zero codes) the kernel reads the weight by TMA; else (a checkpoint's
+    codes at such a K, or a padded cast moved by ``.to``) by its own
+    loads, slower."""
+    ld = w_codes.stride(0)
+    if w_codes.stride(1) != 1 or ld < w_codes.shape[1]:
+        raise ValueError(f'w_codes: want rows of unit column stride; got '
+                         f'strides {w_codes.stride()} at '
+                         f'K={w_codes.shape[1]}')
+    return ld
 
 
 def fp8_block_matmul_cuda(x_codes, x_scales, w_codes, w_scale_inv,
@@ -91,22 +107,30 @@ def fp8_block_matmul_cuda(x_codes, x_scales, w_codes, w_scale_inv,
     M, K = x_codes.shape
     N = w_codes.shape[0]
     kb = _check_fp8_meta(M, N, K, block_size)
+    if w_codes.dtype != E4M3 or tuple(w_codes.shape) != (N, K) \
+            or w_codes.device != x_codes.device:
+        raise ValueError(f'w_codes: want {E4M3} ({N}, {K}) on '
+                         f'{x_codes.device}, got {w_codes.dtype} '
+                         f'{tuple(w_codes.shape)} on {w_codes.device}')
+    ldw = _check_weight_rows(w_codes)
+    # x_codes' rows are converted, not read by TMA: any K
     _check_operands(x_codes, {'x_codes': (x_codes, E4M3, (M, K)),
                               'x_scales': (x_scales, F32, (M, kb)),
-                              'w_codes': (w_codes, E4M3, (N, K)),
                               'w_scale_inv': (w_scale_inv, F32,
                                               (-(-N // block_size), kb))},
                     out_dtype)
     tt, splits = wgmma_tiling(M, N, kb, sm_count(x_codes.device.index))
     out, partial = _out_and_partial(M, N, splits, out_dtype, x_codes.device)
-    # x's codes as f16, which the kernel's tensor cores multiply in
-    x16 = torch.empty((M, K), dtype=torch.float16, device=x_codes.device)
+    # x's codes as f16, which the kernel's tensor cores multiply in, in
+    # rows of 16-byte multiples
+    ldx = -(-K // 8) * 8
+    x16 = torch.empty((M, ldx), dtype=torch.float16, device=x_codes.device)
     stream = torch.cuda.current_stream(x_codes.device).cuda_stream
     err = _build.lib().llmc_fp8_block_gemm(
         x_codes.data_ptr(), x_scales.data_ptr(), w_codes.data_ptr(),
         w_scale_inv.data_ptr(), x16.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), M, N, K, block_size, int(out_dtype == F32), tt,
-        splits, stream)
+        partial.data_ptr(), M, N, K, block_size, ldw, ldx,
+        int(out_dtype == F32), tt, splits, stream)
     _build.check(err, 'fp8_block_gemm')
     LAUNCHES['fp8_block_gemm'] += 1
     return out

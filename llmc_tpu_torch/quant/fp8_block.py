@@ -50,8 +50,15 @@ def weight_cast_to_fp8(w: torch.Tensor, block_size: int = 128
     # ``amax.reciprocal() * 448.0``, two roundings
     scale = torch.full_like(amax, E4M3_MAX) / amax
     codes = float_cast(wb * scale, 4, 3, E4M3_MAX)
-    codes = codes.reshape(wb.shape[0] * block_size, -1)[:m, :n]
-    return codes.to(E4M3), (1.0 / scale)[:, 0, :, 0]
+    codes = codes.reshape(wb.shape[0] * block_size, -1)[:m, :n].to(E4M3)
+    if n % 16:
+        # rows of 16-byte multiples, as the card's kernel reads them by TMA:
+        # the codes are a view of zero-padded rows (ops/fp8_gemm.py)
+        rows = torch.zeros((m, -(-n // 16) * 16), dtype=E4M3,
+                           device=codes.device)
+        rows[:, :n] = codes
+        codes = rows[:, :n]
+    return codes, (1.0 / scale)[:, 0, :, 0]
 
 
 def weight_cast_to_bf16(codes: torch.Tensor, scale_inv: torch.Tensor,

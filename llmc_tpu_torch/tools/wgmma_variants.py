@@ -95,8 +95,8 @@ VARIANTS = {
         'no_promotion': [
             ('\n          acc[c + 0] = fmaf(part[4 * j + 0], w0, acc[c + 0]);'
              '\n          acc[c + 1] = fmaf(part[4 * j + 1], w1, acc[c + 1]);'
-             '\n          acc[c + 2] = fmaf(part[4 * j + 2], w0, acc[c + 2]);'
-             '\n          acc[c + 3] = fmaf(part[4 * j + 3], w1, acc[c + 3]);',
+             '\n          acc[c + 2] = fmaf(part[4 * j + 2], w2, acc[c + 2]);'
+             '\n          acc[c + 3] = fmaf(part[4 * j + 3], w3, acc[c + 3]);',
              '')]}),
 }
 ROTATE_BYTES = 160_000_000
@@ -115,13 +115,15 @@ def variant_source(kernel: str, variant: str) -> str:
     return text
 
 
-def build_variant(kernel: str, variant: str) -> ctypes.CDLL:
-    """Compile one cut source into its own library (under ``build/``)."""
-    source, _ = VARIANTS[kernel]
+def build_source(kernel: str, variant: str, source: str,
+                 text: str) -> ctypes.CDLL:
+    """Compile ``text`` as ``source`` (beside the shipping headers) into its
+    own library under ``build/`` and bind ``llmc_<kernel>`` (and its
+    ``llmc_<kernel>_*`` helpers)."""
     d = _build.BUILD / 'variants' / f'{kernel}_{variant}'
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    (d / source).write_text(variant_source(kernel, variant))
+    (d / source).write_text(text)
     for h in _build.CSRC.glob('*.cuh'):
         shutil.copy(h, d)
     so = d / 'lib.so'
@@ -133,10 +135,18 @@ def build_variant(kernel: str, variant: str) -> ctypes.CDLL:
         raise RuntimeError(f'nvcc failed for {kernel}/{variant}:\n'
                            f'{out.stdout[-3000:]}{out.stderr[-3000:]}')
     lib = ctypes.CDLL(str(so))
-    fn = getattr(lib, f'llmc_{kernel}')
-    fn.argtypes = _build.SIGNATURES[f'llmc_{kernel}']
-    fn.restype = ctypes.c_int
+    for name, argtypes in _build.SIGNATURES.items():
+        if name == f'llmc_{kernel}' or name.startswith(f'llmc_{kernel}_'):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def build_variant(kernel: str, variant: str) -> ctypes.CDLL:
+    """Compile one cut source into its own library (under ``build/``)."""
+    return build_source(kernel, variant, VARIANTS[kernel][0],
+                        variant_source(kernel, variant))
 
 
 def _operands(kernel: str, M: int, N: int, K: int, gen, dev):

@@ -170,6 +170,42 @@ def test_w8_small_groups_and_k_off_64_match_jax(sym, N, K, gs):
     assert got.shape == (5, N) and rel_err(got.numpy(), want) < 1e-5
 
 
+def _odd_n(kind, N=201, K=256):
+    j, p = (_w8(128, N=N, K=K) if kind == 'w8' else _w4(128, N=N, K=K))
+    return j, p, kind == 'w4a8'
+
+
+@pytest.mark.parametrize('kind', ['w4', 'w4a8', 'w8'])
+def test_odd_n_plain_matches_the_reference(kind):
+    """N = 201, which the reference's Pallas tiling takes as one tile
+    (``llmc_tpu/ops/dequant_matmul.py:384-386``) and the card's kernels now
+    take too: the port's ``dequant_matmul`` on the CPU against the JAX
+    package's XLA branch (f32, 1e-5) and its Pallas kernel in interpret
+    mode (1e-5, on the bf16 x it casts to; W8 with the weight rounded to
+    bf16 as its kernel does)."""
+    j, p, a8 = _odd_n(kind)
+    assert TD.kernel_takes(p[-1], a8)
+    x = (np.random.RandomState(21).randn(5, 256) * 0.1).astype(np.float32)
+    want = JD.dequant_matmul(jnp.asarray(x), *j, a_int8=a8, force_xla=True,
+                             out_dtype=jnp.float32)
+    got = TD.dequant_matmul(torch.as_tensor(x), *p, a_int8=a8,
+                            out_dtype=torch.float32)
+    assert got.shape == (5, 201) and rel_err(got.numpy(), want) < 1e-5
+    xb = torch.as_tensor(x).to(torch.bfloat16)
+    jx = (jnp.asarray(x) if a8 else
+          jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16))
+    kern = JD.dequant_matmul_pallas(jx, *j, tm=16, interpret=True,
+                                    a_int8=a8, out_dtype=jnp.float32)
+    if kind == 'w8':
+        plain = TD.dequant_matmul_plain(xb, *p, out_dtype=torch.float32,
+                                        w_bf16=True)
+    elif a8:
+        plain = got
+    else:
+        plain = TD.dequant_matmul(xb.float(), *p, out_dtype=torch.float32)
+    assert rel_err(plain.numpy(), np.asarray(kern)) < 1e-5
+
+
 def test_cpu_calls_leave_the_xla_branch_counter_at_zero():
     """On the CPU every call takes the plain version by the tensor's
     device; the counter counts only the card's calls that the rule sends
@@ -219,3 +255,31 @@ def test_xla_branch_cases_on_card(cuda_device, case):
     assert xla_branch_calls() == 1
     assert not any(launch_counts().values())
     assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['w4', 'w4a8', 'w8'])
+@pytest.mark.parametrize('N', [201, 4095])
+@pytest.mark.parametrize('M', [1, 77, 300])
+def test_odd_n_launches_the_kernels_on_card(cuda_device, kind, N, M):
+    """An odd N, which the card refused before: B1, B3 and B4 launch (no
+    XLA-branch call) and match their plain versions, 1e-4 at f32 output
+    and 1e-2 at bf16 (one output rounding); K = 1024 splits the K loop at
+    small M, so the split-K sum runs at the odd N too."""
+    dev = cuda_device
+    j, p, a8 = _odd_n(kind, N=N, K=1024)
+    p = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in p)
+    x = torch.randn(M, 1024, device=dev).to(torch.bfloat16)
+    plain = TD.dequant_matmul_plain_a8 if a8 else TD.dequant_matmul_plain
+    kw = {'w_bf16': True} if kind == 'w8' else {}
+    want = plain(x, *p, out_dtype=torch.float32, **kw)
+    name = {'w4': 'w4_dequant_matmul', 'w4a8': 'w4a8_dequant_matmul',
+            'w8': 'w8_dequant_matmul'}[kind]
+    for out, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        reset_launch_counts()
+        got = TD.dequant_matmul(x, *p, out_dtype=out, a_int8=a8)
+        torch.cuda.synchronize()
+        assert launch_counts()[name] == 1 and xla_branch_calls() == 0
+        assert got.shape == (M, N) and got.dtype == out
+        assert rel_err(got.float().cpu().numpy(),
+                       want.cpu().numpy()) < tol

@@ -81,6 +81,41 @@ def test_plain_matches_xla_chunked_reader():
     assert rel_err(got.numpy(), np.asarray(want)[:, 0]) < 2e-5
 
 
+def _cache_kind(kind, seed, kvh=KVH):
+    k, v, ks, vs = _cache(kind == 'int8', seed, kvh)
+    k, v, ks, vs = _t(k), _t(v), _t(ks), _t(vs)
+    if kind == 'bf16':
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    return k, v, ks, vs
+
+
+def _jax(a):
+    if a is None:
+        return None
+    if a.dtype == torch.bfloat16:
+        return jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+    return jnp.asarray(a.numpy())
+
+
+@pytest.mark.parametrize('cache, g', [('f32', 1), ('f32', 4), ('f32', 16),
+                                      ('int8', 16), ('bf16', 16)])
+def test_plain_matches_pallas_at_f32_caches_and_16_heads(cache, g):
+    """An f32 cache (a float32 model's, which the reference's kernel casts
+    in its body) and 16 query heads a kv head (Llama-3.1-405B's 128 over
+    8): the plain version against the reference's Pallas kernel in
+    interpret mode, f32 arithmetic on the same values, 2e-5 relative."""
+    k, v, ks, vs = _cache_kind(cache, seed=13)
+    q = np.random.default_rng(14).normal(size=(B, KVH * g, HD)).astype(
+        np.float32)
+    want = JF.flash_decode_attention(
+        jnp.asarray(q), _jax(k), _jax(v), _jax(ks), _jax(vs),
+        jnp.asarray(POS), jnp.asarray(1, jnp.int32), chunk=16,
+        interpret=True)
+    got = TF.flash_decode_attention(_t(q), k, v, ks, vs, _t(POS), 1)
+    assert got.shape == (B, KVH * g, HD)
+    assert rel_err(got.numpy(), want) < 2e-5
+
+
 def test_cpu_tensors_take_plain_version_without_launch():
     k, v, ks, vs = _cache(True)
     q = torch.randn(B, KVH, HD)
@@ -128,12 +163,24 @@ def test_split_plan_fills_the_card_twice(B, kvh, smax, quant, want):
     split where the slots and kv heads fill twice the resident CTAs (the
     bench shape: no combine), else about that many CTAs, every split
     holding a chunk and the splits covering the cache."""
-    splits, cps = TF.split_plan(B, kvh, smax, 132, quant)
+    kind = 'int8' if quant else 'bf16'
+    splits, cps = TF.split_plan(B, kvh, smax, 132, kind)
     assert (splits, cps) == want
     nch = -(-smax // TF.KERNEL_CHUNK)
     assert (splits - 1) * cps < nch <= splits * cps
     if splits > 1:
-        assert B * kvh * splits >= 2 * 132 * TF.RESIDENT[quant] * 0.7
+        assert B * kvh * splits >= 2 * 132 * TF.RESIDENT[kind] * 0.7
+
+
+@pytest.mark.parametrize('B, kvh, groups, kind, want', [
+    (1, 32, 1, 'f32', (8, 8)), (8, 8, 2, 'bf16', (5, 13)),
+    (8, 8, 2, 'int8', (8, 8)), (128, 8, 2, 'f32', (1, 64))])
+def test_split_plan_counts_head_groups_and_f32(B, kvh, groups, kind, want):
+    """An f32 cache keeps one CTA an SM (a ring of three 64-row chunks of
+    f32 K and V), and each group of eight query heads is a CTA of its own:
+    both enter the CTAs the plan fills (Llama-3.1-405B: 128 query heads
+    over 8 kv heads, two groups)."""
+    assert TF.split_plan(B, kvh, 4096, 132, kind, groups) == want
 
 
 def test_splits_past_pos_exit():
@@ -206,7 +253,8 @@ def test_kernel_matches_plain_at_the_long_cache_on_card(cuda_device,
     q = torch.randn((B, H, 128), generator=gen, device=dev) / 128 ** 0.5
     splits, cps = TF.split_plan(B, kvh, smax,
                                 torch.cuda.get_device_properties(
-                                    dev).multi_processor_count, quantized)
+                                    dev).multi_processor_count,
+                                'int8' if quantized else 'bf16')
     edge = cps * TF.KERNEL_CHUNK
     for p in ([0] * B, [min(edge - 1, smax - 1)] * B,
               [min(edge, smax - 1)] * B, [smax - 1] * B,
@@ -220,3 +268,42 @@ def test_kernel_matches_plain_at_the_long_cache_on_card(cuda_device,
         assert TF.LAUNCHES['flash_decode'] == before + 2
         assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
         assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-4, p[:4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32'])
+@pytest.mark.parametrize('g', [1, 4, 12, 16])
+@pytest.mark.parametrize('B, smax', [(4, 64), (8, 1024), (1, 4096)])
+def test_kernel_f32_caches_and_many_heads_on_card(cuda_device, cache, g, B,
+                                                  smax):
+    """An f32 cache and up to 16 query heads a kv head (12 and 16: head
+    groups of eight, the second one short at 12) against the plain
+    version on the card, 2e-4; split and unsplit plans; a rerun gives the
+    same bits."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    kvh = 4
+    shape = (2, B, smax, kvh, 128)
+    if cache == 'int8':
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
+        vs = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
+    else:
+        dt = torch.bfloat16 if cache == 'bf16' else torch.float32
+        k = torch.randn(shape, generator=gen, device=dev).to(dt)
+        v = torch.randn(shape, generator=gen, device=dev).to(dt)
+        ks = vs = None
+    q = torch.randn((B, kvh * g, 128), generator=gen, device=dev) / 128 ** .5
+    pos = torch.tensor(np.random.RandomState(g).randint(0, smax, B),
+                       dtype=torch.int32, device=dev)
+    before = TF.LAUNCHES['flash_decode']
+    got = TF.flash_decode_attention(q, k, v, ks, vs, pos, 1)
+    again = TF.flash_decode_attention(q, k, v, ks, vs, pos, 1)
+    want = TF.flash_decode_plain(q, k, v, ks, vs, pos, 1)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES['flash_decode'] == before + 2
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-4

@@ -193,6 +193,35 @@ def test_fp8_plain_matches_xla_and_pallas_at_block_sizes(bs, M):
     assert G.kernel_takes_block(512, bs)
 
 
+@pytest.mark.parametrize('M', [1, 5])
+def test_fp8_whole_k_block_off_16_bytes_matches_xla(M):
+    """A scale block of the whole K = 1000 (no multiple of 16), which
+    Mosaic lowers for the reference and the card's kernel now takes: the
+    port's weight cast bit-equal to the reference's, its codes a view of
+    rows padded to 1008 bytes with zero codes (what the kernel's TMA
+    reads), and the plain version against the XLA branch, f32, 1e-5."""
+    rng = np.random.RandomState(14)
+    x = (rng.standard_normal((M, 1000)) * 1.5).astype(np.float32)
+    w = (rng.standard_normal((96, 1000)) * 0.05).astype(np.float32)
+    jxc, jxs = JF.act_quant_per_group(jnp.asarray(x), 1000)
+    jwc, jws = JF.weight_cast_to_fp8(jnp.asarray(w), 1000)
+    wc, ws = weight_cast_to_fp8(t(w), 1000)
+    assert wc.shape == (96, 1000) and wc.stride() == (1008, 1)
+    np.testing.assert_array_equal(bits(tensor_to_numpy(wc)),
+                                  bits(np.asarray(jwc)))
+    np.testing.assert_array_equal(bits(ws.numpy()), bits(np.asarray(jws)))
+    pad = torch.as_strided(wc, (96, 8), (1008, 1), 1000)
+    assert not pad.to(F32).any()
+    assert G.kernel_takes_block(1000, 1000)
+    want = np.asarray(JF.fp8_block_matmul(jxc, jxs, jwc, jws,
+                                          block_size=1000,
+                                          out_dtype=jnp.float32,
+                                          force_xla=True))
+    xc, xs = act_quant_per_group(t(x), 1000)
+    got = fp8_block_matmul(xc, xs, wc, ws, block_size=1000, out_dtype=F32)
+    assert got.shape == (M, 96) and rel_err(got.numpy(), want) <= 1e-5
+
+
 def test_float64_oracle_is_the_plain_version_in_float64():
     _, p = _gemm_case(9, 128, 256, 128, seed=6)
     oracle = G.fp8_block_matmul_plain(*p, out_dtype=torch.float64,
@@ -359,3 +388,38 @@ def test_kernel_keeps_every_bit_of_a_block_sum_on_card(cuda_device):
     f32, not in the fp8 tensor cores' shorter adder."""
     import chip_smoke
     assert chip_smoke.fp8_adder_probe(cuda_device) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('M', [1, 77, 128])
+@pytest.mark.parametrize('N', [96, 4096])
+@pytest.mark.parametrize('K', [1000, 1001])
+def test_kernel_takes_whole_k_off_16_bytes_on_card(cuda_device, M, N, K):
+    """Block = K = 1000 and 1001 (rows of no whole 16 bytes, read in 8- or
+    1-byte pieces without TMA): the weight cast on the card (rows padded to
+    16 bytes once, when it is packed, read by TMA), the same codes in
+    contiguous rows, and a cast made on the CPU and moved by ``.to`` (which
+    drops the padding) each launch the kernel (no XLA-branch call), f32
+    within 1e-5 of the float64 oracle."""
+    from llmc_tpu_torch.ops import reset_launch_counts, xla_branch_calls
+    dev = cuda_device
+    gen = torch.Generator().manual_seed(15)
+    w = torch.randn((N, K), generator=gen) * 0.05
+    x = (torch.randn((M, K), generator=gen) * 1.5).to(dev)
+    wc, ws = weight_cast_to_fp8(w.to(dev), K)
+    wc_cpu, ws_cpu = weight_cast_to_fp8(w, K)
+    moved = wc_cpu.to(dev)
+    assert moved.is_contiguous()
+    xc, xs = act_quant_per_group(x, K)
+    oracle = G.fp8_block_matmul_plain(xc, xs, wc, ws, K,
+                                      out_dtype=torch.float64,
+                                      acc_dtype=torch.float64)
+    for codes, scales in ((wc, ws), (wc.contiguous(), ws),
+                          (moved, ws_cpu.to(dev))):
+        reset_launch_counts()
+        got = fp8_block_matmul(xc, xs, codes, scales, block_size=K,
+                               out_dtype=F32)
+        torch.cuda.synchronize()
+        assert G.LAUNCHES['fp8_block_gemm'] == 1 and xla_branch_calls() == 0
+        assert got.shape == (M, N)
+        assert rel_err(got.cpu().numpy(), oracle.cpu().numpy()) <= 1e-5

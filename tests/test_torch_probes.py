@@ -354,7 +354,16 @@ def test_ab_attention_times_chip_smokes_attention_rows(monkeypatch):
     assert ab_attention.main(['a', 'b']) == 0
     assert [c[0].name for c in codes] == ['a', 'b', 'b', 'a']
     assert all('flash_decode_cuda' in c[1] and '(1, 4096, 32, 32' in c[1]
-               for c in codes)
+               and 'if False:' in c[1] for c in codes)
+    # the serving-batch kernel, through a CUDA graph too
+    codes.clear()
+    assert ab_attention.main(['a', 'b', '--kernel', 'batch_decode',
+                              '--graph']) == 0
+    assert [c[0].name for c in codes] == ['a', 'b', 'b', 'a']
+    for _, code in codes:
+        assert 'batch_decode_cuda as kernel' in code
+        assert 'if True:' in code and 'C.graph_ms(kern)' in code
+        compile(code, 'ab_attention', 'exec')
 
 
 @pytest.mark.parametrize('kernel, variant', [
@@ -500,3 +509,66 @@ def test_kernels_refuse_a_k_their_chunks_do_not_divide(cuda_device):
     with pytest.raises(ValueError, match='multiple of 1024'):
         P.i32_window(x, torch.zeros((n, k // 8), dtype=torch.int32,
                                     device=cuda_device))
+
+
+def test_attention_variant_cuts_the_shipping_source():
+    """The serving-batch kernel's scale-loading variant finds each anchor
+    once in the shipping source and changes it (a stale variant would
+    raise rather than time the kernel as built)."""
+    from llmc_tpu_torch.ops import _build
+    from llmc_tpu_torch.tools import attention_variants as V
+    text = (_build.CSRC / V.SOURCE).read_text()
+    for variant, cuts in V.VARIANTS.items():
+        cut = V.variant_source(variant)
+        assert cut != text
+        for old, new, _ in cuts:
+            assert new in cut
+
+
+def test_attention_variants_records_a_variant_off_the_plain_version(
+        monkeypatch):
+    """A variant more than 2e-4 off the plain version is recorded with
+    its error and not timed; one within it is timed in turns with the
+    built kernel (built, variant, variant, built); the built kernel off
+    the plain version stops the run."""
+    import chip_smoke as C
+    from llmc_tpu_torch.ops import batch_decode as BD
+    from llmc_tpu_torch.tools import attention_variants as V
+    built = object()
+    errs = {'built': 1e-7, 'good': 1e-6, 'off': 3e-4}
+    libs = {id(built): 'built'}
+    order = []
+    monkeypatch.setattr(V._build, '_LIB', None)
+    monkeypatch.setattr(V._build, 'lib', lambda: built)
+    monkeypatch.setattr(V.torch.cuda, 'is_available', lambda: True)
+
+    def fake_build(kernel, variant, source, text):
+        lib = object()
+        libs[id(lib)] = variant
+        return lib
+    monkeypatch.setattr(V, 'build_source', fake_build)
+    monkeypatch.setattr(V, 'variant_source', lambda v: '')
+    monkeypatch.setattr(C, 'FLASH_SHAPES', ((2, 32, 1, 1, (16,)),))
+    monkeypatch.setattr(C, 'flash_inputs', lambda *a, **k: (None,) * 5)
+    monkeypatch.setattr(V.torch, 'full', lambda *a, **k: None)
+    monkeypatch.setattr(BD, 'batch_decode_plain', lambda *a: 'want')
+    monkeypatch.setattr(BD, 'batch_decode_cuda',
+                        lambda *a: libs[id(V._build._LIB)])
+    monkeypatch.setattr(C, '_rel', lambda got, want: (0.0, errs[got]))
+
+    def timer(fn, *a):
+        order.append(libs[id(V._build._LIB)])
+        return 1.0
+    monkeypatch.setattr(V, 'cuda_ms', timer)
+    monkeypatch.setattr(C, 'graph_ms', lambda fn: 1.0)
+    monkeypatch.setattr(V, 'VARIANTS', {'good': [], 'off': []})
+    recs = list(V.run(('good', 'off')))
+    assert [(r['variant'], r['timed']) for r in recs] == [('good', True),
+                                                          ('off', False)]
+    assert recs[1]['rel_err'] == {'built': 1e-7, 'off': 3e-4}
+    assert recs[1]['graph_ms'] == {'built': [], 'off': []}
+    assert order == ['built', 'good', 'good', 'built']
+    assert V._build._LIB is built
+    errs['built'] = 3e-4
+    with pytest.raises(RuntimeError, match='built kernel'):
+        list(V.run(('good',)))

@@ -26,7 +26,8 @@ from llmc_tpu_torch.serve import (KVCachePolicy, Request, ServingEngine,
                                   random_packed_llama)
 from llmc_tpu_torch.serve.decode import forward_cached, init_cache
 from llmc_tpu_torch.serve.packed import packed_qmap
-from torch_port_helpers import TINY, WSPEC, port_params, rel_err, to_np
+from torch_port_helpers import (TINY, WSPEC, cuda_device,  # noqa: F401
+                                port_params, rel_err, to_np)
 
 torch.set_num_threads(1)
 
@@ -217,3 +218,35 @@ def test_random_packed_llama_is_unsigned_and_seeded():
                        m2.blocks[0]['self_attn']['qkv_proj']['qweight'])
     assert q1.get('lm_head').qmeta.pre_t
     torch.testing.assert_close(qkv['zeros'], qkv['scales'] * 8.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('impl, kernel', [('flash', 'flash_decode'),
+                                          ('batch', 'batch_decode')])
+def test_float32_model_decodes_on_card(cuda_device, monkeypatch, impl,
+                                       kernel):
+    """A float32 Llama keeps a float32 KV cache (the fp policy caches in
+    the model's dtype, and greedy_generate takes it by default): on the
+    card each decode step's attention launches the hand kernel on that
+    cache (it raised before), and the greedy tokens equal the CPU's, under
+    ``serve.decode.ATTN_IMPL`` = 'flash' and then 'batch'."""
+    from llmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from llmc_tpu_torch.serve import decode as D
+    cfg = LlamaConfig(**TINY)
+    assert cfg.dtype == 'float32'
+    from llmc_tpu_torch.convert import params_from_numpy
+    jm = JAdapter.random(JConfig(**TINY), seed=5)
+    cpu = LlamaAdapter(cfg, port_params(jm.params))
+    card = LlamaAdapter(cfg, params_from_numpy(to_np(jm.params),
+                                               device=cuda_device))
+    ids = np.random.RandomState(6).randint(0, 128, (2, 9))
+    monkeypatch.setattr(D, 'ATTN_IMPL', impl)
+    want = greedy_generate(cpu, torch.as_tensor(ids), 6, device='cpu')
+    reset_launch_counts()
+    got = greedy_generate(card, torch.as_tensor(ids), 6,
+                          device=cuda_device)
+    torch.cuda.synchronize()
+    layers = TINY['num_hidden_layers']
+    assert launch_counts()[kernel] == 5 * layers
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
