@@ -36,8 +36,10 @@ Phases, each printing one JSON line, all of them on every run:
                   B = 1 and 8 and Llama-3-8B's 8 kv heads at B = 8, int8
                   and bf16 caches, each launch repeated to the same bits,
                   a reading under 0.06 ms also through a CUDA graph; and
-                  each on an f32 cache and at 16 query heads a kv head
-                  (Llama-3.1-405B).  The FP8-block kernel also at block
+                  each on an f32 cache, at 16 query heads a kv head
+                  (Llama-3.1-405B), on a cache made by the port's KV
+                  quantizer, and on an fp16 cache at the bench shape and
+                  Llama-3-8B's row.  The FP8-block kernel also at block
                   sizes 64, 256 and the whole K, also at K = 1000 (rows
                   no whole 16 bytes).
 4. ``probes``     the w4 design probes (``ops/probe_gemm.py``, nine kernels
@@ -58,24 +60,46 @@ Phases, each printing one JSON line, all of them on every run:
                   linears.  ``--parity-seeds 0 1 2`` repeats it on more
                   random models; nothing else takes an option.
 6. ``serve``      ``ServingEngine`` on Llama-2-7B (32 layers) with random
-                  packed W4 g128 weights and an int8 KV cache; the kernel
-                  launch counters must equal what the path implies.
+                  packed W4 g128 weights and an int8 KV cache, its decode
+                  steps replaying the captured CUDA graph
+                  (``serve/graphs.py``); the kernel launch counters must
+                  equal what the host launched (prefills, and each
+                  graph's eager first run and capture; a replay launches
+                  from no wrapper) and ``capture_s`` is their time.
+   ``serve_graph``  the same 10 requests through the eager step
+                  (``EagerServingEngine``) and through the captured K=4
+                  window: tokens identical to the captured single step's,
+                  launches as the path implies; the eager run's counts
+                  are the ``kernels`` line's launches.
 7. ``throughput`` the reference bench's shape: B=128, prefill 32, 64
-                  greedy decode steps after one warm-up prefill and step
-                  (a record, not a claim).
-8. ``profile``    torch.profiler over 8 decode steps at that shape: device
-                  time by kernel, attention's share and the device's idle
-                  share; for W4A16 also at B=8 after a prefill of 1024
-                  tokens (``LONG_PROFILE``), where a step is mostly
-                  attention.
-9. ``serve_w4a8`` + its ``throughput`` and ``profile``: the same engine
-                  and bench shape with per-token int8 activations (every
-                  block linear through the quantizer and the W4A8 kernel,
-                  the head weight-only) and the serving-batch attention
-                  kernel (``ATTN_IMPL='batch'``).
-10. ``serve_w8`` + its ``throughput`` and ``profile``: the same on W8A16
-                  per-group 128 weights (every linear through the W8
-                  kernel).
+                  greedy decode steps after one warm-up prefill and step,
+                  through the captured step and the eager one in turns
+                  (eager, graph, graph, eager; a record, not a claim).
+8. ``profile_prefill``  torch.profiler over that prefill: the device's
+                  idle share of TTFT.
+   ``profile``    torch.profiler over 8 decode steps at that shape,
+                  through the graph and eagerly: device time by kernel,
+                  attention's share and the device's idle share, and the
+                  port's kernels the device ran (a replay's too) equal
+                  to what 8 steps imply; for
+                  W4A16 also at B=8 after a prefill of 1024 tokens
+                  (``LONG_PROFILE``), where a step is mostly attention.
+   ``serve_paged``  (W4A16) an int8 ``PagedKVPolicy`` pool of 48 pages of
+                  16, a third of the dense allocation, with chunked
+                  admission (64-token chunks, two a step): at 32 layers
+                  every request finishes, some wait on the pool, and the
+                  free list is whole at the end; at 2 layers of a float32
+                  model an fp pool's tokens equal the dense fp engine's,
+                  and on an unpacked float32 model the int8 pool's tokens
+                  on the card equal the CPU's.
+9. ``serve_w4a8`` + its ``serve_graph``, ``throughput`` and ``profile``:
+                  the same engine and bench shape with per-token int8
+                  activations (every block linear through the quantizer
+                  and the W4A8 kernel, the head weight-only) and the
+                  serving-batch attention kernel (``ATTN_IMPL='batch'``).
+10. ``serve_w8`` + its ``serve_graph``, ``throughput`` and ``profile``:
+                  the same on W8A16 per-group 128 weights (every linear
+                  through the W8 kernel).
 11. ``serve_w8_companion``  8 layers at 7B width, a random fp model packed
                   with ``pack_model(w8_prefill=True)``: the engine once
                   with ``prefill_w8`` and once with ``decode_w8``.
@@ -129,6 +153,7 @@ import dataclasses
 import importlib
 import itertools
 import json
+import re
 import sys
 import time
 
@@ -645,7 +670,8 @@ def flash_inputs(dev, B=128, smax=96, kvh=32, H=32, hd=128, L=2, quant=True,
     'int8_kv' (the port's KV quantizer on keys of std 1 and values of std
     0.05, V scales about 1e-3, with q of scores that spread over a few
     units: most p times its V scale lies far below f16's normal range),
-    'bf16' or 'f32' values; None takes ``quant`` (int8, else bf16)."""
+    'bf16', 'f16' or 'f32' values; None takes ``quant`` (int8, else
+    bf16)."""
     cache = cache or ('int8' if quant else 'bf16')
     gen = torch.Generator(device=dev).manual_seed(seed)
     shape = (L, B, smax, kvh, hd)
@@ -670,8 +696,9 @@ def flash_inputs(dev, B=128, smax=96, kvh=32, H=32, hd=128, L=2, quant=True,
         ks, vs = ks[..., 0], vs[..., 0]
         q = q * 2
     else:
-        kb = torch.randn(shape, generator=gen, device=dev).to(BF16)
-        vb = torch.randn(shape, generator=gen, device=dev).to(BF16)
+        dt = torch.float16 if cache == 'f16' else BF16
+        kb = torch.randn(shape, generator=gen, device=dev).to(dt)
+        vb = torch.randn(shape, generator=gen, device=dev).to(dt)
         ks = vs = None
     return q, kb, vb, ks, vs
 
@@ -724,6 +751,9 @@ ATTN_G16 = ((8, 1024, 8, 128, (1000,)),)
 # and an int8 cache made by the port's KV quantizer at Llama-3-8B's row
 # (``flash_inputs``' 'int8_kv': V scales and p as a model gives them)
 ATTN_KVQ = ((8, 4096, 8, 32, (4000,)),)
+# an fp16 cache (read as it lies) at the bench shape and at Llama-3-8B's
+# row (the tensor cores' f16 products of B5 over 4000 positions)
+ATTN_F16 = ((128, 96, 32, 32, (64,)), (8, 4096, 8, 32, (4000,)))
 GRAPH_BELOW_MS = 0.06   # a reading under this also gets its graph time
 
 
@@ -1231,22 +1261,58 @@ def serve_requests(n, vocab, max_prompt=200, seed=0):
             for i, p in enumerate(lens)]
 
 
-def phase_serve(dev, model, qmap, n_requests=10, max_batch=8, max_len=256,
-                buckets=(32, 64, 128, 256), max_prompt=200, mode='w4a16',
-                w8_flag=None):
-    """ServingEngine over mixed requests; returns the phase record with
-    the launch counts the path implies.  ``w8_flag`` ('prefill_w8' or
-    'decode_w8') sends those forwards through the model's w8 companion,
-    whose block linears launch no kernel of the port."""
+def allocator_counts(dev):
+    """The caching allocator's device allocations, frees and retries so
+    far on ``dev`` (none on the CPU)."""
+    if dev.type != 'cuda':
+        return {}
+    st = torch.cuda.memory_stats(dev)
+    return {k: st.get(k, 0) for k in ('num_device_alloc', 'num_device_free',
+                                      'num_alloc_retries')}
+
+
+def host_decode_steps(eng) -> int:
+    """The decode steps of ``eng`` whose kernels a wrapper launched:
+    every step but a graph's replays, where a captured window of K steps
+    ran eagerly once and was captured once."""
+    return eng.stats['decode_steps'] - sum(
+        k * (g.replays - 1) for k, g in eng._graphs.items())
+
+
+def serve_run(dev, model, qmap, n_requests=10, max_batch=8, max_len=256,
+              buckets=(32, 64, 128, 256), max_prompt=200, mode='w4a16',
+              w8_flag=None, eager=False, K=1, kv_policy=None, **engine_kw):
+    """``ServingEngine.run`` over ``serve_requests``: (the phase record
+    with the launch counts the path implies, the requests' tokens, the
+    engine).  The engine replays its captured decode step, or with
+    ``eager`` is an ``EagerServingEngine``; ``K`` is
+    ``decode_steps_per_sync``; ``w8_flag`` ('prefill_w8' or 'decode_w8')
+    sends those forwards through the model's w8 companion, whose block
+    linears launch no kernel of the port.  A paged pool's decode reads the
+    pool in torch ops (the reference has no kernel there either): its
+    steps launch no decode-attention kernel.  The counters count the
+    wrappers' launches, which a graph's replay does not make: a captured
+    window of K steps launches K steps' kernels in its eager first run and
+    K in its capture, and none in a replay (``host_decode_steps``; the
+    device's count of a replay's kernels is ``phase_profile``'s).
+    ``first_run_s``, ``gc_s`` and ``capture_s``: the seconds of those
+    first runs, of the garbage collection before each capture and of the
+    captures; on the card, ``allocator`` counts the caching
+    allocator's device allocations, frees and retries (a retry frees every
+    cached block first) in the run."""
     from llmc_tpu_torch.ops import reset_launch_counts
-    from llmc_tpu_torch.serve import KVCachePolicy, ServingEngine
+    from llmc_tpu_torch.serve import (EagerServingEngine, KVCachePolicy,
+                                      ServingEngine)
     cfg = model.cfg
+    policy = kv_policy or KVCachePolicy(method='naive', bit=8)
     with attn_impl(MODES[mode].attn):
-        eng = ServingEngine(model, qmap=qmap, max_batch=max_batch,
-                            max_len=max_len, prefill_buckets=buckets,
-                            kv_policy=KVCachePolicy(method='naive', bit=8),
-                            device=dev, **({w8_flag: True} if w8_flag else {}))
+        eng = (EagerServingEngine if eager else ServingEngine)(
+            model, qmap=qmap, max_batch=max_batch, max_len=max_len,
+            prefill_buckets=buckets, kv_policy=policy,
+            decode_steps_per_sync=K, device=dev, **engine_kw,
+            **({w8_flag: True} if w8_flag else {}))
         reqs = serve_requests(n_requests, cfg.vocab_size, max_prompt)
+        alloc = allocator_counts(dev)
         reset_launch_counts()
         t0 = time.perf_counter()
         eng.run(reqs)
@@ -1254,10 +1320,15 @@ def phase_serve(dev, model, qmap, n_requests=10, max_batch=8, max_len=256,
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, xla = read_counts()
+        alloc = {k: v - alloc[k] for k, v in allocator_counts(dev).items()}
     L = cfg.num_hidden_layers
     prefills, steps = eng.stats['prefill_forwards'], eng.stats['decode_steps']
-    block_forwards = {None: None, 'prefill_w8': steps, 'decode_w8': 0}[w8_flag]
-    expect = expected_launches(L, prefills + steps, steps, mode,
+    host_steps = host_decode_steps(eng)
+    graphs = eng._graphs.values()
+    block_forwards = {None: None, 'prefill_w8': host_steps,
+                      'decode_w8': 0}[w8_flag]
+    expect = expected_launches(L, prefills + host_steps,
+                               0 if eng.paged else host_steps, mode,
                                block_forwards)
     done = all(r.done and len(r.output_ids) == r.max_new_tokens
                and all(0 <= t < cfg.vocab_size for t in r.output_ids)
@@ -1265,11 +1336,120 @@ def phase_serve(dev, model, qmap, n_requests=10, max_batch=8, max_len=256,
     name = 'serve' if mode == 'w4a16' else f'serve_{mode.replace("a16", "")}'
     if w8_flag:
         name = f'serve_w8_companion.{w8_flag}'
-    return dict(phase=name, mode=mode, layers=L, requests=len(reqs),
-                prompt_lens=[len(r.prompt_ids) for r in reqs],
-                tokens=sum(len(r.output_ids) for r in reqs),
-                wall_s=wall, **eng.stats, launches=counts, xla_branch_calls=xla,
-                expected_launches=expect, all_done=done)
+    rec = dict(phase=name, mode=mode, layers=L, requests=len(reqs),
+               prompt_lens=[len(r.prompt_ids) for r in reqs],
+               tokens=sum(len(r.output_ids) for r in reqs),
+               graphed=eng.graphed, window=K,
+               graph_replays=sum(g.replays for g in graphs),
+               first_run_s=sum(g.first_s for g in graphs),
+               gc_s=sum(g.gc_s for g in graphs),
+               capture_s=sum(g.capture_s for g in graphs), allocator=alloc,
+               wall_s=wall, **eng.stats, host_decode_steps=host_steps,
+               launches=counts,
+               xla_branch_calls=xla, expected_launches=expect,
+               all_done=done)
+    return rec, [list(r.output_ids) for r in reqs], eng
+
+
+def phase_serve_graph(dev, model, qmap, graph_tokens, mode='w4a16', **kw):
+    """The serve phase's requests again through the eager step, and
+    through the captured K=4 window: each run's tokens against the
+    captured single step's (``graph_tokens``), each run's launch counts
+    against what its path implies.  The eager run's counts are the
+    kernels' launches on the main path (the ``kernels`` line)."""
+    runs = {}
+    for name, run_kw in (('eager', dict(eager=True)),
+                         ('window_4', dict(K=4))):
+        rec, toks, _ = serve_run(dev, model, qmap, mode=mode, **run_kw,
+                                 **kw)
+        runs[name] = (rec, toks)
+    eager, window = runs['eager'][0], runs['window_4'][0]
+    return dict(
+        phase=f'serve_graph.{mode}', mode=mode, layers=eager['layers'],
+        requests=eager['requests'], tokens=eager['tokens'],
+        eager_tokens_equal=runs['eager'][1] == graph_tokens,
+        window_tokens_equal=runs['window_4'][1] == graph_tokens,
+        eager_wall_s=eager['wall_s'], window_wall_s=window['wall_s'],
+        window_graph_replays=window['graph_replays'],
+        window_first_run_s=window['first_run_s'],
+        window_gc_s=window['gc_s'],
+        window_capture_s=window['capture_s'],
+        window_decode_steps=window['decode_steps'],
+        window_host_decode_steps=window['host_decode_steps'],
+        launches=eager['launches'],
+        expected_launches=eager['expected_launches'],
+        xla_branch_calls=eager['xla_branch_calls'],
+        window_launches=window['launches'],
+        window_expected_launches=window['expected_launches'],
+        window_xla_branch_calls=window['xla_branch_calls'],
+        all_done=eager['all_done'] and window['all_done'])
+
+
+def phase_serve_paged(dev, model, qmap, cfg_kw, n_requests=10, max_batch=8,
+                      max_len=256, page_size=16, n_pages=48, seed=0,
+                      group_size=128, **kw):
+    """W4A16 into an int8 paged pool smaller than the dense allocation
+    (``n_pages`` of ``page_size`` against max_batch x max_len / page_size)
+    with chunked admission (chunks of 64, two an engine step): at the
+    model's depth every request finishes, requests wait on the pool, and
+    the free list is whole at the end.  Then at 2 layers of a float32
+    model, with the same chunked admission, each pool against the dense
+    cache of its kind: an fp pool reads the very values the dense fp cache
+    holds (its prefill runs on the same dense fp local cache), so their
+    tokens must be equal; an int8 pool's prefill attends over fp values
+    where the dense int8 engine's attends over the codes it wrote (the
+    reference's design), so there the share of requests whose tokens are
+    equal is recorded.  The int8 pool is held instead to the CPU's (whose
+    engine the CPU tests hold to the JAX engine): the same pool and
+    admission at 2 layers of an unpacked float32 model (torch matmuls on
+    both devices) give the same tokens on the card as on the CPU."""
+    from llmc_tpu_torch.serve import KVCachePolicy, PagedKVPolicy
+    from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
+    from llmc_tpu_torch.serve.packed import random_packed_llama
+    pol = PagedKVPolicy(page_size=page_size, n_pages=n_pages,
+                        max_pages=max_len // page_size, bit=8)
+    chunked = dict(prefill_chunk=64, prefill_chunks_per_step=2, **kw)
+    rec, _, eng = serve_run(dev, model, qmap, n_requests=n_requests,
+                            max_batch=max_batch, max_len=max_len,
+                            kv_policy=pol, **chunked)
+    small = dict(cfg_kw, num_hidden_layers=2, dtype='float32')
+    m32, q32 = random_packed_llama(LlamaConfig(**small),
+                                   _wspec(4, group_size), seed=seed,
+                                   fuse=True, pre_t=True, head=True,
+                                   device=dev)
+    same = {}
+    for bit, dense in ((0, dict(method='fp')),
+                       (8, dict(method='naive', bit=8))):
+        _, paged_toks, _ = serve_run(
+            dev, m32, q32, n_requests=n_requests, max_batch=max_batch,
+            max_len=max_len, kv_policy=dataclasses.replace(pol, bit=bit),
+            **chunked)
+        _, dense_toks, _ = serve_run(
+            dev, m32, q32, n_requests=n_requests, max_batch=max_batch,
+            max_len=max_len, kv_policy=KVCachePolicy(**dense), **chunked)
+        same[bit] = [a == b for a, b in zip(paged_toks, dense_toks)]
+    del m32, q32
+    cpu = torch.device('cpu')
+    host = LlamaAdapter.random(LlamaConfig(**small), seed=seed, device=cpu)
+    toks = []
+    for d, m in ((cpu, host),
+                 (dev, LlamaAdapter(host.cfg, tree_to(host.params, dev)))):
+        toks.append(serve_run(d, m, None, n_requests=n_requests,
+                              max_batch=max_batch, max_len=max_len,
+                              kv_policy=pol, **chunked)[1])
+        del m
+    del host
+    rec.update(phase='serve_paged', pool_pages=n_pages, page_size=page_size,
+               dense_pages=max_batch * max_len // page_size,
+               requests_waited_on_the_pool=eng.stats['pool_waits'] > 0,
+               free_pages_at_end=len(eng.allocator.free),
+               pool_whole_at_end=sorted(eng.allocator.free)
+               == list(range(n_pages - 1)),
+               fp_pool_tokens_equal_dense_fp_at_2_layers_f32=all(same[0]),
+               int8_pool_requests_equal_dense_int8_at_2_layers_f32=float(
+                   np.mean(same[8])),
+               int8_pool_tokens_equal_cpu_at_2_layers_f32=toks[1] == toks[0])
+    return rec
 
 
 def companion_model(dev, cfg_kw, seed=0, group_size=128):
@@ -1284,86 +1464,195 @@ def companion_model(dev, cfg_kw, seed=0, group_size=128):
     return model, qmap
 
 
+def _bench_decode(model, qmap, policy, cache, tok):
+    """The bench's decode step over static buffers: ``cache`` with a
+    per-slot ``pos`` tensor, ``tok`` [B]; both advance in place."""
+    from llmc_tpu_torch.serve.decode import forward_cached
+    cfg = model.cfg
+
+    def step():
+        logits, out = forward_cached(model.params, cfg, tok[:, None], cache,
+                                     policy, qmap)
+        cache['pos'].copy_(out['pos'])
+        tok.copy_(logits[:, -1].argmax(-1))
+        return tok
+    return step
+
+
+def _sync(dev) -> None:
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _bench_prefill(dev, model, qmap, policy, ids, steps):
+    """The bench's prefill of ``ids`` [B, P] on a cache with room for
+    ``steps`` more tokens (and one for a graph's warm-up step); returns
+    (cache with a per-slot ``pos`` tensor, the greedy tokens, seconds)."""
+    from llmc_tpu_torch.serve.decode import forward_cached, init_cache
+    B, P = ids.shape
+    cache = init_cache(model, B, P + steps + 1, policy, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = forward_cached(model.params, model.cfg, ids, cache,
+                                   policy, qmap, last_only=True)
+    tok = logits[:, -1].argmax(-1)
+    _sync(dev)
+    ttft = time.perf_counter() - t0
+    cache['pos'] = torch.full((B,), P, dtype=torch.int32, device=dev)
+    return cache, tok, ttft
+
+
 def phase_throughput(dev, model, qmap, B=128, prefill=32, steps=64, seed=0,
                      mode='w4a16'):
     """The reference bench's shape on the port: prefill, then greedy
-    decode steps, timed with host clocks around synchronised work.  One
-    prefill and one step on a throwaway cache first take the first-use
-    costs (allocator growth, library handles) out of TTFT."""
+    decode steps, timed with host clocks around synchronised work, through
+    the captured step (``serve/graphs.py``, as the reference's bench jits
+    its decode scan) and through the eager step, in turns: eager, graph,
+    graph, eager (on the CPU, which has no graph, one eager turn).  The
+    graph's first call runs the step eagerly and captures it, before the
+    clock starts.  One prefill and one step on a throwaway cache first
+    take the first-use costs (allocator growth, library handles) out of
+    TTFT.  The record's ``step_ms``, ``tokens_per_s`` and ``ttft_ms`` are
+    the graph turns' means (the eager turn's on the CPU), ``eager_*`` the
+    eager turns'."""
     from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.serve import KVCachePolicy
-    from llmc_tpu_torch.serve.decode import forward_cached, init_cache
+    from llmc_tpu_torch.serve.graphs import CapturedStep
     cfg = model.cfg
     policy = KVCachePolicy(method='naive', bit=8)
     ids = torch.as_tensor(np.random.RandomState(seed).randint(
         0, cfg.vocab_size, (B, prefill)), device=dev)
-
-    def sync():
-        if dev.type == 'cuda':
-            torch.cuda.synchronize()
-
+    runs = {'eager': [], 'graph': []}
+    turns = (('eager', 'graph', 'graph', 'eager') if dev.type == 'cuda'
+             else ('eager',))
     with torch.no_grad(), attn_impl(MODES[mode].attn):
-        cache = init_cache(model, B, prefill + 1, policy, device=dev)
-        logits, cache = forward_cached(model.params, cfg, ids, cache,
-                                       policy, qmap, last_only=True)
-        forward_cached(model.params, cfg, logits[:, -1].argmax(-1)[:, None],
-                       cache, policy, qmap)
-        del cache, logits
-        cache = init_cache(model, B, prefill + steps, policy, device=dev)
-        sync()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        logits, cache = forward_cached(model.params, cfg, ids, cache,
-                                       policy, qmap, last_only=True)
-        tok = logits[:, -1].argmax(-1)
-        sync()
-        ttft = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = forward_cached(model.params, cfg, tok[:, None],
-                                           cache, policy, qmap)
-            tok = logits[:, -1].argmax(-1)
-        sync()
-        dec = time.perf_counter() - t0
-        counts, xla = read_counts()
+        cache, tok, _ = _bench_prefill(dev, model, qmap, policy, ids, 1)
+        _bench_decode(model, qmap, policy, cache, tok)()
+        del cache, tok
+        for variant in turns:
+            reset_launch_counts()
+            cache, tok, ttft = _bench_prefill(dev, model, qmap, policy, ids,
+                                              steps)
+            step = _bench_decode(model, qmap, policy, cache, tok)
+            forwards = 1 + steps
+            if variant == 'graph':
+                step = CapturedStep(step, dev)
+                step()                  # runs the step, then captures it
+                # launched: the prefill, the eager run and the capture
+                # (a replay launches nothing from the host)
+                forwards = 3
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            _sync(dev)
+            dec = time.perf_counter() - t0
+            counts, xla = read_counts()
+            runs[variant].append(dict(
+                step_ms=dec / steps * 1e3, tokens_per_s=B * steps / dec,
+                ttft_ms=ttft * 1e3, launches=counts, xla_branch_calls=xla,
+                expected_launches=expected_launches(
+                    cfg.num_hidden_layers, forwards, forwards - 1, mode)))
+            del step, cache, tok
+            if dev.type == 'cuda':
+                torch.cuda.empty_cache()
+    e = runs['eager']
+    g = runs['graph'] or e
     return dict(phase='throughput', mode=mode, B=B, prefill=prefill,
-                steps=steps, tokens_per_s=B * steps / dec,
-                ttft_ms=ttft * 1e3, step_ms=dec / steps * 1e3,
-                launches=counts, xla_branch_calls=xla, expected_launches=expected_launches(
-                    cfg.num_hidden_layers, 1 + steps, steps, mode))
+                steps=steps, tokens_per_s=np.mean([r['tokens_per_s']
+                                                   for r in g]),
+                ttft_ms=np.mean([r['ttft_ms'] for r in g]),
+                step_ms=np.mean([r['step_ms'] for r in g]),
+                eager_tokens_per_s=np.mean([r['tokens_per_s'] for r in e]),
+                eager_ttft_ms=np.mean([r['ttft_ms'] for r in e]),
+                eager_step_ms=np.mean([r['step_ms'] for r in e]),
+                turns=[dict(variant=v, **{k: r[k] for k in
+                                          ('step_ms', 'tokens_per_s',
+                                           'ttft_ms')})
+                       for v, r in zip(turns, (e + runs['graph'])[:1]
+                                       + runs['graph'] + e[1:])],
+                launches=g[-1]['launches'],
+                xla_branch_calls=max(r['xla_branch_calls'] for r in g + e),
+                expected_launches=g[-1]['expected_launches'],
+                eager_launches=e[-1]['launches'],
+                eager_expected_launches=e[-1]['expected_launches'])
+
+
+# idle host time on each side of a profiled block: the profiler drops a
+# device record whose time, converted from the card's clock, falls outside
+# its window, and the two clocks can disagree by about a millisecond there
+# (a graph's last millisecond of kernels went missing once without it)
+PROFILE_PAD_S = 0.1
+
+
+@contextlib.contextmanager
+def device_profile():
+    """torch.profiler (host and device) over the block, with
+    ``PROFILE_PAD_S`` of idle host time before and after it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def profiled_kernel_calls(prof):
+    """The device's count of each port kernel in a torch.profiler run,
+    by the name of its wrapper: the kernels of a graph's replays too,
+    which no wrapper launched.  Each wrapper launches one main kernel a
+    call (B5 one of two), with helpers beside it (split sums, the W4
+    piece sums) that are not counted."""
+    from torch.autograd import DeviceType
+    syms = {name: (f'{name}_kernel',) for name in KERNEL_NAMES
+            if name not in PROBE_KERNELS}
+    syms['batch_decode'] += ('batch_decode_mma_kernel',)
+    pats = {name: re.compile(r'(^|[\s:])(' + '|'.join(v) + r')[<(]')
+            for name, v in syms.items()}
+    calls = dict.fromkeys(syms, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name, pat in pats.items():
+            if pat.search(e.key):
+                calls[name] += e.count
+    return calls
 
 
 def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12,
-                  mode='w4a16'):
+                  mode='w4a16', graph=True):
     """torch.profiler over ``steps`` decode steps after a prefill of
-    ``prefill`` tokens a slot (the bench's shape by default): device time
-    by kernel, the decode attention's share of it, and the device's busy
-    share of the wall."""
-    from torch.profiler import ProfilerActivity, profile
+    ``prefill`` tokens a slot (the bench's shape by default), through the
+    captured step (``graph``; captured before the profiler starts) or the
+    eager one: device time by kernel, the decode attention's share of it,
+    and the device's busy share of the wall.  ``kernel_calls``: the port's
+    kernels the device ran in those steps, which must equal
+    ``device_expected_launches`` through the graph as eagerly."""
     from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.serve import KVCachePolicy
-    from llmc_tpu_torch.serve.decode import forward_cached, init_cache
+    from llmc_tpu_torch.serve.graphs import CapturedStep
     cfg = model.cfg
     policy = KVCachePolicy(method='naive', bit=8)
     ids = torch.randint(0, cfg.vocab_size, (B, prefill), device=dev)
     with torch.no_grad(), attn_impl(MODES[mode].attn):
-        cache = init_cache(model, B, prefill + steps + 1, policy, device=dev)
         reset_launch_counts()
-        logits, cache = forward_cached(model.params, cfg, ids, cache, policy,
-                                       qmap, last_only=True)
-        tok = logits[:, -1].argmax(-1)
+        cache, tok, _ = _bench_prefill(dev, model, qmap, policy, ids, steps)
+        step = _bench_decode(model, qmap, policy, cache, tok)
+        forwards = 1 + steps
+        if graph:
+            step = CapturedStep(step, dev)
+            step()                      # runs the step, then captures it
+            forwards = 3    # the prefill, the eager run and the capture
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                logits, cache = forward_cached(model.params, cfg,
-                                               tok[:, None], cache, policy,
-                                               qmap)
-                tok = logits[:, -1].argmax(-1)
+                step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts, xla = read_counts()
+        del step, cache, tok
     # device-side events only: a host op (aten::mean) also reports the
     # device time of the kernel it launched, which would count it twice
     from torch.autograd import DeviceType
@@ -1377,8 +1666,9 @@ def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12,
     busy = sum(r[0] for r in rows) / 1e3          # ms
     attn = sum(r[0] for r in rows
                if 'flash_decode' in r[1] or 'batch_decode' in r[1]) / 1e3
-    return dict(phase='profile', mode=mode, B=B, prefill=prefill,
-                steps=steps, wall_ms=wall * 1e3, device_busy_ms=busy,
+    return dict(phase='profile', mode=mode, graph=graph, B=B,
+                prefill=prefill, steps=steps, wall_ms=wall * 1e3,
+                device_busy_ms=busy,
                 device_busy_ms_per_step=busy / steps,
                 attention_ms_per_step=attn / steps,
                 attention_share=attn / busy if busy else 0.0,
@@ -1386,8 +1676,44 @@ def phase_profile(dev, model, qmap, B=128, prefill=32, steps=8, top=12,
                 per_step_ms=wall * 1e3 / steps,
                 top=[dict(kernel=k[:80], ms=dt / 1e3, calls=c)
                      for dt, k, c in rows[:top]],
-                launches=counts, xla_branch_calls=xla, expected_launches=expected_launches(
-                    cfg.num_hidden_layers, 1 + steps, steps, mode))
+                kernel_calls=profiled_kernel_calls(prof),
+                device_expected_launches=expected_launches(
+                    cfg.num_hidden_layers, steps, steps, mode),
+                launches=counts, xla_branch_calls=xla,
+                expected_launches=expected_launches(
+                    cfg.num_hidden_layers, forwards, forwards - 1, mode))
+
+
+def phase_profile_prefill(dev, model, qmap, B=128, prefill=32, top=8,
+                          mode='w4a16'):
+    """torch.profiler over the bench's prefill (eager, as the engine's
+    prefill is): its wall, the device's busy time and idle share, i.e. the
+    share of TTFT that the host takes, which a captured prefill could
+    remove."""
+    from torch.autograd import DeviceType
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.serve import KVCachePolicy
+    policy = KVCachePolicy(method='naive', bit=8)
+    ids = torch.randint(0, model.cfg.vocab_size, (B, prefill), device=dev)
+    with torch.no_grad(), attn_impl(MODES[mode].attn):
+        _bench_prefill(dev, model, qmap, policy, ids, 0)      # first use
+        reset_launch_counts()
+        with device_profile() as prof:
+            _, _, ttft = _bench_prefill(dev, model, qmap, policy, ids, 0)
+        counts, xla = read_counts()
+    rows = sorted(((getattr(e, 'self_device_time_total',
+                            getattr(e, 'self_cuda_time_total', 0)), e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    return dict(phase='profile_prefill', mode=mode, B=B, prefill=prefill,
+                wall_ms=ttft * 1e3, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1 - busy / (ttft * 1e3)),
+                top=[dict(kernel=k[:80], ms=dt / 1e3) for dt, k in rows[:top]
+                     if dt > 0],
+                launches=counts, xla_branch_calls=xla,
+                expected_launches=expected_launches(
+                    model.cfg.num_hidden_layers, 1, 0, mode))
 
 
 def step_bound(model, B, prefill, steps, peaks, mode='w4a16'):
@@ -1675,7 +2001,7 @@ def phase_compress_serve(dev, res, prompt_len=32, seed=0, **serve_kw):
         got = prefill_logits(qmap)
     err, rel = _rel(got, want)
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    rec = phase_serve(dev, model, qmap, **serve_kw)
+    rec = serve_run(dev, model, qmap, **serve_kw)[0]
     rec.update(phase='compress_serve', method=type(opt).__name__,
                prompt=prompt_len, max_abs_logit_err_vs_fake_quant=err,
                rel_logit_err_vs_fake_quant=rel,
@@ -1837,29 +2163,80 @@ def old_design_ms(probes):
 LONG_PROFILE = dict(B=8, prefill=1024, steps=8)
 
 
+def require_graph_serve(rec) -> None:
+    require(rec['all_done'] and rec['requests'] >= 8,
+            f'{rec["phase"]}: a request did not finish')
+    require(rec['eager_tokens_equal'], f'{rec["phase"]}: the eager step '
+            f'gave other tokens than the captured one')
+    require(rec['window_tokens_equal'], f'{rec["phase"]}: the K=4 window '
+            f'gave other tokens than single steps')
+    require_launches(rec)
+    require_launches(dict(phase=rec['phase'] + '.window_4',
+                          launches=rec['window_launches'],
+                          expected_launches=rec['window_expected_launches'],
+                          xla_branch_calls=rec['window_xla_branch_calls']))
+
+
 def drive_mode(mode, dev, peaks, card):
     """The model phases of one serving mode at Llama-2-7B width and depth:
-    serve, throughput, profile (for W4A16 also at ``LONG_PROFILE``).
-    Returns the serve phase's launches."""
+    serve (the captured step), serve_graph (the eager step and the K=4
+    window against it), throughput, profile through the graph and eagerly
+    (for W4A16 also at ``LONG_PROFILE``, and serve_paged).  Returns the
+    launches of serve_graph's eager run."""
     model, qmap = make_model(mode, LLAMA2_7B, dev)
-    rec = phase_serve(dev, model, qmap, mode=mode)
+    rec, toks, _ = serve_run(dev, model, qmap, mode=mode)
+    rec.update(card)
     emit(rec)
     require_served(rec)
+    require(rec['graphed'] and rec['graph_replays'] > 0,
+            f'{rec["phase"]}: the engine did not replay a captured step')
+    rec = phase_serve_graph(dev, model, qmap, toks, mode=mode)
+    rec.update(card)
+    emit(rec)
+    require_graph_serve(rec)
     launches = rec['launches']
     rec = phase_throughput(dev, model, qmap, mode=mode)
     rec.update(step_bound(model, 128, 32, 64, peaks, mode), **card)
     emit(rec)
     require_launches(rec)
-    rec = phase_profile(dev, model, qmap, mode=mode)
+    require_launches(dict(phase='throughput.eager',
+                          launches=rec['eager_launches'],
+                          expected_launches=rec['eager_expected_launches'],
+                          xla_branch_calls=rec['xla_branch_calls']))
+    rec = phase_profile_prefill(dev, model, qmap, mode=mode)
+    rec.update(card)
     emit(rec)
     require_launches(rec)
-    if mode == 'w4a16':
-        rec = phase_profile(dev, model, qmap, mode=mode, **LONG_PROFILE)
-        rec.update(step_bound(model, LONG_PROFILE['B'],
-                              LONG_PROFILE['prefill'], LONG_PROFILE['steps'],
-                              peaks, mode), **card)
+    shapes = [{}] + ([LONG_PROFILE] if mode == 'w4a16' else [])
+    for kw, graph in itertools.product(shapes, (True, False)):
+        rec = phase_profile(dev, model, qmap, mode=mode, graph=graph, **kw)
+        if kw:
+            rec.update(step_bound(model, kw['B'], kw['prefill'], kw['steps'],
+                                  peaks, mode))
+        rec.update(card)
         emit(rec)
         require_launches(rec)
+        require(rec['device_busy_ms'] > 0, f'profile ({mode}, graph '
+                f'{graph}): the profiler saw no device time')
+        want = {k: v for k, v in rec['device_expected_launches'].items()
+                if k in rec['kernel_calls']}
+        require(rec['kernel_calls'] == want, f'profile ({mode}, graph '
+                f'{graph}): the device ran {rec["kernel_calls"]} port '
+                f'kernels in {rec["steps"]} steps, the path implies {want}')
+    if mode == 'w4a16':
+        rec = phase_serve_paged(dev, model, qmap, LLAMA2_7B)
+        rec.update(card)
+        emit(rec)
+        require_served(rec)
+        require(rec['pool_whole_at_end'], 'serve_paged: pages were lost')
+        require(rec['requests_waited_on_the_pool'],
+                'serve_paged: no request waited on the pool')
+        require(rec['fp_pool_tokens_equal_dense_fp_at_2_layers_f32'],
+                'serve_paged: the fp pool\'s tokens at 2 layers differ '
+                'from the dense fp engine\'s')
+        require(rec['int8_pool_tokens_equal_cpu_at_2_layers_f32'],
+                'serve_paged: the int8 pool\'s tokens at 2 layers differ '
+                'between the card and the CPU')
     del model
     torch.cuda.empty_cache()
     return launches
@@ -1936,15 +2313,17 @@ def main(argv=None) -> int:
     attn = {'flash_decode': check_attention('flash_decode', dev, peaks),
             'batch_decode': check_attention('batch_decode', dev, peaks,
                                             BATCH_SHAPES)}
-    # both kernels on a float32 model's cache, at 16 query heads a kv head
-    # and on a cache made by the port's KV quantizer
+    # both kernels on a float32 model's cache, at 16 query heads a kv head,
+    # on a cache made by the port's KV quantizer and on an fp16 cache
     attn_more = {name: [check_attention(name, dev, peaks, ATTN_F32,
                                         caches=('f32',)),
                         check_attention(name, dev, peaks, ATTN_G16,
                                         caches=('int8',)),
                         check_attention(name, dev, peaks, ATTN_KVQ,
                                         caches=('int8_kv',),
-                                        tol=TOL_ATTN_KVQ)]
+                                        tol=TOL_ATTN_KVQ),
+                        check_attention(name, dev, peaks, ATTN_F16,
+                                        caches=('f16',))]
                  for name in attn}
     # an odd N: every GEMM kernel at N = 4095 (no multiple of 2 or of the
     # 128-row tile)
@@ -1986,9 +2365,9 @@ def main(argv=None) -> int:
               w4_w4a8_w8_odd_n={k: v[0] for k, v in odd_n.items()},
               flash_decode=attn['flash_decode'][0],
               batch_decode=attn['batch_decode'][0],
-              flash_decode_f32_g16_kvq=[
+              flash_decode_f32_g16_kvq_f16=[
                   r for rec in attn_more['flash_decode'] for r in rec[0]],
-              batch_decode_f32_g16_kvq=[
+              batch_decode_f32_g16_kvq_f16=[
                   r for rec in attn_more['batch_decode'] for r in rec[0]],
               batch_decode_sweep=sweep_batch_blocks(dev),
               fp8_block_gemm=fp8[0],
@@ -2018,15 +2397,16 @@ def main(argv=None) -> int:
     launches.update({k: probes['launches'][k] for k in PROBE_KERNELS})
     for mode in MODES:
         got = drive_mode(mode, dev, peaks, card)
-        # a kernel's launches are read from the serve run of its own path
-        # (the head of the W4A8 model also runs the w4 kernel: keep the
-        # W4A16 path's count for it)
+        # a kernel's launches are read from the eager serve run of its own
+        # path (the head of the W4A8 model also runs the w4 kernel: keep
+        # the W4A16 path's count for it)
         launches.update({k: v for k, v in got.items()
                          if v and not launches[k]})
 
     model, qmap = companion_model(dev, dict(LLAMA2_7B, num_hidden_layers=8))
     for flag in ('prefill_w8', 'decode_w8'):
-        rec = phase_serve(dev, model, qmap, n_requests=8, w8_flag=flag)
+        rec = serve_run(dev, model, qmap, n_requests=8, w8_flag=flag)[0]
+        rec.update(card)
         emit(rec)
         require_served(rec)
     del model

@@ -6,8 +6,8 @@
 // query head h,
 //   ctx[b,h] = sum_{j <= pos[b]} softmax_j(q[b,h] . k[j]) v[j]
 // over the [L, B, Smax, KVH, hd] cache at `layer`, GQA by h / G, int8
-// codes with per-(token, head) f32 scales [L, B, Smax, KVH], or bf16 or
-// f32 values, q f32 and pre-scaled.  The K scale multiplies the score
+// codes with per-(token, head) f32 scales [L, B, Smax, KVH], or bf16, fp16
+// or f32 values, q f32 and pre-scaled.  The K scale multiplies the score
 // after the dot and the V scale folds into the probability; nothing is
 // dequantized element-wise.  As on the TPU, the slots are taken in blocks
 // of b_blk, one block a CTA, and a block reads no chunk past its last
@@ -51,16 +51,18 @@
 //     the heads as M (rows 8..15 zero), a chunk's 16 keys as N (two tiles)
 //     and hd as K; the online softmax runs on S's accumulators, which are
 //     then the B operand of O^T += V^T P^T (hd as M in tiles of 16, the 16
-//     keys as K, the heads as N).  The int8 codes are exact in f16 and
-//     bf16 values are bf16, so those go in as they are (codes converted in
-//     registers by a byte permute and one subtraction); q and p are split
-//     into a high and a low half (q = q_hi + q_lo, about 22 bits in f16,
-//     16 in bf16) and each product taken twice; an f32 cache is split the
-//     same way (three products).  f16's normal range ends at 2^-14, where
-//     a low half loses its bits, and p times the V scale is often far
-//     below it (a V scale of 1e-3, p of 1e-4): on an int8 cache head g's
-//     q and p go in times powers of two that put the largest of each in
-//     [2^13, 2^14), and come out divided by them, exactly.  The channels
+//     keys as K, the heads as N).  The int8 codes are exact in f16, bf16
+//     values are bf16 and fp16 values f16, so those go in as they are
+//     (codes converted in registers by a byte permute and one
+//     subtraction); q and p are split into a high and a low half (q = q_hi
+//     + q_lo, about 22 bits in f16, 16 in bf16) and each product taken
+//     twice; an f32 cache is split the same way (three products).  f16's
+//     normal range ends at 2^-14, where a low half loses its bits, and p
+//     (times the V scale of an int8 cache) is often far below it: p falls
+//     under 2^-14 at a long context, p times a V scale of 1e-3 sooner.  So
+//     wherever the operands are f16 (int8 and fp16 caches) head g's q and
+//     p go in times powers of two that put the largest of each in [2^13,
+//     2^14), and come out divided by them, exactly.  The channels
 //     are permuted inside each k step and m tile (a sum does not care) so
 //     that a lane reads contiguous pieces of a key row.
 //
@@ -313,13 +315,17 @@ __global__ void __launch_bounds__(MAXW * 32, 2)
 
 // ---- several query heads a kv head: the tensor cores ---------------------
 
+// the cache kinds whose products run in f16: int8 codes and fp16 values
+template <int KIND>
+constexpr bool kF16 = KIND == 0 || KIND == 3;
+
 // d += a b, m16n8k16, f32 accumulators: f16 operands for KIND 0 (int8
-// codes), bf16 for KIND 1 and 2
+// codes) and 3 (fp16 values), bf16 for KIND 1 and 2
 template <int KIND>
 __device__ __forceinline__ void mma(float* d, uint32_t a0, uint32_t a1,
                                     uint32_t a2, uint32_t a3, uint32_t b0,
                                     uint32_t b1) {
-  if constexpr (KIND == 0)
+  if constexpr (kF16<KIND>)
     asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -336,7 +342,7 @@ __device__ __forceinline__ void mma(float* d, uint32_t a0, uint32_t a1,
 template <int KIND>
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
                                        uint32_t& lo) {
-  if constexpr (KIND == 0) {
+  if constexpr (kF16<KIND>) {
     const __half2 h = __floats2half2_rn(x, y);
     const float2 f = __half22float2(h);
     const __half2 r = __floats2half2_rn(x - f.x, y - f.y);
@@ -428,10 +434,10 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
     qm = fmaxf(fmaxf(qm, fmaxf(fabsf(qx[k].x), fabsf(qx[k].y))),
                fmaxf(fabsf(qx[k].z), fabsf(qx[k].w)));
   }
-  // int8: head g's q times 2^qe in f16 (its largest in [2^13, 2^14)), its
+  // f16 operands: head g's q times 2^qe (its largest in [2^13, 2^14)), its
   // scores times sdiv = 2^-qe
   float qup = LOG2E, sdiv = 1.f;
-  if constexpr (KIND == 0) {
+  if constexpr (kF16<KIND>) {
     qm = fmaxf(qm, __shfl_xor_sync(0xffffffffu, qm, 1));
     qm = fmaxf(qm, __shfl_xor_sync(0xffffffffu, qm, 2));
     const int qe = qm > 0.f ? f16_range(qm * LOG2E) : 0;
@@ -449,10 +455,10 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
 #pragma unroll
   for (int u = 0; u < KS; ++u) o[u][0] = o[u][1] = o[u][2] = o[u][3] = 0.f;
   float m = -INFINITY, l = 0.f;  // head g's
-  // O^T's columns of head g hold O times 2^pe: on an int8 cache pe is
-  // lowered (never raised) so that the largest p v_scale yet times 2^pe
-  // lies in [2^13, 2^14); else it stays 0
-  int pe = KIND == 0 ? 126 : 0;
+  // O^T's columns of head g hold O times 2^pe: with f16 operands pe is
+  // lowered (never raised) so that the largest p (times v_scale) yet times
+  // 2^pe lies in [2^13, 2^14); else it stays 0
+  int pe = kF16<KIND> ? 126 : 0;
   __syncwarp();
 
   for (int i = 0; i < w.nch; ++i) {
@@ -488,7 +494,7 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
             const uint32_t x = wd[n2][e] ^ 0x80808080u;
             b0[n2] = codes_f16x2(x, x, 0x0100);
             b1[n2] = codes_f16x2(x, x, 0x0302);
-          } else if constexpr (KIND == 1) {
+          } else if constexpr (KIND == 1 || KIND == 3) {
             b0[n2] = wd[n2][2 * e];
             b1[n2] = wd[n2][2 * e + 1];
           } else {
@@ -524,7 +530,7 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
       for (int e = 0; e < 2; ++e) {
         const int key = 8 * n2 + 2 * t + e;
         const float ksc =
-            KIND == 0 ? __shfl_sync(0xffffffffu, scur, key) * sdiv : 1.f;
+            KIND == 0 ? __shfl_sync(0xffffffffu, scur, key) * sdiv : sdiv;
         vsc[n2][e] =
             KIND == 0 ? __shfl_sync(0xffffffffu, scur, 16 + key) : 1.f;
         sc[n2][e] = key < jn ? (sh[n2][e] + sl[n2][e]) * ksc : -INFINITY;
@@ -548,7 +554,7 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
       }
     m = m_new;
     float fo = corr;  // head g's factor on O^T
-    if constexpr (KIND == 0) {
+    if constexpr (kF16<KIND>) {
       float pm = fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1]));
       pm = fmaxf(pm, __shfl_xor_sync(0xffffffffu, pm, 1));
       pm = fmaxf(pm, __shfl_xor_sync(0xffffffffu, pm, 2));
@@ -620,7 +626,7 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
           if constexpr (KIND == 0) {
             const uint32_t sel = (u & 3) | ((4 + (u & 3)) << 8);
             a[reg] = codes_f16x2(ra[u >> 2], rb[u >> 2], sel);
-          } else if constexpr (KIND == 1) {
+          } else if constexpr (KIND == 1 || KIND == 3) {
             a[reg] = __byte_perm(ra[u >> 1], rb[u >> 1],
                                  u & 1 ? 0x7632 : 0x5410);
           } else {
@@ -725,7 +731,7 @@ int launch(const void* q, const void* kbuf, const void* vbuf, const void* ks,
 }  // namespace
 
 // kv_kind: 0 = int8 codes with f32 scales, 1 = bf16 values, 2 = f32
-// values.  hd <= 128 a multiple of 16, any G = H / KVH (one head on the
+// values, 3 = fp16 values.  hd <= 128 a multiple of 16, any G = H / KVH (one head on the
 // CUDA cores, more in groups of 8 on the tensor cores); B a multiple of
 // b_blk <= 8, whose rings fit the card's 227 KB; 1 <= splits <=
 // ceil(Smax / 16).
@@ -741,13 +747,14 @@ extern "C" int llmc_batch_decode(const void* q, const void* kbuf,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd > dc::HDMAX || hd % 16 || H % KVH || b_blk < 1 ||
       b_blk > bd::MAXW || B % b_blk || B / b_blk > 65535 || splits < 1 ||
-      splits > (Smax + bd::CH - 1) / bd::CH || kv_kind < 0 || kv_kind > 2)
+      splits > (Smax + bd::CH - 1) / bd::CH || kv_kind < 0 || kv_kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
 #define LLMC_BD_KIND(K)                                                     \
   bd::launch<K>(q, kbuf, vbuf, ks, vs, pos, out, work, arrivals, B, H, KVH, \
                 hd, Smax, L, layer, b_blk, splits, st)
-  return kv_kind == 0 ? LLMC_BD_KIND(0)
+  return kv_kind == 0   ? LLMC_BD_KIND(0)
          : kv_kind == 1 ? LLMC_BD_KIND(1)
+         : kv_kind == 3 ? LLMC_BD_KIND(3)
                         : LLMC_BD_KIND(2);
 #undef LLMC_BD_KIND
 }
@@ -759,9 +766,10 @@ extern "C" int llmc_batch_decode_occupancy(int kv_kind, int G, int hd,
                                            int b_blk, int* warps) {
   *warps = 0;
   if (hd > dc::HDMAX || hd % 16 || G < 1 || b_blk < 1 || b_blk > bd::MAXW ||
-      kv_kind < 0 || kv_kind > 2)
+      kv_kind < 0 || kv_kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   return kv_kind == 0   ? bd::occupancy<0>(G, hd, b_blk, warps)
          : kv_kind == 1 ? bd::occupancy<1>(G, hd, b_blk, warps)
+         : kv_kind == 3 ? bd::occupancy<3>(G, hd, b_blk, warps)
                         : bd::occupancy<2>(G, hd, b_blk, warps);
 }

@@ -7,8 +7,9 @@
 // in flight by TMA over a 2-D view of the cache (a row is one position of
 // one kv head, hd elements; rows (layer * B + b) * Smax + j), and four
 // consumer warps score them out of shared memory.  The cache is one of
-// three kinds: KIND 0 int8 codes with per-(position, kv head) f32 scales,
-// KIND 1 bf16 values, KIND 2 f32 values (a float32 model's cache).
+// four kinds: KIND 0 int8 codes with per-(position, kv head) f32 scales,
+// KIND 1 bf16 values, KIND 2 f32 values (a float32 model's cache), KIND 3
+// fp16 values (read as they lie, converted in registers as bf16 is).
 //
 // Here: the chunk and thread counts, the bulk copy of the query rows, the
 // conversion of a thread's channels of a row to f32, the merge of two
@@ -21,6 +22,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <mutex>
 
@@ -38,7 +40,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int KIND>
 struct Elem {
-  static constexpr int ESZ = KIND == 0 ? 1 : KIND == 1 ? 2 : 4;
+  static constexpr int ESZ = KIND == 0 ? 1 : KIND == 2 ? 4 : 2;
 };
 
 __device__ __forceinline__ void consumers_sync() {
@@ -92,6 +94,13 @@ __device__ __forceinline__ void unpack_bf16(uint32_t w, float* f) {
   f[1] = __uint_as_float(w & 0xFFFF0000u);
 }
 
+// 2 fp16 values (one word) -> floats
+__device__ __forceinline__ void unpack_f16(uint32_t w, float* f) {
+  const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  f[0] = v.x;
+  f[1] = v.y;
+}
+
 // A thread of the CUDA-core loops covers CPR channels of a row, LPR
 // threads a row.  It reads them in pieces of 16 bytes (PE elements), the
 // LPR threads of a row one piece each side by side: element i of the
@@ -130,6 +139,8 @@ struct Row {
           unpack_i8(w[k], fp + 4 * k);
         else if constexpr (KIND == 1)
           unpack_bf16(w[k], fp + 2 * k);
+        else if constexpr (KIND == 3)
+          unpack_f16(w[k], fp + 2 * k);
         else
           fp[k] = __uint_as_float(w[k]);
       }
@@ -271,6 +282,7 @@ template <int KIND>
 inline CUtensorMapDataType tma_type() {
   return KIND == 0   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
          : KIND == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+         : KIND == 3 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 }
 

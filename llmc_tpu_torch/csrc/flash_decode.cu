@@ -6,9 +6,10 @@
 //   ctx[b,h] = sum_{j <= pos[b]} softmax_j(q[b,h] . k[j]) v[j]
 // over the [L, B, Smax, KVH, hd] cache at `layer`, with GQA (G = H/KVH
 // query heads per kv head; head h reads kv head h / G).  The cache holds
-// int8 codes with per-(token, head) f32 scales [L, B, Smax, KVH], or bf16
-// or f32 values (the reference's kernel casts any float cache to f32 in
-// its body).  q arrives f32 and pre-scaled.  The K scale multiplies the
+// int8 codes with per-(token, head) f32 scales [L, B, Smax, KVH], or bf16,
+// fp16 or f32 values (the reference's kernel casts any float cache to f32
+// in its body; here each element is converted in registers as it is read,
+// so a float cache is never copied to another type).  q arrives f32 and pre-scaled.  The K scale multiplies the
 // scores after the dot and the V scale folds into the probabilities —
 // nothing is dequantized element-wise.  Online softmax (m, l, acc) in f32.
 //
@@ -71,7 +72,8 @@ constexpr int RB = 4;              // rows a thread takes per softmax update
 constexpr int SLICES = NC / LPR;   // (head, row slice) pairs: 16
 constexpr int NGMAX = 8;           // query heads a CTA
 
-// KIND 0: int8 codes + f32 scales; KIND 1: bf16 values; KIND 2: f32 values
+// KIND 0: int8 codes + f32 scales; KIND 1: bf16 values; KIND 2: f32
+// values; KIND 3: fp16 values
 template <int KIND>
 struct Ring {
   static constexpr int ESZ = Elem<KIND>::ESZ;
@@ -79,7 +81,7 @@ struct Ring {
   static constexpr int STAGES = 3;
   // CTAs an SM holds with a full ring at hd = 128 (shared memory;
   // registers capped to match)
-  static constexpr int RESIDENT = KIND == 0 ? 4 : KIND == 1 ? 2 : 1;
+  static constexpr int RESIDENT = KIND == 0 ? 4 : KIND == 2 ? 1 : 2;
   // K, V and, with a split's first chunk, its query rows (at most NGMAX);
   // a multiple of 128 bytes (TMA's alignment)
   static __host__ __device__ int stage_bytes(int hd, int G) {
@@ -379,7 +381,7 @@ int dispatch_g(int G, const void* q, const void* kbuf, const void* vbuf,
 }  // namespace
 
 // kv_kind: 0 = int8 codes with f32 scales, 1 = bf16 values, 2 = f32
-// values.  hd <= 128 a multiple of 16, any G = H / KVH (in groups of 8);
+// values, 3 = fp16 values.  hd <= 128 a multiple of 16, any G = H / KVH (in groups of 8);
 // splits x cps chunks of 64 positions cover Smax.  With splits > 1, work
 // is [B, KVH, splits, G, hd + 2] f32 scratch and arrivals [B * KVH *
 // ceil(G / 8)] int32 zeros, left zero by the launch.
@@ -392,13 +394,14 @@ extern "C" int llmc_flash_decode(const void* q, const void* kbuf,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd > dc::HDMAX || hd % 16 || H % KVH || splits < 1 ||
-      splits * cps * dc::C < Smax || kv_kind < 0 || kv_kind > 2)
+      splits * cps * dc::C < Smax || kv_kind < 0 || kv_kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
 #define LLMC_FD_KIND(K)                                                    \
   fd::dispatch_g<K>(H / KVH, q, kbuf, vbuf, ks, vs, pos, out, work,        \
                     arrivals, B, H, KVH, hd, Smax, L, layer, splits, cps, st)
-  return kv_kind == 0 ? LLMC_FD_KIND(0)
+  return kv_kind == 0   ? LLMC_FD_KIND(0)
          : kv_kind == 1 ? LLMC_FD_KIND(1)
+         : kv_kind == 3 ? LLMC_FD_KIND(3)
                         : LLMC_FD_KIND(2);
 #undef LLMC_FD_KIND
 }

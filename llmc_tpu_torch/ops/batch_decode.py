@@ -31,9 +31,9 @@ import torch
 
 from ..utils.device import sm_count
 from . import _build
-from .flash_decode import (KERNEL_CHUNK, KIND_ID, check_cache_operands,
-                           combine_splits, decode_scratch,
-                           online_softmax_step)
+from .flash_decode import (KERNEL_CHUNK, KIND_ID, KINDS,
+                           check_cache_operands, combine_splits,
+                           decode_scratch, online_softmax_step)
 
 F32 = torch.float32
 
@@ -46,8 +46,9 @@ WARP_CHUNK = 16     # positions a warp's TMA box
 RING_STAGES = 2     # stages of a warp's ring
 SMEM = 227 * 1024   # shared memory a CTA may take
 SM_SMEM = 228 * 1024  # and an SM holds
-_ITEMSIZE_KIND = {1: 'int8', 2: 'bf16', 4: 'f32'}
-_KIND_ITEMSIZE = {k: i for i, k in _ITEMSIZE_KIND.items()}
+# a cache's kind by its dtype (int8 codes come with scales)
+_DTYPE_KIND = {dt: kind for (dt, _), kind in KINDS.items()}
+_KIND_ITEMSIZE = {'int8': 1, 'bf16': 2, 'f16': 2, 'f32': 4}
 
 
 def warp_ring_bytes(hd: int, itemsize: int) -> int:
@@ -139,12 +140,12 @@ def kernel_plan(q: torch.Tensor, kbuf: torch.Tensor,
     worked out once a (library, device, shapes, cache kind, b_blk), as a
     serving run launches the same shapes at every layer and step."""
     key = (id(_build.lib()), q.device.index, q.shape, kbuf.shape,
-           kbuf.element_size(), b_blk)
+           kbuf.dtype, b_blk)
     plan = _PLANS.get(key)
     if plan is None:
         B, H, hd = q.shape
         _, _, smax, kvh, _ = kbuf.shape
-        kind = _ITEMSIZE_KIND[kbuf.element_size()]
+        kind = _DTYPE_KIND[kbuf.dtype]
 
         def warps(d):
             return resident_warps(q.device, kind, H // kvh, d, hd)
@@ -239,8 +240,8 @@ def batch_decode_cuda(q, kbuf, vbuf, ks, vs, pos, layer: int,
                       b_blk: Optional[int] = None,
                       chunk: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper kernel.  q [B, H, hd] f32; kbuf/vbuf
-    [L, B, Smax, KVH, hd] int8 (with ks/vs [L, B, Smax, KVH] f32), or bf16
-    or f32 (ks/vs None); pos [B] int32 on the card; layer an int.  A CTA
+    [L, B, Smax, KVH, hd] int8 (with ks/vs [L, B, Smax, KVH] f32), or bf16,
+    fp16 or f32 (ks/vs None); pos [B] int32 on the card; layer an int.  A CTA
     takes ``b_blk`` slots (default: ``kernel_plan``'s pick on this card);
     ``chunk`` is the plain version's read size, which does not change the
     function: the kernel reads in its own chunks of ``KERNEL_CHUNK``."""

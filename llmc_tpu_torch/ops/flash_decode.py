@@ -30,13 +30,15 @@ LAUNCHES = {'flash_decode': 0}
 
 KERNEL_CHUNK = 64   # positions a chunk (a TMA box's rows)
 # the cache kinds the kernels take, by (value dtype, scales given): int8
-# codes with f32 scales, or bf16 or f32 values; the C functions' kv_kind
+# codes with f32 scales, or bf16, fp16 or f32 values (read as they lie:
+# the kernels convert each element as they read it, as the reference's
+# cast any float cache in their bodies); the C functions' kv_kind
 KINDS = {(torch.int8, True): 'int8', (torch.bfloat16, False): 'bf16',
-         (torch.float32, False): 'f32'}
-KIND_ID = {'int8': 0, 'bf16': 1, 'f32': 2}
+         (torch.float32, False): 'f32', (torch.float16, False): 'f16'}
+KIND_ID = {'int8': 0, 'bf16': 1, 'f32': 2, 'f16': 3}
 # CTAs an SM holds with a full ring at hd = 128, by cache kind
 # (csrc/flash_decode.cu, Ring)
-RESIDENT = {'int8': 4, 'bf16': 2, 'f32': 1}
+RESIDENT = {'int8': 4, 'bf16': 2, 'f32': 1, 'f16': 2}
 HEAD_GROUP = 8      # query heads a CTA of this kernel: more, a grid dim
 # per device: the split workspace (f32) and one int32 arrival counter a
 # (slot, kv head, head group), shared by this kernel and batch_decode.cu.
@@ -47,12 +49,13 @@ _SCRATCH: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
 
 def cache_kind(kbuf: torch.Tensor, ks) -> str:
-    """'int8', 'bf16' or 'f32': the kernels' cache kind, or a raise."""
+    """'int8', 'bf16', 'f32' or 'f16': the kernels' cache kind, or a
+    raise."""
     kind = KINDS.get((kbuf.dtype, ks is not None))
     if kind is None:
         raise ValueError(f'the decode kernels take an int8 cache with f32 '
-                         f'scales, or a bf16 or f32 cache without; got '
-                         f'{kbuf.dtype} with scales {ks is not None}')
+                         f'scales, or a bf16, fp16 or f32 cache without; '
+                         f'got {kbuf.dtype} with scales {ks is not None}')
     return kind
 
 
@@ -233,8 +236,8 @@ def check_cache_operands(q, kbuf, vbuf, ks, vs, pos, layer: int) -> str:
 def flash_decode_cuda(q, kbuf, vbuf, ks, vs, pos, layer: int
                       ) -> torch.Tensor:
     """Launch the Hopper kernel.  q [B, H, hd] f32; kbuf/vbuf
-    [L, B, Smax, KVH, hd] int8 (with ks/vs [L, B, Smax, KVH] f32), or bf16
-    or f32 (ks/vs None); pos [B] int32 on the card; layer an int.  One
+    [L, B, Smax, KVH, hd] int8 (with ks/vs [L, B, Smax, KVH] f32), or bf16,
+    fp16 or f32 (ks/vs None); pos [B] int32 on the card; layer an int.  One
     launch, split over the cache as ``split_plan`` says."""
     if not q.is_cuda:
         raise ValueError('flash_decode_cuda launches a CUDA kernel; q is '

@@ -11,7 +11,13 @@ switch):
 - ``batch``: ``ops.batch_decode.batch_decode_attention``, the
   serving-batch kernel;
 - ``chunked`` and ``full``: the reference's XLA reads; they come with
-  the paged, sink and long-context reads (ROADMAP A11) and raise.
+  the sink and long-context reads (ROADMAP A11) and raise.
+
+The paged pool (``serve/paged_cache.py::PagedKVPolicy``) is a decode-step
+cache, as in the reference (decode.py:259-266): a step writes its token
+into the slot's page and reads the pool by ``decode_attn_paged``, the
+reference's XLA loop in torch ops on both devices (no TPU kernel backs
+it); prefill runs on a dense local cache (``ServingEngine``).
 
 The asymmetric int8 cache (``k_z`` in the cache) has no kernel in the
 reference either: whatever ``ATTN_IMPL`` says, its decode step takes the
@@ -118,9 +124,17 @@ def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
         v = linear_apply(p['v_proj'], h, qc('self_attn.v_proj')).reshape(
             B, S, KVH, hd)
     q, k = L.apply_rope(q, k, cos, sin)
+    paged = policy.method == 'paged'
+    if paged and S != 1:
+        raise ValueError('the paged pool is a decode-step cache: prefill '
+                         'runs on a dense local cache (ServingEngine)')
     cache = policy.update(cache, layer, k, v)
     scale = 1.0 / (hd ** 0.5)
-    if S == 1 and 'k_z' not in cache:
+    if paged:
+        from .paged_cache import decode_attn_paged
+        ctx = decode_attn_paged(q.to(F32) * scale, cache, layer, policy,
+                                cfg).to(x.dtype)
+    elif S == 1 and 'k_z' not in cache:
         attend = _decode_kernel()
         fp = policy.method == 'fp'
         pos = cache['pos']

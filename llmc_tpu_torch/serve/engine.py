@@ -2,12 +2,39 @@
 ``llmc_tpu/serve/engine.py``).
 
 Fixed ``max_batch`` decode slots with per-slot positions; one
-``forward_cached`` over all slots per decode step.  Admission is
-monolithic and bucketed: queued requests with the same prompt bucket
-prefill together in groups of 1, 2 or 4 on a local cache, whose every
-field is then spliced into the slots.  Greedy, temperature and top-p
-sampling; ``decode_steps_per_sync`` windows of K steps per host sync;
-retirement on EOS or ``max_new_tokens``.
+``forward_cached`` over all slots per decode step.  Admission, as in the
+reference:
+
+- monolithic and bucketed: queued requests with the same prompt bucket
+  prefill together in groups of 1, 2 or 4 on a local cache, whose every
+  field is then spliced into the slots;
+- chunked (``prefill_chunk``): a request claims a free slot, then its
+  prompt advances ``prefill_chunk`` tokens at a time through a local
+  cache, at most ``prefill_chunks_per_step`` chunks an engine step, so
+  that active slots stall one chunk's prefill instead of a whole prompt's;
+  the finished local cache is spliced into the slot;
+- into the paged pool (``kv_policy=PagedKVPolicy(...)``,
+  ``serve/paged_cache.py``): the allocator's pages are taken at admission
+  (a request waits while the pool cannot hold it) and given back at
+  retirement; prefill, monolithic or chunked (in whole pages), runs on a
+  dense fp local cache whose rows are then scattered, quantized for an
+  int8 pool, into the slot's pages.
+
+Greedy, temperature and top-p sampling; ``decode_steps_per_sync`` windows
+of K steps per host sync; retirement on EOS or ``max_new_tokens``.
+
+The compiled steps: where the reference ``jax.jit``s its decode step and
+the K-step ``lax.scan`` (engine.py:254-256), the port, on a CUDA device
+with a dense ``fp`` or ``naive`` cache, runs each as one captured CUDA
+graph (``serve/graphs.py``) that replays the hand kernels; its inputs and
+outputs are the engine's static buffers (the cache, ``pos``,
+``last_tok``, the active mask, the slots' nonces and start positions),
+which admission, splice and retirement write in place.  The window's graph
+is K steps, its tokens bit-identical to K single steps.  The paged step
+(its read length changes every step), prefill and the chunk step run
+eagerly, as does every step on the CPU.  ``EagerServingEngine`` runs
+the eager decode step (``_decode_window``) on the card too: the
+comparison that the graphs are held to.
 
 Sampling cannot reproduce JAX's PRNG bits.  It keeps the reference's
 property instead: a slot's draw depends only on (seed, admission nonce,
@@ -21,8 +48,8 @@ there too.  The engine checks at construction that the companion is
 packed in.  Where the reference ignores either flag silently when
 ``qmap`` is None, the port raises ``ValueError``.
 
-Not ported yet, and raising: ``mesh`` (ROADMAP A14), ``prefill_chunk``
-(A7), and KV policies other than fp / naive (A11).
+Not ported yet, and raising: ``mesh`` (ROADMAP A14), MLA models and the
+kivi / sink KV policies (A11).
 """
 
 from __future__ import annotations
@@ -37,8 +64,10 @@ import torch
 from ..models.base import get_path, has_path
 from ..utils.device import check_on, resolve_device
 from .decode import forward_cached
+from .graphs import CapturedStep
 from .kvcache import KVCachePolicy
 from .packed import prefill_qmap_from
+from .paged_cache import PageAllocator
 
 F32 = torch.float32
 FP = KVCachePolicy(method='fp')
@@ -117,17 +146,18 @@ class ServingEngine(torch.nn.Module):
                  decode_steps_per_sync: int = 1, prefill_w8: bool = False,
                  decode_w8: bool = False, device=None):
         super().__init__()
-        for name, v, item in (('mesh', mesh, 'A14 parallel'),
-                              ('prefill_chunk', prefill_chunk, 'A7')):
-            if v is not None:
-                raise NotImplementedError(
-                    f'ServingEngine({name}=...) is not ported yet '
-                    f'(ROADMAP {item})')
-        if prefill_chunks_per_step != 1:
-            raise NotImplementedError(
-                'prefill_chunks_per_step needs prefill_chunk (ROADMAP A7)')
+        if mesh is not None:
+            raise NotImplementedError('ServingEngine(mesh=...) is not '
+                                      'ported yet (ROADMAP A14 parallel)')
         if getattr(model.cfg, 'kv_lora_rank', None) is not None:
             raise NotImplementedError('MLA serving is not ported (A11)')
+        if kv_policy.method not in ('fp', 'naive', 'paged'):
+            raise NotImplementedError(
+                f'the engine serves the fp, naive and paged KV policies; '
+                f'{kv_policy.method!r} is not ported (ROADMAP A11)')
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f'prefill_chunk must be >= 1, got '
+                             f'{prefill_chunk}')
         self.device = resolve_device(device)
         check_on(model.params, self.device, 'the model')
         self.model = model
@@ -142,6 +172,8 @@ class ServingEngine(torch.nn.Module):
             if decode_w8:   # decode rides the companion too: W8A8 serving
                 self.qmap = qmap_w8
         self.policy = kv_policy
+        self.prefill_chunk = prefill_chunk
+        self.prefill_chunks_per_step = max(1, int(prefill_chunks_per_step))
         self.temperature = float(temperature)
         self.top_p = float(top_p)
         self.seed = int(seed)
@@ -149,6 +181,15 @@ class ServingEngine(torch.nn.Module):
         self.S = max_len
         self.buckets = sorted({b for b in prefill_buckets if b < max_len}
                               | {max_len})
+        self.paged = kv_policy.method == 'paged'
+        self.allocator = None
+        if self.paged:
+            off = [b for b in self.buckets if b % kv_policy.page_size]
+            if off:
+                raise ValueError(f'prefill buckets (max_len included) must '
+                                 f'be multiples of page_size='
+                                 f'{kv_policy.page_size}; got {off}')
+            self.allocator = PageAllocator(kv_policy)
         cfg = self.cfg
         self.cache = kv_policy.init_cache(
             self.B, self.S, cfg.num_key_value_heads, cfg.head_dim,
@@ -156,21 +197,30 @@ class ServingEngine(torch.nn.Module):
         self.cache['pos'] = torch.zeros((self.B,), dtype=torch.int32,
                                         device=self.device)
         self.active = np.zeros((self.B,), bool)
+        # the device copy of ``active``, rewritten before each decode step
+        self._act = torch.zeros((self.B,), dtype=torch.bool,
+                                device=self.device)
         self.last_tok = torch.zeros((self.B,), dtype=torch.int32,
                                     device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * self.B
         self.queue: deque = deque()
+        self.pending: deque = deque()      # chunked admissions in flight
         self.steps_per_sync = max(1, int(decode_steps_per_sync))
-        # host mirror of per-slot positions (window headroom without a
-        # device read)
+        # host mirror of per-slot positions (window headroom and the paged
+        # read's length without a device read)
         self._host_pos = np.zeros((self.B,), np.int64)
         self.slot_nonce = torch.zeros((self.B,), dtype=torch.int32,
                                       device=self.device)
         self._start_pos = torch.zeros((self.B,), dtype=torch.int32,
                                       device=self.device)
         self._admit_seq = 0
-        # forwards run, for checking kernel launch counts
-        self.stats = {'prefill_forwards': 0, 'decode_steps': 0}
+        # the captured decode steps, by window length, in one memory pool
+        self._graphs: Dict[int, CapturedStep] = {}
+        self._graph_pool = None
+        # forwards run, for checking kernel launch counts; admissions that
+        # found the page pool too small and left the request waiting
+        self.stats = {'prefill_forwards': 0, 'decode_steps': 0,
+                      'pool_waits': 0}
 
     @staticmethod
     def _w8_qmap(model, qmap, which: str):
@@ -192,38 +242,86 @@ class ServingEngine(torch.nn.Module):
                     f'pack with pack_model(..., w8_prefill=True)')
         return prefill_qmap_from(qmap)
 
+    @property
+    def graphed(self) -> bool:
+        """Whether the decode steps replay captured CUDA graphs: on a CUDA
+        device with a dense (fp or naive) cache."""
+        return self.device.type == 'cuda' and not self.paged
+
     # ------------------------------------------------------------------
     # device programs
     # ------------------------------------------------------------------
     def _decode_step(self, toks, active):
-        pos_before = self.cache['pos']
-        n_gen = pos_before - self._start_pos + 1
-        logits, cache = forward_cached(self.model.params, self.cfg,
-                                       toks[:, None].to(torch.long),
-                                       self.cache, self.policy, self.qmap)
-        self.stats['decode_steps'] += 1
+        """One decode step over every slot: writes the cache and ``pos``
+        in place (inactive slots neither advance nor keep their token) and
+        returns the sampled tokens."""
+        pos = self.cache['pos']
+        n_gen = pos - self._start_pos + 1
+        logits, out = forward_cached(self.model.params, self.cfg,
+                                     toks[:, None].to(torch.long),
+                                     self.cache, self.policy, self.qmap)
         nxt = sample_logits_per_slot(logits[:, -1], self.seed,
                                      self.slot_nonce, n_gen,
                                      self.temperature, self.top_p)
-        # inactive slots neither advance nor keep the sampled token
-        cache['pos'] = torch.where(active, cache['pos'], pos_before)
-        self.cache = cache
+        pos.copy_(torch.where(active, out['pos'], pos))
         return nxt
+
+    def _decode_window(self, K: int) -> torch.Tensor:
+        """K decode steps in a row, the reference's ``_decode_multi`` (K=1:
+        its ``_decode_step``); ``last_tok`` advances in place.  Returns the
+        [B, K] tokens."""
+        act = self._act
+        toks, outs = self.last_tok, []
+        for _ in range(K):
+            nxt = self._decode_step(toks, act)
+            toks = torch.where(act, nxt, toks)
+            outs.append(nxt)
+        self.last_tok.copy_(toks)
+        return torch.stack(outs, dim=1)
+
+    def _decode(self, K: int) -> torch.Tensor:
+        """The K-step window on the device: the captured graph of its
+        length where the engine is ``graphed`` (captured at its first use),
+        else ``_decode_window`` itself."""
+        self._act.copy_(torch.from_numpy(self.active))
+        self.stats['decode_steps'] += K
+        if self.paged:
+            # pages up to the largest position the window reaches
+            self.cache['read_pages'] = (int(self._host_pos.max()) + K - 1
+                                        ) // self.policy.page_size + 1
+        if not self.graphed:
+            return self._decode_window(K)
+        step = self._graphs.get(K)
+        if step is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            step = self._graphs[K] = CapturedStep(
+                lambda: self._decode_window(K), self.device,
+                pool=self._graph_pool)
+        return step()
+
+    def _local_forward(self, ids, local, policy):
+        """A prefill (or prompt chunk) forward on a local cache."""
+        ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        logits, local = forward_cached(self.model.params, self.cfg, ids_t,
+                                       local, policy, self.qmap_prefill)
+        self.stats['prefill_forwards'] += 1
+        return logits, local
+
+    def _local_cache(self, batch: int, slen: int, policy):
+        cfg = self.cfg
+        return policy.init_cache(batch, slen, cfg.num_key_value_heads,
+                                 cfg.head_dim, cfg.num_hidden_layers,
+                                 dtype=cfg.tdtype, device=self.device)
 
     def _prefill(self, ids: np.ndarray, slots: List[int],
                  p_lasts: List[int], slen: int) -> torch.Tensor:
         """G same-bucket prompts through one forward on a local cache;
         every cache field is spliced into the G slots.  Returns the G
         greedy first tokens."""
-        cfg = self.cfg
         G = len(slots)
-        local = self.policy.init_cache(
-            G, slen, cfg.num_key_value_heads, cfg.head_dim,
-            cfg.num_hidden_layers, dtype=cfg.tdtype, device=self.device)
-        ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        logits, local = forward_cached(self.model.params, cfg, ids_t, local,
-                                       self.policy, self.qmap_prefill)
-        self.stats['prefill_forwards'] += 1
+        logits, local = self._local_forward(
+            ids, self._local_cache(G, slen, self.policy), self.policy)
         sl = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         for k, v in local.items():
             if k == 'pos':
@@ -232,6 +330,45 @@ class ServingEngine(torch.nn.Module):
         rows = torch.arange(G, device=self.device)
         pl = torch.as_tensor(p_lasts, dtype=torch.long, device=self.device)
         return sample_logits(logits[rows, pl], None, 0.0, 1.0)
+
+    def _splice(self, local, slot: int) -> None:
+        """Every local-cache field into the slot's row of the cache."""
+        for k, v in local.items():
+            if k == 'pos':
+                continue
+            self.cache[k][:, slot, :v.shape[2]] = v[:, 0].to(
+                self.cache[k].dtype)
+
+    def _scatter_pages(self, local, slot: int, slen: int) -> None:
+        """A dense fp local cache's K/V rows into the slot's pool pages
+        (quantized for an int8 pool); the allocator wrote the slot's
+        table row at admission."""
+        ps = self.policy.page_size
+        n_loc = slen // ps
+        pages = self.cache['table'][slot, :n_loc].to(torch.long)
+        Lc = self.cfg.num_hidden_layers
+
+        def rows(buf):
+            return buf[:, 0].reshape(Lc, n_loc, ps, *buf.shape[3:])
+        if self.policy.bit:
+            kq, ks = self.policy._quant(local['k'])
+            vq, vs = self.policy._quant(local['v'])
+            writes = (('pool_k', kq), ('pool_v', vq), ('pool_k_s', ks),
+                      ('pool_v_s', vs))
+        else:
+            writes = (('pool_k', local['k']), ('pool_v', local['v']))
+        for name, new in writes:
+            buf = self.cache[name]
+            buf[:, pages] = rows(new).to(buf.dtype)
+
+    def _prefill_paged(self, ids: np.ndarray, slot: int, p_last: int,
+                       slen: int) -> int:
+        """One prompt on a dense fp local cache, scattered into the slot's
+        pages; returns the greedy first token."""
+        logits, local = self._local_forward(
+            ids, self._local_cache(1, slen, FP), FP)
+        self._scatter_pages(local, slot, slen)
+        return int(torch.argmax(logits[0, p_last]))
 
     # ------------------------------------------------------------------
     # host scheduler
@@ -248,12 +385,17 @@ class ServingEngine(torch.nn.Module):
         req.output_ids = []
         self.queue.append(req)
 
+    def _bucket(self, P: int) -> int:
+        return next((s for s in self.buckets if s >= P), self.buckets[-1])
+
     def _retire(self, b, req):
         req.done = True
         self.active[b] = False
         self.slot_req[b] = None
         self.cache['pos'][b] = 0
         self._host_pos[b] = 0
+        if self.allocator is not None:
+            self.allocator.release(b, self.cache['table'])
 
     def _finish_admit(self, b, req, P, nxt: int):
         self.cache['pos'][b] = P
@@ -269,18 +411,87 @@ class ServingEngine(torch.nn.Module):
                 or (req.eos_id is not None and int(nxt) == req.eos_id)):
             self._retire(b, req)
 
+    def _admit_chunked(self):
+        """Each queued request claims a free slot; its prompt then
+        advances ``prefill_chunk`` tokens at a time (whole pages under a
+        paged pool) through a local cache, at most
+        ``prefill_chunks_per_step`` chunks an engine step."""
+        for b in range(self.B):
+            if self.active[b] or self.slot_req[b] is not None \
+                    or not self.queue:
+                continue
+            req = self.queue[0]
+            P = len(req.prompt_ids)
+            bucket = self._bucket(P)
+            ce = min(self.prefill_chunk, bucket)
+            if self.paged:
+                ps = self.policy.page_size
+                ce = max(ps, ce // ps * ps)
+            n_run = -(-P // ce)
+            if n_run * ce > self.S:    # odd bucket/chunk ratio: one shot
+                ce, n_run = bucket, 1
+            if self.paged:
+                need = max(n_run * ce, P + req.max_new_tokens)
+                if not self.allocator.can_admit(need):
+                    self.stats['pool_waits'] += 1
+                    break              # pool exhausted: the request waits
+                self.allocator.allocate(b, need, self.cache['table'])
+            self.queue.popleft()
+            ids = np.zeros((1, n_run * ce), np.int64)
+            ids[0, :P] = np.asarray(req.prompt_ids)
+            # the paged engine chunks through a dense fp local cache,
+            # scattered into the slot's pages at completion
+            policy = FP if self.paged else self.policy
+            # p_rel: the prompt's last token, in the final chunk
+            p_rel = min(max(P - 1 - (n_run - 1) * ce, 0), ce - 1)
+            self.pending.append(dict(
+                req=req, slot=b, ids=ids, P=P, ce=ce, n_run=n_run,
+                local=self._local_cache(1, n_run * ce, policy),
+                policy=policy, i=0, p_rel=p_rel))
+            self.slot_req[b] = req          # reserved; active stays False
+        budget = self.prefill_chunks_per_step
+        while budget > 0 and self.pending:
+            st = self.pending[0]
+            off = st['i'] * st['ce']
+            logits, st['local'] = self._local_forward(
+                st['ids'][:, off:off + st['ce']], st['local'], st['policy'])
+            st['i'] += 1
+            budget -= 1
+            if st['i'] == st['n_run']:
+                self.pending.popleft()
+                if self.paged:
+                    self._scatter_pages(st['local'], st['slot'],
+                                        st['n_run'] * st['ce'])
+                else:
+                    self._splice(st['local'], st['slot'])
+                nxt = int(torch.argmax(logits[0, st['p_rel']]))
+                self._finish_admit(st['slot'], st['req'], st['P'], nxt)
+
     def _admit(self):
+        if self.prefill_chunk is not None:
+            return self._admit_chunked()
         pend = []
         for b in range(self.B):
             if self.active[b] or not self.queue:
                 continue
-            req = self.queue.popleft()
+            req = self.queue[0]
             P = len(req.prompt_ids)
-            bucket = next((s for s in self.buckets if s >= P),
-                          self.buckets[-1])
+            bucket = self._bucket(P)
+            if self.paged:
+                # the page budget covers the bucket's scatter + generation
+                need = max(bucket, P + req.max_new_tokens)
+                if not self.allocator.can_admit(need):
+                    self.stats['pool_waits'] += 1
+                    break              # pool exhausted: the request waits
+            self.queue.popleft()
             ids = np.zeros((bucket,), np.int64)
             ids[:P] = np.asarray(req.prompt_ids)
-            pend.append((b, req, P, bucket, ids))
+            if self.paged:
+                self.allocator.allocate(b, need, self.cache['table'])
+                self._finish_admit(b, req, P, self._prefill_paged(
+                    ids[None], b, P - 1, bucket))
+            else:
+                pend.append((b, req, P, bucket, ids))
         by_bucket: Dict[int, list] = {}
         for item in pend:
             by_bucket.setdefault(item[3], []).append(item)
@@ -301,43 +512,18 @@ class ServingEngine(torch.nn.Module):
 
     @torch.no_grad()
     def step(self):
-        """One decode step over all slots (or a K-step window when every
-        active slot has K steps of max_len headroom)."""
+        """Admission, then one decode step over all slots, or a K-step
+        window when every active slot has K steps of max_len headroom;
+        tokens past EOS / ``max_new_tokens`` in a window are decoded and
+        discarded."""
         self._admit()
         if not self.active.any():
             return False
         K = self.steps_per_sync
-        if K > 1 and np.all(self._host_pos[self.active] + K <= self.S - 1):
-            return self._step_window(K)
-        act = torch.as_tensor(self.active, device=self.device)
-        nxt = self._decode_step(self.last_tok, act)
-        self.last_tok = torch.where(act, nxt, self.last_tok)
-        nxt_np = nxt.cpu().numpy()
-        pos_np = self.cache['pos'].cpu().numpy()
-        self._host_pos[:] = pos_np
-        for b in range(self.B):
-            if not self.active[b]:
-                continue
-            req = self.slot_req[b]
-            req.output_ids.append(int(nxt_np[b]))
-            hit_eos = (req.eos_id is not None
-                       and req.output_ids[-1] == req.eos_id)
-            if len(req.output_ids) >= req.max_new_tokens or hit_eos \
-                    or int(pos_np[b]) >= self.S - 1:
-                self._retire(b, req)
-        return True
-
-    def _step_window(self, K: int):
-        """K decode steps with one host sync; tokens past EOS /
-        max_new_tokens are decoded and discarded."""
-        act = torch.as_tensor(self.active, device=self.device)
-        toks, outs = self.last_tok, []
-        for _ in range(K):
-            nxt = self._decode_step(toks, act)
-            toks = torch.where(act, nxt, toks)
-            outs.append(nxt)
-        self.last_tok = toks
-        out_np = torch.stack(outs, dim=1).cpu().numpy()       # [B, K]
+        if not (K > 1 and np.all(self._host_pos[self.active] + K
+                                 <= self.S - 1)):
+            K = 1
+        out_np = self._decode(K).cpu().numpy()              # [B, K]
         self._host_pos[self.active] += K
         for b in range(self.B):
             if not self.active[b]:
@@ -354,12 +540,20 @@ class ServingEngine(torch.nn.Module):
                 self._retire(b, req)
         return True
 
-    def run(self, requests: List[Request], max_steps: int = 10000
-            ) -> List[Request]:
+    def run(self, requests: List[Request],
+            max_steps: int = 10000) -> List[Request]:
         for r in requests:
             self.submit(r)
         steps = 0
-        while (self.queue or self.active.any()) and steps < max_steps:
+        while (self.queue or self.pending or self.active.any()) \
+                and steps < max_steps:
             self.step()
             steps += 1
         return requests
+
+
+class EagerServingEngine(ServingEngine):
+    """The engine with every decode step run eagerly (``_decode_window``),
+    on the card too: the comparison that the captured steps are held to
+    (tests, ``chip_smoke.py``)."""
+    graphed = False

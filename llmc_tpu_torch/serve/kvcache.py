@@ -1,8 +1,9 @@
 """KV-cache policies (port of ``llmc_tpu/serve/kvcache.py:26-170``).
 
 Ported: ``fp`` and ``naive`` (int8 codes with per-(token, head) scales,
-symmetric or asymmetric).  kivi / sink / paged / ShadowKV raise
-(ROADMAP A11).
+symmetric or asymmetric).  kivi / sink / ShadowKV raise (ROADMAP A11).
+The paged pool is a policy of its own, ``serve.paged_cache.PagedKVPolicy``,
+as in the reference, whose ``KVCachePolicy`` has no paged method.
 
 The cache is a dict of preallocated tensors ``[L, B, Smax, KVH, hd]``
 (scales squeezed ``[L, B, Smax, KVH]``) plus ``pos``: a Python int for
@@ -37,6 +38,10 @@ class KVCachePolicy:
     window_length: int = 256
 
     def __post_init__(self):
+        if self.method == 'paged':
+            raise NotImplementedError(
+                'the paged KV pool is serve.paged_cache.PagedKVPolicy, not '
+                'a KVCachePolicy method (as in the reference)')
         if self.method not in ('fp', 'naive'):
             raise NotImplementedError(
                 f'KV policy {self.method!r} is not ported yet (ROADMAP A11)')
@@ -67,17 +72,21 @@ class KVCachePolicy:
 
     # -- quant helpers (per token+head over head_dim) -------------------
     def _quant(self, t: torch.Tensor):
+        """Per-(token, head) codes over head_dim.  The reference quantizes
+        inside its jitted steps, where XLA folds ``amax / qmax`` into a
+        multiply by the f32 reciprocal of qmax: the scale is computed so
+        on both devices.  ``tf / s`` and ``mn / s`` stay true divisions."""
         qmax = 2 ** (self.bit - 1) - 1
         qmin = -(2 ** (self.bit - 1))
         tf = t.to(F32)
         if self.symmetric:
             amax = torch.clamp(tf.abs().amax(-1, keepdim=True), min=1e-5)
-            s = amax / qmax
+            s = amax * (1.0 / qmax)
             q = torch.clamp(torch.round(tf / s), qmin, qmax).to(torch.int8)
             return q, s, None
         mn = tf.amin(-1, keepdim=True)
         mx = tf.amax(-1, keepdim=True)
-        s = torch.clamp(mx - mn, min=1e-5) / (2 ** self.bit - 1)
+        s = torch.clamp(mx - mn, min=1e-5) * (1.0 / (2 ** self.bit - 1))
         z = torch.clamp(-torch.round(mn / s) + qmin, qmin, qmax)
         q = torch.clamp(torch.round(tf / s) + z, qmin, qmax).to(torch.int8)
         return q, s, z

@@ -97,13 +97,13 @@ VARIANTS = {
         ('*kern = G == 1 ? batch_decode_kernel<KIND> : '
          'batch_decode_mma_kernel<KIND>;',
          '*kern = batch_decode_mma_kernel<KIND>;', 1)],
-    # the int8 GQA products without the powers of two that keep q and
-    # p v_scale in f16's normal range (the arithmetic is otherwise the
-    # same: the scales are 2^0)
+    # the f16 GQA products (int8 and fp16 caches) without the powers of
+    # two that keep q and p (times v_scale) in f16's normal range (the
+    # arithmetic is otherwise the same: the scales are 2^0)
     'f16_unscaled': [
         ('const int qe = qm > 0.f ? f16_range(qm * LOG2E) : 0;',
          'const int qe = 0;', 1),
-        ('  int pe = KIND == 0 ? 126 : 0;\n', '  int pe = 0;\n', 1),
+        ('  int pe = kF16<KIND> ? 126 : 0;\n', '  int pe = 0;\n', 1),
         ('const int pe_new = pm > 0.f ? min(pe, f16_range(pm)) : pe;',
          'const int pe_new = pe;', 1)],
     # a deeper ring a warp: three chunks of 16 positions

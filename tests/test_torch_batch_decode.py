@@ -202,13 +202,17 @@ def test_split_plain_equals_one_pass(cache, splits):
     assert rel_err(got.numpy(), want.numpy()) < 1e-6
 
 
+FLOAT_KINDS = {'bf16': torch.bfloat16, 'f16': torch.float16,
+               'f32': torch.float32}
+
+
 def _cache_kind(kind, seed=0, shape=(L, B, S, KVH, HD)):
     """The port's cache tensors of one kind: int8 codes with f32 scales,
-    or bf16 or f32 values (bf16 made from f32 normals)."""
+    or bf16, fp16 or f32 values (made from f32 normals)."""
     k, v, ks, vs = _cache(kind == 'int8', seed, shape)
     k, v, ks, vs = _t(k), _t(v), _t(ks), _t(vs)
-    if kind == 'bf16':
-        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    if kind in FLOAT_KINDS:
+        k, v = k.to(FLOAT_KINDS[kind]), v.to(FLOAT_KINDS[kind])
     return k, v, ks, vs
 
 
@@ -223,12 +227,12 @@ def _jax_cache(k, v, ks, vs):
     return j(k), j(v), j(ks), j(vs)
 
 
-@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32'])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
 @pytest.mark.parametrize('g', [1, 2, 4, 16])
 def test_plain_matches_pallas_interpret_every_cache_and_group(cache, g):
     """The plain version against the reference's Pallas kernel (interpret
     mode, blocks of 4 slots, chunks of 16) at 1, 2, 4 and 16 query heads a
-    kv head, on int8, bf16 and f32 caches: f32 arithmetic on the same
+    kv head, on int8, bf16, f32 and fp16 caches: f32 arithmetic on the same
     values on both sides, so exp and summation order only, 2e-5 relative
     (about 1e-5 at f32)."""
     k, v, ks, vs = _cache_kind(cache, seed=10)
@@ -287,12 +291,12 @@ def test_kernel_matches_plain_on_card(cuda_device, quantized, g, hd, blocks):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32'])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
 @pytest.mark.parametrize('g', [1, 4, 16])
 @pytest.mark.parametrize('blocks', [(None, None), (4, 16), (2, 16), (1, 64)])
 def test_kernel_every_cache_and_group_twice_on_card(cuda_device, cache, g,
                                                     blocks):
-    """int8, bf16 and f32 caches at 1, 4 and 16 query heads a kv head
+    """int8, bf16, f32 and fp16 caches at 1, 4 and 16 query heads a kv head
     (16: four head groups of four), the picked and forced blocks: within
     2e-4 of the plain version, and a second launch gives the same bits."""
     dev = cuda_device
@@ -310,7 +314,7 @@ def test_kernel_every_cache_and_group_twice_on_card(cuda_device, cache, g,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32'])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
 @pytest.mark.parametrize('B, smax, kvh, H', [(1, 4096, 32, 32),
                                              (8, 4096, 32, 32),
                                              (8, 4096, 8, 32),
@@ -335,7 +339,7 @@ def test_kernel_matches_plain_at_the_long_cache_on_card(cuda_device, cache,
         ks = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
         vs = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
     else:
-        dt = torch.bfloat16 if cache == 'bf16' else torch.float32
+        dt = FLOAT_KINDS[cache]
         k = torch.randn(shape, generator=gen, device=dev).to(dt)
         v = torch.randn(shape, generator=gen, device=dev).to(dt)
         ks = vs = None
@@ -382,6 +386,43 @@ def test_kernel_keeps_the_small_products_of_a_quantized_cache_on_card(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('kernel', ['batch_decode', 'flash_decode'])
+@pytest.mark.parametrize('H', [32, 8])
+def test_kernel_fp16_cache_on_a_long_peaked_row_on_card(cuda_device, kernel,
+                                                        H):
+    """An fp16 cache (read as it lies, never converted on the host) over
+    up to 4096 positions at Llama-2-7B's and Llama-3-8B's heads, q of
+    scores with a spread of about 3.4 units: each row's softmax is peaked,
+    and most p lie below f16's normal range (2^-14), which B5's tensor
+    cores (G = 4) must not drop from their f16 halves.  Both kernels
+    within 2e-5 of the plain version (f32 rounding), twice to the same
+    bits."""
+    from llmc_tpu_torch.ops.flash_decode import (flash_decode_cuda,
+                                                 flash_decode_plain)
+    run, plain = ((TB.batch_decode_cuda, TB.batch_decode_plain)
+                  if kernel == 'batch_decode'
+                  else (flash_decode_cuda, flash_decode_plain))
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(19)
+    shape = (2, 8, 4096, 8 if H == 8 else 32, 128)
+    k = torch.randn(shape, generator=gen, device=dev).to(torch.float16)
+    v = torch.randn(shape, generator=gen, device=dev).to(torch.float16)
+    q = torch.randn((8, H, 128), generator=gen, device=dev) * 0.3
+    # the share of p below 2^-14 in slot 0, head 0, over the whole cache
+    s = k[1, 0, :, 0].float() @ q[0, 0]
+    assert float((torch.exp(s - s.max()) < 2 ** -14).float().mean()) > 0.5
+    for p in ([4095] * 8, [3999] * 8,
+              np.random.RandomState(5).randint(0, 4096, 8).tolist()):
+        pos = torch.tensor(p, dtype=torch.int32, device=dev)
+        got = run(q, k, v, None, None, pos, 1)
+        again = run(q, k, v, None, None, pos, 1)
+        want = plain(q, k, v, None, None, pos, 1)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+        assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-5, p[:2]
+
+
+@pytest.mark.gpu
 def test_kernel_skips_past_block_last_and_refuses_on_card(cuda_device):
     """On the card too a block stops at its last valid chunk (NaN beyond
     it never reaches the output), and the wrapper refuses what the kernel
@@ -412,7 +453,7 @@ def test_kernel_skips_past_block_last_and_refuses_on_card(cuda_device):
     with pytest.raises(ValueError, match='both'):
         TB.batch_decode_cuda(q, k.to(torch.bfloat16), v.to(torch.bfloat16),
                              None, vs, pos, 1)
-    with pytest.raises(ValueError, match='float16'):
-        TB.batch_decode_cuda(q, k.to(torch.float16), v.to(torch.float16),
+    with pytest.raises(ValueError, match='float64'):
+        TB.batch_decode_cuda(q, k.to(torch.float64), v.to(torch.float64),
                              None, None, pos, 1)
     assert TB.LAUNCHES['batch_decode'] == before

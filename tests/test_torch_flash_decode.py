@@ -81,11 +81,15 @@ def test_plain_matches_xla_chunked_reader():
     assert rel_err(got.numpy(), np.asarray(want)[:, 0]) < 2e-5
 
 
+FLOAT_KINDS = {'bf16': torch.bfloat16, 'f16': torch.float16,
+               'f32': torch.float32}
+
+
 def _cache_kind(kind, seed, kvh=KVH):
     k, v, ks, vs = _cache(kind == 'int8', seed, kvh)
     k, v, ks, vs = _t(k), _t(v), _t(ks), _t(vs)
-    if kind == 'bf16':
-        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    if kind in FLOAT_KINDS:
+        k, v = k.to(FLOAT_KINDS[kind]), v.to(FLOAT_KINDS[kind])
     return k, v, ks, vs
 
 
@@ -98,12 +102,13 @@ def _jax(a):
 
 
 @pytest.mark.parametrize('cache, g', [('f32', 1), ('f32', 4), ('f32', 16),
-                                      ('int8', 16), ('bf16', 16)])
+                                      ('int8', 16), ('bf16', 16),
+                                      ('f16', 1), ('f16', 4), ('f16', 16)])
 def test_plain_matches_pallas_at_f32_caches_and_16_heads(cache, g):
-    """An f32 cache (a float32 model's, which the reference's kernel casts
-    in its body) and 16 query heads a kv head (Llama-3.1-405B's 128 over
-    8): the plain version against the reference's Pallas kernel in
-    interpret mode, f32 arithmetic on the same values, 2e-5 relative."""
+    """An f32 or fp16 cache (which the reference's kernel casts in its
+    body) and 16 query heads a kv head (Llama-3.1-405B's 128 over 8): the
+    plain version against the reference's Pallas kernel in interpret mode,
+    f32 arithmetic on the same values, 2e-5 relative."""
     k, v, ks, vs = _cache_kind(cache, seed=13)
     q = np.random.default_rng(14).normal(size=(B, KVH * g, HD)).astype(
         np.float32)
@@ -271,13 +276,13 @@ def test_kernel_matches_plain_at_the_long_cache_on_card(cuda_device,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32'])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
 @pytest.mark.parametrize('g', [1, 4, 12, 16])
 @pytest.mark.parametrize('B, smax', [(4, 64), (8, 1024), (1, 4096)])
 def test_kernel_f32_caches_and_many_heads_on_card(cuda_device, cache, g, B,
                                                   smax):
-    """An f32 cache and up to 16 query heads a kv head (12 and 16: head
-    groups of eight, the second one short at 12) against the plain
+    """f32 and fp16 caches and up to 16 query heads a kv head (12 and 16:
+    head groups of eight, the second one short at 12) against the plain
     version on the card, 2e-4; split and unsplit plans; a rerun gives the
     same bits."""
     dev = cuda_device
@@ -292,7 +297,7 @@ def test_kernel_f32_caches_and_many_heads_on_card(cuda_device, cache, g, B,
         ks = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
         vs = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
     else:
-        dt = torch.bfloat16 if cache == 'bf16' else torch.float32
+        dt = FLOAT_KINDS[cache]
         k = torch.randn(shape, generator=gen, device=dev).to(dt)
         v = torch.randn(shape, generator=gen, device=dev).to(dt)
         ks = vs = None

@@ -1,7 +1,12 @@
 """Port parity of the KV-cache policies (llmc_tpu_torch.serve.kvcache):
 int8 codes and scales bit-equal to llmc_tpu, in-place updates at scalar
-and per-slot positions, and what the policy reads back."""
+and per-slot positions, and what the policy reads back.
 
+The reference quantizes the cache inside its jitted steps, where XLA
+folds the scale's division by a constant into a multiply by the f32
+reciprocal; the reference's policy is held here under ``jax.jit``."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,6 +14,8 @@ import torch
 
 from llmc_tpu.serve.kvcache import KVCachePolicy as JPolicy
 from llmc_tpu_torch.serve.kvcache import KVCachePolicy
+from llmc_tpu_torch.serve.paged_cache import PagedKVPolicy
+from torch_port_helpers import cuda_device  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -27,12 +34,32 @@ def _kv(seed, shape=(2, 3, 2, 16)):
 @pytest.mark.parametrize('name', ['naive_sym', 'naive_asym', 'naive4_sym'])
 def test_quant_codes_bit_equal(name):
     k, _ = _kv(0)
-    jq, js, jz = JPolicy(**POLICIES[name])._quant(jnp.asarray(k))
+    jq, js, jz = jax.jit(JPolicy(**POLICIES[name])._quant)(jnp.asarray(k))
     tq, ts, tz = KVCachePolicy(**POLICIES[name])._quant(torch.as_tensor(k))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     if jz is not None:
         np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+
+
+@pytest.mark.parametrize('symmetric, seed', [(True, 0), (False, 1)])
+def test_quant_scale_bit_equal_to_jitted_reference(symmetric, seed):
+    """On 4096 x 128 values of scale 3 the scale is the jitted reference's
+    bit for bit, a multiply by the f32 reciprocal of qmax (or of 2^bit - 1)
+    where a true division differs in 175 rows (symmetric, seed 0) and 3169
+    (asymmetric, seed 1); codes and zero points follow."""
+    x = (np.random.RandomState(seed).randn(4096, 128) * 3).astype(np.float32)
+    jp = JPolicy(method='naive', bit=8, symmetric=symmetric)
+    jq, js, jz = jax.jit(jp._quant)(jnp.asarray(x))
+    tq, ts, tz = KVCachePolicy(method='naive', bit=8,
+                               symmetric=symmetric)._quant(torch.as_tensor(x))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    if not symmetric:
+        np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+    # the eager reference divides: the case tells the two apart
+    _, es, _ = jp._quant(jnp.asarray(x))
+    assert int((np.asarray(es) != np.asarray(js)).sum()) > 100
 
 
 @pytest.mark.parametrize('name', sorted(POLICIES))
@@ -46,7 +73,8 @@ def test_update_read_scalar_pos(name):
         k, v = _kv(seed)
         jc = dict(jc, pos=jnp.asarray(pos, jnp.int32))
         tc['pos'] = pos
-        jc = jp.update(jc, 1, jnp.asarray(k), jnp.asarray(v))
+        jc = jax.jit(jp.update, static_argnums=1)(jc, 1, jnp.asarray(k),
+                                                  jnp.asarray(v))
         out = tp.update(tc, 1, torch.as_tensor(k), torch.as_tensor(v))
         assert out is tc                              # updated in place
     for key in tc:
@@ -66,8 +94,8 @@ def test_update_per_slot_positions():
     tc = tp.init_cache(3, 8, 2, 16, 2, dtype=torch.float32, device='cpu')
     pos = np.array([0, 5, 7], np.int32)
     k, v = _kv(3, (3, 1, 2, 16))
-    jc = jp.update(dict(jc, pos=jnp.asarray(pos)), 0, jnp.asarray(k),
-                   jnp.asarray(v))
+    jc = jax.jit(jp.update, static_argnums=1)(
+        dict(jc, pos=jnp.asarray(pos)), 0, jnp.asarray(k), jnp.asarray(v))
     tc['pos'] = torch.as_tensor(pos)
     tp.update(tc, 0, torch.as_tensor(k), torch.as_tensor(v))
     for key in ('k_q', 'v_q', 'k_s', 'v_s'):
@@ -77,7 +105,10 @@ def test_update_per_slot_positions():
 
 @pytest.mark.parametrize('method', ['kivi', 'sink', 'paged'])
 def test_unported_policies_raise(method):
-    with pytest.raises(NotImplementedError, match='A11'):
+    """kivi and sink are not ported (A11); the paged pool is a policy of
+    its own, PagedKVPolicy, as in the reference."""
+    match = 'PagedKVPolicy' if method == 'paged' else 'A11'
+    with pytest.raises(NotImplementedError, match=match):
         KVCachePolicy(method=method)
 
 
@@ -86,3 +117,19 @@ def test_init_cache_device_none_needs_card():
         pytest.skip('a CUDA card is present: device=None is valid here')
     with pytest.raises(RuntimeError, match='CUDA'):
         KVCachePolicy().init_cache(1, 4, 1, 16, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('policy', ['naive_sym', 'naive_asym', 'paged'])
+def test_quant_scale_card_equals_cpu_on_card(cuda_device, policy):
+    """The folded scale is the same multiply on both devices: the card's
+    codes, scales and zero points equal the CPU's, bit for bit, on the
+    4096 x 128 cases."""
+    x = (np.random.RandomState(1).randn(4096, 128) * 3).astype(np.float32)
+    pol = (PagedKVPolicy(bit=8) if policy == 'paged'
+           else KVCachePolicy(**POLICIES[policy]))
+    cpu = pol._quant(torch.as_tensor(x))
+    card = pol._quant(torch.as_tensor(x).to(cuda_device))
+    for a, b in zip(cpu, card):
+        if a is not None:
+            assert torch.equal(a, b.cpu())

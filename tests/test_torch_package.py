@@ -145,9 +145,9 @@ def test_chip_smoke_cpu_phases_tiny():
                                   steps=3, group_size=32)
     assert rec['ok'] and rec['rel_logit_err'] < chip_smoke.TOL_PARITY['w4a16']
     m, q = chip_smoke.make_model('w4a16', TINY_BF16, 'cpu', group_size=32)
-    rec = chip_smoke.phase_serve(cpu, m, q, n_requests=5, max_batch=2,
-                                 max_len=96, buckets=(16, 32),
-                                 max_prompt=30)
+    rec = chip_smoke.serve_run(cpu, m, q, n_requests=5, max_batch=2,
+                               max_len=96, buckets=(16, 32),
+                               max_prompt=30)[0]
     assert rec['all_done'] and rec['requests'] == 5
     assert rec['launches'] == ZERO_LAUNCHES
     L = TINY_BF16['num_hidden_layers']
@@ -174,9 +174,9 @@ def test_chip_smoke_cpu_phases_tiny_w4a8_and_w8(mode):
     assert rec['ok'] and rec['mode'] == mode
     m, q = chip_smoke.make_model(mode, TINY_BF16, 'cpu', group_size=32)
     assert q.get('mlp.down_proj').a_int8 == (mode == 'w4a8')
-    rec = chip_smoke.phase_serve(cpu, m, q, n_requests=4, max_batch=2,
-                                 max_len=96, buckets=(16, 32), max_prompt=30,
-                                 mode=mode)
+    rec = chip_smoke.serve_run(cpu, m, q, n_requests=4, max_batch=2,
+                               max_len=96, buckets=(16, 32), max_prompt=30,
+                               mode=mode)[0]
     assert rec['all_done'] and rec['launches'] == ZERO_LAUNCHES
     assert rec['phase'] == {'w4a8': 'serve_w4a8', 'w8a16': 'serve_w8'}[mode]
     fw, steps = rec['prefill_forwards'] + rec['decode_steps'], \
@@ -198,6 +198,32 @@ def test_chip_smoke_cpu_phases_tiny_w4a8_and_w8(mode):
     assert (b['weight_bytes'] > b4['weight_bytes']) == (mode == 'w8a16')
 
 
+def test_chip_smoke_cpu_graph_and_paged_phases_tiny():
+    """serve_graph and serve_paged at a tiny size on the CPU, where every
+    step is eager: the eager and window runs give the serve run's tokens;
+    the paged pool (int8, chunked admission) makes requests wait, gives
+    every page back, implies no decode-attention launch, and at 2 layers
+    of a float32 model gives the dense engine's tokens, fp and int8."""
+    cpu = torch.device('cpu')
+    kw = dict(n_requests=5, max_batch=2, max_len=96, buckets=(16, 32),
+              max_prompt=30)
+    m, q = chip_smoke.make_model('w4a16', TINY_BF16, 'cpu', group_size=32)
+    rec, toks, eng = chip_smoke.serve_run(cpu, m, q, **kw)
+    assert not rec['graphed'] and rec['graph_replays'] == 0
+    rec = chip_smoke.phase_serve_graph(cpu, m, q, toks, **kw)
+    assert rec['eager_tokens_equal'] and rec['window_tokens_equal']
+    assert rec['all_done'] and rec['window_launches'] == ZERO_LAUNCHES
+    rec = chip_smoke.phase_serve_paged(cpu, m, q, TINY_BF16, n_pages=6,
+                                       group_size=32, **kw)
+    assert rec['all_done'] and rec['pool_whole_at_end']
+    assert rec['requests_waited_on_the_pool']
+    assert rec['fp_pool_tokens_equal_dense_fp_at_2_layers_f32']
+    assert rec['int8_pool_requests_equal_dense_int8_at_2_layers_f32'] == 1
+    assert rec['int8_pool_tokens_equal_cpu_at_2_layers_f32']
+    assert rec['expected_launches']['flash_decode'] == 0
+    assert rec['launches'] == ZERO_LAUNCHES
+
+
 @pytest.mark.parametrize('flag', ['prefill_w8', 'decode_w8'])
 def test_chip_smoke_cpu_companion_phase_tiny(flag):
     """The w8-companion phase at a tiny size: the forwards that ride the
@@ -206,15 +232,51 @@ def test_chip_smoke_cpu_companion_phase_tiny(flag):
     L = TINY_BF16['num_hidden_layers']
     m, q = chip_smoke.companion_model(cpu, TINY_BF16, group_size=32)
     assert 'qweight8' in m.blocks[0]['mlp']['down_proj']
-    rec = chip_smoke.phase_serve(cpu, m, q, n_requests=4, max_batch=2,
-                                 max_len=96, buckets=(16, 32), max_prompt=30,
-                                 w8_flag=flag)
+    rec = chip_smoke.serve_run(cpu, m, q, n_requests=4, max_batch=2,
+                               max_len=96, buckets=(16, 32), max_prompt=30,
+                               w8_flag=flag)[0]
     assert rec['all_done'] and rec['phase'] == f'serve_w8_companion.{flag}'
     pre, steps = rec['prefill_forwards'], rec['decode_steps']
     block = steps if flag == 'prefill_w8' else 0
     assert rec['expected_launches'] == dict(
         ZERO_LAUNCHES, w4_dequant_matmul=4 * L * block + pre + steps,
         flash_decode=L * steps)
+
+
+def test_profiled_kernel_calls_read_each_wrapper_kernel():
+    """The profiler's device rows map to the wrapper that launches each
+    kernel (B5 by either of its two kernels), helpers and other kernels
+    to none, and host rows are not read."""
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+
+    def row(key, n, dev=DeviceType.CUDA):
+        return SimpleNamespace(key=key, count=n, device_type=dev)
+    rows = [
+        row('void (anonymous namespace)::w4_dequant_matmul_kernel<128, 2, '
+            'false>(CUtensorMap_st, float*)', 1024),
+        row('void (anonymous namespace)::w4_dequant_matmul_kernel<128, 1, '
+            'true>(CUtensorMap_st, float*)', 8),
+        row('void (anonymous namespace)::w4a8_dequant_matmul_kernel<8>('
+            'CUtensorMap_st)', 5),
+        row('(anonymous namespace)::quant_act_token_kernel<__nv_bfloat16, '
+            '8>(int)', 5),
+        row('void (anonymous namespace)::fd::flash_decode_kernel<0, 1>('
+            'CUtensorMap_st)', 256),
+        row('void (anonymous namespace)::batch_decode_kernel<0>(int)', 3),
+        row('void (anonymous namespace)::batch_decode_mma_kernel<1>(int)',
+            4),
+        row('void (anonymous namespace)::split_sum_kernel<false>(float '
+            'const*)', 1024),
+        row('(anonymous namespace)::x_piece_sums_kernel(__nv_bfloat16 '
+            'const*)', 1032),
+        row('w4_dequant_matmul', 99, DeviceType.CPU),
+    ]
+    prof = SimpleNamespace(key_averages=lambda: rows)
+    got = chip_smoke.profiled_kernel_calls(prof)
+    assert got == dict(w4_dequant_matmul=1032, w4a8_dequant_matmul=5,
+                       w8_dequant_matmul=0, quant_act_token=5,
+                       flash_decode=256, batch_decode=7, fp8_block_gemm=0)
 
 
 def test_bounds_follow_the_data_sheet():

@@ -3,6 +3,7 @@ weights, forward_cached prefill/decode, greedy_generate and the
 ServingEngine, held against llmc_tpu on the CPU."""
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -173,12 +174,15 @@ def test_engine_sampling_independent_of_co_scheduling(packed_pair):
     assert alone[0].output_ids == both[0].output_ids
 
 
-@pytest.mark.parametrize('kw', [dict(prefill_chunk=8), dict(mesh=object()),
+@pytest.mark.parametrize('kw', [dict(kv_policy=types.SimpleNamespace(
+                                    method='sink')),
+                                dict(mesh=object()),
                                 dict(prefill_w8=True), dict(decode_w8=True)])
 def test_engine_unported_options_raise(packed_pair, kw):
-    """Unported engine options raise instead of being ignored; so do
-    prefill_w8 / decode_w8 with qmap=None (ValueError), which the
-    reference ignores silently."""
+    """Unported engine options raise instead of being ignored (a sink KV
+    policy, which the port's KVCachePolicy cannot make, handed to the
+    engine; a mesh); so do prefill_w8 / decode_w8 with qmap=None
+    (ValueError), which the reference ignores silently."""
     _, _, tm, _ = packed_pair
     err = (ValueError if 'prefill_w8' in kw or 'decode_w8' in kw
            else NotImplementedError)
