@@ -125,6 +125,20 @@ Phases, each printing one JSON line, all of them on every run:
                   packed head) and served by ``ServingEngine`` with an
                   int8 KV cache; its logits on one prompt against the
                   same model under the fake-quant ``QMap``.
+15. ``compress`` + ``compress_serve`` of the activation-quantizing and
+                  Hessian methods, calibration 8 x 512: SmoothQuant W8A8
+                  (``configs/quantization/methods/smoothquant_w8a8.yml``)
+                  at Llama-2-7B's width and depth, packed with its per-token
+                  ``a_spec`` and served through the W8 kernel; GPTQ W4A16
+                  (``gptq_w4a16.yml``: asymmetric g128, actorder, percdamp
+                  0.01, quant_out) at Llama-2-7B's width and
+                  ``GPTQ_LAYERS`` (4) layers (its column loop is sequential
+                  torch ops), served through the W4 kernel, with the column
+                  loop's share of a block; QuaRot W4A8 with the online
+                  rotation (``quarot_w4a8.yml``) at TinyLlama-1.1B's widths
+                  and 22 layers (the reference's Hadamard does not factor
+                  Llama-2-7B's 11008), with the Hadamard's share of the
+                  fake-quant eval.
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
@@ -171,6 +185,37 @@ BF16 = torch.bfloat16
 LLAMA2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                  num_hidden_layers=32, num_attention_heads=32,
                  num_key_value_heads=32, head_dim=128, dtype='bfloat16')
+# TinyLlama-1.1B (TinyLlama/TinyLlama-1.1B-Chat-v1.0 config.json): the
+# Llama-family widths at which the reference's QuaRot with the online
+# rotation runs (5632 = 44 x 128 factors; Llama-2-7B's 11008 does not)
+TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                 num_hidden_layers=22, num_attention_heads=32,
+                 num_key_value_heads=4, head_dim=64, dtype='bfloat16')
+# the quant sections of the repository's method configs
+# (configs/quantization/methods/<name>.yml), as they stand there
+METHOD_QUANT = {
+    'smoothquant_w8a8': dict(
+        method='SmoothQuant',
+        weight=dict(bit=8, symmetric=True, granularity='per_channel'),
+        act=dict(bit=8, symmetric=True, granularity='per_token'),
+        special=dict(alpha=0.5)),
+    'gptq_w4a16': dict(
+        method='GPTQ',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        quant_out=True,
+        special=dict(actorder=True, percdamp=0.01, blocksize=128)),
+    'quarot_w4a8': dict(
+        method='Quarot',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        act=dict(bit=8, symmetric=True, granularity='per_token'),
+        special=dict(online_rotate=True)),
+}
+# GPTQ's column loop is a Python loop of torch ops, 35584 columns a
+# Llama-2-7B block at about 0.22 ms a column on an H100 (7.9 s a block):
+# the phase runs 4 of the 32 layers to stay near a minute
+GPTQ_LAYERS = 4
 
 # Tolerances, with their reasons.
 # w4 kernel vs plain (same bf16 x and packed weights, f32 plain math):
@@ -231,6 +276,17 @@ TOL_SEARCH_VS_RTN = 1.0
 # and the bf16 roundings they flip, through every layer of the run.
 # Measured on an H100 at 32 layers of Llama-2-7B width: 1.9e-2.
 TOL_COMPRESS_SERVE = 3e-2
+# ... and of a model that quantizes its activations per token (SmoothQuant
+# W8A8, packed with its a_spec): each linear's input is rounded to 8-bit
+# codes from a bf16 row in the packed run and from the fake-quant run's
+# row, and a code that the runs' last-bit differences put on the other side
+# of a rounding tie moves its products by a whole step, which the next
+# layer's codes carry on; 32 layers of it.  Measured on an H100 at
+# Llama-2-7B's width and depth: 3.8e-2 (argmax agreement 0.91), against
+# the weight-only AWQ model's 2.0e-2.  The same packed model through the
+# plain linears on the card (the kernels' own function, the weight rounded
+# to bf16 as B4 rounds it) is read beside it.
+TOL_COMPRESS_SERVE_A8 = 8e-2
 # card (bf16 activations, int8 KV) vs CPU (f32) over 2 layers at 7B width,
 # relative to the largest logit: bf16 rounding at every cast and int8 KV
 # codes that flip between the two.  Measured on an H100 with seeds 0-2
@@ -754,6 +810,11 @@ ATTN_KVQ = ((8, 4096, 8, 32, (4000,)),)
 # an fp16 cache (read as it lies) at the bench shape and at Llama-3-8B's
 # row (the tensor cores' f16 products of B5 over 4000 positions)
 ATTN_F16 = ((128, 96, 32, 32, (64,)), (8, 4096, 8, 32, (4000,)))
+# head dims off the 128-channel layout: 256 (Gemma's; the HDM = 256
+# instantiation) at Llama-3-8B's row, and 72 (rows copied by cp.async into
+# 128-channel rows) at the bench shape
+ATTN_HD256 = ((8, 4096, 8, 32, (4000,)),)
+ATTN_HD72 = ((128, 96, 32, 32, (64,)),)
 GRAPH_BELOW_MS = 0.06   # a reading under this also gets its graph time
 
 
@@ -1861,13 +1922,19 @@ def _fp8_ingest_model_type():
 
 def compress_config(cfg_kw, method, special=None, fp8_ingest=False,
                     group_size=128, n_samples=8, seq_len=512,
-                    eval_tokens=4096, eval_bs=4, seed=0):
+                    eval_tokens=4096, eval_bs=4, seed=0, quant=None):
     """The pipeline config of the ``compress`` phase: a random model from
     ``model.arch``, synthetic calibration and PPL data, W4 symmetric
-    per-group weights."""
-    quant = dict(method=method, weight=dict(
-        bit=4, symmetric=True, granularity='per_group',
-        group_size=group_size))
+    per-group weights, or ``quant`` (a method config's section; a per-group
+    weight takes ``group_size``)."""
+    if quant is not None:
+        quant = dict(quant, method=method)
+        if quant['weight'].get('granularity') == 'per_group':
+            quant['weight'] = dict(quant['weight'], group_size=group_size)
+    else:
+        quant = dict(method=method, weight=dict(
+            bit=4, symmetric=True, granularity='per_group',
+            group_size=group_size))
     if special:
         quant['special'] = dict(special)
     vocab = cfg_kw['vocab_size']
@@ -1930,16 +1997,60 @@ def search_vs_rtn(dev, config, res, blocks):
     return rows
 
 
+@contextlib.contextmanager
+def timed_hadamard(dev):
+    """Seconds and calls of the online rotation (``pre_had_apply``) inside
+    the block, each call synchronised on both sides."""
+    from llmc_tpu_torch.ops import hadamard
+    inner, acc = hadamard.pre_had_apply, dict(s=0.0, calls=0)
+
+    def timed(*a, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        _sync(dev)
+        acc['s'] += time.perf_counter() - t0
+        acc['calls'] += 1
+        return out
+    hadamard.pre_had_apply = timed
+    try:
+        yield acc
+    finally:
+        hadamard.pre_had_apply = inner
+
+
+def hadamard_share(dev, config, res):
+    """The fake-quant eval once more, the online rotation's torch ops
+    timed: their seconds, calls and share of the eval's wall time."""
+    from llmc_tpu_torch.eval.orchestrate import EvalOrchestrator
+    model = res['model']
+    orch = EvalOrchestrator(config, model)
+    with timed_hadamard(dev) as acc:
+        _sync(dev)
+        t0 = time.perf_counter()
+        ppl = orch.run('fake_quant', model, qmap=model.qmap)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    return dict(eval_fake_quant_s=wall, hadamard_s=acc['s'],
+                hadamard_calls=acc['calls'],
+                hadamard_share=acc['s'] / wall,
+                ppl_fake_quant_again=ppl['ppl_fake_quant'])
+
+
 def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
-                   **sizes):
+                   quant=None, **sizes):
     """``run_pipeline`` (build, pretrain eval, calibration data, block
     loop, transformed eval, fake-quant eval) on ``dev``; after a method
-    that searches, ``search_vs_rtn`` at the first, the middle and the last
-    block.  Returns the phase record and the pipeline's result (the
-    compressed model and its algorithm object)."""
+    that searches (``special`` given), ``search_vs_rtn`` at the first, the
+    middle and the last block.  ``quant``: a method config's section
+    instead of the W4 default; GPTQ's column loop and QuaRot's online
+    rotation get their shares of the time.  Returns the phase record and
+    the pipeline's result (the compressed model and its algorithm
+    object)."""
     from llmc_tpu_torch.main import run_pipeline
     from llmc_tpu_torch.ops import reset_launch_counts
-    config = compress_config(cfg_kw, method, special, fp8_ingest, **sizes)
+    config = compress_config(cfg_kw, method, special, fp8_ingest,
+                             quant=quant, **sizes)
     reset_launch_counts()
     res = run_pipeline(config, device=dev)
     counts, xla = read_counts()
@@ -1952,31 +2063,54 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
     L = cfg_kw['num_hidden_layers']
     searched = search_vs_rtn(dev, config, res, sorted({0, L // 2, L - 1})) \
         if special else []
-    rec = dict(phase='compress', method=method, special=special or {},
+    # GPTQ's 'transformed' model holds its compensated weights: no
+    # equivalence to hold it to
+    equivalence = method != 'GPTQ'
+    rec = dict(phase='compress', method=method,
+               special=config['quant'].get('special', {}),
                fp8_block_ingest=fp8_ingest, layers=L,
-               width=cfg_kw['hidden_size'], dtype=cfg_kw['dtype'],
+               width=cfg_kw['hidden_size'],
+               intermediate=cfg_kw['intermediate_size'],
+               dtype=cfg_kw['dtype'],
                calib=config['calib'], eval=config['eval'],
-               weight=config['quant']['weight'], **ppl,
+               weight=config['quant']['weight'],
+               act=config['quant'].get('act'), **ppl,
                ppl_transformed_rel_drift=drift,
-               tolerance_ppl_transformed=TOL_PPL_TRANSFORMED,
+               tolerance_ppl_transformed=(TOL_PPL_TRANSFORMED if equivalence
+                                          else None),
                block_output_mse=searched,
                tolerance_searched_over_rtn=TOL_SEARCH_VS_RTN,
                phase_times_s=times, block_loop_s_per_block=calib / L,
                wall_s=res['wall_s'], launches=counts, xla_branch_calls=xla,
                ok=bool(all(np.isfinite(v) for v in ppl.values())
-                       and drift <= TOL_PPL_TRANSFORMED
+                       and (drift <= TOL_PPL_TRANSFORMED or not equivalence)
                        and all(r['searched_over_rtn'] <= TOL_SEARCH_VS_RTN
                                for r in searched)))
+    stats = getattr(res['opt'], 'loop_stats', None)
+    if stats is not None:
+        rec.update(column_loop_s=stats['column_loop_s'],
+                   column_steps=stats['columns'],
+                   column_loop_share_of_block_loop=stats['column_loop_s']
+                   / calib)
+    if getattr(res['opt'], 'online_rotate', False):
+        rec.update(hadamard_share(dev, config, res))
     return rec, res
 
 
-def phase_compress_serve(dev, res, prompt_len=32, seed=0, **serve_kw):
+def phase_compress_serve(dev, res, prompt_len=32, seed=0, mode='w4a16',
+                         **serve_kw):
     """Serve what the pipeline compressed: ``pack_model`` (fused, packed
-    head) on the result's model -> ``ServingEngine`` with an int8 KV
-    cache.  Before the engine runs, the packed model's logits on one
-    prompt are held against the same model under the fake-quant ``QMap``
-    (the head's weight fake-quantized in place first, since the packed
-    head is quantized too)."""
+    head, the method's ``a_spec``) on the result's model ->
+    ``ServingEngine`` with an int8 KV cache, ``mode`` the serving path the
+    launches are counted on ('w8a16' for 8-bit weights).  Before the engine
+    runs, the packed model's logits on one prompt are held against the same
+    model under the fake-quant ``QMap`` of what packing quantizes: after the
+    method's deploy (GPTQ bakes its loop's quantization into the weights),
+    each linear's weight fake-quantized by ``wspec`` and its input by the
+    method's ``aspec``, and the head's weight fake-quantized in place (the
+    head's input is not: neither package's packed head reads ``a_spec``)."""
+    from llmc_tpu_torch.models.adapter import QMap
+    from llmc_tpu_torch.models.base import LinearQcfg
     from llmc_tpu_torch.quant.quantizer import fake_quant_weight
     from llmc_tpu_torch.serve import pack_model
     from llmc_tpu_torch.serve.decode import (FP_POLICY, forward_cached,
@@ -1996,19 +2130,28 @@ def phase_compress_serve(dev, res, prompt_len=32, seed=0, **serve_kw):
         head = model.params['lm_head']
         model.params['lm_head'] = dict(
             head, w=fake_quant_weight(opt.wspec, head['w']))
-        want = prefill_logits(opt.deploy('fake_quant'))
-        qmap = pack_model(model, opt.wspec, fuse=True, head=True)
+        opt.deploy('fake_quant')
+        want = prefill_logits(QMap({
+            p: LinearQcfg(w_spec=opt.wspec, a_spec=opt.aspec)
+            for p in model.get_layout().linears}))
+        qmap = pack_model(model, opt.wspec, a_spec=opt.aspec, fuse=True,
+                          head=True)
         got = prefill_logits(qmap)
+        with plain_linears(w_bf16=True):
+            control = prefill_logits(qmap)
     err, rel = _rel(got, want)
+    rel_control = _rel(got, control)[1]
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    rec = serve_run(dev, model, qmap, **serve_kw)[0]
+    tol = TOL_COMPRESS_SERVE if opt.aspec is None else TOL_COMPRESS_SERVE_A8
+    rec = serve_run(dev, model, qmap, mode=mode, **serve_kw)[0]
     rec.update(phase='compress_serve', method=type(opt).__name__,
+               a_spec=dataclasses.asdict(opt.aspec) if opt.aspec else None,
+               rel_logit_err_vs_same_function_control=rel_control,
                prompt=prompt_len, max_abs_logit_err_vs_fake_quant=err,
                rel_logit_err_vs_fake_quant=rel,
                argmax_agreement_vs_fake_quant=agree,
-               tolerance_vs_fake_quant=TOL_COMPRESS_SERVE,
-               ok=bool(torch.isfinite(got).all()
-                       and rel <= TOL_COMPRESS_SERVE))
+               tolerance_vs_fake_quant=tol,
+               ok=bool(torch.isfinite(got).all() and rel <= tol))
     return rec
 
 
@@ -2325,6 +2468,10 @@ def main(argv=None) -> int:
                         check_attention(name, dev, peaks, ATTN_F16,
                                         caches=('f16',))]
                  for name in attn}
+    # head dims 256 and 72, which the card refused before
+    attn_hd = {name: [check_attention(name, dev, peaks, ATTN_HD256, hd=256),
+                      check_attention(name, dev, peaks, ATTN_HD72, hd=72)]
+               for name in attn}
     # an odd N: every GEMM kernel at N = 4095 (no multiple of 2 or of the
     # 128-row tile)
     odd_n = {kind_: check_gemm(kind_, dev, peaks, [(4095, 4096, False)],
@@ -2369,6 +2516,10 @@ def main(argv=None) -> int:
                   r for rec in attn_more['flash_decode'] for r in rec[0]],
               batch_decode_f32_g16_kvq_f16=[
                   r for rec in attn_more['batch_decode'] for r in rec[0]],
+              flash_decode_head_dims_256_72=[
+                  r for rec in attn_hd['flash_decode'] for r in rec[0]],
+              batch_decode_head_dims_256_72=[
+                  r for rec in attn_hd['batch_decode'] for r in rec[0]],
               batch_decode_sweep=sweep_batch_blocks(dev),
               fp8_block_gemm=fp8[0],
               fp8_block_gemm_ragged_n=fp8_ragged[0],
@@ -2457,6 +2608,36 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
+    # the activation-quantizing and Hessian methods: SmoothQuant W8A8 at
+    # Llama-2-7B served through the W8 kernel with its per-token a_spec,
+    # GPTQ W4A16 at GPTQ_LAYERS of its layers through the W4 kernel, and
+    # QuaRot W4A8 with the online rotation at TinyLlama-1.1B's widths
+    for name, cfg_kw, mode in (
+            ('smoothquant_w8a8', LLAMA2_7B, 'w8a16'),
+            ('gptq_w4a16', dict(LLAMA2_7B, num_hidden_layers=GPTQ_LAYERS),
+             'w4a16'),
+            ('quarot_w4a8', TINYLLAMA, None)):
+        mq = METHOD_QUANT[name]
+        rec, res = phase_compress(dev, cfg_kw, mq['method'], quant=mq)
+        rec.update(card, config=f'configs/quantization/methods/{name}.yml')
+        emit(rec)
+        require(rec['ok'], f'compress {name}: a PPL is not finite or '
+                f'ppl_transformed left ppl_pretrain by '
+                f'{rec["ppl_transformed_rel_drift"]:.3g} (limit '
+                f'{TOL_PPL_TRANSFORMED})')
+        if mode is not None:
+            rec = phase_compress_serve(dev, res, mode=mode)
+            rec.update(card, config=f'configs/quantization/methods/'
+                                    f'{name}.yml')
+            emit(rec)
+            require(rec['ok'], f'compress_serve {name}: packed logits are '
+                    f'{rec["rel_logit_err_vs_fake_quant"]:.3g} off the '
+                    f'fake-quant model\'s (limit '
+                    f'{rec["tolerance_vs_fake_quant"]})')
+            require_served(rec)
+        del res
+        torch.cuda.empty_cache()
+
     require(min(launches.values()) > 0,
             f'a kernel of the main paths was never launched: {launches}')
 
@@ -2499,14 +2680,14 @@ def main(argv=None) -> int:
                       'llmc_tpu/ops/flash_decode.py:59',
                       'llmc_tpu/ops/flash_decode.py::_kernel', launches,
                       errs(attn['flash_decode'],
-                           *attn_more['flash_decode']),
+                           *attn_more['flash_decode'], *attn_hd['flash_decode']),
                       attn['flash_decode'][0][0],
                       at_attn),
         kernel_record('batch_decode', 'batch_decode.cu',
                       'llmc_tpu/ops/batch_decode.py:88',
                       'llmc_tpu/ops/batch_decode.py::_kernel', launches,
                       errs(attn['batch_decode'],
-                           *attn_more['batch_decode']),
+                           *attn_more['batch_decode'], *attn_hd['batch_decode']),
                       attn['batch_decode'][0][0],
                       at_attn),
         kernel_record('fp8_block_gemm', 'fp8_block_gemm.cu',

@@ -3,20 +3,23 @@
 
 ``BlockwiseOpt`` walks the blocks; ``BaseBlockwiseQuantization`` holds
 what every quantization algorithm shares: config parsing, the per-block
-capture + transform step, ``deploy`` and weight baking.  Forward hooks are
-``block_apply(capture=True)`` returning the subset inputs, module
-replacement is a ``QMap`` (a static per-linear policy) plus param
-transforms on one tree.  The reference's ``jax.jit`` caches have no
-counterpart: the block functions are plain functions under
+capture + transform step, static activation calibration, ``deploy`` and
+weight baking.  Forward hooks are ``block_apply(capture=True)`` returning
+the subset inputs, module replacement is a ``QMap`` (a static per-linear
+policy) plus param transforms on one tree.  The reference's ``jax.jit``
+caches have no counterpart: the block functions are plain functions under
 ``torch.no_grad()``.
 
-Ported: weight-only configs.  Activation quantization (dynamic and
-static), the double W4/W8 quantization (``bit: 48``), KV-cache
-quantization configs and online rotation raise ``NotImplementedError``.
+Ported: weight and activation quantization (dynamic, and static per
+tensor), the double W4/W8 quantization (``bit: 48``) with its budgets,
+the quantized-attention and act-fn pseudo-paths, and the QuaRot online
+rotation (``special.online_rotate``) that any method honours.  KV-cache
+quantization configs raise ``NotImplementedError`` (ROADMAP A11).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 from typing import Dict, List, Optional
@@ -27,7 +30,11 @@ from ..convert import params_to_numpy
 from ..models.adapter import BaseAdapter, QMap
 from ..models.base import LinearQcfg, get_path, has_path, set_path
 from ..quant.qspec import spec_from_config
-from ..quant.quantizer import fake_quant_weight
+from ..quant.quantizer import (fake_quant_act, fake_quant_weight,
+                               fake_quant_weight_w48,
+                               static_qparams_from_batches)
+
+F32 = torch.float32
 
 
 class BlockwiseOpt:
@@ -98,17 +105,43 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         self.quant_out = qc.get('quant_out', False)
 
         wcfg = dict(qc.get('weight', {}))
-        if wcfg.get('bit') == 48:
-            raise NotImplementedError(
-                'weight.bit=48 (double W4/W8 quantization) is not ported '
-                'yet (ROADMAP A10)')
-        self.wspec = spec_from_config(wcfg) if wcfg else None
-        if qc.get('act'):
-            raise NotImplementedError(
-                'quant.act (activation quantization, dynamic or static) is '
-                'not ported yet (ROADMAP A10)')
-        self.w_only = True
-        self.aspec = None
+        self.w48 = (wcfg.get('bit') == 48)
+        self.w48_clamps = (None, None)
+        if self.w48:
+            # bit8 / bit4 sub-dicts with optional int_range and the
+            # scales_bit / zeros_bit budgets; the legacy 'w4' key kept
+            b8 = dict(wcfg.get('bit8', {}))
+            b8.setdefault('symmetric', wcfg.get('symmetric', True))
+            b8.setdefault('granularity', wcfg.get('granularity',
+                                                  'per_channel'))
+            b4 = dict(wcfg.get('bit4', wcfg.get(
+                'w4', {'granularity': 'per_group',
+                       'group_size': wcfg.get('group_size', 128)})))
+            self.wspec = spec_from_config(dict(b8, bit=8))
+            self.wspec4 = spec_from_config(dict(b4, bit=4))
+            self.w48_clamps = (_w48_budget_clamps(b4),
+                               _w48_budget_clamps(b8))
+        else:
+            self.wspec = spec_from_config(wcfg) if wcfg else None
+            self.wspec4 = None
+
+        acfg = qc.get('act')
+        if acfg:
+            self.w_only = False
+            self.aspec = spec_from_config(dict(acfg))
+            self.act_static = acfg.get('static', False)
+            if self.act_static and self.aspec.granularity != 'per_tensor':
+                raise ValueError('only per_tensor static act quant supported')
+            self.quant_attn = acfg.get('quant_attn', False)
+            self.quant_softmax = acfg.get('quant_softmax', False)
+            self.quant_act_fn = acfg.get('quant_act_fn', False)
+        else:
+            self.w_only = True
+            self.aspec = None
+            self.act_static = False
+            self.quant_attn = False
+            self.quant_softmax = False
+            self.quant_act_fn = False
         if 'kvcache' in qc:
             raise NotImplementedError(
                 'quant.kvcache (a calibrated KV-cache quantizer in the '
@@ -117,10 +150,6 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
 
         special = qc.get('special', {}) or {}
         self.special = special
-        if special.get('online_rotate', False):
-            raise NotImplementedError(
-                'special.online_rotate (QuaRot online rotation) is not '
-                'ported yet (ROADMAP A10)')
         self.true_sequential = special.get('true_sequential', False)
         self.weight_clip = special.get('weight_clip', False)
         self.save_clip = special.get('save_clip', False)
@@ -138,16 +167,26 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         self.save_scale = special.get('save_scale', False)
         self.scale_path = special.get('scale_path')
         self.act_scales = {}
+        self.online_rotate = special.get('online_rotate', False)
         self.do_gqa_trans = special.get('do_gqa_trans', False)
         self.has_gqa = (getattr(self.model.cfg, 'num_key_value_heads', 1)
                         != getattr(self.model.cfg, 'num_attention_heads', 1))
+        # static act qparams per (block, capture key), filled in calibration
+        self.static_aqparams: Dict = {}
 
     # ------------------------------------------------------------------
-    # fake-quant weight helpers
+    # fake-quant helpers
     # ------------------------------------------------------------------
     def w_qdq(self, w, up_factor=None, low_factor=None):
+        if self.w48:
+            c4, c8 = self.w48_clamps
+            return fake_quant_weight_w48(self.wspec, self.wspec4, w,
+                                         clamps8=c8, clamps4=c4)
         return fake_quant_weight(self.wspec, w, up_factor=up_factor,
                                  low_factor=low_factor)
+
+    def a_qdq(self, a):
+        return fake_quant_act(self.aspec, a)
 
     def layer_is_ignored(self, block_idx: int, path: str) -> bool:
         if not self.mixed_precision:
@@ -158,17 +197,99 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         full = f'model.layers.{block_idx}.{path}'
         return full in self.ignored_special_names
 
-    def qcfg_for(self, block_idx: int, path: str) -> Optional[LinearQcfg]:
-        """The fake-quant policy of one linear: the single source for
-        every qmap build."""
+    def fake_quant_qcfg(self, block_idx: int, path: str
+                        ) -> Optional[LinearQcfg]:
+        """The fake-quant policy of one linear (an algorithm may override
+        it)."""
         if self.layer_is_ignored(block_idx, path):
             return None
+        if self.w48:
+            # the double quantization is no runtime w_spec: deploy() bakes
+            # it into the params
+            return LinearQcfg(a_spec=self.aspec, a_static=self.act_static)
         return LinearQcfg(w_spec=self.wspec, a_spec=self.aspec,
-                          a_static=False)
+                          a_static=self.act_static)
+
+    def _pre_had_for(self, path: str):
+        """(mode, dim) of the QuaRot online rotation ``path`` needs, or
+        None; any method honours ``special.online_rotate`` (GPTQ on a
+        rotated checkpoint)."""
+        if not self.online_rotate:
+            return None
+        if path.endswith('down_proj'):
+            return ('full', 0)
+        if path.endswith('o_proj'):
+            return ('head', self.model.cfg.head_dim)
+        return None
+
+    def with_rotation(self, qc: Optional[LinearQcfg], path: str
+                      ) -> Optional[LinearQcfg]:
+        """``qc`` with the online rotation ``path`` needs, if any."""
+        ph = self._pre_had_for(path)
+        if qc is None or ph is None or qc.pre_had is not None:
+            return qc
+        return dataclasses.replace(qc, pre_had=ph[0], pre_had_dim=ph[1])
+
+    def qcfg_for(self, block_idx: int, path: str) -> Optional[LinearQcfg]:
+        """``fake_quant_qcfg`` with the online rotation: the single source
+        for every qmap build."""
+        return self.with_rotation(self.fake_quant_qcfg(block_idx, path), path)
+
+    def transform_qmap(self) -> Optional[QMap]:
+        """The QMap of the fp / 'transformed' evals: the online rotation
+        alone, no quantization; None when nothing needs it."""
+        entries = {}
+        for p in self.layout.linears:
+            ph = self._pre_had_for(p)
+            if ph is not None:
+                entries[p] = LinearQcfg(pre_had=ph[0], pre_had_dim=ph[1])
+        return QMap(entries) if entries else None
+
+    def install_static_act_qparams(self):
+        """Write the calibrated static act qparams into each linear's
+        params (``a_scales`` / ``a_zeros``), which ``linear_apply`` reads
+        under ``a_static``."""
+        if not self.static_aqparams:
+            return
+        for b in range(self.model.n_blocks):
+            blk = self.model.blocks[b]
+            for path in self.layout.linears:
+                if not has_path(blk, path):
+                    continue
+                qp = self.static_aqparams.get(
+                    (b, self.layout.capture_key(path)))
+                if qp is None:
+                    continue
+                lin = dict(get_path(blk, path), a_scales=qp.scales.to(F32),
+                           a_zeros=qp.zeros.to(F32))
+                blk = set_path(blk, path, lin)
+            self.model.set_block(b, blk)
+
+    def act_pseudo_entries(self) -> Dict:
+        """Quantized-attention and act-fn policies: the pseudo-paths the
+        graphs query, '<pfx>.matmul_1' (q and k), '<pfx>.matmul_2' (probs
+        and v), '<pfx>.softmax' (its input) and '<mlp>.act_fn'."""
+        e = {}
+        if not (self.quant_attn or self.quant_act_fn) or self.aspec is None:
+            return e
+        qc = LinearQcfg(a_spec=self.aspec)
+        pfx = self.layout.linears[0].split('.')[0] \
+            if '.' in self.layout.linears[0] else 'attention'
+        if self.quant_attn:
+            e[f'{pfx}.matmul_1'] = qc
+            e[f'{pfx}.matmul_2'] = qc
+            if self.quant_softmax:
+                e[f'{pfx}.softmax'] = qc
+        if self.quant_act_fn:
+            has_mlp = any(p.startswith('mlp.') for p in self.layout.linears)
+            e['mlp.act_fn' if has_mlp else 'act_fn'] = qc
+        return e
 
     def fake_quant_qmap(self, block_idx: int) -> QMap:
-        return QMap({p: self.qcfg_for(block_idx, p)
-                     for p in self.layout.linears})
+        entries = {p: self.qcfg_for(block_idx, p)
+                   for p in self.layout.linears}
+        entries.update(self.act_pseudo_entries())
+        return QMap(entries)
 
     # ------------------------------------------------------------------
     # block forward / capture
@@ -199,7 +320,8 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
     # ------------------------------------------------------------------
     def block_opt(self, idx: int):
         block = self.model.blocks[idx]
-        outs, feats = self.block_forward_capture(block)
+        outs, feats = self.block_forward_capture(
+            block, qmap=self.transform_qmap())
         if not self.quant_out:
             self.inputs = outs
         block = self.block_transform(idx, block, feats)
@@ -209,6 +331,8 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         self.model.set_block(idx, block)
 
     def block_transform(self, idx: int, block, feats):
+        if self.act_static:
+            self.register_static_act_qparams(idx, feats)
         for i, subset in enumerate(self.layout.subsets):
             if not has_path(block, subset.layers[0]):
                 continue  # a mixed-arch block lacks this subset
@@ -231,6 +355,14 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         """Algorithm-specific; default no-op (RTN)."""
         return block
 
+    def register_static_act_qparams(self, idx, feats):
+        """Per-tensor static act qparams of each capture key, from the
+        calibration batches."""
+        algo = self.quant_config['act'].get('calib_algo', 'static_minmax')
+        for key, batches in feats.items():
+            self.static_aqparams[(idx, key)] = static_qparams_from_batches(
+                self.aspec, batches, algo)
+
     def update_input_feat(self, feats, subset, scales, is_gqa=False):
         """Divide the cached activations by the applied scales."""
         s = scales
@@ -250,8 +382,13 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
     def deploy(self, quant_format: str) -> QMap:
         """Build the QMap of an eval/serve stage."""
         if quant_format in ('origin_float', 'transformed'):
-            qmap = QMap({})
+            qmap = self.transform_qmap() or QMap({})
         elif quant_format == 'fake_quant':
+            if self.act_static:
+                self.install_static_act_qparams()
+            if self.w48 and not getattr(self, '_baked', False):
+                self.bake_fake_quant_weights()
+                self._baked = True
             per_block = [{p: self.qcfg_for(b, p)
                           for p in self.layout.linears}
                          for b in range(self.model.n_blocks)]
@@ -260,12 +397,28 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
             else:
                 # Block-dependent policies (ignored_layers.block_ids)
                 # cannot live in ONE flat QMap: bake the weight qdq into
-                # the params by each block's own decision; weight-only, so
-                # nothing is left for the runtime.
+                # the params by each block's own decision, and keep only
+                # the (uniform) activation policy at runtime.
                 if not getattr(self, '_baked', False):
                     self.bake_fake_quant_weights()
                     self._baked = True   # save_fake must not re-bake
-                entries = {p: None for p in self.layout.linears}
+                entries = {}
+                for p in self.layout.linears:
+                    qcs = [pb[p] for pb in per_block]
+                    live = [q for q in qcs if q is not None]
+                    a_specs = {(q.a_spec, q.a_static) for q in live}
+                    if not live or a_specs == {(None, False)}:
+                        entries[p] = None    # the weight is baked
+                    elif len(a_specs) == 1 and len(live) == len(qcs):
+                        a_spec, a_static = next(iter(a_specs))
+                        entries[p] = LinearQcfg(a_spec=a_spec,
+                                                a_static=a_static)
+                    else:
+                        raise NotImplementedError(
+                            'per-block ignored_layers combined with '
+                            'activation quantization cannot be expressed '
+                            'in the fake-quant eval path')
+            entries.update(self.act_pseudo_entries())
             qmap = QMap(entries)
         else:
             raise ValueError(f'unknown quant_format {quant_format!r}')
@@ -287,6 +440,28 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
                                     lin.get('clip_low'))
                     blk = set_path(blk, path, dict(lin, w=wq))
                 self.model.set_block(b, blk)
+
+
+def _w48_budget_clamps(cfg: dict):
+    """(scale_min, scale_max, zero_min, zero_max) from a Weight48
+    sub-spec's scales_bit / zeros_bit budgets; None keeps a default.  As
+    in the reference, the zeros' bounds come from scales_bit too."""
+    if 'scales_bit' not in cfg and 'zeros_bit' not in cfg:
+        return None
+    smin = smax = zmin = zmax = None
+    if 'scales_bit' in cfg:
+        sb = int(cfg['scales_bit'])
+        if cfg.get('scales_symmetric', True):
+            smin, smax = float(-(2 ** (sb - 1))), float(2 ** (sb - 1) - 1)
+        else:
+            smin, smax = 0.0, float(2 ** sb - 1)
+    if 'zeros_bit' in cfg:
+        sb = int(cfg.get('scales_bit', cfg['zeros_bit']))
+        if cfg.get('zeros_symmetric', True):
+            zmin, zmax = float(-(2 ** (sb - 1))), float(2 ** (sb - 1) - 1)
+        else:
+            zmin, zmax = 0.0, float(2 ** sb - 1)
+    return (smin, smax, zmin, zmax)
 
 
 def _expand_ranges(items):

@@ -4,7 +4,9 @@
 Works on the block's param tree and the captured subset inputs; v1 clamps
 the weights in place, v2 stores logit-space clip factors in the layer's
 params (``clip_up`` / ``clip_low``) that ``fake_quant_weight`` reads
-through ``learnable_range``.
+through ``learnable_range``.  Under activation quantization the sampled
+inputs are fake-quantized, as the reference does, over the [1, T, ng, gs]
+view the search holds (per token, each group of columns apart).
 
 The reference writes the group dot products as ``sum(xs * wg, -1)`` over a
 broadcast [oc, T, ng, gs] product, which XLA fuses; here the same sums are
@@ -21,9 +23,10 @@ import torch
 
 from ...models.base import get_path, has_path, set_path
 from ...quant.qspec import QuantSpec
-from ...quant.quantizer import (fake_quant_weight, learnable_range,
-                                minmax_range, qparams_from_range,
-                                quant_dequant, reshape_tensor)
+from ...quant.quantizer import (fake_quant_act, fake_quant_weight,
+                                learnable_range, minmax_range,
+                                qparams_from_range, quant_dequant,
+                                reshape_tensor)
 
 F32 = torch.float32
 
@@ -36,11 +39,9 @@ class AutoClipper:
     def __init__(self, w_only: bool, wspec: QuantSpec,
                  aspec: Optional[QuantSpec], clip_version: str,
                  clip_sym: bool, save_clip: bool, padding_mask=None):
-        if not w_only or aspec is not None:
-            raise NotImplementedError(
-                'weight clipping under activation quantization is not '
-                'ported yet (ROADMAP A10)')
+        self.w_only = w_only
         self.wspec = wspec
+        self.aspec = aspec
         self.clip_version = clip_version
         self.clip_sym = clip_sym
         self.save_clip = save_clip
@@ -110,7 +111,8 @@ class AutoClipper:
             max_val = org_max * frac
             min_val = -max_val if self.clip_sym else org_min * frac
             qw = self._fake_quant_w(wg, min_val, max_val, org_min, org_max)
-            cur = self._group_dots(xs, qw)
+            qx = xs if self.w_only else fake_quant_act(self.aspec, xs)
+            cur = self._group_dots(qx, qw)
             err = torch.mean((cur - org_out) ** 2, dim=1)[:, None, :, None]
             take = err < best_err
             best_err = torch.where(take, err, best_err)

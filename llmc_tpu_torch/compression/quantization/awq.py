@@ -16,7 +16,7 @@ from typing import List
 import torch
 
 from ...models.base import get_path, matmul_f32_acc, set_path
-from ...quant.quantizer import reshape_tensor
+from ...quant.quantizer import fake_quant_act, reshape_tensor
 from ...utils.registry import ALGO_REGISTRY
 from ..blockwise import BaseBlockwiseQuantization
 from ..transforms import repeat_gqa_scales, scale_fc_fc, scale_ln_fcs
@@ -91,6 +91,8 @@ class Awq(BaseBlockwiseQuantization):
                 wq = self.w_qdq((w.to(F32) * s_col[None, :]).to(w.dtype))
                 bp = set_path(bp, p, dict(lin, w=wq))
             x_t = x / s_col.reshape((1,) * (x.ndim - 1) + (-1,))
+            if not self.w_only:
+                x_t = fake_quant_act(self.aspec, x_t)
             out = inspect(bp, x_t, kw)
             return torch.mean((out.to(F32) - org_out.to(F32)) ** 2), scales
 

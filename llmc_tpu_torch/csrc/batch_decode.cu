@@ -83,12 +83,12 @@ constexpr int CH = 16;     // positions a warp's chunk (a TMA box's rows)
 constexpr int ST = 2;      // stages of a warp's ring
 constexpr int MAXW = 8;    // warps a CTA: the largest b_blk
 constexpr int NGT = 8;     // query heads a tensor-core warp
-constexpr int KS = HDMAX / 16;  // k steps of S, m tiles of O^T at hd = 128
+constexpr int UB = 8;      // m tiles of O^T a load of V serves
 
-// a warp's ring: ST stages of K and V, CH rows each
+// a warp's ring: ST stages of K and V, CH laid-out rows (hp) each
 template <int KIND>
-__host__ __device__ constexpr int warp_bytes(int hd) {
-  return ST * 2 * CH * hd * Elem<KIND>::ESZ;
+__host__ __device__ constexpr int warp_bytes(int hp) {
+  return ST * 2 * CH * hp * Elem<KIND>::ESZ;
 }
 
 __device__ __forceinline__ uint32_t u32_of(const void* p) {
@@ -99,16 +99,21 @@ __device__ __forceinline__ uint32_t u32_of(const void* p) {
 // chunks of the slot's prefix, and its ring.
 template <int KIND>
 struct Warp {
-  int b, kv, G, ngrp, grp, hb, GC, S, split, p, nch, active, row0, hd, lane;
+  int b, kv, G, ngrp, grp, hb, GC, S, split, p, nch, active, row0, hd, hp,
+      lane, kvh;
+  bool tma;  // the rows by TMA (hd a power of two), else by the lanes
   uint8_t* ring;
   uint64_t* full;
   const CUtensorMap *tk, *tv;
+  const uint8_t *kraw, *vraw;
 
   // false where the split lies wholly past pos
   __device__ bool init(const CUtensorMap* k_map, const CUtensorMap* v_map,
+                       const uint8_t* k_raw, const uint8_t* v_raw,
                        const int* pos, int B, int H, int KVH, int hd_,
-                       int Smax, int layer, int heads) {
-    tk = k_map, tv = v_map, hd = hd_;
+                       int hp_, int Smax, int layer, int heads) {
+    tk = k_map, tv = v_map, hd = hd_, hp = hp_;
+    kraw = k_raw, vraw = v_raw, kvh = KVH, tma = hd == hp;
     G = H / KVH, ngrp = (G + heads - 1) / heads;
     grp = blockIdx.x % ngrp, split = blockIdx.x / ngrp;
     S = gridDim.x / ngrp;
@@ -127,24 +132,49 @@ struct Warp {
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-    ring = smem + warp * warp_bytes<KIND>(hd);
-    full = reinterpret_cast<uint64_t*>(smem + nw * warp_bytes<KIND>(hd)) +
+    ring = smem + warp * warp_bytes<KIND>(hp);
+    full = reinterpret_cast<uint64_t*>(smem + nw * warp_bytes<KIND>(hp)) +
            warp * ST;
-    if (lane == 0) {
-      for (int i = 0; i < ST; ++i) wg::mbar_init(&full[i], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      for (int k = 0; k < ST && k < nch; ++k) issue(k);
+    if (tma) {
+      if (lane == 0) {
+        for (int i = 0; i < ST; ++i) wg::mbar_init(&full[i], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int k = 0; k < ST && k < nch; ++k) issue(k);
+      }
+      return true;
     }
+    // the lanes copy the rows: each lane's arrival counts, and the rows'
+    // channels past hd, never copied, are zeros
+    if (lane == 0)
+      for (int i = 0; i < ST; ++i) wg::mbar_init(&full[i], 32);
+    for (int o = lane * 16; o < warp_bytes<KIND>(hp); o += 32 * 16)
+      *reinterpret_cast<uint4*>(ring + o) = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+    for (int k = 0; k < ST && k < nch; ++k) issue(k);
     return true;
   }
   // the first position of the split's chunk k, and its valid rows
   __device__ int first(int k) const { return (split + k * S) * CH; }
   __device__ int valid(int k) const { return min(CH, p + 1 - first(k)); }
-  __device__ int half() const { return CH * hd * Elem<KIND>::ESZ; }
-  // lane 0: chunk k into stage k % ST
+  __device__ int half() const { return CH * hp * Elem<KIND>::ESZ; }
+  // chunk k into stage k % ST: by lane 0's TMA, or by every lane's 4-byte
+  // cp.async of the valid rows into rows of hp channels
   __device__ void issue(int k) {
     const int st = k % ST;
     uint8_t* buf = ring + st * 2 * half();
+    if (!tma) {
+      constexpr int ESZ = Elem<KIND>::ESZ;
+      const int words = hd * ESZ / 4, rowb = hp * ESZ;
+      for (int e = lane; e < valid(k) * words; e += 32) {
+        const int j = e / words, wd = e % words;
+        const size_t src = (((size_t)row0 + first(k) + j) * kvh + kv) *
+                               (size_t)(hd * ESZ) + 4 * wd;
+        cp_async4(buf + j * rowb + 4 * wd, kraw + src);
+        cp_async4(buf + half() + j * rowb + 4 * wd, vraw + src);
+      }
+      cp_async_arrive(&full[st]);
+      return;
+    }
     wg::mbar_expect_tx(&full[st], 2 * half());
     wg::tma_load_2d(buf, tk, &full[st], kv * hd, row0 + first(k));
     wg::tma_load_2d(buf + half(), tv, &full[st], kv * hd, row0 + first(k));
@@ -157,7 +187,9 @@ struct Warp {
   // the warp is done with chunk k: refill its stage with chunk k + ST
   __device__ void release(int k) {
     __syncwarp();
-    if (lane == 0 && k + ST < nch) {
+    if (!tma) {
+      if (k + ST < nch) issue(k + ST);
+    } else if (lane == 0 && k + ST < nch) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       issue(k + ST);
     }
@@ -173,11 +205,12 @@ struct Warp {
   }
   // the split's state (acc of gn heads, m, l) is written; the last split
   // of the (slot, kv head, head group) to arrive merges them into ctx
+  template <int HDM>
   __device__ void finish(float* work, int* arrivals, float* ctx) const {
     const size_t pair = (size_t)b * (gridDim.y) + kv;
     int* counter = arrivals + pair * ngrp + grp;
     if (warp_last_to_arrive(counter, active))
-      warp_combine_splits(work + (pair * S * G + hb) * (hd + 2),
+      warp_combine_splits<HDM>(work + (pair * S * G + hb) * (hd + 2),
                           (size_t)G * (hd + 2), active, GC, hd, ctx, counter);
   }
   __device__ float* work_row(float* work, int gh) const {
@@ -191,21 +224,26 @@ struct Warp {
 constexpr int RG = 32 / LPR;   // rows a warp reads at once: 4
 constexpr int RPL = CH / RG;   // rows a lane in a chunk: 4
 
-template <int KIND>
-__global__ void __launch_bounds__(MAXW * 32, 2)
+template <int KIND, int HDM>
+__global__ void __launch_bounds__(MAXW * 32, HDM > 128 ? 1 : 2)
     batch_decode_kernel(const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
+                        const uint8_t* __restrict__ kraw,
+                        const uint8_t* __restrict__ vraw,
                         const float* __restrict__ q,
                         const float* __restrict__ ks,
                         const float* __restrict__ vs,
                         const int* __restrict__ pos, float* __restrict__ out,
                         float* __restrict__ work, int* __restrict__ arrivals,
-                        int B, int H, int KVH, int hd, int Smax, int layer) {
-  using RowT = Row<KIND>;
+                        int B, int H, int KVH, int hd, int hp, int Smax,
+                        int layer) {
+  constexpr int CPR = HDM / LPR;  // channels a lane
+  using RowT = Row<KIND, CPR>;
   Warp<KIND> w;
-  if (!w.init(&tk, &tv, pos, B, H, KVH, hd, Smax, layer, 1)) return;
+  if (!w.init(&tk, &tv, kraw, vraw, pos, B, H, KVH, hd, hp, Smax, layer, 1))
+    return;
   const int lane = w.lane, cg = lane % LPR, rg = lane / LPR;
-  const int rowb = hd * Elem<KIND>::ESZ;
+  const int rowb = w.hp * Elem<KIND>::ESZ;
   float scur = w.scale(ks, vs, KVH, 0);
 
   // the lane's channels of q, times log2(e)
@@ -236,7 +274,7 @@ __global__ void __launch_bounds__(MAXW * 32, 2)
       for (int r = 0; r < RPL; ++r) {
         const int j = rg + RG * r;
         float kf[CPR];
-        RowT::values(kb + j * rowb, cg, hd, kf);
+        RowT::values(kb + j * rowb, cg, w.hp, kf);
         const float ksc =
             KIND == 0 ? __shfl_sync(0xffffffffu, scur, j) : 1.f;
         vsc[r] = KIND == 0 ? __shfl_sync(0xffffffffu, scur, 16 + j) : 1.f;
@@ -270,7 +308,7 @@ __global__ void __launch_bounds__(MAXW * 32, 2)
             l += pe;
             const float pv = pe * vsc[r];
             float vf[CPR];
-            RowT::values(vb + j * rowb, cg, hd, vf);
+            RowT::values(vb + j * rowb, cg, w.hp, vf);
 #pragma unroll
             for (int c = 0; c < CPR; ++c) acc[c] = fmaf(pv, vf[c], acc[c]);
           }
@@ -284,7 +322,7 @@ __global__ void __launch_bounds__(MAXW * 32, 2)
 
   // merge the warp's row groups (lanes LPR apart hold the same channels)
 #pragma unroll
-  for (int d = LPR; d < 32; d <<= 1) merge_lanes(m, l, acc, d);
+  for (int d = LPR; d < 32; d <<= 1) merge_lanes<CPR>(m, l, acc, d);
   float* ctx = out + ((size_t)w.b * H + (size_t)w.kv * w.G + w.hb) * hd;
   if (lane < LPR) {
     if (w.active == 1) {
@@ -310,7 +348,7 @@ __global__ void __launch_bounds__(MAXW * 32, 2)
       }
     }
   }
-  if (w.active > 1) w.finish(work, arrivals, ctx);
+  if (w.active > 1) w.template finish<HDM>(work, arrivals, ctx);
 }
 
 // ---- several query heads a kv head: the tensor cores ---------------------
@@ -399,37 +437,43 @@ __device__ __forceinline__ void load16(const uint8_t* p, int bytes,
   }
 }
 
-template <int KIND>
+template <int KIND, int HDM>
 __global__ void __launch_bounds__(MAXW * 32, 1)
     batch_decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
+                            const uint8_t* __restrict__ kraw,
+                            const uint8_t* __restrict__ vraw,
                             const float* __restrict__ q,
                             const float* __restrict__ ks,
                             const float* __restrict__ vs,
                             const int* __restrict__ pos,
                             float* __restrict__ out, float* __restrict__ work,
                             int* __restrict__ arrivals, int B, int H, int KVH,
-                            int hd, int Smax, int layer) {
+                            int hd, int hp, int Smax, int layer) {
   constexpr int ESZ = Elem<KIND>::ESZ;
   constexpr int KPG = 16 / (4 * ESZ);  // k steps in 16 bytes of a K span
+  constexpr int KS = HDM / 16;  // k steps of S, m tiles of O^T at most
   Warp<KIND> w;
-  if (!w.init(&tk, &tv, pos, B, H, KVH, hd, Smax, layer, NGT)) return;
+  if (!w.init(&tk, &tv, kraw, vraw, pos, B, H, KVH, hd, hp, Smax, layer,
+              NGT))
+    return;
   const int lane = w.lane, g = lane >> 2, t = lane & 3;
-  const int rowb = hd * ESZ, nks = hd / 16;  // k steps, and m tiles
+  const int rowb = hp * ESZ, nks = hp / 16;  // k steps, and m tiles
   float scur = w.scale(ks, vs, KVH, 0);
 
   // S's A operand: row g is head hb + g (rows g + 8 are zero); k step k
-  // takes channels t hd/4 + 4k + {0, 1 | 2, 3} as k = 2t, 2t + 1 | 2t + 8,
-  // 2t + 9
+  // takes channels t hp/4 + 4k + {0, 1 | 2, 3} as k = 2t, 2t + 1 | 2t + 8,
+  // 2t + 9 (q's channels past hd are 0)
   uint32_t qa[KS][2][2];  // [k step][high, low][k 2t.., k 2t + 8..]
+  const int qc0 = t * (hp / 4);
   const float* qr =
-      q + ((size_t)w.b * H + (size_t)w.kv * w.G + w.hb + g) * hd + t * (hd / 4);
+      q + ((size_t)w.b * H + (size_t)w.kv * w.G + w.hb + g) * hd + qc0;
   float4 qx[KS];
   float qm = 0.f;
 #pragma unroll
   for (int k = 0; k < KS; ++k) {
     qx[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k < nks && g < w.GC)
+    if (k < nks && g < w.GC && qc0 + 4 * k < hd)
       qx[k] = *reinterpret_cast<const float4*>(qr + 4 * k);
     qm = fmaxf(fmaxf(qm, fmaxf(fabsf(qx[k].x), fabsf(qx[k].y))),
                fmaxf(fabsf(qx[k].z), fabsf(qx[k].w)));
@@ -449,8 +493,8 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
     split2<KIND>(qx[k].x * qup, qx[k].y * qup, qa[k][0][0], qa[k][1][0]);
     split2<KIND>(qx[k].z * qup, qx[k].w * qup, qa[k][0][1], qa[k][1][1]);
   }
-  // O^T: m tile u, rows g and g + 8 are channels g hd/16 + u and
-  // (g + 8) hd/16 + u; columns 2t, 2t + 1 are heads 2t, 2t + 1
+  // O^T: m tile u, rows g and g + 8 are channels g hp/16 + u and
+  // (g + 8) hp/16 + u; columns 2t, 2t + 1 are heads 2t, 2t + 1
   float o[KS][4];
 #pragma unroll
   for (int u = 0; u < KS; ++u) o[u][0] = o[u][1] = o[u][2] = o[u][3] = 0.f;
@@ -481,7 +525,7 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
       uint32_t wd[2][4];
 #pragma unroll
       for (int n2 = 0; n2 < 2; ++n2)
-        load16(kb + (8 * n2 + g) * rowb + (t * (hd / 4) + k0 * 4) * ESZ,
+        load16(kb + (8 * n2 + g) * rowb + (qc0 + k0 * 4) * ESZ,
                min(16, (nks - k0) * 4 * ESZ), wd[n2]);
 #pragma unroll
       for (int e = 0; e < KPG; ++e) {
@@ -581,63 +625,70 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
     }
 
     // O^T += V^T P^T: lane (g, t) reads keys 2t, 2t + 1, 2t + 8, 2t + 9 at
-    // channels g hd/16 .. and (g + 8) hd/16 .. (a key past the valid ones
+    // channels g hp/16 .. and (g + 8) hp/16 .. (a key past the valid ones
     // reads 0 for a float cache: its p is 0, and 0 times a stale value
-    // must stay 0)
-    // a run: hd/16 channels, at hd = 128 8, 16 or 32 bytes (VWN words)
+    // must stay 0).  A run is hp/16 channels, read UB of them at a time (at
+    // hp = 128 the whole run: 8, 16 or 32 bytes, VWN words)
     constexpr int VWN = 2 * ESZ < 4 ? 4 : 2 * ESZ;
-    uint32_t vw[4][2][VWN];  // [key][run][word]
     const int run = nks * ESZ;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int key = 2 * t + (r & 1) + 8 * (r >> 1);
+    for (int ub = 0; ub < KS / UB; ++ub) {
+      if (ub * UB >= nks) break;
+      const int rb = min(UB, nks - ub * UB) * ESZ;  // bytes of this piece
+      uint32_t vw[4][2][VWN];  // [key][run][word]
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint8_t* src = vb + key * rowb + (g + 8 * h) * run;
+      for (int r = 0; r < 4; ++r) {
+        const int key = 2 * t + (r & 1) + 8 * (r >> 1);
 #pragma unroll
-        for (int c = 0; c < VWN; c += 4) {
-          if (4 * c < run) {
-            load16(src + 4 * c, min(16, run - 4 * c), &vw[r][h][c]);
-          } else {
-            vw[r][h][c] = vw[r][h][c + 1] = vw[r][h][c + 2] =
-                vw[r][h][c + 3] = 0u;
+        for (int h = 0; h < 2; ++h) {
+          const uint8_t* src =
+              vb + key * rowb + (g + 8 * h) * run + ub * UB * ESZ;
+#pragma unroll
+          for (int c = 0; c < VWN; c += 4) {
+            if (4 * c < rb) {
+              load16(src + 4 * c, min(16, rb - 4 * c), &vw[r][h][c]);
+            } else {
+              vw[r][h][c] = vw[r][h][c + 1] = vw[r][h][c + 2] =
+                  vw[r][h][c + 3] = 0u;
+            }
           }
-        }
 #pragma unroll
-        for (int c = 0; c < VWN; ++c) {
-          if (KIND != 0 && key >= jn) vw[r][h][c] = 0u;
-          if (KIND == 0) vw[r][h][c] ^= 0x80808080u;
+          for (int c = 0; c < VWN; ++c) {
+            if (KIND != 0 && key >= jn) vw[r][h][c] = 0u;
+            if (KIND == 0) vw[r][h][c] ^= 0x80808080u;
+          }
         }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < KS; ++u) {
-      if (u >= nks) break;
-      // A = V^T: rows (channels) g | g + 8 by keys 2t, 2t + 1 | 2t + 8,
-      // 2t + 9: element u of each run
-      uint32_t a[4], al[4] = {0u, 0u, 0u, 0u};
+      for (int ul = 0; ul < UB; ++ul) {
+        const int u = ub * UB + ul;
+        if (u >= nks) break;
+        // A = V^T: rows (channels) g | g + 8 by keys 2t, 2t + 1 | 2t + 8,
+        // 2t + 9: element u of each run
+        uint32_t a[4], al[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const uint32_t* ra = vw[2 * kk][h];      // key 2t (+ 8)
-          const uint32_t* rb = vw[2 * kk + 1][h];  // key 2t + 1 (+ 8)
-          const int reg = h + 2 * kk;  // a0 (g, 2t..), a1 (g+8), a2, a3
-          if constexpr (KIND == 0) {
-            const uint32_t sel = (u & 3) | ((4 + (u & 3)) << 8);
-            a[reg] = codes_f16x2(ra[u >> 2], rb[u >> 2], sel);
-          } else if constexpr (KIND == 1 || KIND == 3) {
-            a[reg] = __byte_perm(ra[u >> 1], rb[u >> 1],
-                                 u & 1 ? 0x7632 : 0x5410);
-          } else {
-            split2<KIND>(__uint_as_float(ra[u]), __uint_as_float(rb[u]),
-                         a[reg], al[reg]);
+          for (int kk = 0; kk < 2; ++kk) {
+            const uint32_t* ra = vw[2 * kk][h];      // key 2t (+ 8)
+            const uint32_t* rb2 = vw[2 * kk + 1][h];  // key 2t + 1 (+ 8)
+            const int reg = h + 2 * kk;  // a0 (g, 2t..), a1 (g+8), a2, a3
+            if constexpr (KIND == 0) {
+              const uint32_t sel = (ul & 3) | ((4 + (ul & 3)) << 8);
+              a[reg] = codes_f16x2(ra[ul >> 2], rb2[ul >> 2], sel);
+            } else if constexpr (KIND == 1 || KIND == 3) {
+              a[reg] = __byte_perm(ra[ul >> 1], rb2[ul >> 1],
+                                   ul & 1 ? 0x7632 : 0x5410);
+            } else {
+              split2<KIND>(__uint_as_float(ra[ul]), __uint_as_float(rb2[ul]),
+                           a[reg], al[reg]);
+            }
           }
-        }
-      mma<KIND>(o[u], a[0], a[1], a[2], a[3], pb[0][0], pb[0][1]);
-      mma<KIND>(o[u], a[0], a[1], a[2], a[3], pb[1][0], pb[1][1]);
-      if constexpr (KIND == 2)
-        mma<KIND>(o[u], al[0], al[1], al[2], al[3], pb[0][0], pb[0][1]);
+        mma<KIND>(o[u], a[0], a[1], a[2], a[3], pb[0][0], pb[0][1]);
+        mma<KIND>(o[u], a[0], a[1], a[2], a[3], pb[1][0], pb[1][1]);
+        if constexpr (KIND == 2)
+          mma<KIND>(o[u], al[0], al[1], al[2], al[3], pb[0][0], pb[0][1]);
+      }
     }
 
     w.release(i);
@@ -645,7 +696,7 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
   }
 
   // head g's l over its four lanes; lane (g, t) holds O^T of heads 2t,
-  // 2t + 1 at channels g hd/16 + u and (g + 8) hd/16 + u
+  // 2t + 1 at channels g hp/16 + u and (g + 8) hp/16 + u (stored below hd)
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
   float* ctx = out + ((size_t)w.b * H + (size_t)w.kv * w.G + w.hb) * hd;
@@ -662,24 +713,25 @@ __global__ void __launch_bounds__(MAXW * 32, 1)
 #pragma unroll
     for (int u = 0; u < KS; ++u) {
       if (u >= nks) break;
-      dst[g * nks + u] = o[u][e] * inv;
-      dst[(g + 8) * nks + u] = o[u][2 + e] * inv;
+      if (g * nks + u < hd) dst[g * nks + u] = o[u][e] * inv;
+      if ((g + 8) * nks + u < hd) dst[(g + 8) * nks + u] = o[u][2 + e] * inv;
     }
     if (w.active > 1 && g == 0) {
       dst[hd] = mh;
       dst[hd + 1] = lh;
     }
   }
-  if (w.active > 1) w.finish(work, arrivals, ctx);
+  if (w.active > 1) w.template finish<HDM>(work, arrivals, ctx);
 }
 
 // the kernel for G query heads a kv head, with the dynamic shared memory
 // of b_blk warps' rings allowed it
-template <int KIND>
+template <int KIND, int HDM>
 int prepare(int G, int hd, int b_blk,
-            decltype(&batch_decode_kernel<KIND>)* kern, int* smem) {
-  *kern = G == 1 ? batch_decode_kernel<KIND> : batch_decode_mma_kernel<KIND>;
-  *smem = 128 + b_blk * (warp_bytes<KIND>(hd) + ST * 8);
+            decltype(&batch_decode_kernel<KIND, HDM>)* kern, int* smem) {
+  *kern = G == 1 ? batch_decode_kernel<KIND, HDM>
+                 : batch_decode_mma_kernel<KIND, HDM>;
+  *smem = 128 + b_blk * (warp_bytes<KIND>(kernel_hd(hd)) + ST * 8);
   static int attr[2] = {0, 0};
   if (*smem > attr[G > 1]) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -690,11 +742,11 @@ int prepare(int G, int hd, int b_blk,
   return 0;
 }
 
-template <int KIND>
+template <int KIND, int HDM>
 int occupancy(int G, int hd, int b_blk, int* warps) {
-  decltype(&batch_decode_kernel<KIND>) kern;
+  decltype(&batch_decode_kernel<KIND, HDM>) kern;
   int smem = 0, blocks = 0;
-  int e = prepare<KIND>(G, hd, b_blk, &kern, &smem);
+  int e = prepare<KIND, HDM>(G, hd, b_blk, &kern, &smem);
   if (e == 0)
     e = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, kern, b_blk * 32, smem));
@@ -702,28 +754,34 @@ int occupancy(int G, int hd, int b_blk, int* warps) {
   return e;
 }
 
-template <int KIND>
+template <int KIND, int HDM>
 int launch(const void* q, const void* kbuf, const void* vbuf, const void* ks,
            const void* vs, const void* pos, void* out, void* work,
            void* arrivals, int B, int H, int KVH, int hd, int Smax, int L,
            int layer, int b_blk, int splits, cudaStream_t st) {
   const int G = H / KVH;
-  decltype(&batch_decode_kernel<KIND>) kern;
+  decltype(&batch_decode_kernel<KIND, HDM>) kern;
   int smem = 0;
-  int e = prepare<KIND>(G, hd, b_blk, &kern, &smem);
+  int e = prepare<KIND, HDM>(G, hd, b_blk, &kern, &smem);
   if (e != 0) return e;
   const uint64_t rows = (uint64_t)L * B * Smax;
   const uint64_t cols = (uint64_t)KVH * hd;
-  CUtensorMap tk, tv;
-  e = cached_map<KIND>(&tk, kbuf, rows, cols, hd, CH);
-  if (e == 0) e = cached_map<KIND>(&tv, vbuf, rows, cols, hd, CH);
-  if (e != 0) return e;
+  // tensor maps where the kernel reads by TMA (hd a power of two); else
+  // the lanes copy the rows and never read them
+  CUtensorMap tk = {}, tv = {};
+  if (hd == kernel_hd(hd)) {
+    e = cached_map<KIND>(&tk, kbuf, rows, cols, hd, CH);
+    if (e == 0) e = cached_map<KIND>(&tv, vbuf, rows, cols, hd, CH);
+    if (e != 0) return e;
+  }
   const int ngrp = G == 1 ? 1 : (G + NGT - 1) / NGT;
   kern<<<dim3(splits * ngrp, KVH, B / b_blk), b_blk * 32, smem, st>>>(
-      tk, tv, static_cast<const float*>(q), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<float*>(out), static_cast<float*>(work),
-      static_cast<int*>(arrivals), B, H, KVH, hd, Smax, layer);
+      tk, tv, static_cast<const uint8_t*>(kbuf),
+      static_cast<const uint8_t*>(vbuf), static_cast<const float*>(q),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(pos), static_cast<float*>(out),
+      static_cast<float*>(work), static_cast<int*>(arrivals), B, H, KVH, hd,
+      kernel_hd(hd), Smax, layer);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -731,8 +789,10 @@ int launch(const void* q, const void* kbuf, const void* vbuf, const void* ks,
 }  // namespace
 
 // kv_kind: 0 = int8 codes with f32 scales, 1 = bf16 values, 2 = f32
-// values, 3 = fp16 values.  hd <= 128 a multiple of 16, any G = H / KVH (one head on the
-// CUDA cores, more in groups of 8 on the tensor cores); B a multiple of
+// values, 3 = fp16 values.  hd <= 256 a multiple of 4 (kernel_takes_hd),
+// any G = H / KVH
+// (one head on the CUDA cores, more in groups of 8 on the tensor cores); B
+// a multiple of
 // b_blk <= 8, whose rings fit the card's 227 KB; 1 <= splits <=
 // ceil(Smax / 16).
 // With splits > 1, work is [B, KVH, splits, G, hd + 2] f32 scratch and
@@ -745,17 +805,22 @@ extern "C" int llmc_batch_decode(const void* q, const void* kbuf,
                                  int kv_kind, int b_blk, int splits,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd > dc::HDMAX || hd % 16 || H % KVH || b_blk < 1 ||
+  if (!dc::kernel_takes_hd(hd) || H % KVH || b_blk < 1 ||
       b_blk > bd::MAXW || B % b_blk || B / b_blk > 65535 || splits < 1 ||
       splits > (Smax + bd::CH - 1) / bd::CH || kv_kind < 0 || kv_kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-#define LLMC_BD_KIND(K)                                                     \
-  bd::launch<K>(q, kbuf, vbuf, ks, vs, pos, out, work, arrivals, B, H, KVH, \
-                hd, Smax, L, layer, b_blk, splits, st)
-  return kv_kind == 0   ? LLMC_BD_KIND(0)
-         : kv_kind == 1 ? LLMC_BD_KIND(1)
-         : kv_kind == 3 ? LLMC_BD_KIND(3)
-                        : LLMC_BD_KIND(2);
+#define LLMC_BD_KIND(K, HDM)                                                \
+  bd::launch<K, HDM>(q, kbuf, vbuf, ks, vs, pos, out, work, arrivals, B, H, \
+                     KVH, hd, Smax, L, layer, b_blk, splits, st)
+  if (dc::kernel_hd(hd) <= 128)
+    return kv_kind == 0   ? LLMC_BD_KIND(0, 128)
+           : kv_kind == 1 ? LLMC_BD_KIND(1, 128)
+           : kv_kind == 3 ? LLMC_BD_KIND(3, 128)
+                          : LLMC_BD_KIND(2, 128);
+  return kv_kind == 0   ? LLMC_BD_KIND(0, 256)
+         : kv_kind == 1 ? LLMC_BD_KIND(1, 256)
+         : kv_kind == 3 ? LLMC_BD_KIND(3, 256)
+                        : LLMC_BD_KIND(2, 256);
 #undef LLMC_BD_KIND
 }
 
@@ -765,11 +830,18 @@ extern "C" int llmc_batch_decode(const void* q, const void* kbuf,
 extern "C" int llmc_batch_decode_occupancy(int kv_kind, int G, int hd,
                                            int b_blk, int* warps) {
   *warps = 0;
-  if (hd > dc::HDMAX || hd % 16 || G < 1 || b_blk < 1 || b_blk > bd::MAXW ||
-      kv_kind < 0 || kv_kind > 3)
+  if (hd < 1 || hd > dc::HD_LIMIT || hd % 4 || G < 1 || b_blk < 1 ||
+      b_blk > bd::MAXW || kv_kind < 0 || kv_kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  return kv_kind == 0   ? bd::occupancy<0>(G, hd, b_blk, warps)
-         : kv_kind == 1 ? bd::occupancy<1>(G, hd, b_blk, warps)
-         : kv_kind == 3 ? bd::occupancy<3>(G, hd, b_blk, warps)
-                        : bd::occupancy<2>(G, hd, b_blk, warps);
+#define LLMC_BD_OCC(K, HDM) bd::occupancy<K, HDM>(G, hd, b_blk, warps)
+  if (dc::kernel_hd(hd) <= 128)
+    return kv_kind == 0   ? LLMC_BD_OCC(0, 128)
+           : kv_kind == 1 ? LLMC_BD_OCC(1, 128)
+           : kv_kind == 3 ? LLMC_BD_OCC(3, 128)
+                          : LLMC_BD_OCC(2, 128);
+  return kv_kind == 0   ? LLMC_BD_OCC(0, 256)
+         : kv_kind == 1 ? LLMC_BD_OCC(1, 256)
+         : kv_kind == 3 ? LLMC_BD_OCC(3, 256)
+                        : LLMC_BD_OCC(2, 256);
+#undef LLMC_BD_OCC
 }

@@ -18,6 +18,16 @@
 // and the last CTA of a (slot, kv head, head group) to arrive (an atomic
 // arrival counter, which it resets) merges the splits in split order, so
 // that a rerun gives the same bits.
+//
+// The head dim.  Both kernels are templates on HDM, the largest row they
+// lay out (128 or 256), and work on rows of hp channels in shared memory:
+// hd rounded up to a power of two, at least 16 (kernel_hd).  Where hd is a
+// power of two, hp = hd and TMA reads the rows as before.  Else a row's
+// start is no multiple of 16 bytes in general (hd 72 of int8: 72 bytes),
+// which a TMA box does not take: the kernel copies the valid rows by
+// 4-byte cp.async into rows of hp channels whose tail it zeroed once, and
+// the tail meets q's zeros in the scores and fills accumulator channels
+// that are never stored.
 
 #pragma once
 
@@ -35,7 +45,7 @@ constexpr int C = 64;           // positions a chunk (a TMA box's rows)
 constexpr int NCW = 4;          // consumer warps
 constexpr int NC = NCW * 32;    // consumer threads
 constexpr int NTH = NC + 32;    // and one producer warp
-constexpr int HDMAX = 128;
+constexpr int HD_LIMIT = 256;   // the largest head dim: HDM = 256
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int KIND>
@@ -101,14 +111,27 @@ __device__ __forceinline__ void unpack_f16(uint32_t w, float* f) {
   f[1] = v.y;
 }
 
-// A thread of the CUDA-core loops covers CPR channels of a row, LPR
-// threads a row.  It reads them in pieces of 16 bytes (PE elements), the
-// LPR threads of a row one piece each side by side: element i of the
-// thread is channel Row::channel(cg, i).
-constexpr int CPR = 16;
-constexpr int LPR = HDMAX / CPR;
+// The row a kernel lays out for head dim hd: hd rounded up to a power of
+// two, at least 16.
+__host__ __device__ inline int kernel_hd(int hd) {
+  int hp = 16;
+  while (hp < hd) hp *= 2;
+  return hp;
+}
 
-template <int KIND>
+// Whether the kernels take head dim hd: at most HD_LIMIT, and q's rows of
+// whole float4s (a cache row of 4-byte words for cp.async too).
+__host__ __device__ inline bool kernel_takes_hd(int hd) {
+  return hd >= 1 && hd <= HD_LIMIT && hd % 4 == 0;
+}
+
+// A thread of the CUDA-core loops covers CPR channels of a row, LPR
+// threads a row: CPR = HDM / LPR.  It reads them in pieces of 16 bytes (PE
+// elements), the LPR threads of a row one piece each side by side: element
+// i of the thread is channel Row::channel(cg, i).
+constexpr int LPR = 8;
+
+template <int KIND, int CPR>
 struct Row {
   static constexpr int ESZ = Elem<KIND>::ESZ;
   static constexpr int PE = 16 / ESZ;  // elements a piece
@@ -119,7 +142,7 @@ struct Row {
   }
 
   // the thread's CPR values of the row at `row` (bytes), zeros where its
-  // channels lie past hd (hd a multiple of 16: a piece is whole or out)
+  // channels lie past hd (hd the laid-out row: a piece is whole or out)
   static __device__ __forceinline__ void values(const uint8_t* row, int cg,
                                                 int hd, float* f) {
 #pragma unroll
@@ -150,6 +173,7 @@ struct Row {
 
 // Merge the online-softmax state (m, l, acc[CPR]) of this lane with the
 // lane `d` apart (the same channels of another row slice).  m is in base 2.
+template <int CPR>
 __device__ __forceinline__ void merge_lanes(float& m, float& l, float* acc,
                                             int d) {
   const float mo = __shfl_xor_sync(0xffffffffu, m, d);
@@ -225,7 +249,8 @@ __device__ __forceinline__ void combine_splits(const float* w0, size_t step,
 
 // The same merge by one warp (B5), split-major: the splits' maxima, then
 // for each split in order its weight (lane s computes split s's), and each
-// lane's channels lane + 32 k read in 128-byte rows.
+// lane's channels lane + 32 k read in 128-byte rows, hd <= HDM.
+template <int HDM>
 __device__ __forceinline__ void warp_combine_splits(const float* w0,
                                                     size_t step, int active,
                                                     int gn, int hd,
@@ -240,9 +265,9 @@ __device__ __forceinline__ void warp_combine_splits(const float* w0,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
-    float A[HDMAX / 32], Lsum = 0.f;
+    float A[HDM / 32], Lsum = 0.f;
 #pragma unroll
-    for (int k = 0; k < HDMAX / 32; ++k) A[k] = 0.f;
+    for (int k = 0; k < HDM / 32; ++k) A[k] = 0.f;
     for (int s0 = 0; s0 < active; s0 += 32) {
       const int s = s0 + lane;
       float e = 0.f, ls = 0.f;
@@ -260,14 +285,14 @@ __device__ __forceinline__ void warp_combine_splits(const float* w0,
         Lsum = fmaf(__shfl_sync(0xffffffffu, ls, t), et, Lsum);
         const float* ws = w + (size_t)(s0 + t) * step;
 #pragma unroll
-        for (int k = 0; k < HDMAX / 32; ++k)
+        for (int k = 0; k < HDM / 32; ++k)
           if (lane + 32 * k < hd)
             A[k] = fmaf(__ldcg(ws + lane + 32 * k), et, A[k]);
       }
     }
     const float inv = 1.f / fmaxf(Lsum, 1e-30f);
 #pragma unroll
-    for (int k = 0; k < HDMAX / 32; ++k)
+    for (int k = 0; k < HDM / 32; ++k)
       if (lane + 32 * k < hd)
         out[(size_t)g * hd + lane + 32 * k] = A[k] * inv;
   }
@@ -276,8 +301,8 @@ __device__ __forceinline__ void warp_combine_splits(const float* w0,
 
 // ---- host side ---------------------------------------------------------
 
-// The TMA element type of a cache kind (the box is hd elements wide: at
-// most 256 of them, where 512 bytes of f32 would not fit a byte box).
+// The TMA element type of a cache kind (the box is hp elements wide: at
+// most 256 of them, where 1024 bytes of f32 would not fit a byte box).
 template <int KIND>
 inline CUtensorMapDataType tma_type() {
   return KIND == 0   ? CU_TENSOR_MAP_DATA_TYPE_UINT8

@@ -44,7 +44,8 @@
 // - All warps on the arithmetic.  Consumer thread t owns (query head g,
 //   row slice rs, channel group cg): 16 channels of one head (int8: one
 //   16-byte shared read a row; bf16 two and f32 four, each 8 lanes over 128
-//   contiguous bytes), the rows j = rs (mod RS) of every chunk, RS = 16 /
+//   contiguous bytes; 32 channels at HDM = 256, the head dims above 128),
+//   the rows j = rs (mod RS) of every chunk, RS = 16 /
 //   NG row slices a head, NG the query heads a CTA serves (G rounded up to
 //   1, 2, 4 or 8; above 8 the heads go in groups of 8, one CTA a group, a
 //   grid dimension: each group reads its K and V again, from L2).  A score
@@ -73,23 +74,28 @@ constexpr int SLICES = NC / LPR;   // (head, row slice) pairs: 16
 constexpr int NGMAX = 8;           // query heads a CTA
 
 // KIND 0: int8 codes + f32 scales; KIND 1: bf16 values; KIND 2: f32
-// values; KIND 3: fp16 values
-template <int KIND>
+// values; KIND 3: fp16 values.  HDM: the widest laid-out row, 128 or 256.
+template <int KIND, int HDM>
 struct Ring {
   static constexpr int ESZ = Elem<KIND>::ESZ;
   // at most STAGES chunks in the ring: two in flight while one is scored
   static constexpr int STAGES = 3;
+  static constexpr int SMEM_MAX = 227 * 1024;  // a CTA's shared memory
   // CTAs an SM holds with a full ring at hd = 128 (shared memory;
-  // registers capped to match)
-  static constexpr int RESIDENT = KIND == 0 ? 4 : KIND == 2 ? 1 : 2;
+  // registers capped to match); one at HDM = 256, whose registers double
+  static constexpr int RESIDENT =
+      HDM > 128 ? 1 : KIND == 0 ? 4 : KIND == 2 ? 1 : 2;
   // K, V and, with a split's first chunk, its query rows (at most NGMAX);
-  // a multiple of 128 bytes (TMA's alignment)
-  static __host__ __device__ int stage_bytes(int hd, int G) {
-    return (2 * C * hd * ESZ + G * hd * 4 + 127) / 128 * 128;
+  // hp the laid-out row; a multiple of 128 bytes (TMA's alignment)
+  static __host__ __device__ int stage_bytes(int hp, int G) {
+    return (2 * C * hp * ESZ + G * hp * 4 + 127) / 128 * 128;
   }
-  // the ring's chunks where a split reads `chunks` at most
-  static __host__ __device__ int stages(int chunks) {
-    return chunks < STAGES ? chunks : STAGES;
+  // the ring's chunks where a split reads `chunks` at most, and as many
+  // as fit (an f32 ring at hp = 256 holds one)
+  static __host__ __device__ int stages(int chunks, int hp, int G) {
+    const int fit = (SMEM_MAX - 128) / (stage_bytes(hp, G) + 16);
+    const int s = chunks < STAGES ? chunks : STAGES;
+    return s < fit ? s : fit;
   }
   // the ring, then its mbarriers.  The row slices' merge (8 slots of hd
   // floats, m and l at most: 32 hd + 64 bytes) reuses the ring's first
@@ -115,19 +121,22 @@ __device__ __forceinline__ void row_scales(const float* __restrict__ ks,
   }
 }
 
-template <int KIND, int NG>
-__global__ void __launch_bounds__(NTH, Ring<KIND>::RESIDENT)
+template <int KIND, int NG, int HDM>
+__global__ void __launch_bounds__(NTH, Ring<KIND, HDM>::RESIDENT)
     flash_decode_kernel(const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
+                        const uint8_t* __restrict__ kraw,
+                        const uint8_t* __restrict__ vraw,
                         const float* __restrict__ q,
                         const float* __restrict__ ks,
                         const float* __restrict__ vs,
                         const int* __restrict__ pos, float* __restrict__ out,
                         float* __restrict__ work, int* __restrict__ arrivals,
-                        int B, int H, int KVH, int hd, int Smax, int layer,
-                        int cps) {
-  using R = Ring<KIND>;
-  using RowT = Row<KIND>;
+                        int B, int H, int KVH, int hd, int hp, int Smax,
+                        int layer, int cps, int ST) {
+  using R = Ring<KIND, HDM>;
+  constexpr int CPR = HDM / LPR;            // channels a thread
+  using RowT = Row<KIND, CPR>;
   constexpr int ESZ = R::ESZ;
   constexpr int RS = SLICES / NG;           // row slices a head
   constexpr int WPH = RS >= 4 ? RS / 4 : 1;  // warps a head spans
@@ -144,14 +153,16 @@ __global__ void __launch_bounds__(NTH, Ring<KIND>::RESIDENT)
   if (c0 > last_chunk) return;  // the split lies wholly past pos
   const int nch = min(c0 + cps, last_chunk + 1) - c0;
   const int active = min(S, last_chunk / cps + 1);  // splits with a row
-  const int ST = R::stages(cps);                    // the ring's chunks
+  // hp: the laid-out row (kernel_hd), ST: the ring's chunks
+  // (Ring::stages), both from the host
+  const bool tma = hd == hp;  // else the producer warp copies the rows
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  const int rowb = hd * ESZ;   // bytes of one position of one kv head
+  const int rowb = hp * ESZ;   // bytes of one laid-out row
   const int kvb = C * rowb;    // a chunk of K (or V)
-  const int stage = R::stage_bytes(hd, GC);
+  const int stage = R::stage_bytes(hp, GC);
   const int qoff = 2 * kvb;  // the query rows in a stage
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * stage);
   uint64_t* empty = full + ST;
@@ -160,13 +171,45 @@ __global__ void __launch_bounds__(NTH, Ring<KIND>::RESIDENT)
 
   if (tid == 0) {
     for (int i = 0; i < ST; ++i) {
-      wg::mbar_init(&full[i], 1);  // the TMA thread's, with the bytes
+      // the TMA thread's arrival, with the bytes; or the producer warp's
+      // 32 lanes', each once its copies land
+      wg::mbar_init(&full[i], tma ? 1 : 32);
       wg::mbar_init(&empty[i], NCW);  // one arrival a consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (!tma)  // the rows' channels past hd are never copied: zeros
+    for (int o = tid * 16; o < ST * stage; o += NTH * 16)
+      *reinterpret_cast<uint4*>(smem + o) = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
 
+  if (tid >= NC && !tma) {
+    // producer warp, a head dim that is no power of two (a row's start no
+    // multiple of 16 bytes, which TMA does not take): the chunk's valid
+    // rows by 4-byte cp.async into rows of hp channels, and the group's
+    // query rows with the first
+    const int pl = tid - NC, words = hd * ESZ / 4;
+    for (int i = 0; i < nch; ++i) {
+      const int st = i % ST, j0 = (c0 + i) * C;
+      const int jn = min(C, p - j0 + 1);
+      wg::mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
+      uint8_t* buf = smem + st * stage;
+      for (int e = pl; e < jn * words; e += 32) {
+        const int j = e / words, wd = e % words;
+        const size_t src =
+            (((size_t)row0 + j0 + j) * KVH + kv) * (size_t)(hd * ESZ) + 4 * wd;
+        cp_async4(buf + j * rowb + 4 * wd, kraw + src);
+        cp_async4(buf + kvb + j * rowb + 4 * wd, vraw + src);
+      }
+      if (i == 0) {
+        const float* qg = q + ((size_t)b * H + (size_t)kv * G + hb) * hd;
+        for (int e = pl; e < GC * hd; e += 32)
+          cp_async4(buf + qoff + 4 * e, qg + e);
+      }
+      cp_async_arrive(&full[st]);
+    }
+    return;
+  }
   if (tid >= NC) {
     // producer: one thread issues the two TMA boxes of a chunk (and, with
     // the first, the bulk copy of the group's query rows)
@@ -227,7 +270,7 @@ __global__ void __launch_bounds__(NTH, Ring<KIND>::RESIDENT)
       for (int r = 0; r < RB; ++r) {
         const int j = rs + RS * (i0 + r);
         float kf[CPR];
-        RowT::values(kb + j * rowb, cg, hd, kf);
+        RowT::values(kb + j * rowb, cg, hp, kf);
         float d0 = 0.f, d1 = 0.f;
 #pragma unroll
         for (int c = 0; c < CPR; c += 2) {
@@ -257,7 +300,7 @@ __global__ void __launch_bounds__(NTH, Ring<KIND>::RESIDENT)
             l += pe;
             const float pv = KIND == 0 ? pe * vss[r] : pe;
             float vf[CPR];
-            RowT::values(vb + j * rowb, cg, hd, vf);
+            RowT::values(vb + j * rowb, cg, hp, vf);
 #pragma unroll
             for (int c = 0; c < CPR; ++c) acc[c] = fmaf(pv, vf[c], acc[c]);
           }
@@ -278,8 +321,8 @@ __global__ void __launch_bounds__(NTH, Ring<KIND>::RESIDENT)
   // and, for NG <= 4, bit 4 hold a slice's low bits), then the WPH warps of
   // a head through shared memory, in the ring (every chunk was waited on):
   // [NG * WPH][hd] acc, then m and l
-  merge_lanes(m, l, acc, 8);
-  if (NG <= 4) merge_lanes(m, l, acc, 16);
+  merge_lanes<CPR>(m, l, acc, 8);
+  if (NG <= 4) merge_lanes<CPR>(m, l, acc, 16);
   float* red = reinterpret_cast<float*>(smem);
   float* red_m = red + NG * WPH * hd;
   float* red_l = red_m + NG * WPH;
@@ -332,32 +375,43 @@ __global__ void __launch_bounds__(NTH, Ring<KIND>::RESIDENT)
                  (size_t)G * (hd + 2), active, GC, hd, ctx, counter);
 }
 
-template <int KIND, int NG>
+template <int KIND, int NG, int HDM>
 int launch(const void* q, const void* kbuf, const void* vbuf, const void* ks,
            const void* vs, const void* pos, void* out, void* work,
            void* arrivals, int B, int H, int KVH, int hd, int Smax, int L,
            int layer, int splits, int cps, cudaStream_t st) {
-  using R = Ring<KIND>;
-  auto kern = flash_decode_kernel<KIND, NG>;
+  using R = Ring<KIND, HDM>;
+  auto kern = flash_decode_kernel<KIND, NG, HDM>;
   static bool attr = false;
   if (!attr) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         R::smem_bytes(HDMAX, NGMAX, R::STAGES));
+    cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        R::smem_bytes(HDM, NGMAX, R::stages(R::STAGES, HDM, NGMAX)));
     attr = true;
   }
+  const int hp = kernel_hd(hd);
   const uint64_t rows = (uint64_t)L * B * Smax;
   const uint64_t cols = (uint64_t)KVH * hd;
-  CUtensorMap tk, tv;
-  int e = cached_map<KIND>(&tk, kbuf, rows, cols, hd);
-  if (e == 0) e = cached_map<KIND>(&tv, vbuf, rows, cols, hd);
-  if (e != 0) return e;
+  // tensor maps where the kernel reads by TMA (hd a power of two);
+  // else it copies the rows itself and never reads them
+  CUtensorMap tk = {}, tv = {};
+  if (hd == hp) {
+    int e = cached_map<KIND>(&tk, kbuf, rows, cols, hd);
+    if (e == 0) e = cached_map<KIND>(&tv, vbuf, rows, cols, hd);
+    if (e != 0) return e;
+  }
   const int G = H / KVH, ngrp = (G + NGMAX - 1) / NGMAX;
-  kern<<<dim3(splits * ngrp, KVH, B), NTH,
-         R::smem_bytes(hd, G < NGMAX ? G : NGMAX, R::stages(cps)), st>>>(
-      tk, tv, static_cast<const float*>(q), static_cast<const float*>(ks),
+  const int GS = G < NGMAX ? G : NGMAX;
+  const int stages = R::stages(cps, hp, GS);
+  kern<<<dim3(splits * ngrp, KVH, B), NTH, R::smem_bytes(hp, GS, stages),
+         st>>>(
+      tk, tv, static_cast<const uint8_t*>(kbuf),
+      static_cast<const uint8_t*>(vbuf), static_cast<const float*>(q),
+      static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(pos),
       static_cast<float*>(out), static_cast<float*>(work),
-      static_cast<int*>(arrivals), B, H, KVH, hd, Smax, layer, cps);
+      static_cast<int*>(arrivals), B, H, KVH, hd, hp, Smax, layer, cps,
+      stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -367,13 +421,18 @@ int dispatch_g(int G, const void* q, const void* kbuf, const void* vbuf,
                void* work, void* arrivals, int B, int H, int KVH, int hd,
                int Smax, int L, int layer, int splits, int cps,
                cudaStream_t st) {
-#define LLMC_FD_LAUNCH(NG)                                                  \
-  launch<KIND, NG>(q, kbuf, vbuf, ks, vs, pos, out, work, arrivals, B, H, \
-                   KVH, hd, Smax, L, layer, splits, cps, st)
-  return G <= 1   ? LLMC_FD_LAUNCH(1)
-         : G <= 2 ? LLMC_FD_LAUNCH(2)
-         : G <= 4 ? LLMC_FD_LAUNCH(4)
-                  : LLMC_FD_LAUNCH(8);
+#define LLMC_FD_LAUNCH(NG, HDM)                                             \
+  launch<KIND, NG, HDM>(q, kbuf, vbuf, ks, vs, pos, out, work, arrivals, B, \
+                        H, KVH, hd, Smax, L, layer, splits, cps, st)
+  if (kernel_hd(hd) <= 128)
+    return G <= 1   ? LLMC_FD_LAUNCH(1, 128)
+           : G <= 2 ? LLMC_FD_LAUNCH(2, 128)
+           : G <= 4 ? LLMC_FD_LAUNCH(4, 128)
+                    : LLMC_FD_LAUNCH(8, 128);
+  return G <= 1   ? LLMC_FD_LAUNCH(1, 256)
+         : G <= 2 ? LLMC_FD_LAUNCH(2, 256)
+         : G <= 4 ? LLMC_FD_LAUNCH(4, 256)
+                  : LLMC_FD_LAUNCH(8, 256);
 #undef LLMC_FD_LAUNCH
 }
 
@@ -381,7 +440,9 @@ int dispatch_g(int G, const void* q, const void* kbuf, const void* vbuf,
 }  // namespace
 
 // kv_kind: 0 = int8 codes with f32 scales, 1 = bf16 values, 2 = f32
-// values, 3 = fp16 values.  hd <= 128 a multiple of 16, any G = H / KVH (in groups of 8);
+// values, 3 = fp16 values.  hd <= 256 a multiple of 4 (kernel_takes_hd),
+// any G = H / KVH
+// (in groups of 8);
 // splits x cps chunks of 64 positions cover Smax.  With splits > 1, work
 // is [B, KVH, splits, G, hd + 2] f32 scratch and arrivals [B * KVH *
 // ceil(G / 8)] int32 zeros, left zero by the launch.
@@ -393,7 +454,7 @@ extern "C" int llmc_flash_decode(const void* q, const void* kbuf,
                                  int kv_kind, int splits, int cps,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd > dc::HDMAX || hd % 16 || H % KVH || splits < 1 ||
+  if (!dc::kernel_takes_hd(hd) || H % KVH || splits < 1 ||
       splits * cps * dc::C < Smax || kv_kind < 0 || kv_kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
 #define LLMC_FD_KIND(K)                                                    \

@@ -5,8 +5,10 @@ calibration data -> blockwise optimization -> evals -> save.  Entry points:
     run_pipeline(cfg_dict, device=None)
 
 ``device=None`` is the CUDA device, and raises without one; the CPU is
-taken only when asked for.  Ported: the weight-only quantization methods
-registered in ``ALGO_REGISTRY`` (RTN, Awq), PPL evals at ``pretrain`` /
+taken only when asked for.  Ported: the quantization methods registered
+in ``ALGO_REGISTRY`` (RTN, Awq, SmoothQuant, GPTQ, Quarot, OsPlus,
+LlmInt8; their options checked by ``check_special`` before any heavy
+work), weight and activation quantization, PPL evals at ``pretrain`` /
 ``transformed`` / ``fake_quant``, ``save_trans`` / ``save_fake``.  Data
 parallel calibration, sparsification, the backend exports and the
 external evals raise ``NotImplementedError``.
@@ -54,7 +56,11 @@ def _check_ported(config: Cfg) -> None:
         if modality != 'language':
             raise NotImplementedError(
                 f'modality {modality!r} is not ported yet (ROADMAP A13)')
-        ALGO_REGISTRY[mcfg['method']]   # an unknown algorithm raises here
+        # an unknown algorithm raises here; an invalid option combination
+        # raises before any heavy work (eval_pretrain can take minutes)
+        check = getattr(ALGO_REGISTRY[mcfg['method']], 'check_special', None)
+        if check is not None:
+            check(mcfg.get('special', {}) or {})
 
 
 def run_pipeline(config: Dict, device=None) -> Dict:
@@ -96,8 +102,11 @@ def run_pipeline(config: Dict, device=None) -> Dict:
             blockwise_opt.run_block_loop()
 
     if orch.wants('transformed'):
+        # an online-rotate checkpoint keeps its Hadamard in the fp evals
+        tmap = (blockwise_opt.transform_qmap()
+                if blockwise_opt is not None else None)
         with timer.phase('eval_transformed'):
-            results.update(orch.run('transformed', model))
+            results.update(orch.run('transformed', model, qmap=tmap))
     if blockwise_opt is not None and orch.wants('fake_quant_wo_kv'):
         raise NotImplementedError(
             'eval_pos fake_quant_wo_kv needs a KV-cache quantizer in the '

@@ -2,12 +2,15 @@
 
 Params are nested dicts of tensors under the reference's HF-style paths;
 ``linear_apply`` applies one linear with its static ``LinearQcfg``
-policy.  Ported: the fp path, the weight fake-quant of an unbaked
-``w_spec`` (with the layer's stored clip factors), and the packed paths
-(W4A16, W4A8 through ``a_int8``, W8A16, and the w8 companion through
-``w8_alt``).  The other ``LinearQcfg`` fields are kept so that a policy
-means the same in both packages, and raise ``NotImplementedError`` when
-set.
+policy, in the reference's order: the QuaRot online rotation
+(``pre_had``), the LLM.int8 outlier decomposition
+(``a_outlier_threshold``), the activation fake-quant (``a_spec``, dynamic
+or from the layer's calibrated ``a_scales`` / ``a_zeros`` with
+``a_static``), then the packed weight (W4A16, W4A8 through ``a_int8``,
+W8A16, the w8 companion through ``w8_alt``) or the fp weight with its
+fake-quant (an unbaked ``w_spec``, with the layer's stored clip factors).
+``ste`` and ``mixed_cols`` are kept so that a policy means the same in
+both packages, and raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..quant.qspec import QuantSpec
-from ..quant.quantizer import fake_quant_weight
+from ..quant.quantizer import (QParams, fake_quant_act, fake_quant_act_static,
+                               fake_quant_act_masked, fake_quant_weight,
+                               fake_quant_weight_masked)
 
 F32 = torch.float32
 
@@ -44,11 +49,8 @@ class LinearQcfg:
 
 # LinearQcfg fields the port does not serve yet -> the ROADMAP item
 _UNPORTED = (
-    ('a_spec', 'activation fake-quant (ROADMAP A10)'),
-    ('a_static', 'static activation qparams (ROADMAP A10)'),
-    ('a_outlier_threshold', 'LLM.int8 decomposition (ROADMAP A10)'),
-    ('pre_had', 'QuaRot online rotation (ROADMAP A10)'),
-    ('ste', 'straight-through rounding (ROADMAP A10)'),
+    ('ste', 'straight-through rounding for OmniQuant / TesseraQ / '
+            'NormTweaking (ROADMAP A10)'),
     ('mixed_cols', 'QUIK mixed columns (ROADMAP A10)'),
 )
 
@@ -63,10 +65,39 @@ def check_qcfg(qcfg: Optional[LinearQcfg]) -> None:
                 f'LinearQcfg.{name}={v!r}: {what} is not ported yet')
 
 
+def _fp_dot(p: Dict, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    y = matmul_f32_acc(x, w).to(x.dtype)
+    if p.get('b') is not None:
+        y = y + p['b']
+    return y
+
+
 def linear_apply(p: Dict, x: torch.Tensor,
                  qcfg: Optional[LinearQcfg] = None) -> torch.Tensor:
     """y = x @ W^T + b, HF (out_features, in_features) weight layout."""
     check_qcfg(qcfg)
+    if qcfg is not None and qcfg.pre_had is not None:
+        from ..ops.hadamard import pre_had_apply
+        x = pre_had_apply(x, qcfg.pre_had, qcfg.pre_had_dim)
+    if qcfg is not None and qcfg.a_outlier_threshold is not None:
+        # LLM.int8: the columns whose activation absmax exceeds the
+        # threshold stay fp in both the activation and the weight, and the
+        # int qparams come from the other columns alone
+        red = tuple(range(x.ndim - 1))
+        col_max = torch.amax(torch.abs(x.to(F32)), dim=red)
+        int_mask = col_max <= qcfg.a_outlier_threshold
+        if qcfg.a_spec is not None:
+            x = fake_quant_act_masked(qcfg.a_spec, x, int_mask)
+        w = p['w']
+        if qcfg.w_spec is not None and not qcfg.w_baked:
+            w = fake_quant_weight_masked(qcfg.w_spec, w, int_mask)
+        return _fp_dot(p, x, w)
+    if qcfg is not None and qcfg.a_spec is not None:
+        if qcfg.a_static:
+            x = fake_quant_act_static(qcfg.a_spec, x,
+                                      QParams(p['a_scales'], p['a_zeros']))
+        else:
+            x = fake_quant_act(qcfg.a_spec, x)
     if qcfg is not None and qcfg.w_packed:
         from ..ops.dequant_matmul import dequant_matmul
         if qcfg.w8_alt:   # the per-channel int8 companion copy
@@ -93,13 +124,13 @@ def matmul_f32_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attn_act_fq(qmap, path: str, t: torch.Tensor) -> torch.Tensor:
-    """Attention-internal fake-quant hook; the port serves none yet."""
+    """Fake-quantize an attention-internal tensor where the QMap holds a
+    policy for its pseudo-path ('self_attn.matmul_1' and the like): the
+    reference's quantized matmul, softmax and act-fn wrappers."""
     qc = qmap.get(path) if qmap is not None else None
     if qc is None or qc.a_spec is None:
         return t
-    raise NotImplementedError(
-        f'{path}: attention activation fake-quant is not ported yet '
-        f'(ROADMAP A10)')
+    return fake_quant_act(qc.a_spec, t)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

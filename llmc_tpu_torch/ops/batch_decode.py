@@ -33,7 +33,7 @@ from ..utils.device import sm_count
 from . import _build
 from .flash_decode import (KERNEL_CHUNK, KIND_ID, KINDS,
                            check_cache_operands, combine_splits,
-                           decode_scratch, online_softmax_step)
+                           decode_scratch, kernel_hd, online_softmax_step)
 
 F32 = torch.float32
 
@@ -52,8 +52,9 @@ _KIND_ITEMSIZE = {'int8': 1, 'bf16': 2, 'f16': 2, 'f32': 4}
 
 
 def warp_ring_bytes(hd: int, itemsize: int) -> int:
-    """Shared memory of one warp's ring (csrc/batch_decode.cu)."""
-    return RING_STAGES * 2 * WARP_CHUNK * hd * itemsize
+    """Shared memory of one warp's ring (csrc/batch_decode.cu): rows of the
+    laid-out head dim, ``kernel_hd(hd)``."""
+    return RING_STAGES * 2 * WARP_CHUNK * kernel_hd(hd) * itemsize
 
 
 def _cta_smem(b_blk: int, hd: int, itemsize: int) -> int:

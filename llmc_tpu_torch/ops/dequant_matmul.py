@@ -279,17 +279,20 @@ def _int8_dot(xq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     exact.  The reference leaves this dot to XLA, outside any Pallas
     kernel, so on the card it is ``torch._int_mm``, which refuses 16 rows
     or fewer: the rows are padded to a multiple of 8, at least 32, and
-    the result sliced.  On the CPU it is an int32 matmul."""
+    the result sliced; it also takes K and N in multiples of 8 only, so
+    both are zero-padded to them (exact: a zero code adds nothing) and the
+    columns sliced.  On the CPU it is an int32 matmul."""
     if not xq.is_cuda:
         return torch.matmul(xq.to(torch.int32), w8.to(torch.int32).T)
     M, K = xq.shape
-    if K % 8 or w8.shape[0] % 8:
-        raise ValueError(f'the int8 dot on the card needs K and N in '
-                         f'multiples of 8, got K={K}, N={w8.shape[0]}')
+    N = w8.shape[0]
     Mp = max(32, -(-M // 8) * 8)
-    if Mp != M:
-        xq = torch.nn.functional.pad(xq, (0, 0, 0, Mp - M))
-    return torch._int_mm(xq.contiguous(), w8.T)[:M]
+    Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp) != (M, K):
+        xq = torch.nn.functional.pad(xq, (0, Kp - K, 0, Mp - M))
+    if (Np, Kp) != (N, K):
+        w8 = torch.nn.functional.pad(w8, (0, Kp - K, 0, Np - N))
+    return torch._int_mm(xq.contiguous(), w8.T)[:M, :N]
 
 
 def w8a8_channel_matmul(x, w8, scales8, out_dtype=None) -> torch.Tensor:

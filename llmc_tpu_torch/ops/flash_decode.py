@@ -40,12 +40,33 @@ KIND_ID = {'int8': 0, 'bf16': 1, 'f32': 2, 'f16': 3}
 # (csrc/flash_decode.cu, Ring)
 RESIDENT = {'int8': 4, 'bf16': 2, 'f32': 1, 'f16': 2}
 HEAD_GROUP = 8      # query heads a CTA of this kernel: more, a grid dim
+HD_LIMIT = 256      # the largest head dim of both decode kernels
 # per device: the split workspace (f32) and one int32 arrival counter a
 # (slot, kv head, head group), shared by this kernel and batch_decode.cu.
 # They only grow, so their addresses stay put once the largest shape has
 # run (a captured CUDA graph keeps them); the counters are zero between
 # launches (each launch's last split resets its own).
 _SCRATCH: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+
+def kernel_hd(hd: int) -> int:
+    """The row both decode kernels lay out in shared memory for head dim
+    ``hd``: hd rounded up to a power of two, at least 16
+    (``csrc/decode_common.cuh``).  Where that is hd, TMA reads the rows;
+    else the kernel copies them by cp.async and zeros the tail.  The
+    instantiation for rows of up to 128 channels serves hd <= 128, the one
+    for 256 the rest."""
+    hp = 16
+    while hp < hd:
+        hp *= 2
+    return hp
+
+
+def kernel_takes_hd(hd: int) -> bool:
+    """Whether the decode kernels take head dim ``hd``: at most
+    ``HD_LIMIT``, and a multiple of 4 (q's rows of whole float4s, a cache
+    row of 4-byte words)."""
+    return 1 <= hd <= HD_LIMIT and hd % 4 == 0
 
 
 def cache_kind(kbuf: torch.Tensor, ks) -> str:
@@ -207,10 +228,13 @@ def check_cache_operands(q, kbuf, vbuf, ks, vs, pos, layer: int) -> str:
     the cache kind."""
     B, H, hd = q.shape
     L, Bk, smax, kvh, hdk = kbuf.shape
-    if (Bk, hdk) != (B, hd) or H % kvh or hd > 128 or hd % 16:
-        raise ValueError(f'the kernel takes a head dim of at most 128, a '
-                         f'multiple of 16, and H a multiple of KVH; got q '
-                         f'{tuple(q.shape)}, cache {tuple(kbuf.shape)}')
+    if (Bk, hdk) != (B, hd) or H % kvh:
+        raise ValueError(f'q and the cache disagree, or H is no multiple '
+                         f'of KVH; got q {tuple(q.shape)}, cache '
+                         f'{tuple(kbuf.shape)}')
+    if not kernel_takes_hd(hd):
+        raise ValueError(f'the kernels take a head dim of at most '
+                         f'{HD_LIMIT}, a multiple of 4; got {hd}')
     if not 0 <= int(layer) < L:
         raise ValueError(f'layer {layer} out of range [0, {L})')
     if (ks is None) != (vs is None):

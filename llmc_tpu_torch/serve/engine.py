@@ -431,7 +431,8 @@ class ServingEngine(torch.nn.Module):
             if n_run * ce > self.S:    # odd bucket/chunk ratio: one shot
                 ce, n_run = bucket, 1
             if self.paged:
-                need = max(n_run * ce, P + req.max_new_tokens)
+                # capped at max_len: a slot retires at max_len - 1
+                need = min(max(n_run * ce, P + req.max_new_tokens), self.S)
                 if not self.allocator.can_admit(need):
                     self.stats['pool_waits'] += 1
                     break              # pool exhausted: the request waits
@@ -478,8 +479,9 @@ class ServingEngine(torch.nn.Module):
             P = len(req.prompt_ids)
             bucket = self._bucket(P)
             if self.paged:
-                # the page budget covers the bucket's scatter + generation
-                need = max(bucket, P + req.max_new_tokens)
+                # the page budget covers the bucket's scatter + generation,
+                # capped at max_len: a slot retires at max_len - 1
+                need = min(max(bucket, P + req.max_new_tokens), self.S)
                 if not self.allocator.can_admit(need):
                     self.stats['pool_waits'] += 1
                     break              # pool exhausted: the request waits

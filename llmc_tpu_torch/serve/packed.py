@@ -5,8 +5,11 @@ dequant-matmul kernels: W4A16, W4A8 (``a_int8``: per-token int8
 activations on the block linears, the head stays weight-only), W8A16
 (``QuantSpec(bit=8)``) and the per-channel int8 companion copy
 (``w8_prefill``: ``qweight8`` / ``scales8`` beside every block linear,
-read through ``prefill_qmap_from``'s QMap).  Activation fake-quant
-(``a_spec``) is not ported yet (ROADMAP A10) and raises.
+read through ``prefill_qmap_from``'s QMap).  ``a_spec`` puts a dynamic
+activation fake-quant before every packed linear (the head too, as in the
+reference): a W8 per-channel SmoothQuant model then serves through the W8
+kernel and a W4 one through the W4 kernel, each on fake-quantized
+activations.
 """
 
 from __future__ import annotations
@@ -25,12 +28,6 @@ from ..quant.quantizer import real_quant_weight
 from ..utils.device import resolve_device
 
 F32 = torch.float32
-
-
-def _no_a_spec(a_spec) -> None:
-    if a_spec is not None:
-        raise NotImplementedError(
-            'activation fake-quant (a_spec) is not ported yet (ROADMAP A10)')
 
 
 def _linear_dims(cfg):
@@ -63,8 +60,8 @@ def packed_qmap(cfg, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
     """QMap whose entries carry per-layer QMeta for the kernel path;
     ``fuse`` adds the qkv_proj / gate_up_proj entries, ``head`` the packed
     lm_head.  ``a_int8`` (W4A8) applies to the block linears; the head
-    stays weight-only, its logits feed sampling."""
-    _no_a_spec(a_spec)
+    stays weight-only, its logits feed sampling.  ``a_spec`` fake-quantizes
+    every entry's input."""
     pre_t = pre_t and int(wspec.bit) == 4
     dims = dict(_linear_dims(cfg))
     if fuse:
@@ -77,6 +74,7 @@ def packed_qmap(cfg, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
         dims['lm_head'] = (cfg.vocab_size, cfg.hidden_size)
     return QMap({path: LinearQcfg(w_packed=True,
                                   qmeta=_meta(wspec, o, i, pre_t),
+                                  a_spec=a_spec,
                                   a_int8=a_int8 and path != 'lm_head')
                  for path, (o, i) in dims.items()})
 
@@ -200,8 +198,8 @@ def pack_model(model, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
                a_int8: bool = False, w8_prefill: bool = False) -> QMap:
     """In place: pack every block's linears; returns the serving QMap.
     ``a_int8`` serves W4A8; ``w8_prefill`` also stores each block linear's
-    per-channel int8 companion (twice the weight bytes)."""
-    _no_a_spec(a_spec)
+    per-channel int8 companion (twice the weight bytes); ``a_spec`` the
+    per-token activation fake-quant of every packed linear."""
     layout = model.get_layout()
     for i in range(model.n_blocks):
         model.set_block(i, pack_block(model.blocks[i], model.cfg, wspec,
@@ -210,7 +208,7 @@ def pack_model(model, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
     if head:
         model.params = pack_head(model.params, model.cfg, wspec,
                                  pre_t=pre_t)
-    return packed_qmap(model.cfg, wspec, fuse=fuse, pre_t=pre_t,
+    return packed_qmap(model.cfg, wspec, a_spec, fuse=fuse, pre_t=pre_t,
                        head=head and not model.cfg.tie_word_embeddings,
                        a_int8=a_int8)
 

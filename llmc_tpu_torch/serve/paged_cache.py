@@ -41,20 +41,21 @@ F32 = torch.float32
 class PagedKVPolicy:
     """Paged KV cache (duck-types ``KVCachePolicy``).
 
-    bit=0: a pool in the model's dtype.  bit=8: symmetric per-(token, head)
-    int8 codes with f32 scales; the read multiplies the K scale into the
-    scores and the V scale into the probabilities."""
+    bit=0: a pool in the model's dtype.  bit=2..8: symmetric per-(token,
+    head) codes in int8 storage, in -qmax-1..qmax, with f32 scales (the
+    dense ``naive`` policy's widths); the read multiplies the K scale into
+    the scores and the V scale into the probabilities."""
 
     method: str = 'paged'
     page_size: int = 16
     n_pages: int = 256
     max_pages: int = 64          # per-slot page-table length
-    bit: int = 0                 # 0 = fp, 8 = int8 symmetric
+    bit: int = 0                 # 0 = fp, 2..8 = symmetric codes
 
     def __post_init__(self):
-        if self.bit not in (0, 8):
+        if self.bit != 0 and not 2 <= self.bit <= 8:
             raise ValueError(f'the paged pool holds fp values (bit=0) or '
-                             f'int8 codes (bit=8); got bit={self.bit}')
+                             f'2- to 8-bit codes; got bit={self.bit}')
 
     def init_cache(self, batch: int, max_len: int, kv_heads: int,
                    head_dim: int, n_blocks: int, dtype=torch.bfloat16,
@@ -85,7 +86,7 @@ class PagedKVPolicy:
         return cache
 
     def _quant(self, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Symmetric per-(token, head) int8 over head_dim; the scale is the
+        """Symmetric per-(token, head) codes over head_dim; the scale is the
         jitted reference's multiply by the f32 reciprocal of qmax (as
         ``KVCachePolicy._quant``)."""
         qmax = 2 ** (self.bit - 1) - 1
@@ -181,6 +182,10 @@ class PageAllocator:
         if len(self.free) < n:
             raise RuntimeError(f'page pool exhausted: {n} pages wanted, '
                                f'{len(self.free)} free')
+        if n > self.policy.max_pages:
+            # checked before any page leaves the free list
+            raise ValueError(f'{n_tokens} tokens need {n} pages, more than '
+                             f'the {self.policy.max_pages} of a table row')
         pages = [self.free.pop() for _ in range(n)]
         self.owned[slot] = pages
         row = torch.full((self.policy.max_pages,), -1, dtype=torch.int32)

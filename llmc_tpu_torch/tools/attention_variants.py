@@ -50,7 +50,7 @@ _COPY = '''  // the chunk's scales by cp.async into a buffer beside the rings
         (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
     const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
     return reinterpret_cast<float*>(
-               smem + nw * (warp_bytes<KIND>(hd) + ST * 8)) +
+               smem + nw * (warp_bytes<KIND>(hp) + ST * 8)) +
            warp * ST * 32;
   }
   __device__ void copy(const float* ks, const float* vs, int KVH, int k) {
@@ -87,16 +87,16 @@ VARIANTS = {
          1),
         ('    scur = snext;\n',
          '    if (i + ST < w.nch) w.copy(ks, vs, KVH, i + ST);\n', 2),
-        ('*smem = 128 + b_blk * (warp_bytes<KIND>(hd) + ST * 8);',
-         '*smem =\n'
-         '      128 + b_blk * (warp_bytes<KIND>(hd) + ST * 8 + ST * 128);',
+        ('*smem = 128 + b_blk * (warp_bytes<KIND>(kernel_hd(hd)) + ST * 8);',
+         '*smem = 128 + b_blk * (warp_bytes<KIND>(kernel_hd(hd)) + ST * 8 +\n'
+         '                          ST * 128);',
          1)],
     # one query head a kv head on the tensor cores too (as GQA), instead
     # of the CUDA-core kernel
     'mma_one_head': [
-        ('*kern = G == 1 ? batch_decode_kernel<KIND> : '
-         'batch_decode_mma_kernel<KIND>;',
-         '*kern = batch_decode_mma_kernel<KIND>;', 1)],
+        ('*kern = G == 1 ? batch_decode_kernel<KIND, HDM>\n'
+         '                 : batch_decode_mma_kernel<KIND, HDM>;',
+         '*kern = batch_decode_mma_kernel<KIND, HDM>;', 1)],
     # the f16 GQA products (int8 and fp16 caches) without the powers of
     # two that keep q and p (times v_scale) in f16's normal range (the
     # arithmetic is otherwise the same: the scales are 2^0)
@@ -121,10 +121,7 @@ VARIANTS = {
          '  __device__ int first(int k) const {\n'
          '    return (split * cps + k) * CH;\n'
          '  }', 1),
-        ('  int b, kv, G, ngrp, grp, hb, GC, S, split, p, nch, active, row0, '
-         'hd, lane;',
-         '  int b, kv, G, ngrp, grp, hb, GC, S, split, p, nch, active, row0, '
-         'hd, lane,\n      cps;', 1)],
+        ('      lane, kvh;', '      lane, kvh, cps;', 1)],
 }
 
 

@@ -446,10 +446,10 @@ def test_kernel_skips_past_block_last_and_refuses_on_card(cuda_device):
                              k, v, ks, vs, pos, 1)
     with pytest.raises(ValueError, match='b_blk'):
         TB.batch_decode_cuda(q, k, v, ks, vs, pos, 1, 3, 16)
-    with pytest.raises(ValueError, match='head dim'):
-        TB.batch_decode_cuda(q[..., :24].contiguous(),
-                             k[..., :24].contiguous(),
-                             v[..., :24].contiguous(), ks, vs, pos, 1)
+    with pytest.raises(ValueError, match='head dim'):   # no float4 rows
+        TB.batch_decode_cuda(q[..., :18].contiguous(),
+                             k[..., :18].contiguous(),
+                             v[..., :18].contiguous(), ks, vs, pos, 1)
     with pytest.raises(ValueError, match='both'):
         TB.batch_decode_cuda(q, k.to(torch.bfloat16), v.to(torch.bfloat16),
                              None, vs, pos, 1)
@@ -457,3 +457,73 @@ def test_kernel_skips_past_block_last_and_refuses_on_card(cuda_device):
         TB.batch_decode_cuda(q, k.to(torch.float64), v.to(torch.float64),
                              None, None, pos, 1)
     assert TB.LAUNCHES['batch_decode'] == before
+
+
+def _hd_cache(kind, hd, kvh, B_, smax, gen, dev):
+    shape = (2, B_, smax, kvh, hd)
+    if kind == 'int8':
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
+        vs = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
+        return k, v, ks, vs
+    dt = {'bf16': torch.bfloat16, 'f16': torch.float16,
+          'f32': torch.float32}[kind]
+    return (torch.randn(shape, generator=gen, device=dev).to(dt),
+            torch.randn(shape, generator=gen, device=dev).to(dt), None, None)
+
+
+def _jx(a):
+    if a is None:
+        return None
+    if a.dtype == torch.bfloat16:
+        return jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+    return jnp.asarray(a.numpy())
+
+
+@pytest.mark.parametrize('hd', [72, 256])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
+@pytest.mark.parametrize('g', [1, 4])
+def test_plain_matches_pallas_at_head_dims_72_and_256(hd, cache, g):
+    """Head dims 72 and 256, which the card refused before: the plain
+    version against the reference's Pallas kernel in interpret mode
+    (blocks of 4 slots, chunks of 16), 2e-5."""
+    gen = torch.Generator().manual_seed(3 * hd + g)
+    k, v, ks, vs = _hd_cache(cache, hd, 2, B, S, gen, 'cpu')
+    q = torch.randn((B, 2 * g, hd), generator=gen) / hd ** .5
+    want = JB.batch_decode_attention(
+        jnp.asarray(q.numpy()), _jx(k), _jx(v), _jx(ks), _jx(vs), _j(POS),
+        jnp.asarray(1, jnp.int32), b_blk=4, chunk=16, interpret=True)
+    got = TB.batch_decode_attention(q, k, v, ks, vs, _t(POS), 1, b_blk=4,
+                                    chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('hd', [72, 256])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
+@pytest.mark.parametrize('g', [1, 4, 12])
+@pytest.mark.parametrize('B_, smax', [(8, 64), (8, 1024), (1, 4096),
+                                      (128, 96)])
+def test_kernel_at_head_dims_72_and_256_on_card(cuda_device, hd, cache, g,
+                                                 B_, smax):
+    """B5 at head dims 72 and 256 on every cache kind: one head on the CUDA
+    cores, four and twelve on the tensor cores, split and unsplit plans,
+    within 2e-4 of the plain version on the card, a rerun the same bits."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(hd + 7 * g + B_)
+    k, v, ks, vs = _hd_cache(cache, hd, 2, B_, smax, gen, dev)
+    q = torch.randn((B_, 2 * g, hd), generator=gen, device=dev) / hd ** .5
+    pos = torch.tensor(np.random.RandomState(g).randint(0, smax, B_),
+                       dtype=torch.int32, device=dev)
+    before = TB.LAUNCHES['batch_decode']
+    got = TB.batch_decode_attention(q, k, v, ks, vs, pos, 1)
+    again = TB.batch_decode_attention(q, k, v, ks, vs, pos, 1)
+    want = TF.flash_decode_plain(q, k, v, ks, vs, pos, 1)
+    torch.cuda.synchronize()
+    assert TB.LAUNCHES['batch_decode'] == before + 2
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-4

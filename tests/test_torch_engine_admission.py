@@ -122,6 +122,49 @@ def test_paged_pool_tokens_equal_jax_and_dense(models, bit, n_pages):
     assert bool((te.cache['table'] == -1).all())
 
 
+def test_paged_pool_at_bit4_equals_jax(models):
+    """A 4-bit paged pool (codes in -8..7 in int8 storage), which the port
+    refused before: the JAX paged engine's tokens on the same requests,
+    which are the ones written down for this input, and every page free
+    again."""
+    kw = dict(page_size=16, n_pages=32, max_pages=4, bit=4)
+    je, te = _engines(models, JPaged(**kw), PagedKVPolicy(**kw))
+    prompts = _prompts(3)
+    got = _serve(te, prompts)
+    assert got == [[120, 25, 47, 47, 47, 80], [89, 100, 100, 100, 100, 100],
+                   [45, 60, 106, 125, 31, 60]]
+    assert got == _serve(je, prompts, jax=True)
+    assert sorted(te.allocator.free) == list(range(kw['n_pages'] - 1))
+
+
+@pytest.mark.parametrize('chunk', [None, 16])
+def test_paged_admission_past_max_len_serves_and_frees(models, chunk):
+    """A 10-token prompt asking for 100 tokens at max_len 64: the page
+    budget is capped at max_len (the reference asks for 7 of the table's 4
+    pages, raises and keeps them off the free list), so the paged engine
+    gives the dense engine's 54 tokens, retired at max_len - 1, and every
+    page goes back; an allocation past the table row raises before any
+    page leaves the free list."""
+    _, tm = models
+    kw = dict(page_size=16, n_pages=32, max_pages=4)
+    extra = {} if chunk is None else dict(prefill_chunk=chunk)
+    _, te = _engines(models, JPaged(**kw), PagedKVPolicy(**kw), **extra)
+    prompt = _prompts(5, (10,))[0]
+    req = Request(uid=0, prompt_ids=prompt, max_new_tokens=100)
+    te.run([req])
+    dense = ServingEngine(tm, max_batch=2, max_len=64,
+                          kv_policy=KVCachePolicy(method='fp'),
+                          prefill_buckets=BUCKETS, device='cpu', **extra)
+    dreq = Request(uid=0, prompt_ids=prompt, max_new_tokens=100)
+    dense.run([dreq])
+    assert req.done and len(req.output_ids) == 54
+    assert list(req.output_ids) == list(dreq.output_ids)
+    assert sorted(te.allocator.free) == list(range(kw['n_pages'] - 1))
+    with pytest.raises(ValueError, match='pages'):
+        te.allocator.allocate(0, 110, te.cache['table'])
+    assert sorted(te.allocator.free) == list(range(kw['n_pages'] - 1))
+
+
 def test_paged_pool_exhaustion_waits(models):
     """Three usable pages, two pages a request: admission waits instead
     of overwriting live pages, every request finishes later with the JAX

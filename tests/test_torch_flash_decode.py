@@ -312,3 +312,92 @@ def test_kernel_f32_caches_and_many_heads_on_card(cuda_device, cache, g, B,
     assert TF.LAUNCHES['flash_decode'] == before + 2
     assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
     assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-4
+
+
+def _hd_cache(kind, hd, kvh, B_, smax, gen, dev):
+    """A random cache of one kind at head dim ``hd`` on ``dev``."""
+    shape = (2, B_, smax, kvh, hd)
+    if kind == 'int8':
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
+        vs = torch.rand(shape[:-1], generator=gen, device=dev) * .02 + .01
+        return k, v, ks, vs
+    dt = FLOAT_KINDS[kind]
+    return (torch.randn(shape, generator=gen, device=dev).to(dt),
+            torch.randn(shape, generator=gen, device=dev).to(dt), None, None)
+
+
+@pytest.mark.parametrize('hd', [72, 256])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
+@pytest.mark.parametrize('g', [1, 4])
+def test_plain_matches_pallas_at_head_dims_72_and_256(hd, cache, g):
+    """Head dims 72 (no multiple of 16) and 256 (above 128), which the
+    card refused before: the plain version against the reference's Pallas
+    kernel in interpret mode, which takes any head dim, 2e-5."""
+    gen = torch.Generator().manual_seed(hd + g)
+    k, v, ks, vs = _hd_cache(cache, hd, 2, 4, 64, gen, 'cpu')
+    q = torch.randn((4, 2 * g, hd), generator=gen) / hd ** .5
+    pos = torch.tensor([5, 15, 16, 63], dtype=torch.int32)
+    want = JF.flash_decode_attention(
+        jnp.asarray(q.numpy()), _jax(k), _jax(v), _jax(ks), _jax(vs),
+        jnp.asarray(pos.numpy()), jnp.asarray(1, jnp.int32), chunk=16,
+        interpret=True)
+    got = TF.flash_decode_attention(q, k, v, ks, vs, pos, 1)
+    assert got.shape == (4, 2 * g, hd)
+    assert rel_err(got.numpy(), want) < 2e-5
+
+
+def test_head_dim_rule():
+    """The laid-out row and what the kernels take: up to 256 channels in
+    rows of 4-byte words."""
+    assert [TF.kernel_hd(h) for h in (8, 16, 64, 72, 96, 128, 200, 256)] \
+        == [16, 16, 64, 128, 128, 128, 256, 256]
+    assert TF.kernel_takes_hd(72) and TF.kernel_takes_hd(256)
+    assert not TF.kernel_takes_hd(18) and not TF.kernel_takes_hd(264)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('hd', [72, 256])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
+@pytest.mark.parametrize('g', [1, 4, 12])
+@pytest.mark.parametrize('B, smax', [(4, 64), (8, 1024), (1, 4096)])
+def test_kernel_at_head_dims_72_and_256_on_card(cuda_device, hd, cache, g,
+                                                 B, smax):
+    """B2 at head dims 72 and 256 on every cache kind, one to twelve query
+    heads a kv head, split and unsplit plans: within 2e-4 of the plain
+    version on the card, a rerun the same bits, one launch a call."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(hd + 7 * g + B)
+    k, v, ks, vs = _hd_cache(cache, hd, 2, B, smax, gen, dev)
+    q = torch.randn((B, 2 * g, hd), generator=gen, device=dev) / hd ** .5
+    pos = torch.tensor(np.random.RandomState(g).randint(0, smax, B),
+                       dtype=torch.int32, device=dev)
+    before = TF.LAUNCHES['flash_decode']
+    got = TF.flash_decode_attention(q, k, v, ks, vs, pos, 1)
+    again = TF.flash_decode_attention(q, k, v, ks, vs, pos, 1)
+    want = TF.flash_decode_plain(q, k, v, ks, vs, pos, 1)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES['flash_decode'] == before + 2
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kvh', [1, 3])
+@pytest.mark.parametrize('cache', ['int8', 'bf16', 'f32', 'f16'])
+def test_kernel_head_dim_72_at_odd_kv_heads_on_card(cuda_device, kvh, cache):
+    """Head dim 72 over one or three kv heads, where a cache row (72 bytes
+    of int8 a head) is no multiple of 16 bytes: the rows copied in the
+    kernel, within 2e-4 of the plain version."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(kvh)
+    k, v, ks, vs = _hd_cache(cache, 72, kvh, 4, 256, gen, dev)
+    q = torch.randn((4, 2 * kvh, 72), generator=gen, device=dev) / 72 ** .5
+    pos = torch.tensor([0, 63, 64, 255], dtype=torch.int32, device=dev)
+    got = TF.flash_decode_attention(q, k, v, ks, vs, pos, 1)
+    want = TF.flash_decode_plain(q, k, v, ks, vs, pos, 1)
+    torch.cuda.synchronize()
+    assert rel_err(got.cpu().numpy(), want.cpu().numpy()) < 2e-4

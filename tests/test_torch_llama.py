@@ -63,6 +63,16 @@ def test_rope_tables_match(scaling):
     np.testing.assert_allclose(ts.numpy(), js, atol=2e-5)
 
 
+@pytest.mark.parametrize('scaling', ['yarn', 'dynamic'])
+def test_unknown_rope_scaling_raises(scaling):
+    """A rope_scaling type the reference computes unscaled (it applies
+    only linear and llama3) raises in the port instead."""
+    cfg = LlamaConfig(head_dim=64, rope_scaling_type=scaling,
+                      rope_scaling_factor=4.0)
+    with pytest.raises(NotImplementedError, match=scaling):
+        TL.rope_cos_sin(cfg, torch.as_tensor(np.array([[0, 1]])))
+
+
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_norms_match(dtype):
     """rms_norm keeps the cast to x.dtype before the weight multiply."""
@@ -106,12 +116,30 @@ def test_unported_graph_options_raise(opt):
 
 
 def test_linear_qcfg_unported_fields_raise(pair):
-    _, tm = pair
+    """The fields still unported (straight-through rounding, QUIK's mixed
+    columns) raise; the LLM.int8 decomposition and the online rotation,
+    which raised until they were ported, give the reference's output."""
+    from llmc_tpu.models import base as JB
+    from llmc_tpu.quant.qspec import QuantSpec as JSpec
+    from llmc_tpu_torch.quant.qspec import QuantSpec
+    jm, tm = pair
     p = tm.blocks[0]['self_attn']['q_proj']
-    for kw in (dict(a_outlier_threshold=6.0), dict(ste=True),
-               dict(pre_had='full')):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(ste=True), dict(mixed_cols=True)):
+        with pytest.raises(NotImplementedError, match='A10'):
             TB.linear_apply(p, torch.zeros(1, 64), TB.LinearQcfg(**kw))
+    x = np.random.RandomState(2).randn(3, 64).astype(np.float32) * 2
+    x[:, 5] = 9.0     # an outlier column past the threshold
+    spec = dict(bit=8, symmetric=True, granularity='per_token')
+    wspec = dict(bit=8, symmetric=True, granularity='per_channel')
+    for kw, jkw in ((dict(a_outlier_threshold=6.0, a_spec=QuantSpec(**spec),
+                          w_spec=QuantSpec(**wspec)),
+                     dict(a_outlier_threshold=6.0, a_spec=JSpec(**spec),
+                          w_spec=JSpec(**wspec))),
+                    (dict(pre_had='full'), dict(pre_had='full'))):
+        got = TB.linear_apply(p, torch.as_tensor(x), TB.LinearQcfg(**kw))
+        want = JB.linear_apply(jm.blocks[0]['self_attn']['q_proj'],
+                               jnp.asarray(x), JB.LinearQcfg(**jkw))
+        assert rel_err(got.numpy(), np.asarray(want)) < 1e-5
 
 
 def test_random_is_seeded_and_needs_card_without_device():

@@ -56,7 +56,12 @@ NEW_MODULES = ('main.py', '__main__.py', 'compression/blockwise.py',
                'utils/config.py', 'utils/profiler.py',
                'ops/probe_gemm.py', 'tools/__init__.py', 'tools/_measure.py',
                'tools/kernel_bench.py', 'tools/w4_probe.py',
-               'tools/ab_serve.py', 'tools/wgmma_variants.py')
+               'tools/ab_serve.py', 'tools/wgmma_variants.py',
+               'ops/hadamard.py', 'compression/quantization/smoothquant.py',
+               'compression/quantization/gptq.py',
+               'compression/quantization/quarot.py',
+               'compression/quantization/osplus.py',
+               'compression/quantization/llmint8.py')
 
 
 def _module_level_imports(path):
@@ -102,6 +107,10 @@ def test_package_imports_without_gpu_nvcc_or_triton():
             '    mod = ".".join(p.with_suffix("").parts)\n'
             '    importlib.import_module(mod.removesuffix(".__init__"))\n'
             'assert "jax" not in sys.modules, "jax was imported"\n'
+            'from llmc_tpu_torch.utils import ALGO_REGISTRY\n'
+            'for m in ("SmoothQuant", "GPTQ", "Quarot", "OsPlus", '
+            '"LlmInt8"):\n'
+            '    ALGO_REGISTRY[m]\n'
             'print("ok")\n')
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
@@ -392,6 +401,47 @@ def test_chip_smoke_cpu_compress_serve_phase_tiny(compressed_tiny):
         ZERO_LAUNCHES, w4_dequant_matmul=(4 * L + 1) * fw,
         flash_decode=L * rec['decode_steps'])
     assert 'qweight' in res['model'].params['lm_head']
+
+
+@pytest.mark.parametrize('name, mode', [('smoothquant_w8a8', 'w8a16'),
+                                        ('gptq_w4a16', 'w4a16'),
+                                        ('quarot_w4a8', None)])
+def test_chip_smoke_cpu_method_phases_tiny(name, mode):
+    """The compress phase of the activation-quantizing and Hessian methods
+    at a tiny size on the CPU (group size 32): finite PPLs, the
+    equivalence transforms near pretrain, GPTQ's column-loop share and
+    QuaRot's Hadamard share; then SmoothQuant's and GPTQ's models packed
+    with their a_spec and served, against the fake-quant model, with the
+    launches of the W8 or W4 path."""
+    quant = chip_smoke.METHOD_QUANT[name]
+    sizes = dict(group_size=32, n_samples=4, seq_len=24, eval_tokens=480,
+                 eval_bs=2)
+    cpu = torch.device('cpu')
+    rec, res = chip_smoke.phase_compress(cpu, TINY_BF16, quant['method'],
+                                         quant=quant, **sizes)
+    assert rec['ok'] and rec['launches'] == ZERO_LAUNCHES
+    assert rec['act'] == quant.get('act')
+    if name.startswith('gptq'):
+        assert rec['column_steps'] == 2 * (6 * 128 + 256)
+        assert 0 < rec['column_loop_share_of_block_loop'] <= 1
+    if name.startswith('quarot'):
+        assert rec['hadamard_calls'] > 0 and 0 < rec['hadamard_share'] < 1
+        assert rec['ppl_fake_quant_again'] == rec['ppl_fake_quant']
+    if mode is None:
+        return
+    srv = chip_smoke.phase_compress_serve(
+        cpu, res, prompt_len=8, mode=mode, n_requests=4, max_batch=2,
+        max_len=96, buckets=(16, 32), max_prompt=30)
+    assert srv['ok'] and srv['all_done'] and srv['launches'] == ZERO_LAUNCHES
+    assert srv['rel_logit_err_vs_fake_quant'] \
+        <= srv['tolerance_vs_fake_quant'] == (
+            chip_smoke.TOL_COMPRESS_SERVE if 'act' not in quant
+            else chip_smoke.TOL_COMPRESS_SERVE_A8)
+    kernel = 'w8_dequant_matmul' if mode == 'w8a16' else 'w4_dequant_matmul'
+    fw = srv['prefill_forwards'] + srv['decode_steps']
+    assert srv['expected_launches'][kernel] == (4 * 2 + 1) * fw
+    assert srv['a_spec'] == (None if 'act' not in quant else dict(
+        srv['a_spec'], **quant['act']))
 
 
 def test_chip_smoke_cpu_probes_phase_tiny():

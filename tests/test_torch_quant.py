@@ -91,14 +91,26 @@ def test_round_half_to_even_matches():
 
 @pytest.mark.parametrize('algo', ['mse', 'hqq', 'learnable', 'clip'])
 def test_unported_calibration_raises(algo):
-    """The mse / hqq / learnable calibrations raise; AWQ's stored clip
-    factors (``clip``) are ported and give the reference's codes, scales
-    and zeros, symmetric and not."""
+    """The mse / hqq / learnable calibrations, which raised until they were
+    ported, and AWQ's stored clip factors (``clip``) give the reference's
+    codes, scales and zeros (hqq's float zeros within 1e-6: the means of
+    its refinement sum in another order), symmetric and not."""
     if algo != 'clip':
-        spec = QuantSpec(bit=4, granularity='per_group', group_size=32,
-                         calib_algo=algo)
-        with pytest.raises(NotImplementedError, match='A2'):
-            TQ.real_quant_weight(spec, torch.zeros(4, 32))
+        w = np.random.RandomState(0).randn(16, 128).astype(np.float32)
+        for sym in (True, False):
+            kw = dict(bit=4, symmetric=sym, granularity='per_group',
+                      group_size=32, calib_algo=algo, round_zp=algo != 'hqq')
+            jc, js, jz = JQ.real_quant_weight(JSpec(**kw), jnp.asarray(w))
+            tc, ts, tz = TQ.real_quant_weight(QuantSpec(**kw),
+                                              torch.as_tensor(w))
+            _eq(tc.numpy(), jc)
+            _eq(ts.numpy(), js)
+            if jz is None:
+                assert tz is None
+            elif algo == 'hqq':
+                np.testing.assert_allclose(tz.numpy(), jz, atol=1e-6)
+            else:
+                _eq(tz.numpy(), jz)
         return
     rng = np.random.RandomState(0)
     w = rng.standard_normal((4, 64)).astype(np.float32)

@@ -115,8 +115,16 @@ def test_prefill_qmap_from_equals_jax():
     assert t8.get('lm_head') == tq.get('lm_head')
     m = t8.get('mlp.down_proj').qmeta
     assert (m.bits, m.group_size, m.symmetric) == (8, m.in_features, True)
-    with pytest.raises(NotImplementedError, match='A10'):
-        TP.packed_qmap(cfg, QuantSpec(**WSPEC), a_spec=QuantSpec(bit=8))
+    # a_spec (which raised until activation quantization was ported) goes
+    # on every entry, the head's too, and prefill_qmap_from keeps it
+    aq = TP.packed_qmap(cfg, QuantSpec(**WSPEC), a_spec=QuantSpec(bit=8),
+                        fuse=True, head=True)
+    ja = JP.packed_qmap(JConfig(**TINY), JSpec(**WSPEC), a_spec=JSpec(bit=8),
+                        fuse=True, head=True)
+    for path in FUSED + ('lm_head',):
+        assert aq.get(path).a_spec == QuantSpec(bit=8)
+        assert ja.get(path).a_spec == JSpec(bit=8)
+        assert TP.prefill_qmap_from(aq).get(path).a_spec == QuantSpec(bit=8)
 
 
 @pytest.mark.parametrize('mode', ['a_int8', 'w8_alt', 'plain'])

@@ -504,6 +504,28 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('M', [1, 4, 40])
+def test_int8_dot_takes_k_and_n_off_8_on_card(cuda_device, M):
+    """The W8A8 dot on the card at N = 201 and K = 200 (neither a multiple
+    of 8, which ``torch._int_mm`` refuses): K and N are zero-padded and
+    the result is bit-equal to the CPU's int32 dot; so is the per-channel
+    W8A8 linear that reaches it."""
+    rs = np.random.RandomState(M)
+    xq = torch.as_tensor(rs.randint(-127, 128, (M, 200)), dtype=torch.int8)
+    w8 = torch.as_tensor(rs.randint(-127, 128, (201, 200)), dtype=torch.int8)
+    got = TD._int8_dot(xq.to(cuda_device), w8.to(cuda_device))
+    want = TD._int8_dot(xq, w8)
+    assert got.shape == (M, 201) and torch.equal(got.cpu(), want)
+    x = torch.as_tensor(rs.randn(M, 200), dtype=torch.float32)
+    s8 = torch.as_tensor(rs.rand(201) * 0.01 + 1e-3, dtype=torch.float32)
+    y = TD.w8a8_channel_matmul(x.to(cuda_device), w8.to(cuda_device),
+                               s8.to(cuda_device))
+    yc = TD.w8a8_channel_matmul(x, w8, s8)
+    assert y.shape == (M, 201)
+    assert rel_err(y.cpu().numpy(), yc.numpy()) < 1e-6
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize('M', [1, 5, 77, 300])
 @pytest.mark.parametrize('K', [256, 4096, 11008, 53248])
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
