@@ -139,6 +139,26 @@ Phases, each printing one JSON line, all of them on every run:
                   and 22 layers (the reference's Hadamard does not factor
                   Llama-2-7B's 11008), with the Hadamard's share of the
                   fake-quant eval.
+16. ``compress`` + ``compress_serve`` of the data-free, dimension-search
+                  and gradient-trained methods, each on its shipped
+                  config's ``quant`` section as it stands, calibration
+                  8 x 512, at Llama-2-7B's width: HQQ (``hqq_w4.yml``,
+                  asymmetric g64) and AdaDim (``adadim_w8.yml``, per-channel
+                  W8) at full depth, NormTweaking, OmniQuant and TesseraQ
+                  at the depths ``TRAINED_DEPTH`` sets (each cut with its
+                  reason in the record).  Each records its seconds a block,
+                  the hyperparameters it read, and for the trained ones the
+                  steps, milliseconds a step and the block loss before and
+                  after training at the first, middle and last block; each
+                  is packed and served (HQQ, NormTweaking, OmniQuant and
+                  TesseraQ through the W4 kernel, AdaDim through the W8
+                  kernel) and held against its own fake-quant model, or,
+                  where packing cannot hold the method's grid (HQQ's
+                  clipped elements, AdaDim's input-channel scales),
+                  against that model with the weights packing holds, the
+                  gap to the method's model recorded.  NormTweaking at the
+                  shipped rate moves no bf16 norm: its transformed model
+                  is held to the pretrained one.
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
@@ -211,11 +231,52 @@ METHOD_QUANT = {
                     group_size=128),
         act=dict(bit=8, symmetric=True, granularity='per_token'),
         special=dict(online_rotate=True)),
+    'hqq_w4': dict(
+        method='HQQ',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=64, calib_algo='hqq')),
+    'adadim_w8': dict(
+        method='AdaDim',
+        weight=dict(bit=8, symmetric=True, granularity='per_channel')),
+    'normtweaking_w4': dict(
+        method='NormTweaking',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        special=dict(epochs=10, lr=0.0001)),
+    'omniquant_w4': dict(
+        method='OmniQuant',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        special=dict(epochs=20, lwc=True, let=False, wlr=0.001)),
+    'tesseraq_w4': dict(
+        method='TesseraQ',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        special=dict(epochs=8, thresholds=[0.8, 0.5, 0.2])),
 }
 # GPTQ's column loop is a Python loop of torch ops, 35584 columns a
 # Llama-2-7B block at about 0.22 ms a column on an H100 (7.9 s a block):
 # the phase runs 4 of the 32 layers to stay near a minute
 GPTQ_LAYERS = 4
+# Phase 16: each method's serving mode, and the depth of the trained
+# methods with its reason.  A training step is a forward and a backward of
+# one Llama-2-7B block over the 8 x 512 calibration tokens, its linears as
+# f32 matmuls (the fake-quant path's matmul_f32_acc) on the CUDA cores: on
+# an H100 about 86 ms (NormTweaking, input gradients only) and 124 ms
+# (OmniQuant, TesseraQ: the weights' gradients too).  HQQ (0.36 s a block)
+# and AdaDim (0.2 s) run all 32 layers.
+PHASE16 = (('hqq_w4', 'w4a16'), ('adadim_w8', 'w8a16'),
+           ('normtweaking_w4', 'w4a16'), ('omniquant_w4', 'w4a16'),
+           ('tesseraq_w4', 'w4a16'))
+TRAINED_DEPTH = {
+    'NormTweaking': (8, '10 AdamW steps a block (epochs 10 x 1 batch), '
+                        'about 1.0 s a block'),
+    'OmniQuant': (4, '20 AdamW steps a block (epochs 20 x 1 batch), about '
+                     '2.7 s a block'),
+    'TesseraQ': (1, '300 Adam steps a block (3 thresholds x 100 '
+                    'iterations: the config\'s epochs is not read) and 21 '
+                    'host quantiles, about 49 s a block'),
+}
 
 # Tolerances, with their reasons.
 # w4 kernel vs plain (same bf16 x and packed weights, f32 plain math):
@@ -2063,9 +2124,13 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
     L = cfg_kw['num_hidden_layers']
     searched = search_vs_rtn(dev, config, res, sorted({0, L // 2, L - 1})) \
         if special else []
-    # GPTQ's 'transformed' model holds its compensated weights: no
-    # equivalence to hold it to
-    equivalence = method != 'GPTQ'
+    # GPTQ's 'transformed' model holds its compensated weights, TesseraQ's
+    # its merged rounding: no equivalence to hold them to.  NormTweaking's
+    # holds its trained norms, which change the function only where one
+    # moved in the block's type: at the shipped rate none does, and the
+    # transformed model is then the pretrained one
+    moved = getattr(res['opt'], 'train_stats', {}).get('norms_moved')
+    equivalence = method not in ('GPTQ', 'TesseraQ') and not moved
     rec = dict(phase='compress', method=method,
                special=config['quant'].get('special', {}),
                fp8_block_ingest=fp8_ingest, layers=L,
@@ -2086,6 +2151,15 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
                        and (drift <= TOL_PPL_TRANSFORMED or not equivalence)
                        and all(r['searched_over_rtn'] <= TOL_SEARCH_VS_RTN
                                for r in searched)))
+    rec['hyperparams'] = res['opt'].hyperparams()
+    if moved is not None:
+        rec['norms_moved'] = moved
+    train = getattr(res['opt'], 'train_stats', None)
+    if train is not None:
+        # a trained block errs no more than before its training
+        rec.update(train_record(train, calib))
+        rec['ok'] = rec['ok'] and all(r['after'] <= r['before']
+                                      for r in rec['block_loss'])
     stats = getattr(res['opt'], 'loop_stats', None)
     if stats is not None:
         rec.update(column_loop_s=stats['column_loop_s'],
@@ -2097,62 +2171,195 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
     return rec, res
 
 
+def train_record(train, calib_s):
+    """The training loop of a gradient-trained method: its steps, seconds,
+    milliseconds a step and share of the block loop, and the block loss
+    (the MSE of the block's output against the fp block's on the
+    calibration batches) before and after training at the first, the
+    middle and the last block."""
+    blocks = sorted(train['block_loss'])
+    steps = train['steps']
+    picked = sorted({blocks[0], blocks[len(blocks) // 2], blocks[-1]}) \
+        if blocks else []
+    return dict(
+        train_steps=steps, train_steps_per_block=steps / max(len(blocks), 1),
+        train_s=train['train_s'],
+        train_ms_per_step=1e3 * train['train_s'] / steps if steps else None,
+        train_share_of_block_loop=train['train_s'] / calib_s,
+        block_loss=[dict(block=b, before=train['block_loss'][b][0],
+                         after=train['block_loss'][b][1]) for b in picked])
+
+
+def packed_weights(model, opt, wspec):
+    """For each linear (block, path, its params), after the method's
+    deploy and before packing: (the weight packing will hold, its codes
+    dequantized in f32; the weight the method's fake-quant model runs;
+    the step of each packed group), grouped as ``wspec`` groups, and
+    whether packing reads the qparams its method stored."""
+    from llmc_tpu_torch.models.base import get_path
+    from llmc_tpu_torch.quant.quantizer import (fake_quant_weight,
+                                                quant_dequant,
+                                                reshape_tensor)
+    from llmc_tpu_torch.serve.packed import packed_grid, stored_grid
+    for b in range(model.n_blocks):
+        for p in model.get_layout().linears:
+            lin = get_path(model.blocks[b], p)
+            qc = opt.fake_quant_qcfg(b, p)
+            own = lin['w'] if qc is None or qc.w_spec is None \
+                or qc.w_baked else \
+                fake_quant_weight(qc.w_spec, lin['w'], lin.get('clip_up'),
+                                  lin.get('clip_low'))
+            qp = packed_grid(lin, wspec)
+            held = quant_dequant(wspec, reshape_tensor(wspec, lin['w']), qp)
+            yield b, p, lin, held, reshape_tensor(wspec, own.float()), \
+                qp.scales, stored_grid(lin, wspec) is not None
+
+
+# An element that packing puts farther from the method's fake-quant weight
+# than the latter's rounding to bf16 (at most 2^-9 of it; 2^-8 allowed)
+# by more than this share of a step is off the method's grid
+GRID_MOVE = 0.05
+# the largest such excess of an element packed from the qparams its method
+# stored (GPTQ, TesseraQ, HQQ): the rounding of a float zero (HQQ's) moves
+# one by at most half a step
+STORED_MOVE = 0.5 + GRID_MOVE
+
+
+def packed_weight_gap(model, opt, wspec):
+    """How far packing puts each weight element from the method's
+    fake-quant model, in steps beyond the bf16 rounding of the latter: the
+    linears with an element off the method's grid (by more than
+    ``GRID_MOVE``; B1 and B4 read a scale per output channel and group of
+    consecutive columns on integer codes, so AdaDim's input-channel
+    scales, GPTQ's act-order groups and the elements HQQ's float zeros
+    clip are off it), and the record: their share, the share of elements
+    moved, the largest excess, and the largest among the linears packed
+    from the qparams their method stored."""
+    n = moved = 0
+    worst = worst_stored = 0.0
+    off = []
+    for b, p, _, held, own, sc, stored in packed_weights(model, opt,
+                                                          wspec):
+        excess = (((held - own).abs() - own.abs() * 2.0 ** -8) / sc).flatten()
+        m = int((excess > GRID_MOVE).sum())
+        n += excess.numel()
+        moved += m
+        if m:
+            off.append((b, p))
+        worst = max(worst, float(excess.max()))
+        if stored:
+            worst_stored = max(worst_stored, float(excess.max()))
+    n_lin = model.n_blocks * len(model.get_layout().linears)
+    return off, dict(off_grid_share=len(off) / n_lin,
+                     share_moved=moved / n, max_excess_steps=worst,
+                     max_excess_steps_stored_qparams=worst_stored)
+
+
+def packed_grid_params(model, opt, wspec):
+    """The params with every block linear's weight replaced by the one
+    packing will hold, dequantized (in the block's type)."""
+    from llmc_tpu_torch.models.base import set_path
+    from llmc_tpu_torch.quant.quantizer import restore_tensor
+    blocks = list(model.blocks)
+    for b, p, lin, held, _, _, _ in packed_weights(model, opt, wspec):
+        w = restore_tensor(wspec, held, lin['w'].shape).to(lin['w'].dtype)
+        blocks[b] = set_path(blocks[b], p, dict(lin, w=w))
+    return dict(model.params, blocks=blocks)
+
+
 def phase_compress_serve(dev, res, prompt_len=32, seed=0, mode='w4a16',
                          **serve_kw):
     """Serve what the pipeline compressed: ``pack_model`` (fused, packed
     head, the method's ``a_spec``) on the result's model ->
     ``ServingEngine`` with an int8 KV cache, ``mode`` the serving path the
     launches are counted on ('w8a16' for 8-bit weights).  Before the engine
-    runs, the packed model's logits on one prompt are held against the same
-    model under the fake-quant ``QMap`` of what packing quantizes: after the
-    method's deploy (GPTQ bakes its loop's quantization into the weights),
-    each linear's weight fake-quantized by ``wspec`` and its input by the
-    method's ``aspec``, and the head's weight fake-quantized in place (the
-    head's input is not: neither package's packed head reads ``a_spec``)."""
+    runs, the packed model's logits on one prompt are held against the
+    method's own fake-quant model: the QMap of its ``deploy('fake_quant')``
+    (GPTQ, TesseraQ, HQQ and AdaDim bake their weights there), with the
+    head's weight fake-quantized in place onto the grid packing gives it
+    (the head's input is not: neither package's packed head reads
+    ``a_spec``).  Packing reads the
+    qparams GPTQ, TesseraQ and HQQ stored (``packed_grid``).  Where it
+    cannot hold the method's grid (``packed_weight_gap``), the packed
+    logits are held instead against the same model with the weights
+    packing holds, and the gap to the method's own model is recorded
+    beside the weights' gap."""
     from llmc_tpu_torch.models.adapter import QMap
     from llmc_tpu_torch.models.base import LinearQcfg
-    from llmc_tpu_torch.quant.quantizer import fake_quant_weight
+    from llmc_tpu_torch.quant.quantizer import fake_quant_weight_static
     from llmc_tpu_torch.serve import pack_model
     from llmc_tpu_torch.serve.decode import (FP_POLICY, forward_cached,
                                              init_cache)
+    from llmc_tpu_torch.serve.packed import packed_grid
     model, opt = res['model'], res['opt']
     cfg = model.cfg
+    wspec = opt.wspec
     ids = torch.as_tensor(np.random.RandomState(seed).randint(
         0, cfg.vocab_size, (1, prompt_len)), device=dev)
 
-    def prefill_logits(qmap):
+    def prefill_logits(qmap, params=None):
         # the serving forward, for both: it takes the fused layout too
         cache = init_cache(model, 1, prompt_len, device=dev)
-        return forward_cached(model.params, cfg, ids, cache, FP_POLICY,
-                              qmap)[0].float()
+        return forward_cached(model.params if params is None else params,
+                              cfg, ids, cache, FP_POLICY, qmap)[0].float()
 
     with torch.no_grad():
+        # the head on the grid packing gives it (no method quantizes it)
         head = model.params['lm_head']
-        model.params['lm_head'] = dict(
-            head, w=fake_quant_weight(opt.wspec, head['w']))
-        opt.deploy('fake_quant')
-        want = prefill_logits(QMap({
-            p: LinearQcfg(w_spec=opt.wspec, a_spec=opt.aspec)
-            for p in model.get_layout().linears}))
-        qmap = pack_model(model, opt.wspec, a_spec=opt.aspec, fuse=True,
+        model.params['lm_head'] = dict(head, w=fake_quant_weight_static(
+            wspec, head['w'], packed_grid(head, wspec)))
+        own = prefill_logits(opt.deploy('fake_quant'))
+        off, gap = packed_weight_gap(model, opt, wspec)
+        want = own if not off else prefill_logits(
+            QMap({p: LinearQcfg(a_spec=opt.aspec)
+                  for p in model.get_layout().linears}),
+            packed_grid_params(model, opt, wspec))
+        qmap = pack_model(model, wspec, a_spec=opt.aspec, fuse=True,
                           head=True)
         got = prefill_logits(qmap)
         with plain_linears(w_bf16=True):
             control = prefill_logits(qmap)
     err, rel = _rel(got, want)
+    rel_own = _rel(got, own)[1]
     rel_control = _rel(got, control)[1]
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     tol = TOL_COMPRESS_SERVE if opt.aspec is None else TOL_COMPRESS_SERVE_A8
     rec = serve_run(dev, model, qmap, mode=mode, **serve_kw)[0]
     rec.update(phase='compress_serve', method=type(opt).__name__,
+               w_spec=dataclasses.asdict(wspec),
                a_spec=dataclasses.asdict(opt.aspec) if opt.aspec else None,
                rel_logit_err_vs_same_function_control=rel_control,
-               prompt=prompt_len, max_abs_logit_err_vs_fake_quant=err,
+               prompt=prompt_len, held_against=(
+                   'the method\'s fake-quant model' if not off else
+                   'that model with the weights packing holds'),
+               max_abs_logit_err_vs_fake_quant=err,
                rel_logit_err_vs_fake_quant=rel,
+               rel_logit_err_vs_method_model=rel_own,
+               packed_weight_gap=gap,
                argmax_agreement_vs_fake_quant=agree,
                tolerance_vs_fake_quant=tol,
-               ok=bool(torch.isfinite(got).all() and rel <= tol))
+               ok=bool(torch.isfinite(got).all() and rel <= tol
+                       and gap['max_excess_steps_stored_qparams']
+                       <= STORED_MOVE))
     return rec
+
+
+def phase16_compress(dev, name, cfg_kw=LLAMA2_7B, **sizes):
+    """``phase_compress`` of one of phase 16's method configs at
+    ``cfg_kw``'s width, at full depth or the depth ``TRAINED_DEPTH`` sets
+    (recorded with its reason), at the config's own group size unless
+    ``sizes`` gives one."""
+    mq = METHOD_QUANT[name]
+    cut = TRAINED_DEPTH.get(mq['method'])
+    if cut is not None:
+        cfg_kw = dict(cfg_kw, num_hidden_layers=min(
+            cut[0], cfg_kw['num_hidden_layers']))
+    sizes.setdefault('group_size', mq['weight'].get('group_size', 128))
+    rec, res = phase_compress(dev, cfg_kw, mq['method'], quant=mq, **sizes)
+    rec.update(config=f'configs/quantization/methods/{name}.yml',
+               depth_cut=None if cut is None else dict(
+                   layers=cfg_kw['num_hidden_layers'], reason=cut[1]))
+    return rec, res
 
 
 # --------------------------------------------------------------------------
@@ -2635,6 +2842,28 @@ def main(argv=None) -> int:
                     f'fake-quant model\'s (limit '
                     f'{rec["tolerance_vs_fake_quant"]})')
             require_served(rec)
+        del res
+        torch.cuda.empty_cache()
+
+    # phase 16: HQQ and AdaDim at Llama-2-7B's width and depth, the
+    # gradient-trained methods at the depths TRAINED_DEPTH sets
+    for name, mode in PHASE16:
+        rec, res = phase16_compress(dev, name)
+        rec.update(card)
+        emit(rec)
+        require(rec['ok'], f'compress {name}: a PPL is not finite, '
+                f'ppl_transformed left ppl_pretrain by '
+                f'{rec["ppl_transformed_rel_drift"]:.3g} (limit '
+                f'{TOL_PPL_TRANSFORMED}) or a trained block errs more than '
+                f'before: {rec.get("block_loss")}')
+        rec = phase_compress_serve(dev, res, mode=mode)
+        rec.update(card, config=f'configs/quantization/methods/{name}.yml')
+        emit(rec)
+        require(rec['ok'], f'compress_serve {name}: packed logits are '
+                f'{rec["rel_logit_err_vs_fake_quant"]:.3g} off the '
+                f'fake-quant model\'s (limit '
+                f'{rec["tolerance_vs_fake_quant"]})')
+        require_served(rec)
         del res
         torch.cuda.empty_cache()
 

@@ -8,7 +8,9 @@ weight baking.  Forward hooks are ``block_apply(capture=True)`` returning
 the subset inputs, module replacement is a ``QMap`` (a static per-linear
 policy) plus param transforms on one tree.  The reference's ``jax.jit``
 caches have no counterpart: the block functions are plain functions under
-``torch.no_grad()``.
+``torch.no_grad()``.  ``BlockTraining`` holds what the gradient-trained
+methods share: their optimizer steps run under ``torch.enable_grad()``
+inside the loop's ``no_grad``.
 
 Ported: weight and activation quantization (dynamic, and static per
 tensor), the double W4/W8 quantization (``bit: 48``) with its budgets,
@@ -22,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
+import time
 from typing import Dict, List, Optional
 
 import torch
@@ -31,8 +34,9 @@ from ..models.adapter import BaseAdapter, QMap
 from ..models.base import LinearQcfg, get_path, has_path, set_path
 from ..quant.qspec import spec_from_config
 from ..quant.quantizer import (fake_quant_act, fake_quant_weight,
+                               fake_quant_weight_static,
                                fake_quant_weight_w48,
-                               static_qparams_from_batches)
+                               static_qparams_from_batches, stored_qparams)
 
 F32 = torch.float32
 
@@ -79,8 +83,20 @@ class BlockwiseOpt:
         raise NotImplementedError
 
 
+def load_search_artifact(path: Optional[str], name: str):
+    """A ``scales.pkl`` / ``clips.pkl`` tree of numpy arrays, as
+    ``save_search_artifacts`` writes it; None without a path."""
+    if not path:
+        return None
+    with open(os.path.join(path, name), 'rb') as f:
+        return pickle.load(f)
+
+
 class BaseBlockwiseQuantization(BlockwiseOpt):
     """Shared machinery of every quantization algorithm."""
+
+    # the attributes a method reads from ``quant.special`` (``hyperparams``)
+    HYPERPARAMS = ()
 
     def __init__(self, model, quant_config, inputs, padding_mask, config):
         super().__init__(model, quant_config, inputs, padding_mask, config)
@@ -89,6 +105,10 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         self.block_fn = model.block_fn()
         self.inspect_fns = model.inspect_fns()
         self.set_quant_config()
+
+    def hyperparams(self) -> Dict:
+        """The values the method took from its config or its defaults."""
+        return {k: getattr(self, k) for k in self.HYPERPARAMS}
 
     # ------------------------------------------------------------------
     # config parsing
@@ -440,6 +460,118 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
                                     lin.get('clip_low'))
                     blk = set_path(blk, path, dict(lin, w=wq))
                 self.model.set_block(b, blk)
+
+
+class BakedAtDeploy(BaseBlockwiseQuantization):
+    """A method that fixes each linear's quantized weight at compress time
+    (GPTQ, TesseraQ, HQQ, AdaDim) and bakes it into the params at
+    ``deploy('fake_quant')``, once: the runtime then quantizes only the
+    activations.  By default the bake is the static qdq with the qparams
+    the method stored beside the weight (``stored_qparams``)."""
+
+    def static_w_qdq(self, lin: Dict) -> torch.Tensor:
+        return fake_quant_weight_static(self.wspec, lin['w'].to(F32),
+                                        stored_qparams(lin)
+                                        ).to(lin['w'].dtype)
+
+    def bake_fake_quant_weights(self):
+        with torch.no_grad():
+            for b in range(self.model.n_blocks):
+                blk = self.model.blocks[b]
+                for path in self.layout.linears:
+                    if self.layer_is_ignored(b, path):
+                        continue
+                    lin = get_path(blk, path)
+                    if 'gptq_scales' in lin:
+                        blk = set_path(blk, path,
+                                       dict(lin, w=self.static_w_qdq(lin)))
+                self.model.set_block(b, blk)
+
+    def fake_quant_qcfg(self, block_idx, path):
+        if self.layer_is_ignored(block_idx, path):
+            return None
+        if getattr(self, '_baked', False):
+            return LinearQcfg(a_spec=self.aspec)
+        return LinearQcfg(w_spec=self.wspec, a_spec=self.aspec)
+
+    def deploy(self, quant_format):
+        if quant_format == 'fake_quant':
+            if not getattr(self, '_baked', False):
+                self.bake_fake_quant_weights()
+            self._baked = True
+        return super().deploy(quant_format)
+
+
+class BlockTraining(BaseBlockwiseQuantization):
+    """What the gradient-trained methods (OmniQuant, TesseraQ,
+    NormTweaking) share: the block's own calibration inputs
+    (``block_inputs``) and its fp outputs on them as targets, one optimizer
+    step on the f32 MSE of the block's output against them, and a record
+    of the training (``train_stats``: steps, their seconds, and the loss
+    before and after training at the first, the middle and the last block,
+    ``records_loss``).
+
+    The reference trains on ``self.inputs``, which its ``block_opt`` has
+    already replaced by the block's outputs: block i learns on block i+1's
+    inputs (ROADMAP C).  The port trains each block on its own."""
+
+    def __init__(self, model, quant_config, inputs, padding_mask, config):
+        super().__init__(model, quant_config, inputs, padding_mask, config)
+        self.block_inputs = self.inputs
+        self.captured_outs = None
+        self.train_stats = {'steps': 0, 'train_s': 0.0, 'block_loss': {}}
+
+    def block_opt(self, idx: int):
+        self.block_inputs = self.inputs
+        super().block_opt(idx)
+
+    def block_forward_capture(self, block, qmap=None):
+        outs, feats = super().block_forward_capture(block, qmap)
+        # the fp block's outputs on its own inputs, unless a rotation ran
+        self.captured_outs = outs if qmap is None else None
+        return outs, feats
+
+    def fp_targets(self, block, changed: bool = False) -> List:
+        """The fp outputs of ``block`` on its own inputs: the capture
+        pass's, unless the method ``changed`` the block since (TesseraQ's
+        clip) or the capture ran an online rotation, as the reference's
+        targets never do."""
+        if self.captured_outs is not None and not changed:
+            return self.captured_outs
+        return self.block_forward(block, inputs=self.block_inputs)
+
+    def records_loss(self, idx: int) -> bool:
+        """Whether block ``idx``'s loss before and after training is
+        recorded (two more forwards over the calibration set): the first,
+        the middle and the last block."""
+        n = self.model.n_blocks
+        return idx in (0, n // 2, n - 1)
+
+    @staticmethod
+    def mse(y: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return torch.mean((y.to(F32) - target.to(F32)) ** 2)
+
+    def mean_loss(self, block, qmap, targets) -> float:
+        """The MSE of ``block`` under ``qmap`` over every calibration
+        batch (no gradient)."""
+        outs = self.block_forward(block, inputs=self.block_inputs, qmap=qmap)
+        return sum(float(self.mse(y, t)) for y, t in zip(outs, targets)) \
+            / len(targets)
+
+    def train_step(self, opt, loss_fn, *args) -> bool:
+        """One step of ``opt`` on ``loss_fn(*args)``; returns whether the
+        loss was finite (the reference reads it after the update and stops
+        the epoch's loop at a non-finite one)."""
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = loss_fn(*args)
+            loss.backward()
+        opt.step()
+        finite = bool(torch.isfinite(loss))
+        self.train_stats['steps'] += 1
+        self.train_stats['train_s'] += time.perf_counter() - t0
+        return finite
 
 
 def _w48_budget_clamps(cfg: dict):

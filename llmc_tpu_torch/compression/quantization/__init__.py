@@ -1,5 +1,6 @@
-from . import (awq, gptq, llmint8, osplus, quarot, rtn,  # noqa: F401
-               smoothquant)  # (register ALGO_REGISTRY entries)
+from . import (adadim, awq, gptq, hqq, llmint8, ntweak,  # noqa: F401
+               omniq, osplus, quarot, rtn, smoothquant, tesseraq)
+# (the imports register the ALGO_REGISTRY entries)
 from .auto_clip import AutoClipper
 
 __all__ = ['AutoClipper']

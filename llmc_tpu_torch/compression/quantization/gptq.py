@@ -30,15 +30,16 @@ import torch
 
 from ...models.adapter import QMap
 from ...models.base import LinearQcfg, get_path, set_path
-from ...quant.quantizer import minmax_range, mse_range, qparams_from_range
+from ...quant.quantizer import (fake_quant_weight_static, minmax_range,
+                                mse_range, qparams_from_range, stored_qparams)
 from ...utils.registry import ALGO_REGISTRY
-from ..blockwise import BaseBlockwiseQuantization
+from ..blockwise import BakedAtDeploy
 
 F32 = torch.float32
 
 
 @ALGO_REGISTRY.register(name='GPTQ')
-class GPTQ(BaseBlockwiseQuantization):
+class GPTQ(BakedAtDeploy):
     def __init__(self, model, quant_config, inputs, padding_mask, config):
         super().__init__(model, quant_config, inputs, padding_mask, config)
         sp = self.special
@@ -327,9 +328,8 @@ class GPTQ(BaseBlockwiseQuantization):
     # ------------------------------------------------------------------
     def static_w_qdq(self, lin: Dict,
                      n_out: Optional[int] = None) -> torch.Tensor:
-        spec = self.wspec
         w = lin['w'].to(F32)
-        oc, C = w.shape
+        C = w.shape[1]
         perm = lin.get('perm')
         if self.static_groups:
             # static group qparams live on the ORIGINAL columns: the qdq is
@@ -337,18 +337,7 @@ class GPTQ(BaseBlockwiseQuantization):
             perm = None
         if perm is not None:
             w = w[:, perm]
-        gs = spec.group_size if spec.granularity == 'per_group' else C
-        s = lin['gptq_scales'].reshape(oc, -1, 1)
-        z = lin.get('gptq_zeros')
-        z = z.reshape(oc, -1, 1) if z is not None else 0.0
-        wg = w.reshape(oc, -1, gs)
-        if spec.round_zp:
-            q = torch.clamp(torch.round(wg / s) + z, spec.qmin, spec.qmax)
-        else:
-            # an unrounded zero folds in before the rounding
-            q = torch.clamp(torch.round(wg / torch.clamp(s, min=1e-9) + z),
-                            spec.qmin, spec.qmax)
-        out = ((q - z) * s).reshape(oc, C)
+        out = fake_quant_weight_static(self.wspec, w, stored_qparams(lin))
         if n_out is None:
             n_out = lin.get('owq_n_out', 0)
         if n_out:  # OWQ: the outlier tail stays fp
@@ -356,33 +345,3 @@ class GPTQ(BaseBlockwiseQuantization):
         if perm is not None:
             out = out[:, torch.argsort(perm)]
         return out.to(lin['w'].dtype)
-
-    def bake_fake_quant_weights(self):
-        with torch.no_grad():
-            for b in range(self.model.n_blocks):
-                blk = self.model.blocks[b]
-                for path in self.layout.linears:
-                    if self.layer_is_ignored(b, path):
-                        continue
-                    lin = get_path(blk, path)
-                    if 'gptq_scales' not in lin:
-                        continue
-                    blk = set_path(blk, path,
-                                   dict(lin, w=self.static_w_qdq(lin)))
-                self.model.set_block(b, blk)
-
-    def fake_quant_qcfg(self, block_idx, path):
-        if self.layer_is_ignored(block_idx, path):
-            return None
-        # baked at deploy with the stored qparams: the runtime quantizes
-        # only the activations
-        if getattr(self, '_baked', False):
-            return LinearQcfg(a_spec=self.aspec)
-        return LinearQcfg(w_spec=self.wspec, a_spec=self.aspec)
-
-    def deploy(self, quant_format):
-        if quant_format == 'fake_quant':
-            if not getattr(self, '_baked', False):
-                self.bake_fake_quant_weights()
-            self._baked = True
-        return super().deploy(quant_format)

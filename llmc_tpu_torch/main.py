@@ -7,7 +7,8 @@ calibration data -> blockwise optimization -> evals -> save.  Entry points:
 ``device=None`` is the CUDA device, and raises without one; the CPU is
 taken only when asked for.  Ported: the quantization methods registered
 in ``ALGO_REGISTRY`` (RTN, Awq, SmoothQuant, GPTQ, Quarot, OsPlus,
-LlmInt8; their options checked by ``check_special`` before any heavy
+LlmInt8, HQQ, AdaDim, and the gradient-trained NormTweaking, OmniQuant and
+TesseraQ; their options checked by ``check_special`` before any heavy
 work), weight and activation quantization, PPL evals at ``pretrain`` /
 ``transformed`` / ``fake_quant``, ``save_trans`` / ``save_fake``.  Data
 parallel calibration, sparsification, the backend exports and the

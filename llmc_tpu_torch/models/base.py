@@ -9,8 +9,10 @@ or from the layer's calibrated ``a_scales`` / ``a_zeros`` with
 ``a_static``), then the packed weight (W4A16, W4A8 through ``a_int8``,
 W8A16, the w8 companion through ``w8_alt``) or the fp weight with its
 fake-quant (an unbaked ``w_spec``, with the layer's stored clip factors).
-``ste`` and ``mixed_cols`` are kept so that a policy means the same in
-both packages, and raise ``NotImplementedError`` when set.
+``ste`` rounds both fake-quants straight through (the training forwards
+of OmniQuant, TesseraQ and NormTweaking).  ``mixed_cols`` is kept so that
+a policy means the same in both packages, and raises
+``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from ..quant.qspec import QuantSpec
 from ..quant.quantizer import (QParams, fake_quant_act, fake_quant_act_static,
                                fake_quant_act_masked, fake_quant_weight,
-                               fake_quant_weight_masked)
+                               fake_quant_weight_masked, ste_round)
 
 F32 = torch.float32
 
@@ -49,8 +51,6 @@ class LinearQcfg:
 
 # LinearQcfg fields the port does not serve yet -> the ROADMAP item
 _UNPORTED = (
-    ('ste', 'straight-through rounding for OmniQuant / TesseraQ / '
-            'NormTweaking (ROADMAP A10)'),
     ('mixed_cols', 'QUIK mixed columns (ROADMAP A10)'),
 )
 
@@ -79,6 +79,7 @@ def linear_apply(p: Dict, x: torch.Tensor,
     if qcfg is not None and qcfg.pre_had is not None:
         from ..ops.hadamard import pre_had_apply
         x = pre_had_apply(x, qcfg.pre_had, qcfg.pre_had_dim)
+    round_fn = ste_round if qcfg is not None and qcfg.ste else torch.round
     if qcfg is not None and qcfg.a_outlier_threshold is not None:
         # LLM.int8: the columns whose activation absmax exceeds the
         # threshold stay fp in both the activation and the weight, and the
@@ -97,7 +98,7 @@ def linear_apply(p: Dict, x: torch.Tensor,
             x = fake_quant_act_static(qcfg.a_spec, x,
                                       QParams(p['a_scales'], p['a_zeros']))
         else:
-            x = fake_quant_act(qcfg.a_spec, x)
+            x = fake_quant_act(qcfg.a_spec, x, round_fn=round_fn)
     if qcfg is not None and qcfg.w_packed:
         from ..ops.dequant_matmul import dequant_matmul
         if qcfg.w8_alt:   # the per-channel int8 companion copy
@@ -110,7 +111,8 @@ def linear_apply(p: Dict, x: torch.Tensor,
         w = p['w']
         if qcfg is not None and qcfg.w_spec is not None and not qcfg.w_baked:
             w = fake_quant_weight(qcfg.w_spec, w, up_factor=p.get('clip_up'),
-                                  low_factor=p.get('clip_low'))
+                                  low_factor=p.get('clip_low'),
+                                  round_fn=round_fn)
         y = matmul_f32_acc(x, w).to(x.dtype)
     if p.get('b') is not None:
         y = y + p['b']

@@ -18,8 +18,13 @@ A true division here is a tensor by a tensor, which is the same on the
 CPU and on the card (a tensor by a Python scalar is a reciprocal
 multiply on the card).
 
-Not ported (ROADMAP A10): ``ste_round``, the straight-through rounding of
-the gradient-based algorithms (OmniQuant, TesseraQ, NormTweaking).
+The functions are differentiable where the reference's are: ``ste_round``
+(the rounding of the gradient-trained algorithms, passed as ``round_fn``)
+rounds forward and passes the gradient straight through, and every clip
+on a gradient's way is ``clip`` (maximum, then minimum), which gives an
+element lying on a bound half the gradient, as ``jnp.clip`` does;
+``torch.clamp`` would give it all.  Under straight-through rounding every
+code that rounds to ``qmin`` or ``qmax`` lies on a bound.
 """
 
 from __future__ import annotations
@@ -103,8 +108,7 @@ def learnable_range(spec: QuantSpec, t: torch.Tensor, up_factor=None,
     mn, mx = minmax_range(spec, t)
     if spec.symmetric:
         if up_factor is not None:
-            amax = torch.clamp(torch.maximum(torch.abs(mx), torch.abs(mn)),
-                               min=1e-5)
+            amax = clip(torch.maximum(torch.abs(mx), torch.abs(mn)), 1e-5)
             amax = torch.sigmoid(up_factor.to(F32)) * amax
             return -amax, amax
     else:
@@ -122,18 +126,27 @@ def div_const(x: torch.Tensor, c: float, folded: bool) -> torch.Tensor:
     return x / torch.full_like(x, c)
 
 
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """``jnp.clip``: the maximum with ``lo``, then the minimum with
+    ``hi``, which split the gradient of a tie in half (``torch.clamp``
+    passes all of it)."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
+
+
 def qparams_from_range(spec: QuantSpec, rng, folded: bool = False) -> QParams:
     mn, mx = rng
     mn, mx = mn.to(F32), mx.to(F32)
     qmin, qmax = spec.qmin, spec.qmax
     if spec.symmetric or spec.is_float:
-        amax = torch.clamp(torch.maximum(torch.abs(mx), torch.abs(mn)),
-                           min=1e-5)
+        amax = clip(torch.maximum(torch.abs(mx), torch.abs(mn)), 1e-5)
         scales = div_const(amax, qmax, folded)
         zeros = torch.zeros((), dtype=F32, device=mn.device)
     else:
-        scales = div_const(torch.clamp(mx - mn, min=1e-5), qmax - qmin,
-                           folded)
+        scales = div_const(clip(mx - mn, 1e-5), qmax - qmin, folded)
         if spec.round_zp:
             zeros = torch.clamp(qmin - torch.round(mn / scales), qmin, qmax)
         else:
@@ -228,7 +241,20 @@ def tensor_qparams(spec: QuantSpec, t: torch.Tensor, up_factor=None,
 # Quant / dequant
 # --------------------------------------------------------------------------
 
-def quant(spec: QuantSpec, t: torch.Tensor, qp: QParams) -> torch.Tensor:
+def stored_qparams(lin) -> QParams:
+    """The qparams a method fixed at compress time and stored beside a
+    linear's weight (``gptq_scales`` and, unless symmetric with rounded
+    zeros, ``gptq_zeros``, each [out, groups] over the weight's own column
+    order), laid out as ``reshape_tensor`` groups the weight."""
+    s = lin['gptq_scales'].to(F32)
+    z = lin.get('gptq_zeros')
+    z = torch.zeros((), dtype=F32, device=s.device) if z is None \
+        else z.to(F32).reshape(-1, 1)
+    return QParams(s.reshape(-1, 1), z)
+
+
+def quant(spec: QuantSpec, t: torch.Tensor, qp: QParams,
+          round_fn=torch.round) -> torch.Tensor:
     t = t.to(F32)
     if spec.is_float:
         scales = torch.where(qp.scales == 0, torch.ones_like(qp.scales),
@@ -236,22 +262,20 @@ def quant(spec: QuantSpec, t: torch.Tensor, qp: QParams) -> torch.Tensor:
         scaled = t / scales + qp.zeros
         if spec.use_fp_scaled_cast:
             return float_cast(scaled, spec.e_bits, spec.m_bits, spec.fp_max)
-        return torch.round(scaled)
+        return round_fn(scaled)
     if spec.round_zp:
-        return torch.clamp(torch.round(t / qp.scales) + qp.zeros,
-                           spec.qmin, spec.qmax)
-    return torch.clamp(
-        torch.round(t / torch.clamp(qp.scales, min=1e-9) + qp.zeros),
-        spec.qmin, spec.qmax)
+        return clip(round_fn(t / qp.scales) + qp.zeros, spec.qmin, spec.qmax)
+    return clip(round_fn(t / clip(qp.scales, 1e-9) + qp.zeros),
+                spec.qmin, spec.qmax)
 
 
 def dequant(spec: QuantSpec, q: torch.Tensor, qp: QParams) -> torch.Tensor:
     return (q - qp.zeros) * qp.scales
 
 
-def quant_dequant(spec: QuantSpec, t: torch.Tensor,
-                  qp: QParams) -> torch.Tensor:
-    return dequant(spec, quant(spec, t, qp), qp)
+def quant_dequant(spec: QuantSpec, t: torch.Tensor, qp: QParams,
+                  round_fn=torch.round) -> torch.Tensor:
+    return dequant(spec, quant(spec, t, qp, round_fn), qp)
 
 
 def _float_elementwise_qdq(spec: QuantSpec, t: torch.Tensor) -> torch.Tensor:
@@ -270,28 +294,33 @@ def _float_elementwise_qdq(spec: QuantSpec, t: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant_weight(spec, w: torch.Tensor, up_factor=None,
-                      low_factor=None, folded: bool = False) -> torch.Tensor:
-    """Dynamic weight fake-quant (quant.py:831-867)."""
+                      low_factor=None, folded: bool = False,
+                      dim_ic: bool = False,
+                      round_fn=torch.round) -> torch.Tensor:
+    """Dynamic weight fake-quant (quant.py:831-867).  ``dim_ic``
+    quantizes along the input channels (AdaDim)."""
     if spec is None:
         return w
+    qw = w.T if dim_ic else w
     if spec.is_float and not spec.use_fp_scaled_cast:
-        out = _float_elementwise_qdq(spec, reshape_tensor(spec, w))
+        out = _float_elementwise_qdq(spec, reshape_tensor(spec, qw))
     else:
-        t, qp = tensor_qparams(spec, w, up_factor, low_factor, folded)
-        out = quant_dequant(spec, t, qp)
-    return restore_tensor(spec, out, w.shape).to(w.dtype)
+        t, qp = tensor_qparams(spec, qw, up_factor, low_factor, folded)
+        out = quant_dequant(spec, t, qp, round_fn)
+    out = restore_tensor(spec, out, qw.shape)
+    return (out.T if dim_ic else out).to(w.dtype)
 
 
-def fake_quant_weight_static(spec: QuantSpec, w: torch.Tensor,
-                             qp: QParams) -> torch.Tensor:
+def fake_quant_weight_static(spec: QuantSpec, w: torch.Tensor, qp: QParams,
+                             round_fn=torch.round) -> torch.Tensor:
     """Weight fake-quant with given qparams."""
     t = reshape_tensor(spec, w)
-    out = quant_dequant(spec, t, qp)
+    out = quant_dequant(spec, t, qp, round_fn)
     return restore_tensor(spec, out, w.shape).to(w.dtype)
 
 
 def fake_quant_act(spec: Optional[QuantSpec], a: torch.Tensor,
-                   folded: bool = True) -> torch.Tensor:
+                   folded: bool = True, round_fn=torch.round) -> torch.Tensor:
     """Dynamic activation fake-quant (quant.py:744-782); the jitted
     reference's order by default."""
     if spec is None:
@@ -300,7 +329,7 @@ def fake_quant_act(spec: Optional[QuantSpec], a: torch.Tensor,
         out = _float_elementwise_qdq(spec, reshape_tensor(spec, a))
     else:
         t, qp = tensor_qparams(spec, a, folded=folded)
-        out = quant_dequant(spec, t, qp)
+        out = quant_dequant(spec, t, qp, round_fn)
     return restore_tensor(spec, out, a.shape).to(a.dtype)
 
 
@@ -313,11 +342,15 @@ def fake_quant_act_static(spec: QuantSpec, a: torch.Tensor,
 
 
 def real_quant_weight(spec: QuantSpec, w: torch.Tensor, up_factor=None,
-                      low_factor=None):
+                      low_factor=None, qp: Optional[QParams] = None):
     """Quantize to integer (or fp8) codes plus (scales, zeros) laid out
-    per output channel (quant.py:916-960)."""
+    per output channel (quant.py:916-960); ``qp``: given qparams (as
+    ``reshape_tensor`` groups ``w``) instead of the calibration's."""
     shape = w.shape
-    t, qp = tensor_qparams(spec, w, up_factor, low_factor)
+    if qp is None:
+        t, qp = tensor_qparams(spec, w, up_factor, low_factor)
+    else:
+        t = reshape_tensor(spec, w.to(F32))
     q = quant(spec, t, qp)
     q = restore_tensor(spec, q, shape)
     if spec.is_float:
@@ -568,8 +601,17 @@ def static_qparams_from_batches(spec: QuantSpec, batches, algo: str
     return qparams_from_range(spec, rng)
 
 
-def ste_round(x):
-    """Straight-through rounding of the gradient-based algorithms."""
-    raise NotImplementedError(
-        'ste_round (straight-through rounding for OmniQuant / TesseraQ / '
-        'NormTweaking) is not ported yet (ROADMAP A10)')
+class _SteRound(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Straight-through rounding of the gradient-trained algorithms:
+    ``torch.round`` (half to even) forward, the identity backward."""
+    return _SteRound.apply(x)

@@ -24,7 +24,8 @@ from ..models.base import LinearQcfg, get_path, set_path
 from ..ops.dequant_matmul import (QMeta, _quant_act_token, dequant_weight,
                                   pack_scales_t, pack_weight)
 from ..quant.qspec import QuantSpec
-from ..quant.quantizer import real_quant_weight
+from ..quant.quantizer import (QParams, real_quant_weight, reshape_tensor,
+                               stored_qparams, tensor_qparams)
 from ..utils.device import resolve_device
 
 F32 = torch.float32
@@ -108,11 +109,42 @@ def w8_companion(w: torch.Tensor):
     return q, s8[:, 0]
 
 
+def stored_grid(lin: Dict, wspec: QuantSpec) -> Optional[QParams]:
+    """The qparams a linear's method stored beside its weight (GPTQ,
+    TesseraQ, HQQ, AdaDim's output-channel choices), as
+    ``reshape_tensor`` groups the weight, where they group its columns in
+    their own order as ``wspec`` does (``wspec`` then has the method's
+    bits); else None.  GPTQ's act-order qparams (``perm``) group permuted
+    columns, which the kernels cannot read."""
+    if 'gptq_scales' not in lin or 'perm' in lin or wspec.is_float:
+        return None
+    qp = stored_qparams(lin)
+    t = reshape_tensor(wspec, lin['w'])
+    if qp.scales.numel() != t.numel() // t.shape[-1]:
+        return None  # packed at another grouping than the method's
+    return qp
+
+
+def packed_grid(lin: Dict, wspec: QuantSpec) -> QParams:
+    """The qparams packing quantizes a linear's weight with: its
+    ``stored_grid``, else ``wspec``'s calibration of the weight (with its
+    clip factors).  The kernels' codes are integers, so under ``round_zp``
+    a float zero (HQQ's) is rounded: that moves only an element that the
+    float zero's grid clips, by at most half a step."""
+    qp = stored_grid(lin, wspec)
+    if qp is None:
+        qp = tensor_qparams(wspec, lin['w'], lin.get('clip_up'),
+                            lin.get('clip_low'))[1]
+    if wspec.round_zp:
+        qp = QParams(qp.scales, torch.round(qp.zeros))
+    return qp
+
+
 def _pack_linear(lin: Dict, wspec: QuantSpec, pre_t: bool,
-                 up=None, low=None, w8_prefill: bool = False) -> Dict:
+                 w8_prefill: bool = False) -> Dict:
     w = lin['w']
     codes, scales, zeros = real_quant_weight(wspec, w.to(F32),
-                                             up_factor=up, low_factor=low)
+                                             qp=packed_grid(lin, wspec))
     meta = _meta(wspec, w.shape[0], w.shape[1], False)
     qw, s, z = pack_weight(codes.to(torch.int8), scales, zeros, meta)
     if pre_t:
@@ -139,8 +171,7 @@ def pack_block(block: Dict, cfg, wspec: QuantSpec, layout,
     for path in layout.linears:
         lin = get_path(block, path)
         block = set_path(block, path, _pack_linear(
-            lin, wspec, pre_t, lin.get('clip_up'), lin.get('clip_low'),
-            w8_prefill=w8_prefill))
+            lin, wspec, pre_t, w8_prefill=w8_prefill))
     if fuse:
         block = fuse_packed_block(block)
     return block

@@ -184,8 +184,14 @@ def test_masked_quantizers_bit_equal_to_jitted_reference(sym):
 
 
 def test_ste_round_raises_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match='A10'):
-        TQ.ste_round(torch.zeros(2))
+    """Straight-through rounding raised (ROADMAP A10) until it was ported:
+    now it rounds as jnp.round does and passes the gradient through."""
+    x = torch.tensor([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 0.3],
+                     requires_grad=True)
+    y = TQ.ste_round(x)
+    _eq(y.detach().numpy(), jnp.round(jnp.asarray(x.detach().numpy())))
+    y.sum().backward()
+    _eq(x.grad.numpy(), np.ones(7, np.float32))
 
 
 @pytest.mark.parametrize('static', [False, True])

@@ -3,7 +3,10 @@ CPU at float32: ``run_pipeline`` on the tests' TINY Llama (a checkpoint
 written from a seed) for each method configuration the repository ships
 under ``configs/quantization/methods`` (its ``quant`` section, with group
 size 128 cut to 32 for TINY's widths), the three PPLs within 1e-3 of the
-JAX package's; QuaRot with the reference's rotation handed in; GPTQ's
+JAX package's; QuaRot with the reference's rotation handed in; the
+gradient-trained methods against the reference trained on each block's own
+inputs, TesseraQ's with its training step built afresh in each block
+(ROADMAP C: two reference faults the port keeps apart from); GPTQ's
 codes and scales block by block; the static activation qparams bit for
 bit; and the fail-fast option check."""
 
@@ -15,6 +18,11 @@ import pytest
 import torch
 import yaml
 
+from llmc_tpu.compression.quantization.ntweak import \
+    NormTweaking as JNormTweaking
+from llmc_tpu.compression.quantization.omniq import OmniQuant as JOmniQuant
+from llmc_tpu.compression.quantization.tesseraq import \
+    TesseraQ as JTesseraQ
 from llmc_tpu.main import run_pipeline as j_run_pipeline
 from llmc_tpu.models import LlamaAdapter as JAdapter
 from llmc_tpu.models import LlamaConfig as JConfig
@@ -25,7 +33,8 @@ from llmc_tpu_torch.compression.quantization.gptq import GPTQ
 from llmc_tpu_torch.compression.quantization.quarot import Quarot
 from llmc_tpu_torch.main import run_pipeline
 from llmc_tpu_torch.models.base import get_path
-from torch_port_helpers import TINY
+from torch_port_helpers import (TINY, reference_builds_its_step_per_block,
+                                reference_trains_on_block_inputs)
 
 torch.set_num_threads(1)
 
@@ -37,7 +46,8 @@ PPLS = ('ppl_pretrain', 'ppl_transformed', 'ppl_fake_quant')
 CONFIGS = ('smoothquant_w8a8', 'gptq_w4a16', 'gptq_static_groups',
            'gptq_owq', 'quarot_w4a8', 'osplus_w8a8', 'llmint8_w8a8',
            'rtn_w8a8', 'rtn_w_a_pertensor_static', 'w48_double',
-           'w48_afp8', 'awq_w_a_chat_data')
+           'w48_afp8', 'awq_w_a_chat_data', 'hqq_w4', 'adadim_w8',
+           'omniquant_w4', 'tesseraq_w4', 'normtweaking_w4')
 
 
 def method_quant(name):
@@ -88,6 +98,12 @@ def _runs(checkpoint, name, monkeypatch):
         quant = method_quant(name)
         if quant['method'] == 'Quarot':
             _reference_rotation(monkeypatch)
+        trained = {'NormTweaking': JNormTweaking, 'OmniQuant': JOmniQuant,
+                   'TesseraQ': JTesseraQ}.get(quant['method'])
+        if trained is not None:
+            reference_trains_on_block_inputs(monkeypatch, trained)
+        if trained is JTesseraQ:
+            reference_builds_its_step_per_block(monkeypatch, trained)
         jres = j_run_pipeline(pipeline_config(checkpoint, quant))
         tres = run_pipeline(pipeline_config(checkpoint, quant), device='cpu')
         _RUNS[name] = (jres, tres)
@@ -100,13 +116,14 @@ def test_method_ppls_match_jax(checkpoint, monkeypatch, name):
     before), its three PPLs within 1e-3 of the JAX package's; an
     equivalence transform keeps the function ('transformed' within 2e-4
     of pretrain; QuaRot within 2e-2, its embeddings' mean removed, which
-    no RMSNorm undoes; GPTQ's compensated weights do not)."""
+    no RMSNorm undoes; GPTQ's compensated weights, TesseraQ's merged
+    rounding and NormTweaking's trained norms are no equivalence)."""
     jres, tres = _runs(checkpoint, name, monkeypatch)
     for ppl in PPLS:
         assert np.isfinite(tres[ppl]), ppl
         assert abs(tres[ppl] - jres[ppl]) / jres[ppl] <= 1e-3, (
             ppl, tres[ppl], jres[ppl])
-    if not name.startswith('gptq'):
+    if not name.startswith(('gptq', 'tesseraq', 'normtweaking')):
         tol = 2e-2 if name.startswith('quarot') else 2e-4
         assert abs(tres['ppl_transformed'] - tres['ppl_pretrain']) \
             <= tol * tres['ppl_pretrain']

@@ -116,17 +116,16 @@ def test_unported_graph_options_raise(opt):
 
 
 def test_linear_qcfg_unported_fields_raise(pair):
-    """The fields still unported (straight-through rounding, QUIK's mixed
-    columns) raise; the LLM.int8 decomposition and the online rotation,
-    which raised until they were ported, give the reference's output."""
+    """The field still unported (QUIK's mixed columns) raises; the LLM.int8
+    decomposition, the online rotation and straight-through rounding, which
+    raised until they were ported, give the reference's output."""
     from llmc_tpu.models import base as JB
     from llmc_tpu.quant.qspec import QuantSpec as JSpec
     from llmc_tpu_torch.quant.qspec import QuantSpec
     jm, tm = pair
     p = tm.blocks[0]['self_attn']['q_proj']
-    for kw in (dict(ste=True), dict(mixed_cols=True)):
-        with pytest.raises(NotImplementedError, match='A10'):
-            TB.linear_apply(p, torch.zeros(1, 64), TB.LinearQcfg(**kw))
+    with pytest.raises(NotImplementedError, match='A10'):
+        TB.linear_apply(p, torch.zeros(1, 64), TB.LinearQcfg(mixed_cols=True))
     x = np.random.RandomState(2).randn(3, 64).astype(np.float32) * 2
     x[:, 5] = 9.0     # an outlier column past the threshold
     spec = dict(bit=8, symmetric=True, granularity='per_token')
@@ -135,7 +134,11 @@ def test_linear_qcfg_unported_fields_raise(pair):
                           w_spec=QuantSpec(**wspec)),
                      dict(a_outlier_threshold=6.0, a_spec=JSpec(**spec),
                           w_spec=JSpec(**wspec))),
-                    (dict(pre_had='full'), dict(pre_had='full'))):
+                    (dict(pre_had='full'), dict(pre_had='full')),
+                    (dict(ste=True, a_spec=QuantSpec(**spec),
+                          w_spec=QuantSpec(**wspec)),
+                     dict(ste=True, a_spec=JSpec(**spec),
+                          w_spec=JSpec(**wspec)))):
         got = TB.linear_apply(p, torch.as_tensor(x), TB.LinearQcfg(**kw))
         want = JB.linear_apply(jm.blocks[0]['self_attn']['q_proj'],
                                jnp.asarray(x), JB.LinearQcfg(**jkw))

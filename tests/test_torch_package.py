@@ -109,12 +109,27 @@ def test_package_imports_without_gpu_nvcc_or_triton():
             'assert "jax" not in sys.modules, "jax was imported"\n'
             'from llmc_tpu_torch.utils import ALGO_REGISTRY\n'
             'for m in ("SmoothQuant", "GPTQ", "Quarot", "OsPlus", '
-            '"LlmInt8"):\n'
+            '"LlmInt8", "HQQ", "AdaDim", "NormTweaking", "OmniQuant", '
+            '"TesseraQ"):\n'
             '    ALGO_REGISTRY[m]\n'
             'print("ok")\n')
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == 'ok', r.stderr[-2000:]
+
+
+def test_registry_holds_the_trained_methods_and_ste_is_served():
+    """HQQ, AdaDim, NormTweaking, OmniQuant and TesseraQ are registered;
+    ``LinearQcfg(ste=True)`` is served, ``mixed_cols`` still raises with
+    its ROADMAP item."""
+    import llmc_tpu_torch.compression  # noqa: F401 (registers them)
+    from llmc_tpu_torch.models.base import LinearQcfg, check_qcfg
+    from llmc_tpu_torch.utils import ALGO_REGISTRY
+    for m in ('HQQ', 'AdaDim', 'NormTweaking', 'OmniQuant', 'TesseraQ'):
+        assert ALGO_REGISTRY[m].__name__ == m
+    check_qcfg(LinearQcfg(ste=True))
+    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
+        check_qcfg(LinearQcfg(mixed_cols=True))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -442,6 +457,70 @@ def test_chip_smoke_cpu_method_phases_tiny(name, mode):
     assert srv['expected_launches'][kernel] == (4 * 2 + 1) * fw
     assert srv['a_spec'] == (None if 'act' not in quant else dict(
         srv['a_spec'], **quant['act']))
+
+
+def test_chip_smoke_method_quants_are_the_shipped_configs():
+    """``METHOD_QUANT`` holds each method config's ``quant`` section as it
+    stands in configs/quantization/methods."""
+    import yaml
+    for name, quant in chip_smoke.METHOD_QUANT.items():
+        path = ROOT / 'configs' / 'quantization' / 'methods' / f'{name}.yml'
+        assert yaml.safe_load(path.read_text())['quant'] == quant, name
+
+
+@pytest.mark.parametrize('name, mode', chip_smoke.PHASE16)
+def test_chip_smoke_cpu_phase16_tiny(name, mode):
+    """Phase 16 at a tiny size on the CPU (group size 32): finite PPLs, the
+    hyperparameters each method read, the trained methods' steps, block
+    losses and depth cut; then the model packed and served against its
+    fake-quant model, with the launches of the W4 or W8 path."""
+    cpu = torch.device('cpu')
+    rec, res = chip_smoke.phase16_compress(
+        cpu, name, TINY_BF16, group_size=32, n_samples=4, seq_len=24,
+        eval_tokens=480, eval_bs=2)
+    method = chip_smoke.METHOD_QUANT[name]['method']
+    assert rec['ok'] and rec['launches'] == ZERO_LAUNCHES
+    assert rec['hyperparams'] == res['opt'].hyperparams()
+    cut = chip_smoke.TRAINED_DEPTH.get(method)
+    L = 2 if cut is None else min(2, cut[0])
+    assert rec['layers'] == L
+    assert (rec['depth_cut'] is None) == (cut is None)
+    if cut is not None:
+        steps = {'NormTweaking': 10, 'OmniQuant': 20, 'TesseraQ': 300}
+        assert rec['train_steps'] == steps[method] * L
+        assert [r['block'] for r in rec['block_loss']] == list(range(L))
+        assert all(r['after'] <= r['before'] for r in rec['block_loss'])
+        assert rec['train_ms_per_step'] > 0
+    srv = chip_smoke.phase_compress_serve(
+        cpu, res, prompt_len=8, mode=mode, n_requests=4, max_batch=2,
+        max_len=96, buckets=(16, 32), max_prompt=30)
+    assert srv['ok'] and srv['all_done'] and srv['launches'] == ZERO_LAUNCHES
+    assert srv['rel_logit_err_vs_fake_quant'] <= chip_smoke.TOL_COMPRESS_SERVE
+    kernel = 'w8_dequant_matmul' if mode == 'w8a16' else 'w4_dequant_matmul'
+    fw = srv['prefill_forwards'] + srv['decode_steps']
+    assert srv['expected_launches'][kernel] == (4 * L + 1) * fw
+    # packed on the method's own calibration and qparams; held against the
+    # method's fake-quant model where packing holds its grid, else against
+    # the weights packing holds, with the gap recorded
+    assert srv['w_spec']['calib_algo'] == \
+        chip_smoke.METHOD_QUANT[name]['weight'].get('calib_algo', 'minmax')
+    gap = srv['packed_weight_gap']
+    assert gap['max_excess_steps_stored_qparams'] <= chip_smoke.STORED_MOVE
+    if method == 'HQQ':
+        # the elements its float zeros clip, at most half a step off
+        assert 0 < gap['share_moved'] < 0.05
+        assert gap['max_excess_steps'] <= chip_smoke.STORED_MOVE
+    elif method == 'AdaDim':
+        ic = [c == 'ic' for c in res['opt'].dim_choice.values()]
+        assert 0 < gap['off_grid_share'] == sum(ic) / len(ic)
+    else:
+        assert gap['off_grid_share'] == gap['share_moved'] == 0
+        assert srv['rel_logit_err_vs_method_model'] == \
+            srv['rel_logit_err_vs_fake_quant']
+    if method == 'NormTweaking':
+        # the shipped rate moves no bf16 norm: held to the pretrained model
+        assert rec['norms_moved'] == 0
+        assert rec['tolerance_ppl_transformed'] is not None
 
 
 def test_chip_smoke_cpu_probes_phase_tiny():

@@ -44,3 +44,36 @@ def cuda_device():
                     'there (python3 chip_smoke.py, or pytest -m gpu on '
                     'the card)')
     return torch.device('cuda')
+
+
+def reference_trains_on_block_inputs(monkeypatch, cls):
+    """The JAX package's gradient-trained method ``cls`` trained on each
+    block's own calibration inputs: its ``block_opt`` replaces
+    ``self.inputs`` by the block's outputs before ``block_transform``
+    trains on them (ROADMAP C)."""
+    inner_opt, inner_transform = cls.block_opt, cls.block_transform
+
+    def block_opt(self, idx):
+        self._block_inputs = self.inputs
+        return inner_opt(self, idx)
+
+    def block_transform(self, idx, block, feats):
+        outs, self.inputs = self.inputs, self._block_inputs
+        try:
+            return inner_transform(self, idx, block, feats)
+        finally:
+            self.inputs = outs
+    monkeypatch.setattr(cls, 'block_opt', block_opt)
+    monkeypatch.setattr(cls, 'block_transform', block_transform)
+
+
+def reference_builds_its_step_per_block(monkeypatch, cls):
+    """The JAX package's TesseraQ with its jitted training step built
+    anew in each block: the cached step keeps the qparams of the block it
+    was built in (ROADMAP C)."""
+    inner = cls.block_transform
+
+    def block_transform(self, idx, block, feats):
+        self._jits.clear()
+        return inner(self, idx, block, feats)
+    monkeypatch.setattr(cls, 'block_transform', block_transform)
