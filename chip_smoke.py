@@ -159,6 +159,35 @@ Phases, each printing one JSON line, all of them on every run:
                   gap to the method's model recorded.  NormTweaking at the
                   shipped rate moves no bf16 norm: its transformed model
                   is held to the pretrained one.
+17. ``compress`` + ``compress_serve`` of the last A10 methods, each on its
+                  shipped config's ``quant`` section, calibration 8 x 512,
+                  at Llama-2-7B's width: QUIK (``quik_w4a8.yml``) at full
+                  depth, served W4A8 through the quantizer and B3, its
+                  int columns on its own per-channel grid and its fp
+                  columns off it (their share recorded), held to QUIK's
+                  own model within ``TOL_QUIK_VS_OWN``;
+                  SpQR (``spqr_w4.yml``) at ``GPTQ_LAYERS`` layers, served
+                  W4A16 through B1 on the double-quantized qparams it
+                  stores, its fp outliers off the grid (their share
+                  recorded); DGQ (``dgq_w4a8.yml``) at the depth
+                  ``DEPTH_CUT`` sets, served W4A8 through B3 on its dual
+                  grain, every weight on that grid.  QUIK's and DGQ's
+                  transformed PPL held to the pretrained one within
+                  ``TOL_PPL_EQUIV``.  Then ``decode_ppl``: the
+                  ``kvquant_int8.yml`` model (RTN W4, Naive int8 KV) at
+                  ``DECODE_LAYERS`` layers through ``run_pipeline`` with a
+                  decode-PPL entry at pretrain, fake_quant and
+                  fake_quant_wo_kv (B2 once a layer a fed step in each;
+                  the pretrain decode PPL against the prefill PPL of the
+                  same tokens) and token consistency at fake_quant; then
+                  the fake-quant model over ``kvquant_kivi.yml``'s KIVI
+                  4-bit cache, over KIVI with a ring as long as the
+                  sequence (its NLL the fp cache's) and over a SinkKV
+                  cache, none of them through B2.  At the pretrained
+                  weights the logits of every decode step are held to one
+                  prefill's and B2 to its plain version
+                  (``decode_logits_checks``), planted faults outside both
+                  bounds.
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
@@ -253,6 +282,34 @@ METHOD_QUANT = {
         weight=dict(bit=4, symmetric=False, granularity='per_group',
                     group_size=128),
         special=dict(epochs=8, thresholds=[0.8, 0.5, 0.2])),
+    'quik_w4a8': dict(
+        method='QUIK',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        act=dict(bit=8, symmetric=True, granularity='per_token'),
+        special=dict(fp_features=128)),
+    # outlier_threshold and scorer are keys no package reads (ROADMAP C):
+    # SpQR runs relative_threshold 0.2 and the simplified pre-pass
+    'spqr_w4': dict(
+        method='SpQR',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        special=dict(outlier_threshold=0.2, scorer='exact')),
+    'dgq_w4a8': dict(
+        method='DGQ',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        act=dict(bit=8, symmetric=True, granularity='per_token')),
+    'kvquant_int8': dict(
+        method='RTN',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        kvcache=dict(method='Naive', bit=8, symmetric=True)),
+    'kvquant_kivi': dict(
+        method='RTN',
+        weight=dict(bit=4, symmetric=False, granularity='per_group',
+                    group_size=128),
+        kvcache=dict(method='Kivi', bit=4, symmetric=True)),
 }
 # GPTQ's column loop is a Python loop of torch ops, 35584 columns a
 # Llama-2-7B block at about 0.22 ms a column on an H100 (7.9 s a block):
@@ -277,6 +334,58 @@ TRAINED_DEPTH = {
                     'iterations: the config\'s epochs is not read) and 21 '
                     'host quantiles, about 49 s a block'),
 }
+# Phase 17: the last A10 methods, each served on its path (QUIK and DGQ
+# W4A8 through B3, SpQR W4A16 through B1), and the depth cut of each that
+# has one, with its reason.  QUIK runs all 32 layers (its calibration is
+# an absmax a subset).
+PHASE17 = (('quik_w4a8', 'w4a8'), ('spqr_w4', 'w4a16'),
+           ('dgq_w4a8', 'w4a8'))
+DEPTH_CUT = dict(TRAINED_DEPTH, **{
+    'SpQR': (GPTQ_LAYERS, 'GPTQ\'s column loop (a Python loop of torch '
+                          'ops, 35584 columns a block) and the outlier '
+                          'test in it, about 6-10 s a block'),
+    'DGQ': (4, '100 grid points a linear, each an f32 product over the '
+               '4096 calibration tokens (about 165 TFLOP a block on the '
+               'CUDA cores), about 5.4 s a block; 4 layers and not 8 to '
+               'keep the script inside its time limit on a slower host'),
+})
+# transformed PPL against pretrained where the method's transform is an
+# equivalence up to the bf16 rounding of rescaled weights (QUIK transforms
+# nothing; DGQ smooths as SmoothQuant does, which read 5e-5 at this size)
+TOL_PPL_EQUIV = 2e-4
+# decode_ppl: the kvquant_int8 model (RTN W4 g128 asym, Naive int8 KV) on
+# DECODE_LAYERS of Llama-2-7B's, over one chunk of DECODE_TOKENS synthetic
+# tokens.  A fake-quant decode step fake-quantizes every weight again
+# (about 7-9 ms a layer), and five passes of 255 steps run at fake-quant.
+DECODE_LAYERS = (4, 'a fake-quant decode step re-quantizes every weight '
+                    '(about 7-9 ms a layer); five fake-quant passes of 255 '
+                    'steps and seven pretrained ones of 256; 4 layers and '
+                    'not 8 to keep the script inside its time limit on a '
+                    'slower host')
+DECODE_TOKENS = 256
+# The decode PPL over an fp bf16 cache against the prefill PPL of the same
+# tokens (both bf16, f32 attention): they differ by the order of f32 sums
+# and the bf16 roundings of the attention output that it flips, through
+# the layers; the mean NLL moves far less than one bf16 ulp (3.9e-3).  The
+# random model's logits are near uniform, so the PPL hardly moves with what
+# attention returns: the logits below are what tell a read apart.
+TOL_DECODE_VS_PREFILL = 2e-3
+# The logits of each fed step (``logits_rel``: the largest over the steps
+# of |got - want| / |want|, L2 over the vocabulary), at the pretrained
+# weights.  The decode over the fp cache (B2) against one prefill of the
+# same tokens: bf16 roundings that fall otherwise between a one-token step
+# and a 256-token forward.  Set from an H100 reading at 8 layers: 1.01e-2,
+# and 9.5e-3 at the first step, where attention reads one position and
+# returns its value exactly, so the gap is the linears'; KIVI's 4-bit cache
+# read 3.2e-2, the Naive int8 cache 1.7e-2, and the planted faults (a
+# 4-bit Naive cache, the Sink window of 64) 0.20 and 1.26, which must stay
+# at least twice the bound.
+TOL_DECODE_LOGITS_VS_PREFILL = 2.5e-2
+# B2 against its plain version in the same decode: f32 sums in another
+# order, whose last bits flip a bf16 rounding of the attention output now
+# and then, carried through the layers.  Set from an H100 reading at 8
+# layers: 7.6e-3.
+TOL_DECODE_LOGITS_B2_PLAIN = 1.5e-2
 
 # Tolerances, with their reasons.
 # w4 kernel vs plain (same bf16 x and packed weights, f32 plain math):
@@ -348,6 +457,15 @@ TOL_COMPRESS_SERVE = 3e-2
 # plain linears on the card (the kernels' own function, the weight rounded
 # to bf16 as B4 rounds it) is read beside it.
 TOL_COMPRESS_SERVE_A8 = 8e-2
+# QUIK served through B3 against QUIK's own model (not only the model
+# packing holds): packing keeps its int columns on QUIK's own grid (per
+# channel over those columns) and puts its fp columns (2.5% of the inputs
+# at Llama-2-7B's width, those of the largest calibration activations) on
+# that grid too, and B3 quantizes those columns' activations with the rest
+# of the row.  That gap is the whole of the rest.  Measured on an H100 at
+# Llama-2-7B's width and depth: 0.124 (2.38% of the weights moved), against
+# 0.595 when packing re-quantized every column at g128.
+TOL_QUIK_VS_OWN = 0.25
 # card (bf16 activations, int8 KV) vs CPU (f32) over 2 layers at 7B width,
 # relative to the largest logit: bf16 rounding at every cast and int8 KV
 # codes that flip between the two.  Measured on an H100 with seeds 0-2
@@ -2124,13 +2242,14 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
     L = cfg_kw['num_hidden_layers']
     searched = search_vs_rtn(dev, config, res, sorted({0, L // 2, L - 1})) \
         if special else []
-    # GPTQ's 'transformed' model holds its compensated weights, TesseraQ's
+    # GPTQ's (and SpQR's) 'transformed' model holds its compensated
+    # weights, TesseraQ's
     # its merged rounding: no equivalence to hold them to.  NormTweaking's
     # holds its trained norms, which change the function only where one
     # moved in the block's type: at the shipped rate none does, and the
     # transformed model is then the pretrained one
     moved = getattr(res['opt'], 'train_stats', {}).get('norms_moved')
-    equivalence = method not in ('GPTQ', 'TesseraQ') and not moved
+    equivalence = method not in ('GPTQ', 'SpQR', 'TesseraQ') and not moved
     rec = dict(phase='compress', method=method,
                special=config['quant'].get('special', {}),
                fp8_block_ingest=fp8_ingest, layers=L,
@@ -2198,6 +2317,7 @@ def packed_weights(model, opt, wspec):
     whether packing reads the qparams its method stored."""
     from llmc_tpu_torch.models.base import get_path
     from llmc_tpu_torch.quant.quantizer import (fake_quant_weight,
+                                                fake_quant_weight_masked,
                                                 quant_dequant,
                                                 reshape_tensor)
     from llmc_tpu_torch.serve.packed import packed_grid, stored_grid
@@ -2205,10 +2325,15 @@ def packed_weights(model, opt, wspec):
         for p in model.get_layout().linears:
             lin = get_path(model.blocks[b], p)
             qc = opt.fake_quant_qcfg(b, p)
-            own = lin['w'] if qc is None or qc.w_spec is None \
-                or qc.w_baked else \
-                fake_quant_weight(qc.w_spec, lin['w'], lin.get('clip_up'),
-                                  lin.get('clip_low'))
+            if qc is None or qc.w_spec is None or qc.w_baked:
+                own = lin['w']
+            elif qc.mixed_cols:     # QUIK: its fp columns stay fp
+                own = fake_quant_weight_masked(qc.w_spec, lin['w'],
+                                               lin['int_mask'])
+            else:
+                own = fake_quant_weight(qc.w_spec, lin['w'],
+                                        lin.get('clip_up'),
+                                        lin.get('clip_low'))
             qp = packed_grid(lin, wspec)
             held = quant_dequant(wspec, reshape_tensor(wspec, lin['w']), qp)
             yield b, p, lin, held, reshape_tensor(wspec, own.float()), \
@@ -2231,16 +2356,19 @@ def packed_weight_gap(model, opt, wspec):
     linears with an element off the method's grid (by more than
     ``GRID_MOVE``; B1 and B4 read a scale per output channel and group of
     consecutive columns on integer codes, so AdaDim's input-channel
-    scales, GPTQ's act-order groups and the elements HQQ's float zeros
-    clip are off it), and the record: their share, the share of elements
-    moved, the largest excess, and the largest among the linears packed
-    from the qparams their method stored."""
+    scales, GPTQ's act-order groups, the elements HQQ's float zeros
+    clip, SpQR's fp outliers and QUIK's fp columns are off it), and the
+    record: their share, the share of elements moved, the largest excess,
+    and the largest among the linears packed from the qparams their method
+    stored, SpQR's outliers and QUIK's fp columns (kept fp by design) left
+    out of it."""
+    from llmc_tpu_torch.quant.quantizer import reshape_tensor
     n = moved = 0
     worst = worst_stored = 0.0
     off = []
-    for b, p, _, held, own, sc, stored in packed_weights(model, opt,
-                                                          wspec):
-        excess = (((held - own).abs() - own.abs() * 2.0 ** -8) / sc).flatten()
+    for b, p, lin, held, own, sc, stored in packed_weights(model, opt,
+                                                            wspec):
+        excess = ((held - own).abs() - own.abs() * 2.0 ** -8) / sc
         m = int((excess > GRID_MOVE).sum())
         n += excess.numel()
         moved += m
@@ -2248,6 +2376,11 @@ def packed_weight_gap(model, opt, wspec):
             off.append((b, p))
         worst = max(worst, float(excess.max()))
         if stored:
+            if 'spqr_mask' in lin:
+                excess = excess[reshape_tensor(wspec, lin['spqr_mask']) == 0]
+            if 'int_mask' in lin:
+                excess = excess[reshape_tensor(wspec, lin['int_mask'].expand(
+                    lin['w'].shape).float()) == 1]
             worst_stored = max(worst_stored, float(excess.max()))
     n_lin = model.n_blocks * len(model.get_layout().linears)
     return off, dict(off_grid_share=len(off) / n_lin,
@@ -2314,8 +2447,10 @@ def phase_compress_serve(dev, res, prompt_len=32, seed=0, mode='w4a16',
             QMap({p: LinearQcfg(a_spec=opt.aspec)
                   for p in model.get_layout().linears}),
             packed_grid_params(model, opt, wspec))
-        qmap = pack_model(model, wspec, a_spec=opt.aspec, fuse=True,
-                          head=True)
+        # W4A8: B3 quantizes every block linear's input per token itself
+        a8 = MODES[mode].a_int8
+        qmap = pack_model(model, wspec, a_spec=None if a8 else opt.aspec,
+                          fuse=True, head=True, a_int8=a8)
         got = prefill_logits(qmap)
         with plain_linears(w_bf16=True):
             control = prefill_logits(qmap)
@@ -2345,12 +2480,12 @@ def phase_compress_serve(dev, res, prompt_len=32, seed=0, mode='w4a16',
 
 
 def phase16_compress(dev, name, cfg_kw=LLAMA2_7B, **sizes):
-    """``phase_compress`` of one of phase 16's method configs at
-    ``cfg_kw``'s width, at full depth or the depth ``TRAINED_DEPTH`` sets
+    """``phase_compress`` of one of phase 16's or 17's method configs at
+    ``cfg_kw``'s width, at full depth or the depth ``DEPTH_CUT`` sets
     (recorded with its reason), at the config's own group size unless
     ``sizes`` gives one."""
     mq = METHOD_QUANT[name]
-    cut = TRAINED_DEPTH.get(mq['method'])
+    cut = DEPTH_CUT.get(mq['method'])
     if cut is not None:
         cfg_kw = dict(cfg_kw, num_hidden_layers=min(
             cut[0], cfg_kw['num_hidden_layers']))
@@ -2360,6 +2495,300 @@ def phase16_compress(dev, name, cfg_kw=LLAMA2_7B, **sizes):
                depth_cut=None if cut is None else dict(
                    layers=cfg_kw['num_hidden_layers'], reason=cut[1]))
     return rec, res
+
+
+def method_shares(model):
+    """What a phase 17 method keeps fp, before packing: QUIK's share of
+    input columns (``int_mask`` False) and SpQR's share of outlier weights
+    (``spqr_mask``), over every block linear; None where it keeps none."""
+    from llmc_tpu_torch.models.base import get_path
+    fp_cols = cols = outliers = weights = 0
+    for blk in model.blocks:
+        for p in model.get_layout().linears:
+            lin = get_path(blk, p)
+            if 'int_mask' in lin:
+                fp_cols += int((~lin['int_mask']).sum())
+                cols += lin['int_mask'].numel()
+            if 'spqr_mask' in lin:
+                outliers += int(lin['spqr_mask'].sum())
+                weights += lin['spqr_mask'].numel()
+    return dict(fp_column_share=fp_cols / cols if cols else None,
+                outlier_share=outliers / weights if weights else None)
+
+
+def phase17_method(dev, name, mode, cfg_kw=LLAMA2_7B, serve_kw=None,
+                   **sizes):
+    """``compress`` and ``compress_serve`` of one of phase 17's method
+    configs: the compress record with the share the method keeps fp and,
+    for QUIK and DGQ (equivalence transforms), its transformed PPL held to
+    the pretrained one within ``TOL_PPL_EQUIV``; then the served record,
+    DGQ's weights all on the grid packing reads from its qparams, QUIK's
+    int columns on its own grid and its served logits held to QUIK's own
+    model within ``TOL_QUIK_VS_OWN``."""
+    rec, res = phase16_compress(dev, name, cfg_kw, **sizes)
+    method = rec['method']
+    rec.update(method_shares(res['model']))
+    if method in ('QUIK', 'DGQ'):
+        rec['tolerance_ppl_transformed'] = TOL_PPL_EQUIV
+        rec['ok'] = rec['ok'] and \
+            rec['ppl_transformed_rel_drift'] <= TOL_PPL_EQUIV
+    srv = phase_compress_serve(dev, res, mode=mode, **(serve_kw or {}))
+    srv.update(config=rec['config'], layers=rec['layers'],
+               depth_cut=rec['depth_cut'])
+    gap = srv['packed_weight_gap']
+    if method == 'DGQ':
+        srv['ok'] = srv['ok'] and gap['off_grid_share'] == 0
+    if method == 'QUIK':
+        # the int columns on QUIK's own grid; the fp columns' gap bounded
+        srv['tolerance_vs_method_model'] = TOL_QUIK_VS_OWN
+        srv['ok'] = srv['ok'] and \
+            gap['max_excess_steps_stored_qparams'] <= GRID_MOVE and \
+            srv['rel_logit_err_vs_method_model'] <= TOL_QUIK_VS_OWN
+    return rec, srv, res
+
+
+@contextlib.contextmanager
+def decode_positions(dev):
+    """Per eval position of the pipeline (``EvalOrchestrator.run``) and
+    per ``decode_nll`` call: the kernels launched (the counters set to 0
+    just before), the calls that ran the XLA branch, and the decode's
+    seconds and fed steps (synchronised on both sides).  Yields the
+    dict of rows by position (or by the label ``label[0]`` holds)."""
+    from llmc_tpu_torch.eval.orchestrate import EvalOrchestrator
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.serve import decode
+    inner_run, inner_nll = EvalOrchestrator.run, decode.decode_nll
+    rows, label = {}, ['']
+
+    def run(self, position, model, qmap=None, kv_policy=None):
+        label[0] = position
+        return inner_run(self, position, model, qmap=qmap,
+                         kv_policy=kv_policy)
+
+    def decode_nll(model, ids, *a, **kw):
+        reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = inner_nll(model, ids, *a, **kw)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts, xla = read_counts()
+        row = rows.setdefault(label[0], dict(
+            decode_s=0.0, fed_steps=0, launches=dict.fromkeys(counts, 0),
+            xla_branch_calls=0))
+        fed = np.asarray(ids).shape[1] - (0 if kw.get('labels') is not None
+                                          else 1)
+        row['decode_s'] += wall
+        row['fed_steps'] += fed
+        row['launches'] = {k: row['launches'][k] + v
+                           for k, v in counts.items()}
+        row['xla_branch_calls'] += xla
+        row['ms_per_step'] = 1e3 * row['decode_s'] / row['fed_steps']
+        return out
+
+    EvalOrchestrator.run, decode.decode_nll = run, decode_nll
+    try:
+        yield rows, label
+    finally:
+        EvalOrchestrator.run, decode.decode_nll = inner_run, inner_nll
+
+
+def decode_ppl_config(cfg_kw, quant, tokens=DECODE_TOKENS, seed=0,
+                      n_samples=8, seq_len=512):
+    """The pipeline config of ``decode_ppl``: a random model from
+    ``model.arch``, synthetic calibration, a PPL entry over ``tokens``
+    synthetic tokens at pretrain and fake_quant (token consistency on) and
+    a decode-PPL entry over the same tokens at pretrain, fake_quant and
+    fake_quant_wo_kv."""
+    vocab = cfg_kw['vocab_size']
+    data = dict(name='synthetic', vocab_size=vocab, seed=seed,
+                num_tokens=tokens, seq_len=tokens)
+    return dict(
+        base=dict(seed=seed),
+        model=dict(type='Llama', arch=dict(cfg_kw), seed=seed),
+        calib=dict(name='synthetic', n_samples=n_samples, bs=-1,
+                   seq_len=seq_len, seed=seed, vocab_size=vocab),
+        eval=[dict(data, bs=1, eval_pos=['pretrain', 'fake_quant'],
+                   eval_token_consist=True),
+              dict(data, type='decode_ppl', num_samples=1,
+                   eval_pos=['pretrain', 'fake_quant', 'fake_quant_wo_kv'])],
+        quant=dict(quant))
+
+
+def phase_decode_ppl(dev, cfg_kw=LLAMA2_7B, layers=DECODE_LAYERS,
+                     tokens=DECODE_TOKENS, sink=(4, 64), **sizes):
+    """The decode PPL through ``run_pipeline`` (A5): the kvquant_int8
+    model (RTN W4 g128 asymmetric, Naive int8 KV) at ``cfg_kw``'s width
+    and ``layers[0]`` layers, at pretrain (bf16 fp cache), fake_quant (the
+    int8 cache) and fake_quant_wo_kv (the fake-quant model over the fp
+    cache): B2 launched once a layer a fed step in each, and the pretrain
+    decode PPL equal to the prefill PPL of the same tokens within
+    ``TOL_DECODE_VS_PREFILL``.  Then the fake-quant model again over the
+    kvquant_kivi KIVI 4-bit cache (its ring of 128 shorter than the
+    sequence), over KIVI with a ring as long as the sequence (fp values
+    only: its NLL within ``TOL_FLASH`` of the fp cache's, the plain read
+    against B2), and over a SinkKV cache (``sink``: sinks, window): no B2
+    launch in any of the three.  Token consistency at fake_quant."""
+    from llmc_tpu_torch.eval.ppl import DecodePerplexityEval
+    from llmc_tpu_torch.eval.orchestrate import load_eval_ids
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.serve.kvcache import KVCachePolicy
+    cfg_kw = dict(cfg_kw, num_hidden_layers=min(
+        layers[0], cfg_kw['num_hidden_layers']))
+    L = cfg_kw['num_hidden_layers']
+    config = decode_ppl_config(cfg_kw, METHOD_QUANT['kvquant_int8'], tokens,
+                               **sizes)
+    kivi_cfg = METHOD_QUANT['kvquant_kivi']['kvcache']
+    policies = {
+        'kivi': KVCachePolicy(method='kivi', bit=kivi_cfg['bit'],
+                              symmetric=kivi_cfg['symmetric']),
+        'kivi_ring_whole': KVCachePolicy(method='kivi', bit=kivi_cfg['bit'],
+                                         symmetric=kivi_cfg['symmetric'],
+                                         residual_length=tokens),
+        'sink': KVCachePolicy(method='sink', num_sink_tokens=sink[0],
+                              window_length=sink[1])}
+    with attn_impl('auto'), decode_positions(dev) as (rows, label):
+        res = run_pipeline(config, device=dev)
+        model = res['model']
+        ev = DecodePerplexityEval(load_eval_ids(config['eval'][1], None),
+                                  seq_len=tokens, num_samples=1)
+        ppl = {p: res[f'decode_ppl_{p}'] for p in
+               ('pretrain', 'fake_quant', 'fake_quant_wo_kv')}
+        for name, pol in policies.items():
+            label[0] = name
+            ppl[name] = ev.eval(model, qmap=model.qmap, kv_policy=pol)
+        logits = decode_logits_checks(dev, model, ev.chunks[0],
+                                      policies, L)
+    fed = tokens - 1
+    # B2 once a layer a fed step (a CPU run launches no kernel)
+    want_b2 = fed * L if dev.type == 'cuda' else 0
+    b2 = {k: r['launches']['flash_decode'] for k, r in rows.items()}
+    others = {k: sum(v for n, v in r['launches'].items()
+                     if n != 'flash_decode') + r['xla_branch_calls']
+              for k, r in rows.items()}
+    prefill = res['ppl_pretrain']
+    vs_prefill = abs(ppl['pretrain'] - prefill) / prefill
+    # the NLL of KIVI's fp ring against the fp cache's (same deploy)
+    nll_gap = abs(np.log(ppl['kivi_ring_whole'])
+                  - np.log(ppl['fake_quant_wo_kv'])) \
+        / np.log(ppl['fake_quant_wo_kv'])
+    kv_b2 = ('pretrain', 'fake_quant', 'fake_quant_wo_kv')
+    rec = dict(phase='decode_ppl', config='configs/quantization/methods/'
+               'kvquant_int8.yml', kivi_config='configs/quantization/'
+               'methods/kvquant_kivi.yml', layers=L,
+               width=cfg_kw['hidden_size'], dtype=cfg_kw['dtype'],
+               depth_cut=dict(layers=L, reason=layers[1]),
+               tokens=tokens, fed_steps=fed, attn_impl='auto',
+               kv_module=dataclasses.asdict(res['opt'].kv_module),
+               policies={k: dataclasses.asdict(v)
+                         for k, v in policies.items()},
+               decode_ppl=ppl, ppl_prefill_pretrain=prefill,
+               ppl_fake_quant=res['ppl_fake_quant'],
+               decode_vs_prefill_rel=vs_prefill,
+               tolerance_decode_vs_prefill=TOL_DECODE_VS_PREFILL,
+               kivi_ring_whole_nll_rel_vs_fp_cache=nll_gap,
+               tolerance_kivi_vs_fp_cache=TOL_FLASH,
+               token_consistency=res['token_consistency'],
+               logits=logits, positions=rows, expected_flash_decode=dict(
+                   {k: want_b2 for k in kv_b2},
+                   **dict.fromkeys(policies, 0)),
+               phase_times_s=res['phase_times'], wall_s=res['wall_s'])
+    rec['ok'] = bool(
+        all(np.isfinite(v) for v in ppl.values())
+        and all(b2.get(k) == want_b2 for k in kv_b2)
+        and all(b2.get(k) == 0 for k in policies)
+        and all(v == 0 for v in others.values())
+        and vs_prefill <= TOL_DECODE_VS_PREFILL
+        and nll_gap <= TOL_FLASH and logits['ok'])
+    return rec, res
+
+
+def logits_rel(got, want) -> float:
+    """The largest over the steps of |got - want| / |want| (L2 over the
+    vocabulary) of two [B, S, V] logits."""
+    d = torch.linalg.vector_norm((got - want).double(), dim=-1)
+    return float((d / torch.linalg.vector_norm(want.double(), dim=-1)).max())
+
+
+def decode_logits_checks(dev, model, ids, policies, layers):
+    """``decode_logits`` of ``ids`` at the pretrained weights against one
+    prefill's logits of the same tokens: over the fp cache through B2
+    (launched once a layer a step) within
+    ``TOL_DECODE_LOGITS_VS_PREFILL``, and against B2's plain version in
+    the same decode within ``TOL_DECODE_LOGITS_B2_PLAIN``; beside them
+    KIVI's fp ring (the plain masked read, held to B2 within the prefill
+    bound), KIVI as shipped and the Naive int8 cache, and the planted
+    faults (a 4-bit Naive cache, the Sink window), each of which must read
+    at least twice the prefill bound.  Also the first step alone
+    (attention over one position returns its value exactly: the linears'
+    gap), and the per-token NLL differences of the fp decode, B2's plain
+    version and KIVI's fp ring against the prefill: their mean, spread and
+    standard error."""
+    from llmc_tpu_torch.eval.ppl import forward_logits
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.ops.flash_decode import flash_decode_plain
+    from llmc_tpu_torch.serve import decode
+    from llmc_tpu_torch.serve.kvcache import KVCachePolicy
+    ids = torch.as_tensor(np.asarray(ids, np.int64)[None], device=dev)
+    S = ids.shape[1]
+    with torch.no_grad():
+        prefill = forward_logits(model, ids).float()
+
+    def run(policy, plain=False):
+        old = decode._DECODE_KERNELS['auto']
+        if plain:
+            decode._DECODE_KERNELS['auto'] = flash_decode_plain
+        reset_launch_counts()
+        try:
+            out = decode.decode_logits(model, ids, kv_policy=policy,
+                                       device=dev)
+        finally:
+            decode._DECODE_KERNELS['auto'] = old
+        counts, xla = read_counts()
+        return out, counts['flash_decode'], sum(counts.values()) + xla
+
+    fp, b2_fp, all_fp = run(KVCachePolicy(method='fp'))
+    plain, b2_plain, all_plain = run(KVCachePolicy(method='fp'), plain=True)
+    reads = {k: run(policies[k])[0] for k in ('kivi_ring_whole', 'kivi')}
+    reads['naive_int8'] = run(KVCachePolicy(method='naive', bit=8))[0]
+    faults = {'naive_4bit': run(KVCachePolicy(method='naive', bit=4))[0],
+              'sink_window': run(policies['sink'])[0]}
+    # per-token NLL of the next token, each decode against the prefill
+    tgt = ids[:, 1:, None]
+
+    def nll(lg):
+        return -torch.gather(torch.log_softmax(lg[:, :-1].double(), -1), -1,
+                             tgt)[..., 0].flatten()
+    gaps = {}
+    for k, lg in (('fp', fp), ('b2_plain', plain),
+                  ('kivi_ring_whole', reads['kivi_ring_whole'])):
+        d = (nll(lg) - nll(prefill)).cpu().numpy()
+        gaps[k] = dict(mean=float(d.mean()), std=float(d.std()),
+                       stderr=float(d.std() / np.sqrt(d.size)))
+    want_b2 = S * layers if dev.type == 'cuda' else 0
+    rec = dict(
+        steps=S, fp_vs_prefill=logits_rel(fp, prefill),
+        first_step_fp_vs_prefill=logits_rel(fp[:, :1], prefill[:, :1]),
+        fp_vs_b2_plain=logits_rel(fp, plain),
+        b2_plain_vs_prefill=logits_rel(plain, prefill),
+        reads_vs_prefill={k: logits_rel(v, prefill)
+                          for k, v in reads.items()},
+        kivi_ring_whole_vs_fp=logits_rel(reads['kivi_ring_whole'], fp),
+        faults_vs_prefill={k: logits_rel(v, prefill)
+                           for k, v in faults.items()},
+        nll_gap_vs_prefill=gaps,
+        flash_decode_fp=b2_fp, launches_plain=all_plain,
+        expected_flash_decode_fp=want_b2,
+        tolerance_vs_prefill=TOL_DECODE_LOGITS_VS_PREFILL,
+        tolerance_b2_plain=TOL_DECODE_LOGITS_B2_PLAIN)
+    rec['ok'] = bool(
+        rec['fp_vs_prefill'] <= TOL_DECODE_LOGITS_VS_PREFILL
+        and rec['fp_vs_b2_plain'] <= TOL_DECODE_LOGITS_B2_PLAIN
+        and rec['kivi_ring_whole_vs_fp'] <= TOL_DECODE_LOGITS_VS_PREFILL
+        and min(rec['faults_vs_prefill'].values())
+        >= 2 * TOL_DECODE_LOGITS_VS_PREFILL
+        and b2_fp == all_fp == want_b2 and all_plain == 0)
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -2866,6 +3295,37 @@ def main(argv=None) -> int:
         require_served(rec)
         del res
         torch.cuda.empty_cache()
+
+    # phase 17: QUIK and DGQ served through B3, SpQR through B1, and the
+    # decode PPL through B2 with the KV-cache quantizers it scores
+    for name, mode in PHASE17:
+        rec, srv, res = phase17_method(dev, name, mode)
+        rec.update(card)
+        emit(rec)
+        require(rec['ok'], f'compress {name}: a PPL is not finite or '
+                f'ppl_transformed left ppl_pretrain by '
+                f'{rec["ppl_transformed_rel_drift"]:.3g} (limit '
+                f'{rec["tolerance_ppl_transformed"]})')
+        srv.update(card)
+        emit(srv)
+        require(srv['ok'], f'compress_serve {name}: packed logits are '
+                f'{srv["rel_logit_err_vs_fake_quant"]:.3g} off (limit '
+                f'{srv["tolerance_vs_fake_quant"]}), or a weight is off '
+                f'the grid: {srv["packed_weight_gap"]}')
+        require_served(srv)
+        del res
+        torch.cuda.empty_cache()
+    rec, res = phase_decode_ppl(dev)
+    rec.update(card)
+    emit(rec)
+    require(rec['ok'], f'decode_ppl: a PPL is not finite, B2 launched '
+            f'other than once a layer a step on the fp and int8 caches (or '
+            f'at all on KIVI and Sink), the pretrain decode PPL is '
+            f'{rec["decode_vs_prefill_rel"]:.3g} off the prefill PPL, or '
+            f'KIVI\'s fp ring {rec["kivi_ring_whole_nll_rel_vs_fp_cache"]:.3g}'
+            f' off the fp cache: {rec["positions"]}')
+    del res
+    torch.cuda.empty_cache()
 
     require(min(launches.values()) > 0,
             f'a kernel of the main paths was never launched: {launches}')

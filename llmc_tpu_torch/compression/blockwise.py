@@ -14,9 +14,10 @@ inside the loop's ``no_grad``.
 
 Ported: weight and activation quantization (dynamic, and static per
 tensor), the double W4/W8 quantization (``bit: 48``) with its budgets,
-the quantized-attention and act-fn pseudo-paths, and the QuaRot online
-rotation (``special.online_rotate``) that any method honours.  KV-cache
-quantization configs raise ``NotImplementedError`` (ROADMAP A11).
+the quantized-attention and act-fn pseudo-paths, the QuaRot online
+rotation (``special.online_rotate``) that any method honours, and the
+KV-cache quantizer of the evals (``quant.kvcache``: Naive, Kivi or SinkKV
+from ``KV_REGISTRY``, as ``kv_module``).
 """
 
 from __future__ import annotations
@@ -162,11 +163,16 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
             self.quant_attn = False
             self.quant_softmax = False
             self.quant_act_fn = False
-        if 'kvcache' in qc:
-            raise NotImplementedError(
-                'quant.kvcache (a calibrated KV-cache quantizer in the '
-                'evals) is not ported yet (ROADMAP A11)')
+        # the KV-cache quantizer of the fake-quant evals (a decode PPL
+        # reads it); the static act flag rides along, as in the reference
         self.kv_module = None
+        if 'kvcache' in qc:
+            from ..serve.kvcache import KV_REGISTRY
+            kvcfg = dict(qc['kvcache'])
+            kvcfg['static'] = self.act_static
+            self.kv_module = KV_REGISTRY[kvcfg['method']](
+                kvcfg.get('quant_type', 'int-quant'), kvcfg,
+                self.model.n_blocks, **kvcfg.get('special', {}))
 
         special = qc.get('special', {}) or {}
         self.special = special
@@ -572,6 +578,16 @@ class BlockTraining(BaseBlockwiseQuantization):
         self.train_stats['steps'] += 1
         self.train_stats['train_s'] += time.perf_counter() - t0
         return finite
+
+
+def channel_absmax(batches) -> torch.Tensor:
+    """The largest |x| of each input channel (the last axis) over every
+    batch of captured activations, in f32."""
+    out = None
+    for x in batches:
+        m = torch.amax(torch.abs(x.to(F32)).reshape(-1, x.shape[-1]), dim=0)
+        out = m if out is None else torch.maximum(out, m)
+    return out
 
 
 def _w48_budget_clamps(cfg: dict):

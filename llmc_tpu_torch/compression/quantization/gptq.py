@@ -167,11 +167,14 @@ class GPTQ(BakedAtDeploy):
             W = W[:, perm]
             Hd = Hd[perm][:, perm]
 
-        Wq, scales, zeros = self._layer_core(
+        Wq, scales, zeros, mask = self._layer_core(
             W, Hd, n_out=n_out, static_qp=static_qp, perm_gidx=perm_gidx)
 
         if perm is not None:
-            Wq = Wq[:, torch.argsort(perm)]
+            invperm = torch.argsort(perm)
+            Wq = Wq[:, invperm]
+            if mask is not None:
+                mask = mask[:, invperm]
         out = dict(lin, w=Wq.to(lin['w'].dtype), gptq_scales=scales)
         if zeros is not None:
             out['gptq_zeros'] = zeros
@@ -181,6 +184,8 @@ class GPTQ(BakedAtDeploy):
                 # the in-loop group search's qparams follow the PERMUTED
                 # columns; static_actorder keeps the original groups'
                 out['gptq_perm_qp'] = True
+        if mask is not None:
+            out['spqr_mask'] = mask   # SpQR's fp outliers
         if n_out > 0:
             out['owq_n_out'] = n_out
         return out
@@ -213,13 +218,32 @@ class GPTQ(BakedAtDeploy):
             else minmax_range(pc, cols)
         return qparams_from_range(spec, rng, folded=True)
 
+    # hooks of the column loop, which SpQR overrides
+    def _outlier_threshold(self, W, Hinv) -> Optional[torch.Tensor]:
+        """The threshold on a column's squared error (over the factor's
+        diagonal) above which an element stays fp; None: none does."""
+        return None
+
+    def _group_qparams(self, Wb, Hb, valid, thr):
+        """(scales, zeros) [oc, 1] of the block ``Wb`` that is one group
+        (``Hb`` its block of the factor; ``valid`` OWQ's mask)."""
+        qp = self._qp_of(Wb, valid=valid)
+        return qp.scales, torch.broadcast_to(qp.zeros.to(F32),
+                                             qp.scales.shape)
+
+    def _column_err(self, w, qdq, d, thr):
+        """(the error of column ``w`` against its quantized ``qdq`` over
+        the factor's diagonal ``d``, its fp outlier marks or None)."""
+        return (w - qdq) / d, None
+
     def _layer_core(self, W, H, n_out: int = 0, static_qp=None,
                     perm_gidx=None):
         """Damping, Cholesky and the blocked compensation.  Returns (the
-        compensated W, scales [oc, ng], zeros [oc, ng] or None).  With
-        ``n_out`` (OWQ) the last n_out columns are left out of every
-        qparam range; with ``static_qp`` each column takes its original
-        group's qparams through ``perm_gidx``."""
+        compensated W, scales [oc, ng], zeros [oc, ng] or None, the fp
+        outlier marks [oc, C] where ``_outlier_threshold`` sets a
+        threshold, else None).  With ``n_out`` (OWQ) the last n_out columns
+        are left out of every qparam range; with ``static_qp`` each column
+        takes its original group's qparams through ``perm_gidx``."""
         t0 = time.perf_counter()
         spec = self.wspec
         oc, C = W.shape
@@ -231,7 +255,7 @@ class GPTQ(BakedAtDeploy):
         # the upper Cholesky factor U of H^-1 (H^-1 = U^T U)
         Lc = torch.linalg.cholesky(H)
         Hinv = torch.linalg.cholesky(torch.cholesky_solve(eye, Lc)).T
-
+        thr = self._outlier_threshold(W, Hinv)
         bs = min(self.blocksize, C)
         gs = spec.group_size if spec.granularity == 'per_group' else C
         ng = C // gs
@@ -256,6 +280,7 @@ class GPTQ(BakedAtDeploy):
         zeros_out = torch.zeros((oc, ng), dtype=F32, device=dev)
         W = W.clone()
         Q = torch.zeros_like(W)
+        mask = None if thr is None else torch.zeros_like(W)
         assert C % bs == 0, (C, bs)
         for i1 in range(0, C, bs):
             Wb = W[:, i1:i1 + bs].clone()
@@ -271,9 +296,7 @@ class GPTQ(BakedAtDeploy):
                 # block == group; OWQ masks the outlier tail out
                 valid = ((i1 + torch.arange(bs, device=dev))[None, :]
                          < n_nonout) if n_out else None
-                qp = self._qp_of(Wb, valid=valid)
-                s = qp.scales
-                z = torch.broadcast_to(qp.zeros.to(F32), s.shape)
+                s, z = self._group_qparams(Wb, Hb, valid, thr)
                 g0 = i1 // gs
                 scales_out[:, g0:g0 + bs // gs] = s
                 zeros_out[:, g0:g0 + bs // gs] = z
@@ -298,7 +321,9 @@ class GPTQ(BakedAtDeploy):
                     q = torch.clamp(torch.round(
                         w / torch.clamp(si, min=1e-9) + zi),
                         spec.qmin, spec.qmax)
-                err = (w - (q - zi) * si) / d
+                err, m = self._column_err(w, (q - zi) * si, d, thr)
+                if m is not None:
+                    mask[:, i1 + i:i1 + i + 1] = m
                 Wb[:, i + 1:] -= err * Hb[i, i + 1:][None, :]
                 Errb[:, i:i + 1] = err
             Q[:, i1:i1 + bs] = Wb
@@ -321,7 +346,7 @@ class GPTQ(BakedAtDeploy):
             scales_ret = qp_static.scales.reshape(oc, -1)
         else:
             scales_ret = scales_out
-        return Q, scales_ret, zeros_ret
+        return Q, scales_ret, zeros_ret, mask
 
     # ------------------------------------------------------------------
     # deploy: the static qdq with the loop's qparams

@@ -9,7 +9,7 @@ import torch
 
 from ...models.base import get_path, set_path
 from ...utils.registry import ALGO_REGISTRY
-from ..blockwise import BaseBlockwiseQuantization
+from ..blockwise import BaseBlockwiseQuantization, channel_absmax
 from ..transforms import scale_ln_fcs
 
 F32 = torch.float32
@@ -24,11 +24,7 @@ class SmoothQuant(BaseBlockwiseQuantization):
     def subset_transform(self, idx, block, subset, feats):
         if subset.prev_kind != 'ln' or not subset.do_trans:
             return block
-        act_max = None
-        for x in feats[subset.input_key]:
-            m = torch.amax(torch.abs(x.to(F32)).reshape(-1, x.shape[-1]),
-                           dim=0)
-            act_max = m if act_max is None else torch.maximum(act_max, m)
+        act_max = channel_absmax(feats[subset.input_key])
         fcs = [get_path(block, p) for p in subset.layers]
         w_max = None
         for fc in fcs:

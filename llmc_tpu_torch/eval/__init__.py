@@ -1,4 +1,5 @@
 from .orchestrate import EvalOrchestrator
-from .ppl import PerplexityEval
+from .ppl import DecodePerplexityEval, PerplexityEval, TokenConsistencyEval
 
-__all__ = ['EvalOrchestrator', 'PerplexityEval']
+__all__ = ['EvalOrchestrator', 'PerplexityEval', 'DecodePerplexityEval',
+           'TokenConsistencyEval']

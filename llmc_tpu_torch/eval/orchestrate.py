@@ -4,9 +4,13 @@ of entries, each with its own ``type`` and ``eval_pos``; every entry whose
 positions include the current one runs, under the QMap of that position.
 
 Ported: entries of type ``ppl`` on ``synthetic`` ids, a raw text file or a
-dataset on disk.  The other types (decode_ppl, acc, code, custom_gen,
-latency, vqa, video_gen), ``inference_per_block`` and
-``eval_token_consist`` raise ``NotImplementedError``.
+dataset on disk, with ``eval_token_consist`` (the argmax agreement of the
+fake-quant deploy with the params under no QMap, at ``fake_quant``); and
+entries of type ``decode_ppl``, which run at every configured position
+(the calibrated KV-cache quantizer only at ``fake_quant``; an entry with no
+positions runs at ``fake_quant``).  The other types (acc, code,
+custom_gen, latency, vqa, video_gen) and ``inference_per_block`` raise
+``NotImplementedError`` (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -16,10 +20,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .ppl import PerplexityEval
+from .ppl import DecodePerplexityEval, PerplexityEval, TokenConsistencyEval
 
 _UNPORTED_TYPES = {
-    'decode_ppl': 'ROADMAP A5 (decode_nll)', 'latency': 'ROADMAP A13',
+    'latency': 'ROADMAP A13',
     'acc': 'ROADMAP A13', 'code': 'ROADMAP A13', 'custom_gen': 'ROADMAP A13',
     'vqa': 'ROADMAP A13', 'img_txt': 'ROADMAP A13',
     'video_gen': 'ROADMAP A13',
@@ -54,6 +58,20 @@ def load_eval_ids(ev: Dict, tokenizer) -> Optional[np.ndarray]:
     return np.asarray(tokenizer(text)['input_ids'], np.int32)
 
 
+def load_eval_texts(ev: Dict):
+    """The raw texts of the per-text decode-PPL protocol (a raw file's
+    lines, or a dataset's ``text`` column); None for synthetic data,
+    which has no texts."""
+    if ev.get('name', 'synthetic') == 'synthetic':
+        return None
+    path = ev.get('path')
+    if path and os.path.isfile(path):
+        with open(path) as f:
+            return f.read().splitlines(keepends=True)
+    import datasets
+    return datasets.load_from_disk(path)['text']
+
+
 class _Entry:
     def __init__(self, ev: Dict, key: str):
         self.ev = ev
@@ -86,32 +104,67 @@ class EvalOrchestrator:
         if t in _UNPORTED_TYPES:
             raise NotImplementedError(
                 f'eval type {t!r} is not ported yet ({_UNPORTED_TYPES[t]})')
-        if t not in (None, 'ppl'):
+        if t not in (None, 'ppl', 'decode_ppl'):
             raise ValueError(f'unknown eval type {t!r}')
         if ev.get('name') == 'imagenet':
             raise NotImplementedError(
                 'the ImageNet accuracy eval is not ported yet (ROADMAP A13)')
-        for opt, item in (('inference_per_block', 'ROADMAP A13'),
-                          ('eval_token_consist', 'ROADMAP A5')):
-            if ev.get(opt):
-                raise NotImplementedError(
-                    f'eval option {opt} is not ported yet ({item})')
-        return 'ppl'
+        if ev.get('inference_per_block'):
+            raise NotImplementedError('eval option inference_per_block is '
+                                      'not ported yet (ROADMAP A13)')
+        return t or 'ppl'
 
     def positions(self) -> List[str]:
         return sorted({p for e in self.entries for p in e.positions})
 
-    def wants(self, position: str) -> bool:
-        return any(position in e.positions for e in self.entries)
+    @staticmethod
+    def _active(e: _Entry, position: str) -> bool:
+        # a decode_ppl entry with no positions runs at fake_quant
+        return position in e.positions or (
+            e.ev['_etype'] == 'decode_ppl' and not e.positions
+            and position == 'fake_quant')
 
-    def run(self, position: str, model, qmap=None) -> Dict:
+    def wants(self, position: str) -> bool:
+        return any(self._active(e, position) for e in self.entries)
+
+    def run(self, position: str, model, qmap=None, kv_policy=None) -> Dict:
         """Run every eval entry active at ``position``.  ``qmap=None`` is
-        the pretrain / transformed deploy; a QMap is the fake-quant one."""
+        the pretrain / transformed deploy; a QMap is the fake-quant one.
+        ``kv_policy``, the calibrated KV-cache quantizer, applies to the
+        decode PPL at ``fake_quant`` alone (``fake_quant_wo_kv`` isolates
+        it: the same QMap over an fp cache)."""
         results: Dict = {}
         for e in self.entries:
-            if position in e.positions:
-                results[f'{e.key}_{position}'] = self._ppl(e, model, qmap)
+            if not self._active(e, position):
+                continue
+            if e.ev['_etype'] == 'decode_ppl':
+                kv = kv_policy if position == 'fake_quant' else None
+                results[f'{e.key}_{position}'] = self._decode_ppl(
+                    e, model, qmap, kv)
+                continue
+            results[f'{e.key}_{position}'] = self._ppl(e, model, qmap)
+            if position == 'fake_quant' and qmap is not None \
+                    and e.ev.get('eval_token_consist'):
+                results['token_consistency'] = TokenConsistencyEval(
+                    load_eval_ids(e.ev, model.tokenizer),
+                    seq_len=e.ev.get('seq_len', 2048),
+                    bs=e.ev.get('bs', 1)).eval(model, None, qmap)
         return results
+
+    def _decode_ppl(self, e, model, qmap, kv_policy):
+        if e.evaluator is None:
+            ev = e.ev
+            texts = load_eval_texts(ev)
+            if texts is not None and model.tokenizer is not None:
+                e.evaluator = DecodePerplexityEval(
+                    texts=texts, tokenizer=model.tokenizer,
+                    num_samples=ev.get('num_samples', 4))
+            else:
+                e.evaluator = DecodePerplexityEval(
+                    load_eval_ids(ev, model.tokenizer),
+                    seq_len=ev.get('seq_len', 2048),
+                    num_samples=ev.get('num_samples', 4))
+        return e.evaluator.eval(model, qmap=qmap, kv_policy=kv_policy)
 
     def _ppl(self, e, model, qmap):
         if e.evaluator is None:

@@ -7,10 +7,13 @@ calibration data -> blockwise optimization -> evals -> save.  Entry points:
 ``device=None`` is the CUDA device, and raises without one; the CPU is
 taken only when asked for.  Ported: the quantization methods registered
 in ``ALGO_REGISTRY`` (RTN, Awq, SmoothQuant, GPTQ, Quarot, OsPlus,
-LlmInt8, HQQ, AdaDim, and the gradient-trained NormTweaking, OmniQuant and
-TesseraQ; their options checked by ``check_special`` before any heavy
-work), weight and activation quantization, PPL evals at ``pretrain`` /
-``transformed`` / ``fake_quant``, ``save_trans`` / ``save_fake``.  Data
+LlmInt8, HQQ, AdaDim, QUIK, SpQR, DGQ, and the gradient-trained
+NormTweaking, OmniQuant and TesseraQ; their options checked by
+``check_special`` before any heavy work), weight and activation
+quantization, the KV-cache quantizers (``quant.kvcache``: Naive, Kivi,
+SinkKV), the PPL, decode-PPL and token-consistency evals at ``pretrain``
+/ ``transformed`` / ``fake_quant`` / ``fake_quant_wo_kv`` (the fake-quant
+deploy over an fp KV cache), ``save_trans`` / ``save_fake``.  Data
 parallel calibration, sparsification, the backend exports and the
 external evals raise ``NotImplementedError``.
 """
@@ -108,14 +111,19 @@ def run_pipeline(config: Dict, device=None) -> Dict:
                 if blockwise_opt is not None else None)
         with timer.phase('eval_transformed'):
             results.update(orch.run('transformed', model, qmap=tmap))
-    if blockwise_opt is not None and orch.wants('fake_quant_wo_kv'):
-        raise NotImplementedError(
-            'eval_pos fake_quant_wo_kv needs a KV-cache quantizer in the '
-            'evals, which is not ported yet (ROADMAP A11)')
-    if blockwise_opt is not None and orch.wants('fake_quant'):
+    if blockwise_opt is not None and (orch.wants('fake_quant')
+                                      or orch.wants('fake_quant_wo_kv')):
         qmap = blockwise_opt.deploy('fake_quant')
-        with timer.phase('eval_fake_quant'):
-            results.update(orch.run('fake_quant', model, qmap=qmap))
+        if orch.wants('fake_quant'):
+            with timer.phase('eval_fake_quant'):
+                results.update(orch.run('fake_quant', model, qmap=qmap,
+                                        kv_policy=blockwise_opt.kv_module))
+        if orch.wants('fake_quant_wo_kv'):
+            # the same deploy over an fp KV cache: what the KV quantizer
+            # costs, apart
+            with timer.phase('eval_fake_quant_wo_kv'):
+                results.update(orch.run('fake_quant_wo_kv', model,
+                                        qmap=qmap))
 
     save = config.get('save', {}) or {}
     if save.get('save_trans') or save.get('save_fake'):

@@ -10,9 +10,9 @@ or from the layer's calibrated ``a_scales`` / ``a_zeros`` with
 W8A16, the w8 companion through ``w8_alt``) or the fp weight with its
 fake-quant (an unbaked ``w_spec``, with the layer's stored clip factors).
 ``ste`` rounds both fake-quants straight through (the training forwards
-of OmniQuant, TesseraQ and NormTweaking).  ``mixed_cols`` is kept so that
-a policy means the same in both packages, and raises
-``NotImplementedError`` when set.
+of OmniQuant, TesseraQ and NormTweaking).  ``mixed_cols`` (QUIK) keeps
+the columns its linear's ``int_mask`` leaves out in floating point, in the
+activation and the weight alike.
 """
 
 from __future__ import annotations
@@ -46,23 +46,7 @@ class LinearQcfg:
     pre_had: Optional[str] = None
     pre_had_dim: int = 0
     ste: bool = False
-    mixed_cols: bool = False
-
-
-# LinearQcfg fields the port does not serve yet -> the ROADMAP item
-_UNPORTED = (
-    ('mixed_cols', 'QUIK mixed columns (ROADMAP A10)'),
-)
-
-
-def check_qcfg(qcfg: Optional[LinearQcfg]) -> None:
-    if qcfg is None:
-        return
-    for name, what in _UNPORTED:
-        v = getattr(qcfg, name)
-        if v not in (None, False):
-            raise NotImplementedError(
-                f'LinearQcfg.{name}={v!r}: {what} is not ported yet')
+    mixed_cols: bool = False  # QUIK: params hold 'int_mask' [in_features]
 
 
 def _fp_dot(p: Dict, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -75,18 +59,23 @@ def _fp_dot(p: Dict, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def linear_apply(p: Dict, x: torch.Tensor,
                  qcfg: Optional[LinearQcfg] = None) -> torch.Tensor:
     """y = x @ W^T + b, HF (out_features, in_features) weight layout."""
-    check_qcfg(qcfg)
     if qcfg is not None and qcfg.pre_had is not None:
         from ..ops.hadamard import pre_had_apply
         x = pre_had_apply(x, qcfg.pre_had, qcfg.pre_had_dim)
     round_fn = ste_round if qcfg is not None and qcfg.ste else torch.round
-    if qcfg is not None and qcfg.a_outlier_threshold is not None:
+    int_mask = None
+    if qcfg is not None and qcfg.mixed_cols:
+        # QUIK: the columns the calibration chose stay fp
+        int_mask = p['int_mask']
+    elif qcfg is not None and qcfg.a_outlier_threshold is not None:
         # LLM.int8: the columns whose activation absmax exceeds the
-        # threshold stay fp in both the activation and the weight, and the
-        # int qparams come from the other columns alone
+        # threshold stay fp
         red = tuple(range(x.ndim - 1))
         col_max = torch.amax(torch.abs(x.to(F32)), dim=red)
         int_mask = col_max <= qcfg.a_outlier_threshold
+    if int_mask is not None:
+        # both activation and weight, the int qparams from the other
+        # columns alone
         if qcfg.a_spec is not None:
             x = fake_quant_act_masked(qcfg.a_spec, x, int_mask)
         w = p['w']

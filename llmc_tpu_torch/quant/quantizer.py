@@ -129,11 +129,15 @@ def div_const(x: torch.Tensor, c: float, folded: bool) -> torch.Tensor:
 def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     """``jnp.clip``: the maximum with ``lo``, then the minimum with
     ``hi``, which split the gradient of a tie in half (``torch.clamp``
-    passes all of it)."""
+    passes all of it).  A bound is a tensor or a number, which is filled
+    in on ``x``'s device (no host copy: the decode step is captured as a
+    CUDA graph)."""
     if lo is not None:
-        x = torch.maximum(x, x.new_full((), lo))
+        x = torch.maximum(x, lo if isinstance(lo, torch.Tensor)
+                          else x.new_full((), lo))
     if hi is not None:
-        x = torch.minimum(x, x.new_full((), hi))
+        x = torch.minimum(x, hi if isinstance(hi, torch.Tensor)
+                          else x.new_full((), hi))
     return x
 
 
@@ -456,6 +460,23 @@ def fake_quant_weight_w48(spec8: QuantSpec, spec4: QuantSpec,
 _BIG = 3.4e38
 
 
+def masked_qparams(spec: QuantSpec, x: torch.Tensor, sel: torch.Tensor,
+                   folded: bool = True) -> QParams:
+    """Per-row qparams of ``x`` [..., C] from the columns where ``sel``
+    (broadcast against ``x``) holds alone."""
+    xf = x.to(F32)
+    if spec.symmetric:
+        amax = torch.clamp(torch.amax(torch.abs(torch.where(
+            sel, xf, torch.zeros_like(xf))), dim=-1, keepdim=True), min=1e-5)
+        return QParams(div_const(amax, spec.qmax, folded),
+                       torch.zeros((), dtype=F32, device=x.device))
+    mn = torch.amin(torch.where(sel, xf, torch.full_like(xf, _BIG)),
+                    dim=-1, keepdim=True)
+    mx = torch.amax(torch.where(sel, xf, torch.full_like(xf, -_BIG)),
+                    dim=-1, keepdim=True)
+    return qparams_from_range(spec, (mn, mx), folded)
+
+
 def fake_quant_weight_masked(spec: QuantSpec, w: torch.Tensor,
                              int_mask: torch.Tensor,
                              folded: bool = True) -> torch.Tensor:
@@ -463,18 +484,7 @@ def fake_quant_weight_masked(spec: QuantSpec, w: torch.Tensor,
     qparams from those columns alone; the others stay as they are."""
     wf = w.to(F32)
     sel = int_mask[None, :]
-    if spec.symmetric:
-        amax = torch.clamp(torch.amax(torch.abs(torch.where(
-            sel, wf, torch.zeros_like(wf))), dim=-1, keepdim=True), min=1e-5)
-        qp = QParams(div_const(amax, spec.qmax, folded),
-                     torch.zeros((), dtype=F32, device=w.device))
-    else:
-        mn = torch.amin(torch.where(sel, wf, torch.full_like(wf, _BIG)),
-                        dim=-1, keepdim=True)
-        mx = torch.amax(torch.where(sel, wf, torch.full_like(wf, -_BIG)),
-                        dim=-1, keepdim=True)
-        qp = qparams_from_range(spec, (mn, mx), folded)
-    q = quant_dequant(spec, wf, qp)
+    q = quant_dequant(spec, wf, masked_qparams(spec, wf, sel, folded))
     return torch.where(sel, q, wf).to(w.dtype)
 
 
@@ -485,18 +495,7 @@ def fake_quant_act_masked(spec: QuantSpec, a: torch.Tensor,
     the others stay as they are."""
     af = a.to(F32)
     sel = int_mask.reshape((1,) * (a.ndim - 1) + (-1,))
-    if spec.symmetric:
-        amax = torch.clamp(torch.amax(torch.abs(torch.where(
-            sel, af, torch.zeros_like(af))), dim=-1, keepdim=True), min=1e-5)
-        qp = QParams(div_const(amax, spec.qmax, folded),
-                     torch.zeros((), dtype=F32, device=a.device))
-    else:
-        mn = torch.amin(torch.where(sel, af, torch.full_like(af, _BIG)),
-                        dim=-1, keepdim=True)
-        mx = torch.amax(torch.where(sel, af, torch.full_like(af, -_BIG)),
-                        dim=-1, keepdim=True)
-        qp = qparams_from_range(spec, (mn, mx), folded)
-    q = quant_dequant(spec, af, qp)
+    q = quant_dequant(spec, af, masked_qparams(spec, af, sel, folded))
     return torch.where(sel, q, af).to(a.dtype)
 
 

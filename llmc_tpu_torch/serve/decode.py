@@ -1,4 +1,4 @@
-"""KV-cached prefill and greedy decode (port of
+"""KV-cached prefill, greedy decode and the decode-time NLL (port of
 ``llmc_tpu/serve/decode.py``).
 
 ``forward_cached`` runs S tokens of every slot against the cache, one
@@ -10,8 +10,13 @@ switch):
 - ``auto`` and ``flash``: ``ops.flash_decode.flash_decode_attention``;
 - ``batch``: ``ops.batch_decode.batch_decode_attention``, the
   serving-batch kernel;
-- ``chunked`` and ``full``: the reference's XLA reads; they come with
-  the sink and long-context reads (ROADMAP A11) and raise.
+- ``chunked`` and ``full``: the reference's XLA reads; they come with the
+  long-context reads (ROADMAP A11) and raise.
+
+The ``kivi`` and ``sink`` caches never take a kernel, as in the reference
+(its ``attn_ok``, decode.py:272-274): their decode step reads the cache by
+the plain masked read, on both devices, KIVI's fp residual spliced in by
+``policy.read`` and Sink's row-dependent mask applied there for every S.
 
 The paged pool (``serve/paged_cache.py::PagedKVPolicy``) is a decode-step
 cache, as in the reference (decode.py:259-266): a step writes its token
@@ -29,13 +34,20 @@ wrote, as the reference does.  The reference's XLA scheduling machinery
 (``_pick_attn``'s scan / unroll table, ``BATCH_MIN_B``,
 ``prefer_unroll``, scan stacking) has no counterpart here: it chose
 between XLA programs, and the port has one eager loop.
+
+``decode_nll`` feeds a sequence one token a step through
+``forward_cached`` (the decode-PPL inner loop): the reference's one
+``lax.scan`` is one eager loop here.  ``decode_logits`` keeps every step's
+logits of the same loop, which the tests and the chip check hold against a
+prefill's.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models import llama as L
@@ -43,7 +55,7 @@ from ..models.base import linear_apply, rms_norm
 from ..ops.batch_decode import batch_decode_attention
 from ..ops.flash_decode import flash_decode_attention
 from ..utils.device import check_on, resolve_device
-from .kvcache import KVCachePolicy
+from .kvcache import KVCachePolicy, _per_slot
 
 F32 = torch.float32
 FP_POLICY = KVCachePolicy(method='fp')
@@ -66,14 +78,10 @@ def _decode_kernel():
                      f'chunked or full')
 
 
-def _per_slot(pos) -> bool:
-    return isinstance(pos, torch.Tensor) and pos.ndim == 1
-
-
 def _attend_cached(q, cache, layer: int, policy: KVCachePolicy, cfg,
                    x_dtype) -> torch.Tensor:
     """Plain masked attention over the whole cache buffer (prefill, and
-    the decode step of the asymmetric int8 cache).
+    the decode step of the asymmetric int8, kivi and sink caches).
     q [B, S, H, hd] -> ctx [B, S, H, hd] in ``x_dtype``."""
     B, S, H, hd = q.shape
     KVH = cfg.num_key_value_heads
@@ -90,10 +98,14 @@ def _attend_cached(q, cache, layer: int, policy: KVCachePolicy, cfg,
     s_idx = torch.arange(S, device=q.device)
     if _per_slot(pos):
         q_idx = pos.to(torch.long)[:, None, None] + s_idx[None, :, None]
-        valid = (kv_idx[None, None, :] <= q_idx)[:, None]   # [B,1,S,Smax]
     else:
         q_idx = int(pos) + s_idx[:, None]
-        valid = (kv_idx[None, :] <= q_idx)[None, None]      # [1,1,S,Smax]
+    valid = kv_idx <= q_idx                     # [B, S, Smax] or [S, Smax]
+    # sink: each query row sees the sinks and its own recent window
+    sink = policy.attention_mask_offset(q_idx + 1, smax)
+    if sink is not None:
+        valid = valid & sink
+    valid = valid[:, None] if _per_slot(pos) else valid[None, None]
     scores = scores.masked_fill(~valid, float('-inf'))
     probs = torch.softmax(scores, dim=-1).to(x_dtype)
     return torch.einsum('bhqk,bkhd->bqhd', probs.to(F32),
@@ -134,7 +146,7 @@ def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
         from .paged_cache import decode_attn_paged
         ctx = decode_attn_paged(q.to(F32) * scale, cache, layer, policy,
                                 cfg).to(x.dtype)
-    elif S == 1 and 'k_z' not in cache:
+    elif S == 1 and policy.method in ('fp', 'naive') and 'k_z' not in cache:
         attend = _decode_kernel()
         fp = policy.method == 'fp'
         pos = cache['pos']
@@ -201,6 +213,78 @@ def init_cache(model, batch: int, max_len: int,
     return policy.init_cache(batch, max_len, cfg.num_key_value_heads,
                              cfg.head_dim, cfg.num_hidden_layers,
                              dtype=cfg.tdtype, device=device)
+
+
+def _ids_on(ids, dev) -> torch.Tensor:
+    """Token ids (a tensor or an array) as int64 on ``dev``."""
+    t = ids if isinstance(ids, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(ids))
+    return t.to(device=dev, dtype=torch.long)
+
+
+def _decode_steps(model, ids: torch.Tensor, qmap, policy: KVCachePolicy,
+                  fed: int, dev):
+    """Feed ``ids[:, t]`` for t < ``fed``, one token a step through a
+    cache ``ids.shape[1]`` long; yields each step's logits [B, V]."""
+    cache = init_cache(model, ids.shape[0], ids.shape[1], policy, device=dev)
+    for t in range(fed):
+        logits, cache = forward_cached(model.params, model.cfg,
+                                       ids[:, t:t + 1], cache, policy, qmap)
+        yield logits[:, -1]
+
+
+@torch.no_grad()
+def decode_nll(model, ids, qmap=None,
+               kv_policy: Optional[KVCachePolicy] = None,
+               n_valid: Optional[int] = None, labels=None, score_mask=None,
+               device=None) -> Tuple[torch.Tensor, int]:
+    """Token-by-token NLL through the KV cache (the decode-PPL inner
+    loop), the cache ``ids.shape[1]`` long: (the summed f32 NLL, the count
+    of scored tokens).
+
+    By default feeding ``ids[:, j]`` is scored against ``ids[:, j + 1]``
+    for j < ``n_valid`` - 1 (the last fed token predicts nothing).
+    ``labels`` / ``score_mask`` generalize that: the step that feeds
+    ``ids[:, j]`` is scored against ``labels[:, j]`` iff
+    ``score_mask[j]``, and every token is fed (the raw-text protocol,
+    whose cache persists across texts)."""
+    dev = resolve_device(device)
+    check_on(model.params, dev, 'the model')
+    ids = _ids_on(ids, dev)
+    B, S = ids.shape
+    if labels is None:
+        labels = torch.cat([ids[:, 1:], ids[:, -1:]], dim=1)
+        nv = S if n_valid is None else int(n_valid)
+        mask = np.arange(S) < nv - 1
+        fed = S - 1
+    else:
+        if score_mask is None:
+            raise ValueError('decode_nll: labels need a score_mask')
+        labels = _ids_on(labels, dev)
+        mask = np.asarray(score_mask, bool)
+        fed = S
+    nll = torch.zeros((), dtype=F32, device=dev)
+    for t, logits in enumerate(_decode_steps(model, ids, qmap,
+                                             kv_policy or FP_POLICY, fed,
+                                             dev)):
+        if mask[t]:
+            lp = torch.log_softmax(logits.to(F32), dim=-1)
+            nll = nll - torch.gather(lp, -1, labels[:, t:t + 1]).sum()
+    return nll, int(mask.sum()) * B
+
+
+@torch.no_grad()
+def decode_logits(model, ids, qmap=None,
+                  kv_policy: Optional[KVCachePolicy] = None,
+                  device=None) -> torch.Tensor:
+    """The f32 logits [B, S, V] of ``ids`` [B, S] fed one token a step
+    through the KV cache: row t is what the step that feeds ``ids[:, t]``
+    predicts, the decode counterpart of one prefill's logits."""
+    dev = resolve_device(device)
+    check_on(model.params, dev, 'the model')
+    ids = _ids_on(ids, dev)
+    return torch.stack([row.to(F32) for row in _decode_steps(
+        model, ids, qmap, kv_policy or FP_POLICY, ids.shape[1], dev)], 1)
 
 
 @torch.no_grad()

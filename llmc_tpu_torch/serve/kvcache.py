@@ -1,9 +1,20 @@
-"""KV-cache policies (port of ``llmc_tpu/serve/kvcache.py:26-170``).
+"""KV-cache policies (port of ``llmc_tpu/serve/kvcache.py``).
 
-Ported: ``fp`` and ``naive`` (int8 codes with per-(token, head) scales,
-symmetric or asymmetric).  kivi / sink / ShadowKV raise (ROADMAP A11).
-The paged pool is a policy of its own, ``serve.paged_cache.PagedKVPolicy``,
-as in the reference, whose ``KVCachePolicy`` has no paged method.
+- ``fp``: the values as the model computes them.
+- ``naive``: int8 codes with per-(token, head) scales, symmetric or
+  asymmetric, at 2 to 8 bits.
+- ``kivi``: ``naive`` codes for every token, and beside them an fp ring of
+  the most recent ``residual_length`` tokens (``k_r`` / ``v_r``), which
+  ``read`` splices over their codes: with per-token qparams that is the
+  upstream method's quantize-at-eviction.
+- ``sink``: the fp cache; the attention keeps the first
+  ``num_sink_tokens`` positions and the last ``window_length`` before each
+  query (``attention_mask_offset``).  The serving engine does not take it
+  (ROADMAP A11).
+
+ShadowKV raises (ROADMAP A11).  The paged pool is a policy of its own,
+``serve.paged_cache.PagedKVPolicy``, as in the reference, whose
+``KVCachePolicy`` has no paged method.
 
 The cache is a dict of preallocated tensors ``[L, B, Smax, KVH, hd]``
 (scales squeezed ``[L, B, Smax, KVH]``) plus ``pos``: a Python int for
@@ -30,7 +41,7 @@ F32 = torch.float32
 class KVCachePolicy:
     """Static description of KV-cache handling."""
 
-    method: str = 'fp'        # fp | naive (kivi | sink not ported)
+    method: str = 'fp'        # fp | naive | kivi | sink
     bit: int = 8
     symmetric: bool = True
     residual_length: int = 128
@@ -42,10 +53,10 @@ class KVCachePolicy:
             raise NotImplementedError(
                 'the paged KV pool is serve.paged_cache.PagedKVPolicy, not '
                 'a KVCachePolicy method (as in the reference)')
-        if self.method not in ('fp', 'naive'):
-            raise NotImplementedError(
-                f'KV policy {self.method!r} is not ported yet (ROADMAP A11)')
-        if self.method == 'naive' and not 2 <= self.bit <= 8:
+        if self.method not in ('fp', 'naive', 'kivi', 'sink'):
+            raise ValueError(f'unknown KV policy {self.method!r}: want fp, '
+                             f'naive, kivi or sink')
+        if self.method in ('naive', 'kivi') and not 2 <= self.bit <= 8:
             raise ValueError(f'naive KV codes are stored in int8; '
                              f'bit={self.bit} does not fit')
 
@@ -54,7 +65,7 @@ class KVCachePolicy:
                    device=None) -> Dict:
         dev = resolve_device(device)
         shape = (n_blocks, batch, max_len, kv_heads, head_dim)
-        if self.method == 'fp':
+        if self.method in ('fp', 'sink'):
             return {'k': torch.zeros(shape, dtype=dtype, device=dev),
                     'v': torch.zeros(shape, dtype=dtype, device=dev),
                     'pos': 0}
@@ -68,6 +79,14 @@ class KVCachePolicy:
         if not self.symmetric:
             cache['k_z'] = torch.zeros(shape[:-1], dtype=F32, device=dev)
             cache['v_z'] = torch.zeros(shape[:-1], dtype=F32, device=dev)
+        if self.method == 'kivi':
+            rshape = (n_blocks, batch, self.residual_length, kv_heads,
+                      head_dim)
+            cache['k_r'] = torch.zeros(rshape, dtype=dtype, device=dev)
+            cache['v_r'] = torch.zeros(rshape, dtype=dtype, device=dev)
+            # the tokens present after this step's write ('pos' advances
+            # once a step, after every layer ran)
+            cache['kivi_total'] = 0
         return cache
 
     # -- quant helpers (per token+head over head_dim) -------------------
@@ -102,7 +121,7 @@ class KVCachePolicy:
                v_new: torch.Tensor) -> Dict:
         """Write new tokens at cache['pos'] for this layer, in place."""
         pos = cache['pos']
-        if self.method == 'fp':
+        if self.method in ('fp', 'sink'):
             _upd(cache['k'], layer, pos, k_new)
             _upd(cache['v'], layer, pos, v_new)
             return cache
@@ -115,11 +134,20 @@ class KVCachePolicy:
         if kz is not None:
             _upd(cache['k_z'], layer, pos, kz[..., 0])
             _upd(cache['v_z'], layer, pos, vz[..., 0])
+        if self.method == 'kivi':
+            if _per_slot(pos):
+                raise NotImplementedError(
+                    'the kivi cache keeps one residual ring for the batch: '
+                    'lockstep positions only (the serving engine does not '
+                    'take it, ROADMAP A11)')
+            _roll_in(cache['k_r'], layer, k_new)
+            _roll_in(cache['v_r'], layer, v_new)
+            cache['kivi_total'] = int(pos) + k_new.shape[1]
         return cache
 
     def read(self, cache: Dict, layer: int, dtype
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.method == 'fp':
+        if self.method in ('fp', 'sink'):
             return cache['k'][layer], cache['v'][layer]
         k = self._dequant(cache['k_q'][layer], cache['k_s'][layer][..., None],
                           cache['k_z'][layer][..., None]
@@ -127,14 +155,55 @@ class KVCachePolicy:
         v = self._dequant(cache['v_q'][layer], cache['v_s'][layer][..., None],
                           cache['v_z'][layer][..., None]
                           if 'v_z' in cache else None, dtype)
+        if self.method == 'kivi':
+            # the most recent residual_length tokens (this step's
+            # included) read their fp values
+            total, R = cache['kivi_total'], self.residual_length
+            _splice_residual(k, cache['k_r'][layer], total, R)
+            _splice_residual(v, cache['v_r'][layer], total, R)
         return k, v
+
+    def attention_mask_offset(self, pos, max_len: int):
+        """sink: the kv positions a query at ``pos - 1`` attends (the sinks
+        and the window before it), broadcast over ``pos``'s shape plus a
+        trailing [max_len]; None for the other policies."""
+        if self.method != 'sink':
+            return None
+        idx = torch.arange(max_len, device=pos.device if isinstance(
+            pos, torch.Tensor) else None)
+        return (idx < self.num_sink_tokens) | (idx >= pos
+                                              - self.window_length)
+
+
+def _per_slot(pos) -> bool:
+    return isinstance(pos, torch.Tensor) and pos.ndim == 1
+
+
+def _roll_in(buf: torch.Tensor, layer: int, new: torch.Tensor) -> None:
+    """Shift the ring [L, B, R, ...] of ``layer`` left by the new
+    tokens and append them (the last R of them), in place."""
+    R = buf.shape[2]
+    new = new[:, -R:].to(buf.dtype)
+    s = new.shape[1]
+    buf[layer] = torch.cat([buf[layer, :, s:], new], dim=1)
+
+
+def _splice_residual(kdq: torch.Tensor, kres: torch.Tensor, total: int,
+                     R: int) -> None:
+    """Overwrite positions [total - R, total) of kdq [B, S, KH, hd] with
+    the ring kres [B, R, KH, hd], in place: slot j holds absolute
+    position total - R + j, ``total`` the tokens after this step's write."""
+    lo, hi = max(total - R, 0), min(total, kdq.shape[1])
+    if hi > lo:
+        off = total - R
+        kdq[:, lo:hi] = kres[:, lo - off:hi - off].to(kdq.dtype)
 
 
 def _upd(buf: torch.Tensor, layer: int, pos, new: torch.Tensor) -> None:
     """buf [L,B,S,...] <- new [B,s,...] at [layer, :, pos:pos+s], in
     place.  ``pos`` is an int (lockstep) or an int32 [B] tensor of
     per-slot positions (each slot written at its own offset)."""
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+    if _per_slot(pos):
         B, s = new.shape[0], new.shape[1]
         idx = pos.to(torch.long)[:, None] + torch.arange(
             s, device=buf.device)[None, :]                  # [B, s]
@@ -149,3 +218,23 @@ def _upd(buf: torch.Tensor, layer: int, pos, new: torch.Tensor) -> None:
 def _naive(quant_type, kvcfg, n_blocks, **kw):
     return KVCachePolicy(method='naive', bit=int(kvcfg.get('bit', 8)),
                          symmetric=bool(kvcfg.get('symmetric', True)))
+
+
+@KV_REGISTRY.register(name='Kivi')
+def _kivi(quant_type, kvcfg, n_blocks, **kw):
+    return KVCachePolicy(method='kivi', bit=int(kvcfg.get('bit', 8)),
+                         symmetric=bool(kvcfg.get('symmetric', True)),
+                         residual_length=int(kw.get('residual_length', 128)))
+
+
+@KV_REGISTRY.register(name='SinkKV')
+def _sink(quant_type, kvcfg, n_blocks, **kw):
+    return KVCachePolicy(method='sink',
+                         num_sink_tokens=int(kw.get('num_sink_tokens', 4)),
+                         window_length=int(kw.get('window_length', 256)))
+
+
+@KV_REGISTRY.register(name='ShadowKV')
+def _shadowkv(quant_type, kvcfg, n_blocks, **kw):
+    raise NotImplementedError('the ShadowKV cache is not ported yet '
+                              '(ROADMAP A11)')

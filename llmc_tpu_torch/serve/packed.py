@@ -24,8 +24,8 @@ from ..models.base import LinearQcfg, get_path, set_path
 from ..ops.dequant_matmul import (QMeta, _quant_act_token, dequant_weight,
                                   pack_scales_t, pack_weight)
 from ..quant.qspec import QuantSpec
-from ..quant.quantizer import (QParams, real_quant_weight, reshape_tensor,
-                               stored_qparams, tensor_qparams)
+from ..quant.quantizer import (QParams, masked_qparams, real_quant_weight,
+                               reshape_tensor, stored_qparams, tensor_qparams)
 from ..utils.device import resolve_device
 
 F32 = torch.float32
@@ -110,16 +110,34 @@ def w8_companion(w: torch.Tensor):
 
 
 def stored_grid(lin: Dict, wspec: QuantSpec) -> Optional[QParams]:
-    """The qparams a linear's method stored beside its weight (GPTQ,
-    TesseraQ, HQQ, AdaDim's output-channel choices), as
+    """The qparams a linear's method fixed at compress time (GPTQ, SpQR,
+    TesseraQ, HQQ, AdaDim's output-channel choices as they stored them;
+    DGQ's dual grain: scale ``dgq_s4 * dgq_s8``, zero ``dgq_z4``; QUIK's
+    per-channel qparams over its int columns, ``int_mask``), as
     ``reshape_tensor`` groups the weight, where they group its columns in
     their own order as ``wspec`` does (``wspec`` then has the method's
     bits); else None.  GPTQ's act-order qparams (``perm``) group permuted
-    columns, which the kernels cannot read."""
-    if 'gptq_scales' not in lin or 'perm' in lin or wspec.is_float:
+    columns, which the kernels cannot read.  DGQ's grid is the asymmetric
+    4-bit one, its codes clipped to [0, 15] wherever
+    ``round(127 / s8) >= 15``.  QUIK's channel qparams stand for each
+    group of the channel; its fp columns are on no grid."""
+    if wspec.is_float:
         return None
-    qp = stored_qparams(lin)
     t = reshape_tensor(wspec, lin['w'])
+    if 'dgq_s4' in lin:
+        if wspec.symmetric or int(wspec.bit) != 4:
+            return None
+        s = lin['dgq_s4'].to(F32) * lin['dgq_s8'].to(F32).reshape(-1, 1)
+        qp = QParams(s.reshape(-1, 1), lin['dgq_z4'].to(F32).reshape(-1, 1))
+    elif 'int_mask' in lin:
+        qp = masked_qparams(wspec, lin['w'], lin['int_mask'][None, :])
+        ng = t.shape[0] // qp.scales.shape[0]
+        qp = QParams(*(v if v.ndim == 0 else v.repeat_interleave(ng, 0)
+                       for v in qp))
+    elif 'gptq_scales' not in lin or 'perm' in lin:
+        return None
+    else:
+        qp = stored_qparams(lin)
     if qp.scales.numel() != t.numel() // t.shape[-1]:
         return None  # packed at another grouping than the method's
     return qp

@@ -2,7 +2,8 @@
 
 A copy of ``llmc_tpu/utils/registry.py`` (the port imports nothing from
 the JAX package).  The port registers what it ports: ``Llama`` in
-MODEL_REGISTRY and ``Naive`` in KV_REGISTRY.
+MODEL_REGISTRY; ``Naive``, ``Kivi`` and ``SinkKV`` in KV_REGISTRY, whose
+``ShadowKV`` raises.
 """
 
 from __future__ import annotations

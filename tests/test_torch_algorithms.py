@@ -10,13 +10,11 @@ inputs, TesseraQ's with its training step built afresh in each block
 codes and scales block by block; the static activation qparams bit for
 bit; and the fail-fast option check."""
 
-import os
 
 import jax
 import numpy as np
 import pytest
 import torch
-import yaml
 
 from llmc_tpu.compression.quantization.ntweak import \
     NormTweaking as JNormTweaking
@@ -33,13 +31,12 @@ from llmc_tpu_torch.compression.quantization.gptq import GPTQ
 from llmc_tpu_torch.compression.quantization.quarot import Quarot
 from llmc_tpu_torch.main import run_pipeline
 from llmc_tpu_torch.models.base import get_path
-from torch_port_helpers import (TINY, reference_builds_its_step_per_block,
+from torch_port_helpers import (TINY, method_quant,
+                                reference_builds_its_step_per_block,
                                 reference_trains_on_block_inputs)
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-METHODS = os.path.join(ROOT, 'configs', 'quantization', 'methods')
 HF = dict({k: v for k, v in TINY.items() if k != 'dtype'},
           torch_dtype='float32', rms_norm_eps=1e-5)
 PPLS = ('ppl_pretrain', 'ppl_transformed', 'ppl_fake_quant')
@@ -47,20 +44,13 @@ CONFIGS = ('smoothquant_w8a8', 'gptq_w4a16', 'gptq_static_groups',
            'gptq_owq', 'quarot_w4a8', 'osplus_w8a8', 'llmint8_w8a8',
            'rtn_w8a8', 'rtn_w_a_pertensor_static', 'w48_double',
            'w48_afp8', 'awq_w_a_chat_data', 'hqq_w4', 'adadim_w8',
-           'omniquant_w4', 'tesseraq_w4', 'normtweaking_w4')
-
-
-def method_quant(name):
-    """The ``quant`` section of a shipped method config, group size 128
-    cut to 32 (TINY is 64 wide)."""
-    with open(os.path.join(METHODS, f'{name}.yml')) as f:
-        quant = yaml.safe_load(f)['quant']
-
-    def cut(d):
-        return {k: (32 if k == 'group_size' and v == 128 else
-                    cut(v) if isinstance(v, dict) else v)
-                for k, v in d.items()}
-    return cut(quant)
+           'omniquant_w4', 'tesseraq_w4', 'normtweaking_w4', 'quik_w4a8',
+           'spqr_w4', 'dgq_w4a8')
+# DGQ's int4 grain is its w_1 spec, which dgq_w4a8.yml leaves at the
+# default group of 128: it runs on a checkpoint 128 wide (every linear's
+# input a whole number of groups) as shipped
+WIDE = dict(TINY, hidden_size=128, head_dim=32, intermediate_size=256)
+ON_WIDE = ('dgq_w4a8',)
 
 
 def pipeline_config(path, quant):
@@ -79,6 +69,15 @@ def pipeline_config(path, quant):
 def checkpoint(tmp_path_factory):
     path = str(tmp_path_factory.mktemp('ckpt') / 'tiny')
     j_save_params(JAdapter.random(JConfig(**TINY), seed=3).params, path, HF)
+    return path
+
+
+@pytest.fixture(scope='module')
+def wide_checkpoint(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp('ckpt') / 'wide')
+    hf = dict({k: v for k, v in WIDE.items() if k != 'dtype'},
+              torch_dtype='float32', rms_norm_eps=1e-5)
+    j_save_params(JAdapter.random(JConfig(**WIDE), seed=3).params, path, hf)
     return path
 
 
@@ -111,19 +110,22 @@ def _runs(checkpoint, name, monkeypatch):
 
 
 @pytest.mark.parametrize('name', CONFIGS)
-def test_method_ppls_match_jax(checkpoint, monkeypatch, name):
+def test_method_ppls_match_jax(request, monkeypatch, name):
     """Each shipped configuration runs end to end in the port (each raised
     before), its three PPLs within 1e-3 of the JAX package's; an
     equivalence transform keeps the function ('transformed' within 2e-4
     of pretrain; QuaRot within 2e-2, its embeddings' mean removed, which
     no RMSNorm undoes; GPTQ's compensated weights, TesseraQ's merged
-    rounding and NormTweaking's trained norms are no equivalence)."""
+    rounding and NormTweaking's trained norms are no equivalence, nor
+    are SpQR's, which are GPTQ's)."""
+    checkpoint = request.getfixturevalue(
+        'wide_checkpoint' if name in ON_WIDE else 'checkpoint')
     jres, tres = _runs(checkpoint, name, monkeypatch)
     for ppl in PPLS:
         assert np.isfinite(tres[ppl]), ppl
         assert abs(tres[ppl] - jres[ppl]) / jres[ppl] <= 1e-3, (
             ppl, tres[ppl], jres[ppl])
-    if not name.startswith(('gptq', 'tesseraq', 'normtweaking')):
+    if not name.startswith(('gptq', 'tesseraq', 'normtweaking', 'spqr')):
         tol = 2e-2 if name.startswith('quarot') else 2e-4
         assert abs(tres['ppl_transformed'] - tres['ppl_pretrain']) \
             <= tol * tres['ppl_pretrain']

@@ -401,14 +401,16 @@ def test_ignored_layers_bake_and_qmap_match():
     (dict(weight=W4, act=dict(bit=8, symmetric=True,
                               granularity='per_token')), None),
     (dict(weight=dict(W4, bit=48)), None),
-    (dict(weight=W4, kvcache=dict(method='Naive', bit=8)), 'ROADMAP A11'),
+    (dict(weight=W4, kvcache=dict(method='ShadowKV')), 'ROADMAP A11'),
+    (dict(weight=W4, kvcache=dict(method='Kivi', bit=4)), None),
     (dict(weight=W4, special=dict(online_rotate=True)), None),
 ])
 def test_options_outside_the_slice_raise_with_their_roadmap_item(quant,
                                                                  item):
-    """A KV-cache quantizer raises with its ROADMAP item; activation
-    quantization, ``bit: 48`` and the online rotation, which raised until
-    they were ported, build the policy the reference builds."""
+    """The ShadowKV cache raises with its ROADMAP item; activation
+    quantization, ``bit: 48``, the online rotation and a KV-cache
+    quantizer, which raised until they were ported, build the policy the
+    reference builds (and the same KV policy)."""
     cfg = dict(model=dict(type='Llama'), quant=dict(quant, method='RTN'))
     tm = LlamaAdapter.random(LlamaConfig(**TINY), seed=0, device='cpu')
     if item is not None:
@@ -425,6 +427,10 @@ def test_options_outside_the_slice_raise_with_their_roadmap_item(quant,
     te, je = _qmap_entries(ta.fake_quant_qmap(0)), \
         _qmap_entries(ja.fake_quant_qmap(0))
     assert te == je and len(te) == 7
+    assert (ta.kv_module is None) == (ja.kv_module is None)
+    if ta.kv_module is not None:
+        assert dataclasses.asdict(ta.kv_module) == \
+            dataclasses.asdict(ja.kv_module)
     tt, jt = ta.transform_qmap(), ja.transform_qmap()
     assert (tt is None) == (jt is None)
     if tt is not None:

@@ -105,11 +105,27 @@ def test_update_per_slot_positions():
 
 @pytest.mark.parametrize('method', ['kivi', 'sink', 'paged'])
 def test_unported_policies_raise(method):
-    """kivi and sink are not ported (A11); the paged pool is a policy of
-    its own, PagedKVPolicy, as in the reference."""
-    match = 'PagedKVPolicy' if method == 'paged' else 'A11'
-    with pytest.raises(NotImplementedError, match=match):
-        KVCachePolicy(method=method)
+    """The paged pool is a policy of its own, PagedKVPolicy, as in the
+    reference.  kivi and sink, which raised until they were ported, build
+    the reference's cache (the same buffers, shapes and types); kivi's
+    int8 codes refuse more than 8 bits."""
+    if method == 'paged':
+        with pytest.raises(NotImplementedError, match='PagedKVPolicy'):
+            KVCachePolicy(method=method)
+        return
+    jc = JPolicy(method=method).init_cache(2, 8, 2, 16, 3,
+                                           dtype=jnp.float32)
+    tc = KVCachePolicy(method=method).init_cache(2, 8, 2, 16, 3,
+                                                 dtype=torch.float32,
+                                                 device='cpu')
+    assert set(tc) == set(jc)
+    for key, v in tc.items():
+        if isinstance(v, torch.Tensor):
+            assert tuple(v.shape) == jc[key].shape, key
+            assert str(v.dtype).split('.')[-1] == str(jc[key].dtype), key
+    if method == 'kivi':
+        with pytest.raises(ValueError, match='int8'):
+            KVCachePolicy(method=method, bit=16)
 
 
 def test_init_cache_device_none_needs_card():

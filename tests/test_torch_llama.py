@@ -116,16 +116,19 @@ def test_unported_graph_options_raise(opt):
 
 
 def test_linear_qcfg_unported_fields_raise(pair):
-    """The field still unported (QUIK's mixed columns) raises; the LLM.int8
-    decomposition, the online rotation and straight-through rounding, which
-    raised until they were ported, give the reference's output."""
+    """No field is left unported: QUIK's mixed columns, the LLM.int8
+    decomposition, the online rotation and straight-through rounding,
+    which raised until they were ported, give the reference's output."""
     from llmc_tpu.models import base as JB
     from llmc_tpu.quant.qspec import QuantSpec as JSpec
     from llmc_tpu_torch.quant.qspec import QuantSpec
     jm, tm = pair
-    p = tm.blocks[0]['self_attn']['q_proj']
-    with pytest.raises(NotImplementedError, match='A10'):
-        TB.linear_apply(p, torch.zeros(1, 64), TB.LinearQcfg(mixed_cols=True))
+    mask = np.ones(64, bool)
+    mask[[5, 17, 40]] = False           # QUIK's fp columns
+    p = dict(tm.blocks[0]['self_attn']['q_proj'],
+             int_mask=torch.as_tensor(mask))
+    jp = dict(jm.blocks[0]['self_attn']['q_proj'],
+              int_mask=jnp.asarray(mask))
     x = np.random.RandomState(2).randn(3, 64).astype(np.float32) * 2
     x[:, 5] = 9.0     # an outlier column past the threshold
     spec = dict(bit=8, symmetric=True, granularity='per_token')
@@ -138,10 +141,13 @@ def test_linear_qcfg_unported_fields_raise(pair):
                     (dict(ste=True, a_spec=QuantSpec(**spec),
                           w_spec=QuantSpec(**wspec)),
                      dict(ste=True, a_spec=JSpec(**spec),
+                          w_spec=JSpec(**wspec))),
+                    (dict(mixed_cols=True, a_spec=QuantSpec(**spec),
+                          w_spec=QuantSpec(**wspec)),
+                     dict(mixed_cols=True, a_spec=JSpec(**spec),
                           w_spec=JSpec(**wspec)))):
         got = TB.linear_apply(p, torch.as_tensor(x), TB.LinearQcfg(**kw))
-        want = JB.linear_apply(jm.blocks[0]['self_attn']['q_proj'],
-                               jnp.asarray(x), JB.LinearQcfg(**jkw))
+        want = JB.linear_apply(jp, jnp.asarray(x), JB.LinearQcfg(**jkw))
         assert rel_err(got.numpy(), np.asarray(want)) < 1e-5
 
 

@@ -119,17 +119,20 @@ def test_package_imports_without_gpu_nvcc_or_triton():
 
 
 def test_registry_holds_the_trained_methods_and_ste_is_served():
-    """HQQ, AdaDim, NormTweaking, OmniQuant and TesseraQ are registered;
-    ``LinearQcfg(ste=True)`` is served, ``mixed_cols`` still raises with
-    its ROADMAP item."""
+    """HQQ, AdaDim, NormTweaking, OmniQuant, TesseraQ and the last A10
+    methods (QUIK, SpQR, DGQ) are registered; ``LinearQcfg(ste=True)`` and
+    ``mixed_cols``, which raised until QUIK was ported, are served."""
     import llmc_tpu_torch.compression  # noqa: F401 (registers them)
-    from llmc_tpu_torch.models.base import LinearQcfg, check_qcfg
+    from llmc_tpu_torch.models.base import LinearQcfg, linear_apply
     from llmc_tpu_torch.utils import ALGO_REGISTRY
-    for m in ('HQQ', 'AdaDim', 'NormTweaking', 'OmniQuant', 'TesseraQ'):
+    for m in ('HQQ', 'AdaDim', 'NormTweaking', 'OmniQuant', 'TesseraQ',
+              'QUIK', 'SpQR', 'DGQ'):
         assert ALGO_REGISTRY[m].__name__ == m
-    check_qcfg(LinearQcfg(ste=True))
-    with pytest.raises(NotImplementedError, match='ROADMAP A10'):
-        check_qcfg(LinearQcfg(mixed_cols=True))
+    x = torch.ones(2, 4)
+    lin = {'w': torch.eye(4), 'b': None,
+           'int_mask': torch.tensor([True, False, True, True])}
+    for qc in (LinearQcfg(ste=True), LinearQcfg(mixed_cols=True)):
+        assert torch.equal(linear_apply(lin, x, qc), x)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -521,6 +524,124 @@ def test_chip_smoke_cpu_phase16_tiny(name, mode):
         # the shipped rate moves no bf16 norm: held to the pretrained model
         assert rec['norms_moved'] == 0
         assert rec['tolerance_ppl_transformed'] is not None
+
+
+@pytest.mark.parametrize('name,mode', chip_smoke.PHASE17)
+def test_chip_smoke_cpu_phase17_tiny(name, mode, monkeypatch):
+    """Phase 17's methods at a tiny size on the CPU (TINY_BF16, 128 wide;
+    group size 32 as phase 16's tiny run takes it, DGQ at its shipped 128,
+    its int4 grain; QUIK's fp_features 128 cut to 8, since
+    ``min(128, in - 1)`` would keep all but one of a 128-wide linear's
+    columns fp): finite PPLs, the depth cut and its
+    reason, the share each keeps fp (QUIK's columns, SpQR's outliers), the
+    transformed PPL of QUIK and DGQ held to the pretrained one; then served
+    on its mode (QUIK and DGQ W4A8, SpQR W4A16) against its own model or
+    the weights packing holds, the gap recorded, DGQ's weights all on its
+    grid and QUIK's int columns on QUIK's own."""
+    cpu = torch.device('cpu')
+    method = chip_smoke.METHOD_QUANT[name]['method']
+    if method == 'QUIK':
+        mq = chip_smoke.METHOD_QUANT[name]
+        monkeypatch.setitem(chip_smoke.METHOD_QUANT, name, dict(
+            mq, special=dict(mq['special'], fp_features=8)))
+    rec, srv, res = chip_smoke.phase17_method(
+        cpu, name, mode, TINY_BF16, serve_kw=dict(
+            prompt_len=8, n_requests=4, max_batch=2, max_len=96,
+            buckets=(16, 32), max_prompt=30),
+        group_size=128 if method == 'DGQ' else 32, n_samples=4, seq_len=24,
+        eval_tokens=480, eval_bs=2)
+    cut = chip_smoke.DEPTH_CUT.get(method)
+    assert rec['ok'] and rec['launches'] == ZERO_LAUNCHES
+    assert rec['layers'] == 2 and rec['config'].endswith(f'{name}.yml')
+    assert (rec['depth_cut'] is None) == (cut is None)
+    assert rec['hyperparams'] == res['opt'].hyperparams()
+    assert (rec['fp_column_share'] is None) == (method != 'QUIK')
+    assert (rec['outlier_share'] is None) == (method != 'SpQR')
+    if method == 'QUIK':
+        # 8 of each linear's input columns
+        assert rec['fp_column_share'] == 8 * 7 / (128 * 6 + 256)
+    if method == 'SpQR':
+        assert 0 < rec['outlier_share'] < 0.2
+        assert rec['tolerance_ppl_transformed'] is None
+    else:
+        assert rec['tolerance_ppl_transformed'] == chip_smoke.TOL_PPL_EQUIV
+        assert rec['ppl_transformed_rel_drift'] <= chip_smoke.TOL_PPL_EQUIV
+    assert srv['ok'] and srv['all_done'] and srv['launches'] == ZERO_LAUNCHES
+    assert srv['mode'] == mode and srv['layers'] == 2
+    fw = srv['prefill_forwards'] + srv['decode_steps']
+    want = srv['expected_launches']
+    if mode == 'w4a8':
+        # the block linears through the quantizer and B3, the head B1
+        assert want['w4a8_dequant_matmul'] == want['quant_act_token'] \
+            == 4 * 2 * fw
+        assert want['w4_dequant_matmul'] == fw
+    else:
+        assert want['w4_dequant_matmul'] == (4 * 2 + 1) * fw
+    gap = srv['packed_weight_gap']
+    assert gap['max_excess_steps_stored_qparams'] <= chip_smoke.STORED_MOVE
+    if method == 'DGQ':
+        assert gap['off_grid_share'] == gap['share_moved'] == 0
+        assert srv['rel_logit_err_vs_method_model'] == \
+            srv['rel_logit_err_vs_fake_quant']
+    else:
+        # QUIK's fp columns and SpQR's fp outliers are off the grid
+        assert gap['off_grid_share'] > 0 and gap['share_moved'] > 0
+        assert srv['held_against'] == \
+            'that model with the weights packing holds'
+    if method == 'QUIK':
+        # its int columns on its own grid: the fp columns alone moved
+        assert gap['max_excess_steps_stored_qparams'] <= chip_smoke.GRID_MOVE
+        assert gap['share_moved'] <= rec['fp_column_share']
+        assert srv['tolerance_vs_method_model'] == chip_smoke.TOL_QUIK_VS_OWN
+        assert srv['rel_logit_err_vs_method_model'] <= \
+            chip_smoke.TOL_QUIK_VS_OWN
+
+
+def test_chip_smoke_cpu_decode_ppl_tiny():
+    """The decode_ppl phase at a tiny size on the CPU: every PPL finite and
+    recorded (three positions, KIVI as shipped, KIVI with a whole-sequence
+    ring, Sink), the pretrain decode PPL against the prefill PPL, KIVI's fp
+    ring against the fp cache, token consistency, ms a step per position,
+    no launch anywhere (the CPU runs the plain versions), the depth cut
+    with its reason."""
+    rec, res = chip_smoke.phase_decode_ppl(
+        torch.device('cpu'), TINY_BF16, layers=(2, 'tiny'), tokens=32,
+        sink=(2, 8), n_samples=4, seq_len=24)
+    assert rec['ok'], rec
+    assert set(rec['decode_ppl']) == {'pretrain', 'fake_quant',
+                                      'fake_quant_wo_kv', 'kivi',
+                                      'kivi_ring_whole', 'sink'}
+    assert set(rec['positions']) == set(rec['decode_ppl'])
+    for row in rec['positions'].values():
+        assert row['fed_steps'] == 31 and row['ms_per_step'] > 0
+        assert row['launches'] == ZERO_LAUNCHES
+        assert row['xla_branch_calls'] == 0
+    assert rec['expected_flash_decode'] == dict.fromkeys(rec['decode_ppl'], 0)
+    assert rec['kv_module']['method'] == 'naive'
+    assert rec['policies']['kivi']['residual_length'] == 128
+    assert rec['policies']['kivi_ring_whole']['residual_length'] == 32
+    assert rec['depth_cut'] == dict(layers=2, reason='tiny')
+    assert 0 < rec['token_consistency'] <= 1
+    assert rec['decode_vs_prefill_rel'] <= chip_smoke.TOL_DECODE_VS_PREFILL
+    assert rec['kivi_ring_whole_nll_rel_vs_fp_cache'] <= chip_smoke.TOL_FLASH
+    # the int8 cache and the sink window change what is read
+    ppl = rec['decode_ppl']
+    assert ppl['fake_quant'] != ppl['fake_quant_wo_kv'] != ppl['sink']
+    # the logits of every step against a prefill's: the fp decode inside
+    # the bound, each planted fault at least twice outside it
+    lg = rec['logits']
+    assert lg['ok'] and lg['steps'] == 32
+    assert lg['fp_vs_prefill'] <= chip_smoke.TOL_DECODE_LOGITS_VS_PREFILL
+    assert lg['fp_vs_b2_plain'] <= chip_smoke.TOL_DECODE_LOGITS_B2_PLAIN
+    assert set(lg['reads_vs_prefill']) == {'kivi_ring_whole', 'kivi',
+                                           'naive_int8'}
+    assert set(lg['faults_vs_prefill']) == {'naive_4bit', 'sink_window'}
+    assert min(lg['faults_vs_prefill'].values()) >= \
+        2 * chip_smoke.TOL_DECODE_LOGITS_VS_PREFILL
+    assert lg['flash_decode_fp'] == lg['launches_plain'] == 0
+    assert set(lg['nll_gap_vs_prefill']) == {'fp', 'b2_plain',
+                                             'kivi_ring_whole'}
+    assert lg['first_step_fp_vs_prefill'] <= lg['fp_vs_prefill']
 
 
 def test_chip_smoke_cpu_probes_phase_tiny():

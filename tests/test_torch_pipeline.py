@@ -167,10 +167,10 @@ def test_pipeline_options_outside_the_slice_raise(checkpoint, extra, item):
 
 
 @pytest.mark.parametrize('ev,item', [
-    (dict(type='decode_ppl'), 'ROADMAP A5'),
+    (dict(type='latency'), 'ROADMAP A13'),
     (dict(type='acc', name='imagenet'), 'ROADMAP A13'),
-    (dict(eval_token_consist=True), 'ROADMAP A5'),
-    (dict(eval_pos=['fake_quant_wo_kv']), 'ROADMAP A11'),
+    (dict(inference_per_block=True), 'ROADMAP A13'),
+    (dict(type='code'), 'ROADMAP A13'),
 ])
 def test_eval_entries_outside_the_slice_raise(checkpoint, ev, item):
     cfg = pipeline_config(checkpoint, 'RTN')

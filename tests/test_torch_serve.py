@@ -3,7 +3,6 @@ weights, forward_cached prefill/decode, greedy_generate and the
 ServingEngine, held against llmc_tpu on the CPU."""
 
 import dataclasses
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -174,14 +173,14 @@ def test_engine_sampling_independent_of_co_scheduling(packed_pair):
     assert alone[0].output_ids == both[0].output_ids
 
 
-@pytest.mark.parametrize('kw', [dict(kv_policy=types.SimpleNamespace(
+@pytest.mark.parametrize('kw', [dict(kv_policy=KVCachePolicy(
                                     method='sink')),
                                 dict(mesh=object()),
                                 dict(prefill_w8=True), dict(decode_w8=True)])
 def test_engine_unported_options_raise(packed_pair, kw):
     """Unported engine options raise instead of being ignored (a sink KV
-    policy, which the port's KVCachePolicy cannot make, handed to the
-    engine; a mesh); so do prefill_w8 / decode_w8 with qmap=None
+    policy, which the decode evals take and the engine does not, ROADMAP
+    A11; a mesh); so do prefill_w8 / decode_w8 with qmap=None
     (ValueError), which the reference ignores silently."""
     _, _, tm, _ = packed_pair
     err = (ValueError if 'prefill_w8' in kw or 'decode_w8' in kw

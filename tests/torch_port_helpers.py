@@ -5,10 +5,13 @@ the CPU and through ``llmc_tpu_torch`` with ``device='cpu'``, and compared
 as numpy arrays.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 torch.set_num_threads(1)
 
@@ -17,6 +20,24 @@ TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
             num_key_value_heads=2, head_dim=16, dtype='float32')
 WSPEC = dict(bit=4, symmetric=True, granularity='per_group', group_size=32)
+METHODS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'configs', 'quantization', 'methods')
+
+
+def method_quant(name):
+    """The ``quant`` section of a shipped method config, group size 128
+    cut to 32 (TINY is 64 wide), and QUIK's ``fp_features`` 128 cut to 8
+    (``min(128, in_features - 1)`` would keep all but one of TINY's
+    columns fp), as the JAX package's own QUIK test cuts it."""
+    with open(os.path.join(METHODS, f'{name}.yml')) as f:
+        quant = yaml.safe_load(f)['quant']
+
+    def cut(d):
+        return {k: (32 if k == 'group_size' and v == 128 else
+                    8 if k == 'fp_features' and v == 128 else
+                    cut(v) if isinstance(v, dict) else v)
+                for k, v in d.items()}
+    return cut(quant)
 
 
 def to_np(tree):
