@@ -108,10 +108,11 @@ Phases, each printing one JSON line, all of them on every run:
                   inverse scale per 128 x 128 block), applied to 128 rows:
                   ``act_quant_per_group`` -> ``fp8_block_matmul``, seven
                   launches of the FP8-block kernel.
-13. ``compress``  ``run_pipeline`` at Llama-2-7B width and depth (bf16,
+13. ``compress``  ``run_pipeline`` at Llama-2-7B width (bf16,
                   random weights from a seed, synthetic calibration and
-                  PPL data, W4 symmetric per-group 128): once RTN, once
-                  AWQ (scale search + clip v1) on weights that came
+                  PPL data, W4 symmetric per-group 128): once RTN at its
+                  32 layers, once AWQ at ``AWQ_LAYERS`` (16) (scale
+                  search + clip v1) on weights that came
                   through the FP8-block ingest and whose norms give the
                   activations outlier channels.  PPLs finite,
                   ``ppl_transformed`` near ``ppl_pretrain``, the searched
@@ -132,7 +133,7 @@ Phases, each printing one JSON line, all of them on every run:
                   ``a_spec`` and served through the W8 kernel; GPTQ W4A16
                   (``gptq_w4a16.yml``: asymmetric g128, actorder, percdamp
                   0.01, quant_out) at Llama-2-7B's width and
-                  ``GPTQ_LAYERS`` (4) layers (its column loop is sequential
+                  ``GPTQ_LAYERS`` (2) layers (its column loop is sequential
                   torch ops), served through the W4 kernel, with the column
                   loop's share of a block; QuaRot W4A8 with the online
                   rotation (``quarot_w4a8.yml``) at TinyLlama-1.1B's widths
@@ -188,6 +189,21 @@ Phases, each printing one JSON line, all of them on every run:
                   prefill's and B2 to its plain version
                   (``decode_logits_checks``), planted faults outside both
                   bounds.
+18. ``moe_serve`` + ``moe_compress``: the MoE and MLA families at their
+                  published widths (``MOE_MODELS``: Mixtral-8x7B at 4 of
+                  its 32 layers, Qwen1.5-MoE-A2.7B at 24, DeepSeek-V2-Lite
+                  at 27; bf16 random weights), each served unpacked by the
+                  engine over 10 requests through the captured step and
+                  the eager one (tokens equal; Mixtral through B2 and B5,
+                  Qwen2-MoE through B5, once a layer a host decode step;
+                  DeepSeek over the int8 latent cache, no kernel), TTFT and
+                  the decode step captured and eager against the weights'
+                  byte bound, the latent cache's bytes a token; then
+                  compressed (``MOE_COMPRESS``: RTN W4 at each depth,
+                  ``mixtral_gptq_w4.yml``'s GPTQ at 1 layer,
+                  ``awq_w_only_dsv3.yml``'s AWQ on one MoE block), RTN's
+                  transformed PPL equal to pretrain.  Each depth cut and
+                  reason is in its record's ``reduced``.
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
@@ -213,6 +229,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import importlib
 import itertools
 import json
@@ -312,9 +329,9 @@ METHOD_QUANT = {
         kvcache=dict(method='Kivi', bit=4, symmetric=True)),
 }
 # GPTQ's column loop is a Python loop of torch ops, 35584 columns a
-# Llama-2-7B block at about 0.22 ms a column on an H100 (7.9 s a block):
-# the phase runs 4 of the 32 layers to stay near a minute
-GPTQ_LAYERS = 4
+# Llama-2-7B block at about 0.17 ms a column on an H100 (6 s a block): the
+# phase runs 2 of the 32 layers (4 before phase 18 took its 200 s)
+GPTQ_LAYERS = 2
 # Phase 16: each method's serving mode, and the depth of the trained
 # methods with its reason.  A training step is a forward and a backward of
 # one Llama-2-7B block over the 8 x 512 calibration tokens, its linears as
@@ -326,10 +343,10 @@ PHASE16 = (('hqq_w4', 'w4a16'), ('adadim_w8', 'w8a16'),
            ('normtweaking_w4', 'w4a16'), ('omniquant_w4', 'w4a16'),
            ('tesseraq_w4', 'w4a16'))
 TRAINED_DEPTH = {
-    'NormTweaking': (8, '10 AdamW steps a block (epochs 10 x 1 batch), '
-                        'about 1.0 s a block'),
-    'OmniQuant': (4, '20 AdamW steps a block (epochs 20 x 1 batch), about '
-                     '2.7 s a block'),
+    'NormTweaking': (4, '10 AdamW steps a block (epochs 10 x 1 batch), '
+                        'about 1.0 s a block; 4 layers (8 before phase 18)'),
+    'OmniQuant': (2, '20 AdamW steps a block (epochs 20 x 1 batch), about '
+                     '2.7 s a block; 2 layers (4 before phase 18)'),
     'TesseraQ': (1, '300 Adam steps a block (3 thresholds x 100 '
                     'iterations: the config\'s epochs is not read) and 21 '
                     'host quantiles, about 49 s a block'),
@@ -344,10 +361,10 @@ DEPTH_CUT = dict(TRAINED_DEPTH, **{
     'SpQR': (GPTQ_LAYERS, 'GPTQ\'s column loop (a Python loop of torch '
                           'ops, 35584 columns a block) and the outlier '
                           'test in it, about 6-10 s a block'),
-    'DGQ': (4, '100 grid points a linear, each an f32 product over the '
+    'DGQ': (2, '100 grid points a linear, each an f32 product over the '
                '4096 calibration tokens (about 165 TFLOP a block on the '
-               'CUDA cores), about 5.4 s a block; 4 layers and not 8 to '
-               'keep the script inside its time limit on a slower host'),
+               'CUDA cores), about 5.4 s a block; 2 layers (8, then 4, '
+               'before phase 18) to keep the script inside its time limit'),
 })
 # transformed PPL against pretrained where the method's transform is an
 # equivalence up to the bf16 rounding of rescaled weights (QUIK transforms
@@ -357,11 +374,11 @@ TOL_PPL_EQUIV = 2e-4
 # DECODE_LAYERS of Llama-2-7B's, over one chunk of DECODE_TOKENS synthetic
 # tokens.  A fake-quant decode step fake-quantizes every weight again
 # (about 7-9 ms a layer), and five passes of 255 steps run at fake-quant.
-DECODE_LAYERS = (4, 'a fake-quant decode step re-quantizes every weight '
+DECODE_LAYERS = (2, 'a fake-quant decode step re-quantizes every weight '
                     '(about 7-9 ms a layer); five fake-quant passes of 255 '
-                    'steps and seven pretrained ones of 256; 4 layers and '
-                    'not 8 to keep the script inside its time limit on a '
-                    'slower host')
+                    'steps and seven pretrained ones of 256; 2 layers (8, '
+                    'then 4, before phase 18) to keep the script inside its '
+                    'time limit')
 DECODE_TOKENS = 256
 # The decode PPL over an fp bf16 cache against the prefill PPL of the same
 # tokens (both bf16, f32 attention): they differ by the order of f32 sums
@@ -1491,13 +1508,16 @@ def phase_parity(dev, ref_dev, cfg_kw, prompt_len=32, steps=8, seed=0,
                     cfg.num_hidden_layers, 1 + steps, steps, mode))
 
 
-def serve_requests(n, vocab, max_prompt=200, seed=0):
+def serve_requests(n, vocab, max_prompt=200, seed=0, new_tokens=16):
+    """``n`` requests, prompts spread over 10 to ``max_prompt`` tokens,
+    each asking for ``new_tokens`` to about twice that many."""
     from llmc_tpu_torch.serve import Request
     rng = np.random.RandomState(seed)
     lens = np.linspace(10, max_prompt, n).astype(int)
     rng.shuffle(lens)
     return [Request(uid=i, prompt_ids=rng.randint(0, vocab, (int(p),)),
-                    max_new_tokens=int(16 + (i * 7) % 17))
+                    max_new_tokens=int(new_tokens + (i * 7)
+                                       % (new_tokens + 1)))
             for i, p in enumerate(lens)]
 
 
@@ -2101,11 +2121,12 @@ def _fp8_ingest_model_type():
 
 def compress_config(cfg_kw, method, special=None, fp8_ingest=False,
                     group_size=128, n_samples=8, seq_len=512,
-                    eval_tokens=4096, eval_bs=4, seed=0, quant=None):
-    """The pipeline config of the ``compress`` phase: a random model from
-    ``model.arch``, synthetic calibration and PPL data, W4 symmetric
-    per-group weights, or ``quant`` (a method config's section; a per-group
-    weight takes ``group_size``)."""
+                    eval_tokens=4096, eval_bs=4, seed=0, quant=None,
+                    model_type='Llama'):
+    """The pipeline config of the ``compress`` phase: a random model of
+    ``model_type`` from ``model.arch``, synthetic calibration and PPL data,
+    W4 symmetric per-group weights, or ``quant`` (a method config's
+    section; a per-group weight takes ``group_size``)."""
     if quant is not None:
         quant = dict(quant, method=method)
         if quant['weight'].get('granularity') == 'per_group':
@@ -2119,7 +2140,8 @@ def compress_config(cfg_kw, method, special=None, fp8_ingest=False,
     vocab = cfg_kw['vocab_size']
     return dict(
         base=dict(seed=seed),
-        model=dict(type=_fp8_ingest_model_type() if fp8_ingest else 'Llama',
+        model=dict(type=_fp8_ingest_model_type() if fp8_ingest
+                   else model_type,
                    arch=dict(cfg_kw), seed=seed),
         calib=dict(name='synthetic', n_samples=n_samples, bs=-1,
                    seq_len=seq_len, seed=seed, vocab_size=vocab),
@@ -2136,6 +2158,9 @@ NORM_SIGMA = 1.0
 AWQ_SOURCE = 'configs/quantization/methods/awq_w_only.yml'
 AWQ_SOURCE_SAMPLES = 128
 AWQ_SPECIAL = dict(trans=True, weight_clip=True, clip_version='v1')
+# AWQ with clipping takes 1.47 s a Llama-2-7B block at 8 x 512 tokens: 16
+# of the 32 layers (32 before phase 18 took its 200 s)
+AWQ_LAYERS = 16
 
 
 def search_vs_rtn(dev, config, res, blocks):
@@ -2217,7 +2242,7 @@ def hadamard_share(dev, config, res):
 
 
 def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
-                   quant=None, **sizes):
+                   quant=None, equivalence=None, **sizes):
     """``run_pipeline`` (build, pretrain eval, calibration data, block
     loop, transformed eval, fake-quant eval) on ``dev``; after a method
     that searches (``special`` given), ``search_vs_rtn`` at the first, the
@@ -2249,7 +2274,9 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
     # moved in the block's type: at the shipped rate none does, and the
     # transformed model is then the pretrained one
     moved = getattr(res['opt'], 'train_stats', {}).get('norms_moved')
-    equivalence = method not in ('GPTQ', 'SpQR', 'TesseraQ') and not moved
+    if equivalence is None:
+        equivalence = method not in ('GPTQ', 'SpQR', 'TesseraQ') \
+            and not moved
     rec = dict(phase='compress', method=method,
                special=config['quant'].get('special', {}),
                fp8_block_ingest=fp8_ingest, layers=L,
@@ -2793,6 +2820,490 @@ def decode_logits_checks(dev, model, ids, policies, layers):
 
 # --------------------------------------------------------------------------
 
+# Phase 18: the MoE and MLA families at their published widths (each
+# source's config.json), bf16 random weights from a seed, served unpacked
+# (the reference cannot serve a packed MoE, ROADMAP C) through the engine's
+# captured decode step and compressed through run_pipeline.  The experts
+# dispatch densely, as in the reference: every expert's weights are read
+# at every step.  Each depth cut is listed with its reason.
+MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    head_dim=128, rope_theta=1e6, rms_norm_eps=1e-5,
+                    max_position_embeddings=32768, num_local_experts=8,
+                    num_experts_per_tok=2, dtype='bfloat16')
+# Qwen1.5-MoE-A2.7B: the port's intermediate_size is the experts'
+# (moe_intermediate_size 1408), as Qwen2MoeConfig.from_hf sets it
+QWEN15_MOE_A27B = dict(vocab_size=151936, hidden_size=2048,
+                       intermediate_size=1408,
+                       shared_expert_intermediate_size=5632,
+                       num_hidden_layers=24, num_attention_heads=16,
+                       num_key_value_heads=16, head_dim=128, rope_theta=1e6,
+                       rms_norm_eps=1e-6, max_position_embeddings=8192,
+                       num_local_experts=60, num_experts_per_tok=4,
+                       norm_topk_prob=False, dtype='bfloat16')
+DEEPSEEK_V2_LITE = dict(vocab_size=102400, hidden_size=2048,
+                        intermediate_size=10944, moe_intermediate_size=1408,
+                        num_hidden_layers=27, num_attention_heads=16,
+                        q_lora_rank=None, kv_lora_rank=512,
+                        qk_nope_head_dim=128, qk_rope_head_dim=64,
+                        v_head_dim=128, n_routed_experts=64,
+                        n_shared_experts=2, num_experts_per_tok=6,
+                        routed_scaling_factor=1.0, norm_topk_prob=False,
+                        first_k_dense_replace=1, moe_layer_freq=1,
+                        rms_norm_eps=1e-6, rope_theta=10000.0,
+                        dtype='bfloat16')
+MOE_MODELS = {
+    'mixtral_8x7b': dict(
+        type='Mixtral', arch=MIXTRAL_8X7B,
+        source='mistralai/Mixtral-8x7B-v0.1 config.json',
+        layers=(4, 'the 8 experts are 2.82 GB of bf16 a layer: 32 layers '
+                   'are about 93 GB, over the 80 GB card'),
+        attn=('auto', 'batch'), reduced=[]),
+    'qwen15_moe_a27b': dict(
+        type='Qwen2Moe', arch=QWEN15_MOE_A27B,
+        source='Qwen/Qwen1.5-MoE-A2.7B config.json',
+        layers=(24, None), attn=('batch',), reduced=[]),
+    'deepseek_v2_lite': dict(
+        type='DeepseekV2', arch=DEEPSEEK_V2_LITE,
+        source='deepseek-ai/DeepSeek-V2-Lite config.json',
+        layers=(27, None), attn=(None,),
+        reduced=['rope_scaling (yarn, factor 40) left out: the reference '
+                 'computes DeepSeek\'s rope unscaled and the port refuses a '
+                 'yarn config (ROADMAP C)']),
+}
+# what each family's compression runs: (name, quant, layers, reason of the
+# cut, the transform an equivalence); the quant sections as the shipped
+# configs hold them
+MIXTRAL_GPTQ_QUANT = dict(
+    method='GPTQ', weight=dict(bit=4, symmetric=True,
+                               granularity='per_group', group_size=128),
+    special=dict(actorder=True, static_groups=True, percdamp=0.01,
+                 blocksize=128, true_sequential=True, quant_out=True))
+DSV3_AWQ_QUANT = dict(
+    method='Awq', weight=dict(bit=4, symmetric=False,
+                              granularity='per_group', group_size=128),
+    special=dict(trans=True, trans_version='v2', weight_clip=True))
+RTN_W4 = dict(method='RTN', weight=dict(bit=4, symmetric=True,
+                                        granularity='per_group',
+                                        group_size=128))
+MOE_COMPRESS = {
+    'mixtral_8x7b': [
+        ('rtn_w4', RTN_W4, 4, None, True),
+        ('configs/quantization/models/mixtral_gptq_w4.yml',
+         MIXTRAL_GPTQ_QUANT, 1,
+         'GPTQ\'s column loop (a Python loop of torch ops): 196608 columns '
+         'a Mixtral block, 5.5 times a Llama-2-7B block\'s (GPTQ_LAYERS '
+         'cuts those to 2), about 37 s a block', False)],
+    'qwen15_moe_a27b': [('rtn_w4', RTN_W4, 24, None, True)],
+    'deepseek_v2_lite': [
+        ('rtn_w4', RTN_W4, 27, None, True),
+        # the router reads the post-attention norm that moe_gu scales:
+        # AWQ on DeepSeek moves the routing (no equivalence, ROADMAP C)
+        ('configs/quantization/deepseekv3/awq_w_only_dsv3.yml',
+         DSV3_AWQ_QUANT, 1,
+         'one MoE block (its moe_gu subset searches one scale over 130 '
+         'linears; each expert\'s down_proj and every clip are searched '
+         'apart); the dense first block left out (first_k_dense_replace '
+         '0): its down_proj\'s 10944 inputs are no whole number of '
+         '128-groups, where the clip search raises in the reference and '
+         'in the port (auto_clip.py\'s reshape into groups)', False)],
+}
+# the architecture each compression of MOE_COMPRESS runs, where it is not
+# the family's served one
+MOE_COMPRESS_ARCH = {
+    'configs/quantization/deepseekv3/awq_w_only_dsv3.yml':
+        dict(first_k_dense_replace=0)}
+# phase 18's decode held to one prefill of the same tokens (the relative
+# L2 gap of the logits, as TOL_DECODE_LOGITS_VS_PREFILL), on each model's
+# first 4 blocks (DeepSeek's dense one and three MoE ones) at its widths,
+# 32 tokens, on the steps every router picked as in the prefill: bf16
+# roundings that fall otherwise between a one-token step and a 32-token
+# forward, and the int8 cache's rounding.  Set from an H100 reading: fp
+# 7.7e-3 / 7.9e-3 / 8.2e-3 (Mixtral / Qwen1.5-MoE / DeepSeek-V2-Lite),
+# int8 1.27e-2 / 1.37e-2 / 1.38e-2 (the latent one on DeepSeek); the
+# planted 4-bit cache 0.18 / 0.17 / 0.20, which must stay at least twice
+# the bound.
+TOL_MOE_DECODE_VS_PREFILL = 2.5e-2
+MOE_DECODE_CHECK = dict(layers=4, steps=32)
+# the share of those steps that may route otherwise than the prefill in
+# some layer (a bf16 router's near-ties).  The same reading: 0-2 of 32 on
+# Mixtral and Qwen1.5-MoE, 7-8 on DeepSeek-V2-Lite (three routers of 6 of
+# 64 a step); the 4-bit cache 13, 30 and 31.
+MOE_DECODE_ROUTED_APART = 0.5
+# the engine's serving shape of phase 18: the serve phase's, each request
+# asking for 8 to 16 tokens (its 16 to 32 took 43 steps, whose eager run
+# is 0.55 s a step on Qwen2-MoE and DeepSeek)
+MOE_SERVE = dict(n_requests=10, max_batch=8, max_len=256,
+                 buckets=(32, 64, 128, 256), max_prompt=200, new_tokens=8)
+
+
+def moe_serve_run(dev, model, attn, eager=False, n_requests=10, max_batch=8,
+                  max_len=256, buckets=(32, 64, 128, 256), max_prompt=200,
+                  new_tokens=16, kv_policy=None):
+    """``ServingEngine.run`` over ``serve_requests`` for an unpacked MoE or
+    MLA model under ``ATTN_IMPL = attn``: (the record, the requests'
+    tokens).  The path's launches: the decode attention once a layer a
+    host decode step on a per-head cache (every linear is a torch matmul),
+    none on the latent cache, whose read is torch ops as the reference's
+    is XLA."""
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.serve import (EagerServingEngine, KVCachePolicy,
+                                      ServingEngine)
+    cfg = model.cfg
+    policy = kv_policy or KVCachePolicy(method='naive', bit=8)
+    with attn_impl(attn or 'auto'):
+        eng = (EagerServingEngine if eager else ServingEngine)(
+            model, max_batch=max_batch, max_len=max_len,
+            prefill_buckets=buckets, kv_policy=policy, device=dev)
+        reqs = serve_requests(n_requests, cfg.vocab_size, max_prompt,
+                              new_tokens=new_tokens)
+        reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts, xla = read_counts()
+    host_steps = host_decode_steps(eng)
+    expect = dict.fromkeys(KERNEL_NAMES, 0)
+    if not eng.mla:
+        expect['batch_decode' if attn == 'batch' else 'flash_decode'] = \
+            cfg.num_hidden_layers * host_steps
+    graphs = eng._graphs.values()
+    rec = dict(eager=eager, graphed=eng.graphed, mla=eng.mla,
+               requests=len(reqs), tokens=sum(len(r.output_ids)
+                                              for r in reqs),
+               wall_s=wall, **eng.stats, host_decode_steps=host_steps,
+               graph_replays=sum(g.replays for g in graphs),
+               first_run_s=sum(g.first_s for g in graphs),
+               capture_s=sum(g.capture_s for g in graphs),
+               launches=counts, expected_launches=expect,
+               xla_branch_calls=xla,
+               all_done=all(r.done and len(r.output_ids) == r.max_new_tokens
+                            and all(0 <= t < cfg.vocab_size
+                                    for t in r.output_ids) for r in reqs))
+    return rec, [list(r.output_ids) for r in reqs]
+
+
+def moe_step_times(dev, model, attn, kv_policy=None, B=8, prompt=128,
+                   steps=4, max_len=256):
+    """TTFT and the decode step, captured and eager: an idle engine admits
+    one prompt of ``prompt`` tokens (after one warm-up admission), timed to
+    its first token (its prefill); then ``B`` slots decode ``steps``
+    steps, each synchronised, through the captured step (its capture
+    before the timing) and through the eager step.  tok/s = B tokens a
+    step."""
+    from llmc_tpu_torch.serve import (EagerServingEngine, KVCachePolicy,
+                                      Request, ServingEngine)
+    policy = kv_policy or KVCachePolicy(method='naive', bit=8)
+    rng = np.random.RandomState(1)
+    out = {}
+    for name, cls in (('graph', ServingEngine), ('eager',
+                                                 EagerServingEngine)):
+        with attn_impl(attn or 'auto'):
+            eng = cls(model, max_batch=B, max_len=max_len,
+                      prefill_buckets=(32, 64, 128, 256), kv_policy=policy,
+                      device=dev)
+            for i in range(B):
+                eng.submit(Request(uid=i, prompt_ids=rng.randint(
+                    0, model.cfg.vocab_size, (prompt,)),
+                    max_new_tokens=max_len))
+                if i < 2:     # one warm-up admission, then the timed one
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    eng._admit()
+                    _sync(dev)
+                    ttft = time.perf_counter() - t0
+            eng._admit()
+            eng._decode(1)    # the captured step's eager run and capture
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng._decode(1)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+        out[name] = dict(step_ms=ms, tok_s=B * 1e3 / ms, ttft_s=ttft)
+    return out
+
+
+def param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+
+
+def moe_step_bound(model, peaks, B=8) -> dict:
+    """The decode step's byte bound at ``B`` tokens a step: every weight
+    of every block and the head read once, but of each MoE block's routed
+    experts only those the step's tokens pick, at most min(E, B k) of the
+    E (``step_bound_ms``), and E (1 - (1 - k / E)^B) of them where each
+    token picks k at random (``expected_coverage_bound_ms``).  Dense
+    dispatch, which the port runs as the reference does, reads every
+    expert (``dense_dispatch_bound_ms``).  The embedding is gathered, a
+    row a token."""
+    cfg = model.cfg
+    E = getattr(cfg, 'num_local_experts', None) or cfg.n_routed_experts
+    k = cfg.num_experts_per_tok
+    p = model.params
+    dense = param_bytes(p['blocks']) + param_bytes(p['lm_head'])
+    routed = sum(param_bytes(mlp['experts']) for bp in p['blocks']
+                 for mlp in bp.values()
+                 if isinstance(mlp, dict) and 'experts' in mlp)
+    most = dense - routed + routed * min(E, B * k) / E
+    expected = dense - routed + routed * (1 - (1 - k / E) ** B)
+    return dict(dense_dispatch_bytes=dense,
+                dense_dispatch_bound_ms=dense / peaks.bw * 1e3,
+                routed_expert_bytes=routed, weight_bytes_bound=most,
+                step_bound_ms=most / peaks.bw * 1e3,
+                expected_coverage_bytes=expected,
+                expected_coverage_bound_ms=expected / peaks.bw * 1e3,
+                bound_batch=B, bound_by='bytes')
+
+
+def shallow(model, layers):
+    """The model's first ``layers`` blocks at its widths, sharing its
+    tensors."""
+    cfg = dataclasses.replace(model.cfg, num_hidden_layers=layers)
+    return type(model)(cfg, dict(model.params,
+                                 blocks=model.params['blocks'][:layers]))
+
+
+def moe_decode_logits(model, ids, dev, policy):
+    """The f32 logits [B, S, V] of ``ids`` fed one token a step through
+    the cache the engine builds under ``policy``: the per-head cache (B2
+    at S == 1 under ``auto``), or on an MLA model the latent cache (fp,
+    or the codes at the policy's bit under ``naive``)."""
+    from llmc_tpu_torch.serve import decode
+    if getattr(model.cfg, 'kv_lora_rank', None) is None:
+        return decode.decode_logits(model, ids, kv_policy=policy, device=dev)
+    from llmc_tpu_torch.serve.mla_decode import (init_mla_cache,
+                                                 mla_forward_cached)
+    bit = policy.bit if policy.method == 'naive' else None
+    cache = init_mla_cache(model.cfg, ids.shape[0], ids.shape[1],
+                           quant_bit=bit, device=dev)
+    rows = []
+    with torch.no_grad():
+        for t in range(ids.shape[1]):
+            lg, cache = mla_forward_cached(model.params, model.cfg,
+                                           ids[:, t:t + 1], cache,
+                                           latent_bit=int(policy.bit))
+            rows.append(lg[:, 0].float())
+    return torch.stack(rows, 1)
+
+
+@contextlib.contextmanager
+def routed_sets():
+    """Records the top-k set each MoE router call picks: a list over the
+    calls of [tokens, k] sorted index tensors on the host."""
+    from llmc_tpu_torch.models import deepseek, mixtral, qwen2moe
+    picks = []
+    mods = (mixtral, qwen2moe, deepseek)
+    inner = [m.top_k for m in mods]
+
+    def record(x, k, fn=inner[0]):
+        v, i = fn(x, k)
+        picks.append(torch.sort(i.reshape(-1, k), -1).values.cpu())
+        return v, i
+    for m, fn in zip(mods, inner):
+        m.top_k = functools.partial(record, fn=fn)
+    try:
+        yield picks
+    finally:
+        for m, fn in zip(mods, inner):
+            m.top_k = fn
+
+
+def same_routing(prefill_picks, decode_picks, steps) -> torch.Tensor:
+    """[steps] bool: whether the decode step picked, in every MoE layer,
+    the set the prefill picked for that token (the prefill calls each
+    router once over every token, the decode once a step)."""
+    n = len(prefill_picks)
+    assert len(decode_picks) == n * steps, (n, len(decode_picks))
+    same = torch.ones(steps, dtype=torch.bool)
+    for t in range(steps):
+        for l_, want in enumerate(prefill_picks):
+            same[t] &= bool((decode_picks[t * n + l_][0] == want[t]).all())
+    return same
+
+
+def moe_decode_checks(dev, model, layers=MOE_DECODE_CHECK['layers'],
+                      steps=MOE_DECODE_CHECK['steps'], seed=0):
+    """The decode of ``steps`` random tokens over the fp and the int8 cache
+    (per-head, or latent on DeepSeek) against one prefill of the same
+    tokens, on the model's first ``layers`` blocks.  A bf16 router's
+    near-ties may fall otherwise between a one-token step and the
+    prefill, and a token routed otherwise gets other experts: the steps
+    whose top-k sets differ from the prefill's in some layer are counted
+    (at most ``MOE_DECODE_ROUTED_APART`` of them), and the others' logits
+    held within ``TOL_MOE_DECODE_VS_PREFILL``.  A planted fault (the 4-bit
+    cache) must be at least twice that off on the steps it routes as the
+    prefill does (inf where none does).  The first step alone (attention
+    over one position returns its value) shows the linears' and the
+    router's gap.  Under
+    ``auto`` the per-head reads launch B2 once a layer a step, the latent
+    read nothing."""
+    from llmc_tpu_torch.eval.ppl import forward_logits
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.serve.kvcache import KVCachePolicy
+    m = shallow(model, min(layers, model.cfg.num_hidden_layers))
+    L = m.cfg.num_hidden_layers
+    ids = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, m.cfg.vocab_size, (1, steps)), device=dev)
+    with torch.no_grad(), routed_sets() as want_picks:
+        prefill = forward_logits(m, ids).float()
+    mla = getattr(m.cfg, 'kv_lora_rank', None) is not None
+    per_step = 0 if mla or dev.type != 'cuda' else L
+    runs = {}
+    with attn_impl('auto'):
+        for name, policy in (('fp', KVCachePolicy(method='fp')),
+                             ('int8', KVCachePolicy(method='naive', bit=8)),
+                             ('int4', KVCachePolicy(method='naive', bit=4))):
+            reset_launch_counts()
+            with routed_sets() as picks:
+                lg = moe_decode_logits(m, ids, dev, policy)
+            _sync(dev)
+            counts, xla = read_counts()
+            runs[name] = (lg, same_routing(want_picks, picks, steps),
+                          dict(counts, xla_branch_calls=xla))
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want['flash_decode'] = per_step * steps
+    want['xla_branch_calls'] = 0
+
+    def gap(name):
+        lg, same, _ = runs[name]
+        keep = same.nonzero()[:, 0].to(dev)
+        return (logits_rel(lg[:, keep], prefill[:, keep]) if len(keep)
+                else float('inf'))
+    reads, faults = ('fp', 'int8'), ('int4',)
+    rec = dict(
+        layers=L, steps=steps, cache='latent' if mla else 'per-head',
+        vs_prefill={k: gap(k) for k in reads},
+        first_step_vs_prefill={k: logits_rel(runs[k][0][:, :1],
+                                              prefill[:, :1])
+                               for k in reads},
+        all_steps_vs_prefill={k: logits_rel(runs[k][0], prefill)
+                              for k in reads + faults},
+        steps_routed_apart={k: int((~runs[k][1]).sum())
+                            for k in reads + faults},
+        faults_vs_prefill={k: gap(k) for k in faults},
+        launches={k: v[2] for k, v in runs.items()},
+        expected_launches=want,
+        tolerance_vs_prefill=TOL_MOE_DECODE_VS_PREFILL,
+        routed_apart_limit=int(MOE_DECODE_ROUTED_APART * steps))
+    rec['ok'] = bool(
+        max(rec['vs_prefill'].values()) <= TOL_MOE_DECODE_VS_PREFILL
+        and max(rec['steps_routed_apart'][k] for k in reads)
+        <= rec['routed_apart_limit']
+        and min(rec['faults_vs_prefill'].values())
+        >= 2 * TOL_MOE_DECODE_VS_PREFILL
+        and all(rec['launches'][k] == want for k in reads))
+    return rec
+
+
+def cache_bytes_per_token(cfg) -> dict:
+    """The latent cache's bytes a token a layer (int8 codes, an f32 scale,
+    the model-type ``kpe``) against the per-head cache's in the model's
+    type (K and V of every head)."""
+    if getattr(cfg, 'kv_lora_rank', None) is None:
+        return {}
+    es = torch.empty((), dtype=cfg.tdtype).element_size()
+    return dict(
+        latent_int8_bytes_per_token=cfg.kv_lora_rank + 4
+        + cfg.qk_rope_head_dim * es,
+        per_head_bytes_per_token=cfg.num_attention_heads
+        * (cfg.qk_head_dim + cfg.v_head_dim) * es)
+
+
+def phase18_serve(dev, name, peaks, layers=None, serve_kw=None,
+                  timing_kw=None, seed=0, arch=None):
+    """One family's model at its published widths (``arch``: other
+    widths, for a test) and ``layers`` (default the cut ``MOE_MODELS``
+    sets), served once per attention kernel through
+    the captured step and the eager one: the tokens equal, the launches
+    the path's; the step times, TTFT and the step's byte bound.  Returns
+    (record, model)."""
+    from llmc_tpu_torch.models import build_model
+    spec = MOE_MODELS[name]
+    L = layers or spec['layers'][0]
+    arch = dict(arch or spec['arch'], num_hidden_layers=L)
+    model = build_model(dict(model=dict(type=spec['type'], arch=arch,
+                                        seed=seed)), device=dev)
+    runs, times = {}, {}
+    for attn in spec['attn']:
+        got = {mode: moe_serve_run(dev, model, attn, eager=mode == 'eager',
+                                   **(serve_kw or MOE_SERVE))
+               for mode in ('graph', 'eager')}
+        runs[attn or 'latent'] = dict(
+            graph=got['graph'][0], eager=got['eager'][0],
+            tokens_equal=got['graph'][1] == got['eager'][1])
+        times[attn or 'latent'] = moe_step_times(dev, model, attn,
+                                                 **(timing_kw or {}))
+    cut = spec['layers']
+    reduced = list(spec['reduced'])
+    if L < spec['arch']['num_hidden_layers']:
+        reduced.append(f'{L} of {spec["arch"]["num_hidden_layers"]} layers'
+                       + (f': {cut[1]}' if layers is None and cut[1]
+                          else ''))
+    checks = moe_decode_checks(dev, model)
+    rec = dict(phase=f'moe_serve.{name}', model=spec['type'],
+               source=spec['source'], layers=L, arch=arch, reduced=reduced,
+               kv_cache='int8 latent' if runs.get('latent') else 'int8',
+               runs=runs, timing=times, decode_vs_prefill=checks,
+               **moe_step_bound(model, peaks),
+               **cache_bytes_per_token(model.cfg))
+    rec['ok'] = checks['ok'] and all(
+        r['tokens_equal'] and r[m]['all_done']
+        and r[m]['launches'] == r[m]['expected_launches']
+        and r[m]['xla_branch_calls'] == 0 and r[m]['requests'] >= 8
+        for r in runs.values() for m in ('graph', 'eager'))
+    return rec, model
+
+
+def phase18_compress(dev, name, layers=None, arch=None, **sizes):
+    """The family's compressions (``MOE_COMPRESS``, or ``layers`` deep)
+    through ``run_pipeline``: PPLs finite, an equivalence's transformed PPL
+    within ``TOL_PPL_EQUIV`` of pretrain, seconds a block."""
+    spec = MOE_MODELS[name]
+    recs = []
+    for cname, quant, cut, why, equiv in MOE_COMPRESS[name]:
+        L = layers or cut
+        rec, res = phase_compress(dev, dict(arch or spec['arch'],
+                                            num_hidden_layers=L,
+                                            **MOE_COMPRESS_ARCH.get(cname,
+                                                                    {})),
+                                  quant['method'],
+                                  # a search is held to RTN's output error
+                                  special=(quant['special']
+                                           if quant['method'] == 'Awq'
+                                           else None), quant=quant,
+                                  equivalence=equiv,
+                                  model_type=spec['type'], **sizes)
+        del res
+        _free(dev)
+        full = spec['arch']['num_hidden_layers']
+        rec.update(phase=f'moe_compress.{name}', config=cname,
+                   source=spec['source'],
+                   reduced=list(spec['reduced']) + (
+                       [f'{L} of {full} layers: {why}'] if L < full and why
+                       else [f'{L} of {full} layers'] if L < full else []),
+                   tolerance_ppl_transformed=TOL_PPL_EQUIV if equiv
+                   else None)
+        rec['ok'] = rec['ok'] and (not equiv or rec[
+            'ppl_transformed_rel_drift'] <= TOL_PPL_EQUIV)
+        recs.append(rec)
+    return recs
+
+
+def _free(dev) -> None:
+    import gc
+    gc.collect()
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+
+
 MAIN_SHAPES = [(12288, 4096, False), (4096, 4096, False),
                (22016, 4096, False), (4096, 11008, False),
                (32000, 4096, True)]
@@ -3210,9 +3721,11 @@ def main(argv=None) -> int:
     # the compression pipeline: RTN, then AWQ (scale search + clip v1) on
     # weights that came through the FP8-block ingest; what AWQ made is
     # packed and served
-    for method, special, ingest in (('RTN', None, False),
-                                    ('Awq', AWQ_SPECIAL, True)):
-        rec, res = phase_compress(dev, LLAMA2_7B, method, special, ingest)
+    for method, special, ingest, cfg_kw in (
+            ('RTN', None, False, LLAMA2_7B),
+            ('Awq', AWQ_SPECIAL, True,
+             dict(LLAMA2_7B, num_hidden_layers=AWQ_LAYERS))):
+        rec, res = phase_compress(dev, cfg_kw, method, special, ingest)
         rec.update(card)
         emit(rec)
         require(rec['ok'], f'compress {method}: a PPL is not finite, '
@@ -3326,6 +3839,37 @@ def main(argv=None) -> int:
             f' off the fp cache: {rec["positions"]}')
     del res
     torch.cuda.empty_cache()
+
+    # phase 18: the MoE and MLA families at their published widths, served
+    # through the captured step (Mixtral through B2 and B5, Qwen2-MoE
+    # through B5, DeepSeek over the int8 latent cache) and compressed
+    t18 = time.perf_counter()
+    for name in MOE_MODELS:
+        rec, model = phase18_serve(dev, name, peaks)
+        rec.update(card)
+        emit(rec)
+        runs = {a: (r['tokens_equal'], r['graph']['launches'],
+                    r['graph']['expected_launches'])
+                for a, r in rec['runs'].items()}
+        dvp = rec['decode_vs_prefill']
+        require(rec['ok'], f'moe_serve {name}: the captured step\'s tokens '
+                f'differ from the eager step\'s, a request did not finish, '
+                f'the launches are off the path\'s ({runs}), or the decode '
+                f'is off the prefill: {dvp["vs_prefill"]} (limit '
+                f'{dvp["tolerance_vs_prefill"]}), its planted fault '
+                f'{dvp["faults_vs_prefill"]}, launches {dvp["launches"]}')
+        del model
+        _free(dev)
+        # PPLs over 2048 tokens (the compress phases' 4096 elsewhere)
+        for rec in phase18_compress(dev, name, eval_tokens=2048):
+            rec.update(card)
+            emit(rec)
+            require(rec['ok'], f'moe_compress {name} {rec["config"]}: a PPL '
+                    f'is not finite, an equivalence moved the PPL by '
+                    f'{rec["ppl_transformed_rel_drift"]:.3g} (limit '
+                    f'{TOL_PPL_EQUIV}), or a searched block errs more than '
+                    f'RTN: {rec["block_output_mse"]}')
+    emit(dict(phase='phase18', wall_s=time.perf_counter() - t18, **card))
 
     require(min(launches.values()) > 0,
             f'a kernel of the main paths was never launched: {launches}')

@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from ...models.base import get_path, set_path
+from ...models.base import get_path, has_path, set_path
 from ...ops.hadamard import apply_exact_had_to_linear, get_rotation
 from ...utils.registry import ALGO_REGISTRY
 from ..blockwise import BaseBlockwiseQuantization
@@ -75,6 +75,15 @@ class Quarot(BaseBlockwiseQuantization):
             if not subset.do_trans:
                 continue
             layers = list(subset.layers)
+            missing = [p for p in layers if not has_path(block, p)]
+            if missing:
+                # the reference's rotation looks the path up and raises
+                # KeyError (DeepSeek's dense first block has no experts)
+                raise NotImplementedError(
+                    f'QuaRot rotates every linear of subset '
+                    f'{subset.name!r}, and this block has no {missing[0]}: '
+                    f'a model with dense and MoE blocks is not rotated, as '
+                    f'in the reference')
             if subset.prev_kind == 'ln':
                 ln = get_path(block, subset.prev_op)
                 fcs = [get_path(block, p) for p in layers]

@@ -17,8 +17,11 @@ import torch
 
 from ..utils.device import resolve_device, tree_device
 from ..utils.registry import MODEL_REGISTRY
+from . import deepseek as DS
 from . import llama as L
-from .base import BlockLayout, LinearQcfg
+from . import mixtral as MX
+from . import qwen2moe as QM
+from .base import BlockLayout, LinearQcfg, matmul_f32_acc, rms_norm
 
 
 class QMap:
@@ -148,26 +151,17 @@ class LlamaAdapter(BaseAdapter):
         CUDA device).  ``stream`` reads the tensors one at a time from the
         (possibly sharded) safetensors files (default: on for a sharded
         checkpoint).  FP8-block weights are dequantized on load."""
-        from .hf_loader import (LazyHFTensors, llama_params_from_hf,
-                                load_hf_config, load_hf_tensors)
+        from .hf_loader import llama_params_from_hf, load_hf_config
         if offload:
             raise NotImplementedError(
                 'offload=True (block params kept on the host) is not ported '
                 'yet (ROADMAP A13)')
-        dev = resolve_device(device)
         hf = load_hf_config(path)
         cfg = cls.config_cls.from_hf(hf)
-        if stream is None:
-            stream = os.path.exists(
-                os.path.join(path, 'model.safetensors.index.json'))
-        if stream:
-            flat = LazyHFTensors(path, dtype=dtype)
-        else:
-            flat = load_hf_tensors(path, dtype=dtype, device=dev)
-        params = llama_params_from_hf(flat, cfg.num_hidden_layers,
-                                      cfg.tie_word_embeddings)
-        if stream:
-            params = _tree_to(params, dev)
+        params = _load_params(
+            path, dtype, stream, device,
+            lambda flat: llama_params_from_hf(flat, cfg.num_hidden_layers,
+                                              cfg.tie_word_embeddings))
         return cls(cfg, params, _load_tokenizer(path), hf)
 
     @classmethod
@@ -215,7 +209,7 @@ class LlamaAdapter(BaseAdapter):
                 torch.cumsum(attention_mask, dim=-1) - 1, min=0)
         else:
             positions = torch.arange(S, device=dev)[None, :]
-        cos, sin = L.rope_cos_sin(cfg, positions)
+        cos, sin = self.rope_tables(positions)
         kw = {'cos': cos, 'sin': sin}
         if attention_mask is not None:
             # additive [B,1,S,S] bias: the padding mask plus the causal
@@ -231,6 +225,10 @@ class LlamaAdapter(BaseAdapter):
             kw['attn_bias'] = bias + causal[None, None]
         return x, kw
 
+    def rope_tables(self, positions):
+        """The block kwargs' cos / sin tables at ``positions``."""
+        return L.rope_cos_sin(self.cfg, positions)
+
     def head_fn(self):
         cfg = self.cfg
 
@@ -240,6 +238,135 @@ class LlamaAdapter(BaseAdapter):
 
     def forward_logits(self, input_ids, qmap=None):
         return L.model_apply(self.params, self.cfg, input_ids, qmap=qmap)
+
+
+class _MoEFamilyAdapter(LlamaAdapter):
+    """What the MoE families' adapters share: the family module's graph,
+    inspect functions, HF mapping and random init (``family``), its config
+    (``config_cls``) and layout (``layout_of``).  A checkpoint loads in bf16
+    whatever its ``torch_dtype``, as the reference's adapters load these
+    families."""
+
+    family = None
+
+    def __init__(self, cfg, params, tokenizer=None, hf_config=None):
+        BaseAdapter.__init__(self, cfg, params, tokenizer, hf_config)
+        self._layout = self.layout_of(cfg)
+
+    @classmethod
+    def random(cls, cfg, seed: int = 0, device=None):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return cls(cfg, cls.family.init_params(cfg, gen, device=dev))
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16,
+                        stream: Optional[bool] = None, device=None):
+        """Load an HF checkpoint directory onto ``device`` (``None``: the
+        CUDA device); ``stream`` as in ``LlamaAdapter.from_pretrained``,
+        FP8-block weights dequantized on load."""
+        from .hf_loader import load_hf_config
+        hf = load_hf_config(path)
+        cfg = cls.config_cls.from_hf(hf)
+        params = _load_params(path, dtype, stream, device,
+                              lambda flat: cls.family.params_from_hf(flat,
+                                                                     cfg))
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        m = config['model']
+        if m.get('path'):
+            return cls.from_pretrained(m['path'], device=device)
+        if 'arch' not in m:
+            raise ValueError(
+                'model.path is missing/empty; set model.path to a checkpoint '
+                'or pass model.arch explicitly for a synthetic model')
+        return cls.random(cls.config_cls(**dict(m['arch'])),
+                          seed=int(m.get('seed', 0)), device=device)
+
+    def block_fn(self):
+        cfg, fam = self.cfg, self.family
+
+        def fn(bp, x, kw, qmap=None, capture=False):
+            return fam.block_apply(bp, cfg, x, kw['cos'], kw['sin'],
+                                   kw.get('attn_bias'), qmap=qmap,
+                                   capture=capture)
+        return fn
+
+    def inspect_fns(self):
+        return self.family.make_inspect_fns(self.cfg)
+
+    def forward_logits(self, input_ids, qmap=None):
+        x, kw = self.embed_and_rope_p(self.params, input_ids)
+        bfn = self.block_fn()
+        for bp in self.blocks:
+            x, _ = bfn(bp, x, kw, qmap=qmap)
+        return self.head_fn()(self.params, x)
+
+
+@MODEL_REGISTRY.register(name='Mixtral')
+class MixtralAdapter(_MoEFamilyAdapter):
+    """Mixtral sparse MoE (per-expert quantization subsets)."""
+
+    name = 'Mixtral'
+    config_cls = MX.MixtralConfig
+    family = MX
+    layout_of = staticmethod(MX.mixtral_layout)
+
+
+@MODEL_REGISTRY.register(name='Qwen2Moe')
+class Qwen2MoeAdapter(_MoEFamilyAdapter):
+    """Qwen2-MoE / Qwen1.5-MoE: softmax-then-top-k routing and a gated
+    shared expert, per-expert and shared-expert subsets."""
+
+    name = 'Qwen2Moe'
+    config_cls = QM.Qwen2MoeConfig
+    family = QM
+    layout_of = staticmethod(QM.qwen2moe_layout)
+
+
+@MODEL_REGISTRY.register(name='DeepseekV2')
+class DeepseekV2Adapter(_MoEFamilyAdapter):
+    """DeepSeek-V2/V3: MLA and a shared-and-routed MoE.  Its rope is the
+    interleaved one on the rope dims; the engine serves it through the
+    absorbed latent cache (``serve/mla_decode.py``)."""
+
+    name = 'DeepseekV2'
+    config_cls = DS.DeepseekConfig
+    family = DS
+    layout_of = staticmethod(DS.deepseek_layout)
+
+    def rope_tables(self, positions):
+        return DS.rope_freqs(self.cfg, positions)
+
+    def head_fn(self):
+        cfg = self.cfg
+
+        def fn(params, x):
+            h = rms_norm(x, params['norm']['w'], cfg.rms_norm_eps)
+            return matmul_f32_acc(h, params['lm_head']['w'])
+        return fn
+
+
+@MODEL_REGISTRY.register(name='DeepseekV3')
+class DeepseekV3Adapter(DeepseekV2Adapter):
+    name = 'DeepseekV3'
+
+
+def _load_params(path: str, dtype, stream: Optional[bool], device, build):
+    """``build(flat)`` over a checkpoint's tensors, on ``device`` (``None``:
+    the CUDA device).  ``stream`` reads them one at a time from the
+    (possibly sharded) safetensors files (default: on for a sharded
+    checkpoint)."""
+    from .hf_loader import LazyHFTensors, load_hf_tensors
+    dev = resolve_device(device)
+    if stream is None:
+        stream = os.path.exists(
+            os.path.join(path, 'model.safetensors.index.json'))
+    if not stream:
+        return build(load_hf_tensors(path, dtype=dtype, device=dev))
+    return _tree_to(build(LazyHFTensors(path, dtype=dtype)), dev)
 
 
 def _config_dtype(s) -> torch.dtype:
@@ -257,6 +384,11 @@ def _load_tokenizer(path: str):
     """The checkpoint's tokenizer, or None where ``transformers`` is not
     installed or the directory holds no tokenizer files (the text
     calibration sources then have nothing to tokenize with and raise)."""
+    # a model saved alone names its tokenizer class in config.json without
+    # the vocab files, and the tokenizer's constructor then raises
+    if not any(os.path.exists(os.path.join(path, f))
+               for f in _TOKENIZER_FILES):
+        return None
     try:
         from transformers import AutoTokenizer
     except ImportError:
@@ -265,6 +397,10 @@ def _load_tokenizer(path: str):
         return AutoTokenizer.from_pretrained(path, local_files_only=True)
     except (OSError, ValueError):
         return None
+
+
+_TOKENIZER_FILES = ('tokenizer.json', 'tokenizer_config.json',
+                    'tokenizer.model', 'vocab.json')
 
 
 def _tree_to(tree, device):

@@ -124,6 +124,23 @@ def attn_act_fq(qmap, path: str, t: torch.Tensor) -> torch.Tensor:
     return fake_quant_act(qc.a_spec, t)
 
 
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the ``k`` largest entries of the last axis,
+    the lower index first among equal values, as ``jax.lax.top_k`` picks
+    them (``torch.topk`` promises no order among ties, which a bf16
+    router's logits often hold): the first ``k`` of a stable descending
+    sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def dense_route_weights(like: torch.Tensor, topi: torch.Tensor,
+                        topw: torch.Tensor) -> torch.Tensor:
+    """The dense [..., E] combine weights of a dense-dispatch MoE: ``topw``
+    at the routed experts ``topi``, 0 elsewhere."""
+    return torch.zeros_like(like).scatter(-1, topi, topw)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

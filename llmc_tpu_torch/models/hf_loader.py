@@ -132,11 +132,21 @@ def load_hf_tensors(path: str, dtype=torch.bfloat16,
     return {name: _cast(t, dtype) for name, t in out.items()}
 
 
+def hf_linear(flat, prefix: str) -> Dict:
+    """An HF linear's weight and bias (None where it has none)."""
+    return {'w': flat[f'{prefix}.weight'], 'b': flat.get(f'{prefix}.bias')}
+
+
+def hf_attention(flat, b: str) -> Dict:
+    """The q/k/v/o projections of HF block ``b`` (Llama's names)."""
+    return {n: hf_linear(flat, f'{b}.self_attn.{n}')
+            for n in ('q_proj', 'k_proj', 'v_proj', 'o_proj')}
+
+
 def llama_params_from_hf(flat, num_layers: int, tie_embeddings: bool) -> Dict:
     """Map HF Llama names onto the params tree."""
     def lin(prefix: str) -> Dict:
-        return {'w': flat[f'{prefix}.weight'],
-                'b': flat.get(f'{prefix}.bias')}
+        return hf_linear(flat, prefix)
 
     def ln(prefix: str) -> Dict:
         return {'w': flat[f'{prefix}.weight']}
@@ -146,12 +156,7 @@ def llama_params_from_hf(flat, num_layers: int, tie_embeddings: bool) -> Dict:
         b = f'model.layers.{i}'
         blocks.append({
             'input_layernorm': ln(f'{b}.input_layernorm'),
-            'self_attn': {
-                'q_proj': lin(f'{b}.self_attn.q_proj'),
-                'k_proj': lin(f'{b}.self_attn.k_proj'),
-                'v_proj': lin(f'{b}.self_attn.v_proj'),
-                'o_proj': lin(f'{b}.self_attn.o_proj'),
-            },
+            'self_attn': hf_attention(flat, b),
             'mlp': {
                 'up_proj': lin(f'{b}.mlp.up_proj'),
                 'down_proj': lin(f'{b}.mlp.down_proj'),

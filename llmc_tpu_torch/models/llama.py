@@ -396,46 +396,66 @@ def make_inspect_fns(cfg: LlamaConfig):
 # Parameter init (random, for tests and benches without checkpoints)
 # --------------------------------------------------------------------------
 
+class Init:
+    """Random params drawn from a ``torch.Generator`` in the reference's
+    scales: a linear N(0, 0.6 / sqrt(in)), the embedding N(0, 0.02), the
+    norms ones, the biases zero."""
+
+    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
+                 device=None):
+        self.gen = generator
+        self.dtype = dtype
+        self.device = (torch.device(device) if device is not None
+                       else generator.device)
+
+    def normal(self, shape, std):
+        return (torch.randn(shape, generator=self.gen, dtype=F32,
+                            device=self.device) * std).to(self.dtype)
+
+    def lin(self, o: int, i: int, bias: bool = False) -> Dict:
+        return {'w': self.normal((o, i), 0.6 / i ** 0.5),
+                'b': (torch.zeros((o,), dtype=self.dtype, device=self.device)
+                      if bias else None)}
+
+    def ones(self, n: int) -> Dict:
+        return {'w': torch.ones((n,), dtype=self.dtype, device=self.device)}
+
+    def embed(self, vocab: int, d: int) -> Dict:
+        return {'w': self.normal((vocab, d), 0.02)}
+
+
+def attention_init(ini: Init, cfg, bias: bool = False,
+                   o_bias: bool = False) -> Dict:
+    """The q/k/v/o projections, drawn in that order."""
+    D, H, KVH, hd = (cfg.hidden_size, cfg.num_attention_heads,
+                     cfg.num_key_value_heads, cfg.head_dim)
+    return {'q_proj': ini.lin(H * hd, D, bias),
+            'k_proj': ini.lin(KVH * hd, D, bias),
+            'v_proj': ini.lin(KVH * hd, D, bias),
+            'o_proj': ini.lin(D, H * hd, o_bias)}
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 dtype: Optional[torch.dtype] = None,
                 device=None) -> Dict:
     """Random params drawn from ``generator`` (on ``device``; the
     generator must live on the same device)."""
     check_ported(cfg)
-    dtype = dtype or cfg.tdtype
-    device = torch.device(device) if device is not None else generator.device
+    ini = Init(generator, dtype or cfg.tdtype, device)
     D, I = cfg.hidden_size, cfg.intermediate_size
-    H, KVH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-
-    def normal(shape, std):
-        return (torch.randn(shape, generator=generator, dtype=F32,
-                            device=device) * std).to(dtype)
-
-    def lin(out_d, in_d, bias):
-        return {'w': normal((out_d, in_d), 0.6 / in_d ** 0.5),
-                'b': (torch.zeros((out_d,), dtype=dtype, device=device)
-                      if bias else None)}
-
-    def nrm():
-        return {'w': torch.ones((D,), dtype=dtype, device=device)}
-
     blocks = []
     for _ in range(cfg.num_hidden_layers):
         blocks.append({
-            'input_layernorm': nrm(),
-            'self_attn': {
-                'q_proj': lin(H * hd, D, cfg.attention_bias),
-                'k_proj': lin(KVH * hd, D, cfg.attention_bias),
-                'v_proj': lin(KVH * hd, D, cfg.attention_bias),
-                'o_proj': lin(D, H * hd, cfg.attention_bias),
-            },
-            'mlp': {'up_proj': lin(I, D, cfg.mlp_bias),
-                    'down_proj': lin(D, I, cfg.mlp_bias),
-                    'gate_proj': lin(I, D, cfg.mlp_bias)},
-            'post_attention_layernorm': nrm(),
+            'input_layernorm': ini.ones(D),
+            'self_attn': attention_init(ini, cfg, cfg.attention_bias,
+                                        cfg.attention_bias),
+            'mlp': {'up_proj': ini.lin(I, D, cfg.mlp_bias),
+                    'down_proj': ini.lin(D, I, cfg.mlp_bias),
+                    'gate_proj': ini.lin(I, D, cfg.mlp_bias)},
+            'post_attention_layernorm': ini.ones(D),
         })
-    params = {'embed_tokens': {'w': normal((cfg.vocab_size, D), 0.02)},
-              'blocks': blocks, 'norm': nrm()}
+    params = {'embed_tokens': ini.embed(cfg.vocab_size, D),
+              'blocks': blocks, 'norm': ini.ones(D)}
     if not cfg.tie_word_embeddings:
-        params['lm_head'] = lin(cfg.vocab_size, D, False)
+        params['lm_head'] = ini.lin(cfg.vocab_size, D)
     return params

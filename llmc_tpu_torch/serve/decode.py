@@ -50,7 +50,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models import deepseek as DS
 from ..models import llama as L
+from ..models import mixtral as MX
+from ..models import qwen2moe as QM
 from ..models.base import linear_apply, rms_norm
 from ..ops.batch_decode import batch_decode_attention
 from ..ops.flash_decode import flash_decode_attention
@@ -166,10 +169,28 @@ def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
     return _finish_block(bp, cfg, x, attn_out, qc, qmap), cache
 
 
+def moe_of(bp):
+    """(the family's ``moe_apply``, its params) where the block's MLP is
+    an MoE (the reference's cached-decode branch, decode.py:385-395),
+    else None: Mixtral's ``block_sparse_moe``, Qwen2-MoE's experts with a
+    shared expert, DeepSeek's with shared experts."""
+    if 'block_sparse_moe' in bp:
+        return MX.moe_apply, bp['block_sparse_moe']
+    mp = bp['mlp']
+    if 'experts' not in mp:
+        return None
+    return (QM if 'shared_expert' in mp else DS).moe_apply, mp
+
+
 def _finish_block(bp, cfg, x, attn_out, qc, qmap):
-    """Post-attention residual + MLP tail of the decoder block."""
+    """Post-attention residual + MLP tail of the decoder block; an MoE
+    block's routed MLP is a [B, S, D] -> [B, S, D] operator like the
+    dense one (dense dispatch, as in the reference)."""
     x = x + attn_out
     h = rms_norm(x, bp['post_attention_layernorm']['w'], cfg.rms_norm_eps)
+    moe = moe_of(bp)
+    if moe is not None:
+        return x + moe[0](moe[1], cfg, h, qmap)[0]
     mp = bp['mlp']
     if 'gate_up_proj' in mp:  # fused serving layout
         gu = linear_apply(mp['gate_up_proj'], h, qc('mlp.gate_up_proj'))

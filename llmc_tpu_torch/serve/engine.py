@@ -48,8 +48,15 @@ there too.  The engine checks at construction that the companion is
 packed in.  Where the reference ignores either flag silently when
 ``qmap`` is None, the port raises ``ValueError``.
 
-Not ported yet, and raising: ``mesh`` (ROADMAP A14), MLA models and the
-kivi / sink KV policies (A11).
+A DeepSeek-family model (its config carries ``kv_lora_rank``) serves
+through the absorbed latent cache (``serve/mla_decode.py``): the fp latent
+under the ``fp`` policy, int8 codes with a per-token scale at the policy's
+bit under ``naive``; every program then rides ``mla_forward_cached``, and
+the decode steps are captured as the per-head ones are.  The reference
+takes no other policy there, nor does the port (the paged pool included).
+
+Not ported yet, and raising: ``mesh`` (ROADMAP A14) and the kivi / sink KV
+policies (A11).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from ..utils.device import check_on, resolve_device
 from .decode import forward_cached
 from .graphs import CapturedStep
 from .kvcache import KVCachePolicy
+from .mla_decode import init_mla_cache, mla_forward_cached
 from .packed import prefill_qmap_from
 from .paged_cache import PageAllocator
 
@@ -149,8 +157,18 @@ class ServingEngine(torch.nn.Module):
         if mesh is not None:
             raise NotImplementedError('ServingEngine(mesh=...) is not '
                                       'ported yet (ROADMAP A14 parallel)')
-        if getattr(model.cfg, 'kv_lora_rank', None) is not None:
-            raise NotImplementedError('MLA serving is not ported (A11)')
+        # DeepSeek-family configs carry kv_lora_rank: they serve through
+        # the absorbed latent cache (serve/mla_decode.py) under the same
+        # scheduler, as in the reference
+        self.mla = getattr(model.cfg, 'kv_lora_rank', None) is not None
+        if self.mla and kv_policy.method not in ('fp', 'naive'):
+            raise ValueError(
+                f'MLA serving takes the fp or the quantized (naive) latent '
+                f'cache, as in the reference; not {kv_policy.method!r}')
+        if self.mla and (prefill_w8 or decode_w8):
+            raise ValueError('prefill_w8 / decode_w8 on an MLA model: the '
+                             'reference ignores them there, and the port '
+                             'packs no MLA model (ROADMAP C)')
         if kv_policy.method not in ('fp', 'naive', 'paged'):
             raise NotImplementedError(
                 f'the engine serves the fp, naive and paged KV policies; '
@@ -190,10 +208,7 @@ class ServingEngine(torch.nn.Module):
                                  f'be multiples of page_size='
                                  f'{kv_policy.page_size}; got {off}')
             self.allocator = PageAllocator(kv_policy)
-        cfg = self.cfg
-        self.cache = kv_policy.init_cache(
-            self.B, self.S, cfg.num_key_value_heads, cfg.head_dim,
-            cfg.num_hidden_layers, dtype=cfg.tdtype, device=self.device)
+        self.cache = self._local_cache(self.B, self.S, kv_policy)
         self.cache['pos'] = torch.zeros((self.B,), dtype=torch.int32,
                                         device=self.device)
         self.active = np.zeros((self.B,), bool)
@@ -257,9 +272,8 @@ class ServingEngine(torch.nn.Module):
         returns the sampled tokens."""
         pos = self.cache['pos']
         n_gen = pos - self._start_pos + 1
-        logits, out = forward_cached(self.model.params, self.cfg,
-                                     toks[:, None].to(torch.long),
-                                     self.cache, self.policy, self.qmap)
+        logits, out = self._forward(toks[:, None].to(torch.long), self.cache,
+                                    self.policy, self.qmap)
         nxt = sample_logits_per_slot(logits[:, -1], self.seed,
                                      self.slot_nonce, n_gen,
                                      self.temperature, self.top_p)
@@ -300,16 +314,33 @@ class ServingEngine(torch.nn.Module):
                 pool=self._graph_pool)
         return step()
 
+    def _forward(self, ids, cache, policy, qmap):
+        """The one forward every program rides: ``forward_cached`` over the
+        per-head cache, ``mla_forward_cached`` over the latent cache."""
+        if self.mla:
+            return mla_forward_cached(self.model.params, self.cfg, ids, cache,
+                                      qmap, latent_bit=int(self.policy.bit))
+        return forward_cached(self.model.params, self.cfg, ids, cache, policy,
+                              qmap)
+
     def _local_forward(self, ids, local, policy):
         """A prefill (or prompt chunk) forward on a local cache."""
         ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        logits, local = forward_cached(self.model.params, self.cfg, ids_t,
-                                       local, policy, self.qmap_prefill)
+        logits, local = self._forward(ids_t, local, policy,
+                                      self.qmap_prefill)
         self.stats['prefill_forwards'] += 1
         return logits, local
 
     def _local_cache(self, batch: int, slen: int, policy):
+        """A cache of ``batch`` rows of ``slen`` tokens under ``policy``;
+        the latent cache on an MLA model (the int8 latent under ``naive``,
+        at the policy's bit)."""
         cfg = self.cfg
+        if self.mla:
+            return init_mla_cache(
+                cfg, batch, slen, dtype=cfg.tdtype,
+                quant_bit=policy.bit if policy.method == 'naive' else None,
+                device=self.device)
         return policy.init_cache(batch, slen, cfg.num_key_value_heads,
                                  cfg.head_dim, cfg.num_hidden_layers,
                                  dtype=cfg.tdtype, device=self.device)

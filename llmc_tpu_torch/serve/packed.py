@@ -248,7 +248,22 @@ def pack_model(model, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
     """In place: pack every block's linears; returns the serving QMap.
     ``a_int8`` serves W4A8; ``w8_prefill`` also stores each block linear's
     per-channel int8 companion (twice the weight bytes); ``a_spec`` the
-    per-token activation fake-quant of every packed linear."""
+    per-token activation fake-quant of every packed linear.
+
+    An MoE or MLA model raises: the reference packs its every linear, the
+    experts too, but its serving QMap (``packed_qmap``) names the
+    Llama-family linears only, so a packed expert has no qcfg and its
+    forward looks for the unpacked weight (a ``KeyError: 'w'`` at the
+    engine's first admission); packed MoE serving is a feature the
+    reference lacks (ROADMAP C)."""
+    unserved = [p for p in model.get_layout().linears
+                if p not in _linear_dims(model.cfg)]
+    if unserved:
+        raise NotImplementedError(
+            f'pack_model on {type(model).__name__}: the serving QMap names '
+            f'the Llama-family linears only, and the reference cannot serve '
+            f'its packed MoE / MLA linears ({unserved[:3]}...); serve the '
+            f'model unpacked')
     layout = model.get_layout()
     for i in range(model.n_blocks):
         model.set_block(i, pack_block(model.blocks[i], model.cfg, wspec,

@@ -1,7 +1,8 @@
 """Decorator registries mapping config strings to classes/functions.
 
 A copy of ``llmc_tpu/utils/registry.py`` (the port imports nothing from
-the JAX package).  The port registers what it ports: ``Llama`` in
+the JAX package).  The port registers what it ports: ``Llama``,
+``Mixtral``, ``Qwen2Moe``, ``DeepseekV2`` and ``DeepseekV3`` in
 MODEL_REGISTRY; ``Naive``, ``Kivi`` and ``SinkKV`` in KV_REGISTRY, whose
 ``ShadowKV`` raises.
 """

@@ -711,3 +711,118 @@ def test_chip_smoke_lists_seventeen_kernels_and_the_wgmma_builds():
     ms, by = chip_smoke.quant_bound(128, 4096, 2, peaks)
     nbytes = 128 * 4096 * 3 + 4 * 128 + 4 * 64 * 128
     assert by == 'bytes' and abs(ms - nbytes / 3.35e12 * 1e3) < 1e-12
+
+
+# phase 18's families at a tiny size, bf16, widths the decode kernels take
+MOE_TINY = {
+    'mixtral_8x7b': dict(vocab_size=256, hidden_size=128,
+                         intermediate_size=256, num_attention_heads=4,
+                         num_key_value_heads=2, head_dim=32,
+                         num_local_experts=4, num_experts_per_tok=2,
+                         dtype='bfloat16'),
+    'qwen15_moe_a27b': dict(vocab_size=256, hidden_size=128,
+                            intermediate_size=128,
+                            shared_expert_intermediate_size=256,
+                            num_attention_heads=4, num_key_value_heads=4,
+                            head_dim=32, num_local_experts=6,
+                            num_experts_per_tok=2, dtype='bfloat16'),
+    'deepseek_v2_lite': dict(vocab_size=256, hidden_size=128,
+                             intermediate_size=256, moe_intermediate_size=128,
+                             num_attention_heads=4, q_lora_rank=None,
+                             kv_lora_rank=64, qk_nope_head_dim=32,
+                             qk_rope_head_dim=16, v_head_dim=32,
+                             n_routed_experts=4, n_shared_experts=1,
+                             num_experts_per_tok=2, first_k_dense_replace=1,
+                             dtype='bfloat16'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(MOE_TINY))
+def test_chip_smoke_cpu_phase18_tiny(name):
+    """Phase 18 at a tiny size on the CPU (every step eager, no kernel):
+    each family served once per attention kernel it names, the eager
+    run's tokens equal to the graph run's, the launches the path implies
+    (B2 or B5 once a layer a decode step on Mixtral and Qwen2-MoE, none on
+    DeepSeek's latent cache); the step bound, the latent cache's bytes;
+    then its compressions (RTN's transformed PPL equal to pretrain; Mixtral
+    GPTQ's column loop; DeepSeek's AWQ on one MoE block, its searched block
+    erring no more than RTN)."""
+    cpu = torch.device('cpu')
+    spec = chip_smoke.MOE_MODELS[name]
+    rec, model = chip_smoke.phase18_serve(
+        cpu, name, chip_smoke.PEAKS['H100 SXM'], layers=2,
+        arch=MOE_TINY[name], serve_kw=dict(
+            n_requests=4, max_batch=2, max_len=96, buckets=(16, 32),
+            max_prompt=30), timing_kw=dict(B=2, prompt=16, steps=2,
+                                           max_len=96))
+    # ``ok`` needs the card's launches and at least 8 requests: not here
+    assert rec['model'] == spec['type'] and rec['layers'] == 2
+    assert sorted(rec['runs']) == sorted(a or 'latent'
+                                         for a in spec['attn'])
+    for attn, run in rec['runs'].items():
+        assert run['tokens_equal']
+        for m in ('graph', 'eager'):
+            r = run[m]
+            assert r['launches'] == ZERO_LAUNCHES and r['all_done']
+            want = dict(ZERO_LAUNCHES)
+            if attn != 'latent':
+                kernel = 'batch_decode' if attn == 'batch' else 'flash_decode'
+                want[kernel] = 2 * r['decode_steps']
+            assert r['expected_launches'] == want
+        t = rec['timing'][attn]
+        assert all(t[m]['step_ms'] > 0 and t[m]['ttft_s'] > 0
+                   for m in ('graph', 'eager'))
+    assert rec['step_bound_ms'] > 0 and rec['bound_by'] == 'bytes'
+    assert rec['step_bound_ms'] <= rec['dense_dispatch_bound_ms']
+    dvp = rec['decode_vs_prefill']
+    assert dvp['ok'] and dvp['layers'] == 2
+    assert dvp['cache'] == ('latent' if name == 'deepseek_v2_lite'
+                            else 'per-head')
+    assert all(v == dict(ZERO_LAUNCHES, xla_branch_calls=0)
+               for v in dvp['launches'].values())
+    if name == 'deepseek_v2_lite':
+        assert rec['latent_int8_bytes_per_token'] == 64 + 4 + 16 * 2
+        assert rec['per_head_bytes_per_token'] == 4 * (48 + 32) * 2
+        assert any('yarn' in r for r in rec['reduced'])
+    recs = chip_smoke.phase18_compress(
+        cpu, name, layers=2, arch=MOE_TINY[name], group_size=32,
+        n_samples=2, seq_len=32, eval_tokens=256, eval_bs=2)
+    assert [r['config'] for r in recs] == [
+        c[0] for c in chip_smoke.MOE_COMPRESS[name]]
+    for r in recs:
+        assert r['ok'] and r['launches'] == ZERO_LAUNCHES
+        if r['method'] == 'RTN':
+            assert r['ppl_transformed'] == r['ppl_pretrain']
+        if r['method'] == 'GPTQ':
+            assert r['column_steps'] > 0
+        if r['method'] == 'Awq':
+            assert r['block_output_mse'] and all(
+                b['searched_over_rtn'] <= chip_smoke.TOL_SEARCH_VS_RTN
+                for b in r['block_output_mse'])
+
+
+
+def test_moe_step_bound_counts_the_routed_experts():
+    """The step bound reads of each MoE block's routed experts only those
+    B tokens x top-k can pick (min(E, B k) of E), beside the expected
+    coverage under random picks and dense dispatch's every expert; the
+    shared expert, the router, attention and the head count whole."""
+    from llmc_tpu_torch.models import build_model
+    arch = dict(MOE_TINY['qwen15_moe_a27b'], num_hidden_layers=2)
+    m = build_model(dict(model=dict(type='Qwen2Moe', arch=arch, seed=0)),
+                    device='cpu')
+    peaks = chip_smoke.PEAKS['H100 SXM']
+    b = chip_smoke.moe_step_bound(m, peaks, B=2)
+    D, I, E = 128, 128, 6
+    routed = 2 * E * 3 * I * D * 2          # layers x experts x bf16 bytes
+    assert b['routed_expert_bytes'] == routed
+    dense = b['dense_dispatch_bytes']
+    assert dense == chip_smoke.param_bytes(m.params['blocks']) \
+        + chip_smoke.param_bytes(m.params['lm_head'])
+    assert b['weight_bytes_bound'] == dense - routed + routed * 4 / 6
+    assert abs(b['expected_coverage_bytes']
+               - (dense - routed + routed * 5 / 9)) < 1e-6
+    assert b['step_bound_ms'] == b['weight_bytes_bound'] / peaks.bw * 1e3
+    # B k over E: every expert, as dense dispatch reads
+    full = chip_smoke.moe_step_bound(m, peaks, B=8)
+    assert full['weight_bytes_bound'] == dense

@@ -19,6 +19,19 @@ torch.set_num_threads(1)
 TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
             num_key_value_heads=2, head_dim=16, dtype='float32')
+# the tiny Mixtral and DeepSeek-V2 of the JAX package's MoE engine tests
+# (tests/test_engine_moe.py)
+MX_TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=96,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, head_dim=16,
+               num_local_experts=4, num_experts_per_tok=2, dtype='float32')
+DS_TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=96,
+               moe_intermediate_size=48, num_hidden_layers=3,
+               num_attention_heads=4, q_lora_rank=32, kv_lora_rank=32,
+               qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+               n_routed_experts=4, n_shared_experts=1,
+               num_experts_per_tok=2, first_k_dense_replace=1,
+               dtype='float32')
 WSPEC = dict(bit=4, symmetric=True, granularity='per_group', group_size=32)
 METHODS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'configs', 'quantization', 'methods')
@@ -98,3 +111,70 @@ def reference_builds_its_step_per_block(monkeypatch, cls):
         self._jits.clear()
         return inner(self, idx, block, feats)
     monkeypatch.setattr(cls, 'block_transform', block_transform)
+
+
+def write_hf_moe_checkpoint(kind: str, path: str) -> str:
+    """A tiny checkpoint written with transformers, as the JAX package's
+    own tests write them: ``mixtral`` (MX_TINY) or ``deepseek`` (DS_TINY,
+    a DeepSeek-V2 with a low-rank q, one dense first layer and a shared
+    expert)."""
+    import transformers as tr
+    torch.manual_seed(0)
+    if kind == 'mixtral':
+        model = tr.MixtralForCausalLM(tr.MixtralConfig(
+            tie_word_embeddings=False,
+            **{k: v for k, v in MX_TINY.items() if k != 'dtype'}))
+    else:
+        model = tr.DeepseekV2ForCausalLM(tr.DeepseekV2Config(
+            tie_word_embeddings=False, attention_bias=False,
+            routed_scaling_factor=1.0, norm_topk_prob=False,
+            moe_layer_freq=1, num_key_value_heads=4,
+            **{k: v for k, v in DS_TINY.items() if k != 'dtype'}))
+    model.save_pretrained(path, safe_serialization=True)
+    return path
+
+
+MOE_CONFIGS = os.path.dirname(METHODS)
+
+
+def moe_config(rel: str, path: str, group_size: int = 16) -> dict:
+    """A shipped MoE config (``rel`` under configs/quantization) as the
+    tests run it: its ``model`` and ``quant`` sections on the tiny
+    checkpoint at ``path`` (per-group 128 cut to ``group_size``: DS_TINY's
+    experts are 48 wide), synthetic calibration and PPL data in place of
+    its datasets.  Its ``save`` section is left out: the backend exports
+    are not ported (ROADMAP A13)."""
+    with open(os.path.join(MOE_CONFIGS, rel)) as f:
+        cfg = yaml.safe_load(f)
+
+    def cut(d):
+        return {k: (group_size if k == 'group_size' and v == 128 else
+                    cut(v) if isinstance(v, dict) else v)
+                for k, v in d.items()}
+    return dict(
+        base=dict(seed=7), model=dict(cfg['model'], path=path),
+        calib=dict(name='synthetic', n_samples=4, bs=-1, seq_len=24, seed=0,
+                   vocab_size=128, preproc='random_truncate_txt'),
+        eval=dict(name='synthetic', num_tokens=768, seq_len=32,
+                  vocab_size=128, bs=2,
+                  eval_pos=['pretrain', 'transformed', 'fake_quant']),
+        quant=cut(cfg['quant']))
+
+
+def load_moe_checkpoints_in_f32(monkeypatch):
+    """Both packages' MoE adapters load a checkpoint in float32 (as
+    shipped they load bf16 whatever ``torch_dtype`` says): at bf16 a router
+    tie and GPTQ's error feedback carry last-bit differences between XLA
+    and torch to 7.8e-4 of a PPL, at f32 to 5e-5."""
+    import jax.numpy as jnp
+    from llmc_tpu.models import adapter as JA
+    from llmc_tpu_torch.models import adapter as TA
+    for cls, f32 in ((JA.MixtralAdapter, jnp.float32),
+                     (JA.DeepseekV2Adapter, jnp.float32),
+                     (TA.MixtralAdapter, torch.float32),
+                     (TA.DeepseekV2Adapter, torch.float32)):
+        inner = cls.from_pretrained.__func__
+
+        def load(c, path, dtype=f32, inner=inner, **kw):
+            return inner(c, path, dtype, **kw)
+        monkeypatch.setattr(cls, 'from_pretrained', classmethod(load))
