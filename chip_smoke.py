@@ -111,7 +111,7 @@ Phases, each printing one JSON line, all of them on every run:
 13. ``compress``  ``run_pipeline`` at Llama-2-7B width (bf16,
                   random weights from a seed, synthetic calibration and
                   PPL data, W4 symmetric per-group 128): once RTN at its
-                  32 layers, once AWQ at ``AWQ_LAYERS`` (16) (scale
+                  32 layers, once AWQ at ``AWQ_LAYERS`` (8) (scale
                   search + clip v1) on weights that came
                   through the FP8-block ingest and whose norms give the
                   activations outlier channels.  PPLs finite,
@@ -204,6 +204,28 @@ Phases, each printing one JSON line, all of them on every run:
                   ``awq_w_only_dsv3.yml``'s AWQ on one MoE block), RTN's
                   transformed PPL equal to pretrain.  Each depth cut and
                   reason is in its record's ``reduced``.
+19. ``attn_reads`` + ``family_serve`` + ``family_compress``: the chunked
+                  and full decode reads (``LLMC_ATTN``) at the bench
+                  attention shape, int8 and bf16, each held to B2; then
+                  the Llama-family and generalized-graph families at their
+                  published widths (``FAMILY_MODELS``: Qwen2.5-7B,
+                  Qwen3-8B, Gemma-2-9B, BLOOM-7b1; bf16 random weights),
+                  each with its decode held to a prefill on fp / int8
+                  caches (a planted 4-bit cache outside the bound), its
+                  packed logits held to the fake-quant model at 2 layers,
+                  then packed W4A16 g128 (fused, the head packed: Gemma2's
+                  and Bloom's tied heads as a copy of the embedding) and
+                  served over 10 requests through the captured step and
+                  the eager one, under ``auto`` and ``batch`` (tokens
+                  equal; B1 once a packed linear and the head a forward;
+                  B2 or B5 once a layer a host decode step where the
+                  reference's attn_ok lets a kernel take it: none on
+                  Gemma2 and Bloom), the step's
+                  ms at B=8 after a 128-token prefill beside its byte
+                  bound; RTN, AWQ's scale transform alone (in float32)
+                  and AWQ with clip v1 on one block of Qwen2.5-7B and of
+                  Gemma-2-9B (``FAMILY_COMPRESS``), the equivalences'
+                  transformed PPL within ``TOL_PPL_EQUIV`` of pretrain.
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
@@ -343,10 +365,12 @@ PHASE16 = (('hqq_w4', 'w4a16'), ('adadim_w8', 'w8a16'),
            ('normtweaking_w4', 'w4a16'), ('omniquant_w4', 'w4a16'),
            ('tesseraq_w4', 'w4a16'))
 TRAINED_DEPTH = {
-    'NormTweaking': (4, '10 AdamW steps a block (epochs 10 x 1 batch), '
-                        'about 1.0 s a block; 4 layers (8 before phase 18)'),
-    'OmniQuant': (2, '20 AdamW steps a block (epochs 20 x 1 batch), about '
-                     '2.7 s a block; 2 layers (4 before phase 18)'),
+    'NormTweaking': (2, '10 AdamW steps a block (epochs 10 x 1 batch), '
+                        'about 1.0 s a block; 2 layers (8 before phase 18, '
+                        '4 before phase 19)'),
+    'OmniQuant': (1, '20 AdamW steps a block (epochs 20 x 1 batch), about '
+                     '2.7 s a block; 1 layer (4 before phase 18, 2 before '
+                     'phase 19)'),
     'TesseraQ': (1, '300 Adam steps a block (3 thresholds x 100 '
                     'iterations: the config\'s epochs is not read) and 21 '
                     'host quantiles, about 49 s a block'),
@@ -2158,9 +2182,10 @@ NORM_SIGMA = 1.0
 AWQ_SOURCE = 'configs/quantization/methods/awq_w_only.yml'
 AWQ_SOURCE_SAMPLES = 128
 AWQ_SPECIAL = dict(trans=True, weight_clip=True, clip_version='v1')
-# AWQ with clipping takes 1.47 s a Llama-2-7B block at 8 x 512 tokens: 16
-# of the 32 layers (32 before phase 18 took its 200 s)
-AWQ_LAYERS = 16
+# AWQ with clipping takes 1.47-1.6 s a Llama-2-7B block at 8 x 512
+# tokens: 8 of the 32 layers (32 before phase 18 took its 200 s, 16
+# before phase 19 took its 65 s)
+AWQ_LAYERS = 8
 
 
 def search_vs_rtn(dev, config, res, blocks):
@@ -2931,22 +2956,23 @@ MOE_DECODE_CHECK = dict(layers=4, steps=32)
 # Mixtral and Qwen1.5-MoE, 7-8 on DeepSeek-V2-Lite (three routers of 6 of
 # 64 a step); the 4-bit cache 13, 30 and 31.
 MOE_DECODE_ROUTED_APART = 0.5
-# the engine's serving shape of phase 18: the serve phase's, each request
-# asking for 8 to 16 tokens (its 16 to 32 took 43 steps, whose eager run
-# is 0.55 s a step on Qwen2-MoE and DeepSeek)
+# the engine's serving shape of phases 18 and 19: the serve phase's, each
+# request asking for 8 to 16 tokens (its 16 to 32 took 43 steps, whose
+# eager run is 0.55 s a step on Qwen2-MoE and DeepSeek)
 MOE_SERVE = dict(n_requests=10, max_batch=8, max_len=256,
                  buckets=(32, 64, 128, 256), max_prompt=200, new_tokens=8)
 
 
-def moe_serve_run(dev, model, attn, eager=False, n_requests=10, max_batch=8,
-                  max_len=256, buckets=(32, 64, 128, 256), max_prompt=200,
-                  new_tokens=16, kv_policy=None):
-    """``ServingEngine.run`` over ``serve_requests`` for an unpacked MoE or
-    MLA model under ``ATTN_IMPL = attn``: (the record, the requests'
-    tokens).  The path's launches: the decode attention once a layer a
-    host decode step on a per-head cache (every linear is a torch matmul),
-    none on the latent cache, whose read is torch ops as the reference's
-    is XLA."""
+def adapter_serve_run(dev, model, attn, eager=False, n_requests=10,
+                      max_batch=8, max_len=256, buckets=(32, 64, 128, 256),
+                      max_prompt=200, new_tokens=16, kv_policy=None,
+                      qmap=None):
+    """``ServingEngine.run`` (or the eager engine's) over ``serve_requests``
+    under ``ATTN_IMPL = attn``, over an int8 cache by default: (the record
+    with the launches the path implies, ``serve_expected_launches``, the
+    requests' tokens).  ``qmap``: a packed model's serving QMap (phase 19's
+    families); without one (phase 18's MoE and MLA models) every linear is
+    a torch matmul."""
     from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.serve import (EagerServingEngine, KVCachePolicy,
                                       ServingEngine)
@@ -2954,7 +2980,7 @@ def moe_serve_run(dev, model, attn, eager=False, n_requests=10, max_batch=8,
     policy = kv_policy or KVCachePolicy(method='naive', bit=8)
     with attn_impl(attn or 'auto'):
         eng = (EagerServingEngine if eager else ServingEngine)(
-            model, max_batch=max_batch, max_len=max_len,
+            model, qmap=qmap, max_batch=max_batch, max_len=max_len,
             prefill_buckets=buckets, kv_policy=policy, device=dev)
         reqs = serve_requests(n_requests, cfg.vocab_size, max_prompt,
                               new_tokens=new_tokens)
@@ -2966,34 +2992,50 @@ def moe_serve_run(dev, model, attn, eager=False, n_requests=10, max_batch=8,
         wall = time.perf_counter() - t0
         counts, xla = read_counts()
     host_steps = host_decode_steps(eng)
-    expect = dict.fromkeys(KERNEL_NAMES, 0)
-    if not eng.mla:
-        expect['batch_decode' if attn == 'batch' else 'flash_decode'] = \
-            cfg.num_hidden_layers * host_steps
     graphs = eng._graphs.values()
-    rec = dict(eager=eager, graphed=eng.graphed, mla=eng.mla,
+    rec = dict(attn=attn, eager=eager, graphed=eng.graphed, mla=eng.mla,
                requests=len(reqs), tokens=sum(len(r.output_ids)
                                               for r in reqs),
                wall_s=wall, **eng.stats, host_decode_steps=host_steps,
                graph_replays=sum(g.replays for g in graphs),
                first_run_s=sum(g.first_s for g in graphs),
                capture_s=sum(g.capture_s for g in graphs),
-               launches=counts, expected_launches=expect,
-               xla_branch_calls=xla,
+               launches=counts, xla_branch_calls=xla,
+               expected_launches=serve_expected_launches(
+                   cfg, eng.stats['prefill_forwards'] + host_steps,
+                   host_steps, attn, packed=qmap is not None, mla=eng.mla),
                all_done=all(r.done and len(r.output_ids) == r.max_new_tokens
                             and all(0 <= t < cfg.vocab_size
                                     for t in r.output_ids) for r in reqs))
     return rec, [list(r.output_ids) for r in reqs]
 
 
+def serve_expected_launches(cfg, forwards, decode_steps, attn, packed=True,
+                            mla=False):
+    """A packed model's forward: 4 packed linears a layer (fused q/k/v,
+    o, fused gate/up or a non-gated MLP's up, down) and the packed head
+    through B1.  A decode step: B2 (``auto``) or B5 (``batch``) once a
+    layer on a per-head cache where the reference's attn_ok lets a
+    kernel take it; none on the latent cache, whose read is torch ops as
+    the reference's is XLA."""
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    L_ = cfg.num_hidden_layers
+    if packed:
+        n['w4_dequant_matmul'] = (4 * L_ + 1) * forwards
+    if not mla and attention_kernel_takes(cfg):
+        n['batch_decode' if attn == 'batch' else 'flash_decode'] = \
+            L_ * decode_steps
+    return n
+
+
 def moe_step_times(dev, model, attn, kv_policy=None, B=8, prompt=128,
-                   steps=4, max_len=256):
+                   steps=4, max_len=256, qmap=None):
     """TTFT and the decode step, captured and eager: an idle engine admits
     one prompt of ``prompt`` tokens (after one warm-up admission), timed to
     its first token (its prefill); then ``B`` slots decode ``steps``
     steps, each synchronised, through the captured step (its capture
     before the timing) and through the eager step.  tok/s = B tokens a
-    step."""
+    step.  ``qmap``: a packed model's serving QMap."""
     from llmc_tpu_torch.serve import (EagerServingEngine, KVCachePolicy,
                                       Request, ServingEngine)
     policy = kv_policy or KVCachePolicy(method='naive', bit=8)
@@ -3002,7 +3044,7 @@ def moe_step_times(dev, model, attn, kv_policy=None, B=8, prompt=128,
     for name, cls in (('graph', ServingEngine), ('eager',
                                                  EagerServingEngine)):
         with attn_impl(attn or 'auto'):
-            eng = cls(model, max_batch=B, max_len=max_len,
+            eng = cls(model, qmap=qmap, max_batch=B, max_len=max_len,
                       prefill_buckets=(32, 64, 128, 256), kv_policy=policy,
                       device=dev)
             for i in range(B):
@@ -3130,7 +3172,8 @@ def same_routing(prefill_picks, decode_picks, steps) -> torch.Tensor:
 
 
 def moe_decode_checks(dev, model, layers=MOE_DECODE_CHECK['layers'],
-                      steps=MOE_DECODE_CHECK['steps'], seed=0):
+                      steps=MOE_DECODE_CHECK['steps'], seed=0, fault_bit=4,
+                      record_bits=()):
     """The decode of ``steps`` random tokens over the fp and the int8 cache
     (per-head, or latent on DeepSeek) against one prefill of the same
     tokens, on the model's first ``layers`` blocks.  A bf16 router's
@@ -3138,13 +3181,16 @@ def moe_decode_checks(dev, model, layers=MOE_DECODE_CHECK['layers'],
     prefill, and a token routed otherwise gets other experts: the steps
     whose top-k sets differ from the prefill's in some layer are counted
     (at most ``MOE_DECODE_ROUTED_APART`` of them), and the others' logits
-    held within ``TOL_MOE_DECODE_VS_PREFILL``.  A planted fault (the 4-bit
-    cache) must be at least twice that off on the steps it routes as the
-    prefill does (inf where none does).  The first step alone (attention
-    over one position returns its value) shows the linears' and the
-    router's gap.  Under
-    ``auto`` the per-head reads launch B2 once a layer a step, the latent
-    read nothing."""
+    held within ``TOL_MOE_DECODE_VS_PREFILL``.  A planted fault (the cache
+    at ``fault_bit`` bits, 4 by default) must be at least twice that off on
+    the steps it routes as the prefill does (inf where none does); the
+    caches at ``record_bits`` bits are read beside it, unchecked.  The
+    first step alone (attention over one position returns its value)
+    shows the linears' and the router's gap.  Under ``auto`` the per-head
+    reads launch B2 once a layer a step where the reference's attn_ok
+    lets a kernel take it, the latent read and a dense family's plain read
+    (ALiBi, softcap, window) nothing; a dense model has no router, and no
+    step routes apart."""
     from llmc_tpu_torch.eval.ppl import forward_logits
     from llmc_tpu_torch.ops import reset_launch_counts
     from llmc_tpu_torch.serve.kvcache import KVCachePolicy
@@ -3155,12 +3201,15 @@ def moe_decode_checks(dev, model, layers=MOE_DECODE_CHECK['layers'],
     with torch.no_grad(), routed_sets() as want_picks:
         prefill = forward_logits(m, ids).float()
     mla = getattr(m.cfg, 'kv_lora_rank', None) is not None
-    per_step = 0 if mla or dev.type != 'cuda' else L
+    per_step = (0 if mla or dev.type != 'cuda'
+                or not attention_kernel_takes(m.cfg) else L)
     runs = {}
+    policies = [('fp', KVCachePolicy(method='fp')),
+                ('int8', KVCachePolicy(method='naive', bit=8))]
+    policies += [(f'int{b}', KVCachePolicy(method='naive', bit=b))
+                 for b in (fault_bit,) + tuple(record_bits)]
     with attn_impl('auto'):
-        for name, policy in (('fp', KVCachePolicy(method='fp')),
-                             ('int8', KVCachePolicy(method='naive', bit=8)),
-                             ('int4', KVCachePolicy(method='naive', bit=4))):
+        for name, policy in policies:
             reset_launch_counts()
             with routed_sets() as picks:
                 lg = moe_decode_logits(m, ids, dev, policy)
@@ -3177,7 +3226,8 @@ def moe_decode_checks(dev, model, layers=MOE_DECODE_CHECK['layers'],
         keep = same.nonzero()[:, 0].to(dev)
         return (logits_rel(lg[:, keep], prefill[:, keep]) if len(keep)
                 else float('inf'))
-    reads, faults = ('fp', 'int8'), ('int4',)
+    reads, faults = ('fp', 'int8'), (f'int{fault_bit}',)
+    recorded = tuple(f'int{b}' for b in record_bits)
     rec = dict(
         layers=L, steps=steps, cache='latent' if mla else 'per-head',
         vs_prefill={k: gap(k) for k in reads},
@@ -3185,10 +3235,11 @@ def moe_decode_checks(dev, model, layers=MOE_DECODE_CHECK['layers'],
                                               prefill[:, :1])
                                for k in reads},
         all_steps_vs_prefill={k: logits_rel(runs[k][0], prefill)
-                              for k in reads + faults},
+                              for k in reads + faults + recorded},
         steps_routed_apart={k: int((~runs[k][1]).sum())
-                            for k in reads + faults},
+                            for k in reads + faults + recorded},
         faults_vs_prefill={k: gap(k) for k in faults},
+        recorded_faults_vs_prefill={k: gap(k) for k in recorded},
         launches={k: v[2] for k, v in runs.items()},
         expected_launches=want,
         tolerance_vs_prefill=TOL_MOE_DECODE_VS_PREFILL,
@@ -3233,8 +3284,9 @@ def phase18_serve(dev, name, peaks, layers=None, serve_kw=None,
                                         seed=seed)), device=dev)
     runs, times = {}, {}
     for attn in spec['attn']:
-        got = {mode: moe_serve_run(dev, model, attn, eager=mode == 'eager',
-                                   **(serve_kw or MOE_SERVE))
+        got = {mode: adapter_serve_run(dev, model, attn,
+                                       eager=mode == 'eager',
+                                       **(serve_kw or MOE_SERVE))
                for mode in ('graph', 'eager')}
         runs[attn or 'latent'] = dict(
             graph=got['graph'][0], eager=got['eager'][0],
@@ -3295,6 +3347,316 @@ def phase18_compress(dev, name, layers=None, arch=None, **sizes):
             'ppl_transformed_rel_drift'] <= TOL_PPL_EQUIV)
         recs.append(rec)
     return recs
+
+
+# --------------------------------------------------------------------------
+
+# Phase 19: the Llama-family adapters and the generalized block graph at
+# their published widths (each source's config.json), bf16 random weights
+# from a seed, packed W4A16 g128 RTN (fused, the head packed: a tied head
+# as a copy of the embedding) and served through B1 and, where the
+# reference's attn_ok lets a kernel take the decode step, B2 / B5.  Gemma2
+# (softcap, sliding window) and Bloom (ALiBi) decode through the plain
+# masked read: no attention kernel.  Each depth cut is listed with its
+# reason.
+QWEN25_7B = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+                 num_hidden_layers=28, num_attention_heads=28,
+                 num_key_value_heads=4, head_dim=128, rope_theta=1e6,
+                 rms_norm_eps=1e-6, max_position_embeddings=131072,
+                 attention_bias=True, dtype='bfloat16')
+QWEN3_8B = dict(vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+                num_hidden_layers=36, num_attention_heads=32,
+                num_key_value_heads=8, head_dim=128, rope_theta=1e6,
+                rms_norm_eps=1e-6, max_position_embeddings=40960,
+                use_qk_norm=True, dtype='bfloat16')
+GEMMA2_9B = dict(vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+                 num_hidden_layers=42, num_attention_heads=16,
+                 num_key_value_heads=8, head_dim=256, rope_theta=10000.0,
+                 rms_norm_eps=1e-6, max_position_embeddings=8192,
+                 attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                 query_pre_attn_scalar=256.0, sliding_window=4096,
+                 dtype='bfloat16')
+# BLOOM-7b1: n_embd 4096, n_head 32, n_layer 30; the MLP is 4 x hidden
+BLOOM_7B1 = dict(vocab_size=250880, hidden_size=4096, intermediate_size=16384,
+                 num_hidden_layers=30, num_attention_heads=32,
+                 num_key_value_heads=32, head_dim=128, rms_norm_eps=1e-5,
+                 max_position_embeddings=2048, dtype='bfloat16')
+FAMILY_MODELS = {
+    'qwen25_7b': dict(type='Qwen2', arch=QWEN25_7B,
+                      source='Qwen/Qwen2.5-7B config.json',
+                      layers=(28, None), attn=('auto', 'batch')),
+    'qwen3_8b': dict(type='Qwen3', arch=QWEN3_8B,
+                     source='Qwen/Qwen3-8B config.json',
+                     layers=(36, None), attn=('auto', 'batch')),
+    'gemma2_9b': dict(type='Gemma2', arch=GEMMA2_9B,
+                      source='google/gemma-2-9b config.json',
+                      layers=(42, None), attn=('auto', 'batch')),
+    'bloom_7b1': dict(type='Bloom', arch=BLOOM_7B1,
+                      source='bigscience/bloom-7b1 config.json',
+                      layers=(30, None), attn=('auto', 'batch')),
+}
+# the families compressed (RTN, and AWQ with its scale search and clip v1)
+# on one block each: the pre-ffn norm of Gemma2's sandwich (gate/up's
+# prev_op) and Qwen2's biased q/k/v at full width.  AWQ's scale transform
+# alone is an equivalence, held in float32: in bf16 its rescaled weights'
+# rounding moved Gemma-2-9B's PPL by 3.0e-4 (Qwen2.5-7B's 3.0e-5), whose
+# random model's near-certain wrong logits (softcap 30, PPL about 7.8e11)
+# turn a last-bit change of a logit into a change of the NLL
+FAMILY_COMPRESS = ('qwen25_7b', 'gemma2_9b')
+FAMILY_PACKED_CHECK_LAYERS = 2
+# the decode checks' planted fault: phase 18's 4-bit cache, a 3-bit one
+# read beside it.  On each family's first 4 blocks at full width on the
+# card (NVIDIA H100 80GB HBM3, 700 W) the 4-bit one read 0.183 / 0.201 /
+# 0.155 / 0.074 (Qwen2.5 / Qwen3 / Gemma2 / Bloom), at least twice the
+# bound; the 3-bit one 0.376 / 0.441 / 0.349 / 0.173
+
+
+def family_model(dev, name, layers=None, arch=None, seed=0):
+    """The family's random bf16 model at its published widths (``arch``:
+    other widths, for a test) and ``layers``; Bloom with its embedding
+    LayerNorm (ones and zeros), which the random tree leaves out."""
+    from llmc_tpu_torch.models import build_model
+    spec = FAMILY_MODELS[name]
+    L_ = layers or spec['layers'][0]
+    arch = dict(arch or spec['arch'], num_hidden_layers=L_)
+    model = build_model(dict(model=dict(type=spec['type'], arch=arch,
+                                        seed=seed)), device=dev)
+    if model.cfg.use_alibi:
+        D = model.cfg.hidden_size
+        model.params['embed_layernorm'] = {
+            'w': torch.ones(D, dtype=model.cfg.tdtype, device=dev),
+            'b': torch.zeros(D, dtype=model.cfg.tdtype, device=dev)}
+    return model, arch
+
+
+def attention_kernel_takes(cfg) -> bool:
+    """The reference's attn_ok for a decode step on an fp / naive cache."""
+    from llmc_tpu_torch.serve import KVCachePolicy
+    from llmc_tpu_torch.serve.decode import kernel_takes_attention
+    return kernel_takes_attention(cfg, 1, KVCachePolicy(method='fp'))
+
+
+def fake_quant_twin(model, wspec):
+    """The model under RTN's fake-quant QMap of ``wspec`` with its head's
+    weight fake-quantized in place onto the grid packing gives it (a tied
+    head untied into a fake-quantized copy of the embedding, which the
+    token lookup does not read): (twin, its QMap).  Shares every other
+    tensor with ``model``."""
+    from llmc_tpu_torch.models.adapter import QMap
+    from llmc_tpu_torch.models.base import LinearQcfg
+    from llmc_tpu_torch.quant.quantizer import fake_quant_weight_static
+    from llmc_tpu_torch.serve.packed import packed_grid
+    cfg = model.cfg
+    head = (dict(w=model.params['embed_tokens']['w'], b=None)
+            if cfg.tie_word_embeddings else model.params['lm_head'])
+    fq = dict(head, w=fake_quant_weight_static(wspec, head['w'],
+                                               packed_grid(head, wspec)))
+    twin = type(model)(dataclasses.replace(cfg, tie_word_embeddings=False),
+                       dict(model.params, lm_head=fq))
+    return twin, QMap({p: LinearQcfg(w_spec=wspec)
+                       for p in model.get_layout().linears})
+
+
+def packed_vs_fake_quant(dev, model, layers=FAMILY_PACKED_CHECK_LAYERS,
+                         prompt_len=32, seed=0):
+    """On the model's first ``layers`` blocks: the packed model's prefill
+    logits through B1 against the same weights under RTN's fake-quant
+    QMap (``fake_quant_twin``), both on ``dev`` in bf16, within
+    ``TOL_COMPRESS_SERVE`` of the largest logit."""
+    import copy
+    from llmc_tpu_torch.serve import pack_model
+    from llmc_tpu_torch.serve.decode import (FP_POLICY, forward_cached,
+                                             init_cache)
+    m = shallow(model, min(layers, model.cfg.num_hidden_layers))
+    m.params = dict(m.params, blocks=[copy.copy(b) for b in m.blocks])
+    ids = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, m.cfg.vocab_size, (1, prompt_len)), device=dev)
+
+    def prefill(mm, qmap):
+        cache = init_cache(mm, 1, prompt_len, device=dev)
+        return forward_cached(mm.params, mm.cfg, ids, cache, FP_POLICY,
+                              qmap)[0].float()
+    wspec = _wspec(4)
+    with torch.no_grad():
+        twin, fq_map = fake_quant_twin(m, wspec)
+        want = prefill(twin, fq_map)
+        qmap = pack_model(m, wspec, fuse=True, head=True)
+        got = prefill(m, qmap)
+    err, rel = _rel(got, want)
+    return dict(layers=m.cfg.num_hidden_layers, prompt=prompt_len,
+                max_abs_logit_err_vs_fake_quant=err,
+                rel_logit_err_vs_fake_quant=rel,
+                argmax_agreement_vs_fake_quant=float(
+                    (got.argmax(-1) == want.argmax(-1)).float().mean()),
+                tolerance_vs_fake_quant=TOL_COMPRESS_SERVE,
+                ok=bool(torch.isfinite(got).all()
+                        and rel <= TOL_COMPRESS_SERVE))
+
+
+def family_step_bound(model, peaks, B=8, prompt=128) -> dict:
+    """The packed decode step's byte bound at ``B`` tokens a step after a
+    ``prompt``-token prefill: every packed block weight, norm and bias and
+    the packed head read once (the embedding gathered, a row a token),
+    and beside it the int8 cache's K / V codes and scales at that
+    position."""
+    cfg = model.cfg
+    p = model.params
+    weights = (param_bytes(p['blocks']) + param_bytes(p['norm'])
+               + param_bytes(p.get('lm_head', {}))
+               + B * cfg.hidden_size * p['embed_tokens']['w'].element_size())
+    cache = (2 * cfg.num_hidden_layers * B * (prompt + 1)
+             * cfg.num_key_value_heads * (cfg.head_dim + 4))
+    return dict(weight_bytes=weights,
+                weight_bound_ms=weights / peaks.bw * 1e3,
+                int8_cache_bytes=cache,
+                weight_and_cache_bound_ms=(weights + cache) / peaks.bw * 1e3,
+                bound_batch=B, bound_prompt=prompt, bound_by='bytes')
+
+
+def phase19_serve(dev, name, peaks, layers=None, arch=None, serve_kw=None,
+                  timing_kw=None, decode_kw=None, seed=0):
+    """One family at its published widths (``arch``: other widths, for a
+    test) and ``layers`` (default the cut ``FAMILY_MODELS`` sets): its
+    decode held to a prefill (fp / int8 caches and the planted 4-bit one,
+    a 3-bit one read beside it, on its first 4 blocks unpacked, B2 once a
+    layer a step where attn_ok),
+    its packed logits held to the fake-quant model at 2 layers, then the
+    whole model packed (W4 g128 RTN, fused, packed head) and served over
+    an int8 cache through the captured step and the eager one per
+    attention kernel (tokens equal, the launches the path implies,
+    ``xla_branch_calls`` 0), and the captured step's ms at B=8 after a
+    128-token prefill beside its byte bound.  Returns (record, model)."""
+    from llmc_tpu_torch.serve import pack_model
+    spec = FAMILY_MODELS[name]
+    model, arch = family_model(dev, name, layers, arch, seed)
+    L_ = model.cfg.num_hidden_layers
+    checks = moe_decode_checks(dev, model, **dict(
+        dict(fault_bit=4, record_bits=(3,)), **(decode_kw or {})))
+    packed_check = packed_vs_fake_quant(dev, model)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        qmap = pack_model(model, _wspec(4), fuse=True, head=True)
+    _sync(dev)
+    pack_s = time.perf_counter() - t0
+    runs, times = {}, {}
+    for attn in spec['attn']:
+        got = {mode: adapter_serve_run(dev, model, attn,
+                                       eager=mode == 'eager', qmap=qmap,
+                                       **(serve_kw or MOE_SERVE))
+               for mode in ('graph', 'eager')}
+        runs[attn] = dict(graph=got['graph'][0], eager=got['eager'][0],
+                          tokens_equal=got['graph'][1] == got['eager'][1])
+        times[attn] = moe_step_times(dev, model, attn, qmap=qmap,
+                                     **(timing_kw or {}))
+    reduced = []
+    full = spec['arch']['num_hidden_layers']
+    if L_ < full:
+        reduced.append(f'{L_} of {full} layers'
+                       + (f': {spec["layers"][1]}' if layers is None
+                          and spec['layers'][1] else ''))
+    rec = dict(phase=f'family_serve.{name}', model=spec['type'],
+               source=spec['source'], layers=L_, arch=arch, reduced=reduced,
+               weights='W4A16 g128 symmetric RTN, fused q/k/v and gate/up, '
+                       'packed head', kv_cache='int8',
+               attention_kernel=attention_kernel_takes(model.cfg),
+               pack_s=pack_s, runs=runs, timing=times,
+               decode_vs_prefill=checks, packed_vs_fake_quant=packed_check,
+               **family_step_bound(model, peaks))
+    rec['ok'] = checks['ok'] and packed_check['ok'] and all(
+        r['tokens_equal'] and r[m]['all_done']
+        and r[m]['launches'] == r[m]['expected_launches']
+        and r[m]['xla_branch_calls'] == 0 and r[m]['requests'] >= 8
+        for r in runs.values() for m in ('graph', 'eager'))
+    return rec, model
+
+
+def phase19_compress(dev, name, arch=None, **sizes):
+    """RTN, AWQ's scale transform alone and AWQ with clip v1
+    (``AWQ_SPECIAL``) on one block of the family through ``run_pipeline``:
+    PPLs finite; RTN's transformed PPL equal to pretrain, the scale
+    transform's (an equivalence through the family's norms: Gemma2's
+    pre-ffn norm, Qwen2's biased q/k/v) within ``TOL_PPL_EQUIV`` of it
+    on the block in float32, and with clip v1 (which clamps weights in
+    place) within ``TOL_PPL_TRANSFORMED``, its searched block erring no
+    more than RTN's."""
+    spec = FAMILY_MODELS[name]
+    recs = []
+    for method, special, dtype, tol in (
+            ('RTN', None, None, TOL_PPL_EQUIV),
+            ('Awq', dict(trans=True, weight_clip=False), 'float32',
+             TOL_PPL_EQUIV),
+            ('Awq', AWQ_SPECIAL, None, TOL_PPL_TRANSFORMED)):
+        cfg_kw = dict(arch or spec['arch'], num_hidden_layers=1)
+        if dtype:
+            cfg_kw['dtype'] = dtype
+        rec, res = phase_compress(dev, cfg_kw, method, special,
+                                  model_type=spec['type'], **sizes)
+        del res
+        _free(dev)
+        rec.update(phase=f'family_compress.{name}', model=spec['type'],
+                   source=spec['source'],
+                   reduced=[f'1 of {spec["arch"]["num_hidden_layers"]} '
+                            f'layers: one block shows the layout'],
+                   tolerance_ppl_transformed=tol)
+        rec['ok'] = rec['ok'] and rec['ppl_transformed_rel_drift'] <= tol
+        recs.append(rec)
+    return recs
+
+
+def check_reads(dev, peaks, B=128, smax=96, kvh=32, H=32, hd=128):
+    """``LLMC_ATTN`` = chunked and full at the bench attention shape (B=128
+    over 96 positions, 32 heads of 128, int8 and bf16 caches), each held
+    to B2's output on the same cache within ``TOL_FLASH`` over
+    ``_attn_positions``, timed (a record) beside B2 and the bound."""
+    from llmc_tpu_torch.models import LlamaConfig
+    from llmc_tpu_torch.ops.flash_decode import (KERNEL_CHUNK,
+                                                 flash_decode_attention)
+    from llmc_tpu_torch.serve import KVCachePolicy
+    from llmc_tpu_torch.serve import decode
+    cfg = LlamaConfig(num_attention_heads=H, num_key_value_heads=kvh,
+                      head_dim=hd, hidden_size=H * hd)
+    rows = []
+    for cache in ('int8', 'bf16'):
+        quant = cache == 'int8'
+        q, kb, vb, ks, vs = flash_inputs(dev, B, smax, kvh, H, hd,
+                                         cache=cache)
+        policy = KVCachePolicy(method='naive' if quant else 'fp', bit=8)
+        buf = (dict(k_q=kb, v_q=vb, k_s=ks, v_s=vs) if quant
+               else dict(k=kb, v=vb))
+        chunk = decode._chunk_for(smax)
+
+        def reads(pos):
+            c = dict(buf, pos=pos)
+            return {
+                'chunked': lambda: decode._decode_attn_chunked(
+                    q[:, None], c, 1, policy, cfg, chunk)[:, 0],
+                'full': lambda: decode._attend_cached(
+                    q[:, None] * hd ** 0.5, c, 1, policy, cfg, F32)[:, 0]}
+        errs = {}
+        for pname, pos in _attn_positions(B, smax, KERNEL_CHUNK,
+                                          dev).items():
+            want = flash_decode_attention(q, kb, vb, ks, vs, pos, 1)
+            for rname, fn in reads(pos).items():
+                _, rel = _rel(fn(), want)
+                errs.setdefault(rname, {})[pname] = rel
+        pos_t = torch.full((B,), 63, dtype=torch.int32, device=dev)
+        times = {k: cuda_ms(fn, 20, 2) for k, fn in reads(pos_t).items()}
+        times['b2'] = cuda_ms(lambda: flash_decode_attention(
+            q, kb, vb, ks, vs, pos_t, 1), 200, 5)
+        bound_ms, bound_by = flash_bound(pos_t, kvh, hd, H, quant, peaks,
+                                         kb.element_size())
+        for rname in ('chunked', 'full'):
+            rows.append(dict(read=rname, cache=cache, B=B, smax=smax,
+                             kvh=kvh, H=H, hd=hd, chunk=chunk,
+                             rel_err_vs_b2=errs[rname],
+                             max_rel_err_vs_b2=max(errs[rname].values()),
+                             ms=times[rname], b2_ms=times['b2'],
+                             timed_valid_positions=64, bound_ms=bound_ms,
+                             bound_by=bound_by))
+        del q, kb, vb, ks, vs, buf
+        _free(dev)
+    return dict(phase='attn_reads', rows=rows, tolerance_vs_b2=TOL_FLASH,
+                ok=all(r['max_rel_err_vs_b2'] <= TOL_FLASH for r in rows))
 
 
 def _free(dev) -> None:
@@ -3870,6 +4232,51 @@ def main(argv=None) -> int:
                     f'{TOL_PPL_EQUIV}), or a searched block errs more than '
                     f'RTN: {rec["block_output_mse"]}')
     emit(dict(phase='phase18', wall_s=time.perf_counter() - t18, **card))
+
+    # phase 19: the Llama-family adapters and the generalized block graph
+    # at their published widths, packed W4A16 and served through B1 and,
+    # where attn_ok, B2 / B5 (none on Gemma2 and Bloom); two of them
+    # compressed; the chunked and full reads held to B2
+    t19 = time.perf_counter()
+    rec = check_reads(dev, peaks)
+    rec.update(card)
+    emit(rec)
+    errs = [(r['read'], r['cache'], r['max_rel_err_vs_b2'])
+            for r in rec['rows']]
+    require(rec['ok'], f'attn_reads: the chunked or full read is off B2: '
+            f'{errs} (limit {TOL_FLASH})')
+    for name in FAMILY_MODELS:
+        rec, model = phase19_serve(dev, name, peaks)
+        rec.update(card)
+        emit(rec)
+        runs = {a: (r['tokens_equal'], r['graph']['launches'],
+                    r['graph']['expected_launches'],
+                    r['graph']['xla_branch_calls'])
+                for a, r in rec['runs'].items()}
+        dvp, pvf = rec['decode_vs_prefill'], rec['packed_vs_fake_quant']
+        require(rec['ok'], f'family_serve {name}: the captured step\'s '
+                f'tokens differ from the eager step\'s, a request did not '
+                f'finish, the launches are off the path\'s ({runs}), the '
+                f'decode is off the prefill: {dvp["vs_prefill"]} (limit '
+                f'{dvp["tolerance_vs_prefill"]}), its planted fault '
+                f'{dvp["faults_vs_prefill"]}, launches {dvp["launches"]}, or '
+                f'the packed logits are '
+                f'{pvf["rel_logit_err_vs_fake_quant"]:.3g} off the '
+                f'fake-quant model\'s (limit {TOL_COMPRESS_SERVE})')
+        del model
+        _free(dev)
+        if name in FAMILY_COMPRESS:
+            for rec in phase19_compress(dev, name):
+                rec.update(card)
+                emit(rec)
+                require(rec['ok'], f'family_compress {name} {rec["method"]} '
+                        f'{rec["special"]}: a PPL is not finite, the '
+                        f'transformed PPL moved by '
+                        f'{rec["ppl_transformed_rel_drift"]:.3g} (limit '
+                        f'{rec["tolerance_ppl_transformed"]}), or the '
+                        f'searched block errs more than RTN: '
+                        f'{rec["block_output_mse"]}')
+    emit(dict(phase='phase19', wall_s=time.perf_counter() - t19, **card))
 
     require(min(launches.values()) > 0,
             f'a kernel of the main paths was never launched: {launches}')

@@ -8,7 +8,10 @@ byte is unsigned in the port.  A bits=8 ``qweight`` and the companion
 from ``ml_dtypes``, which ``torch.from_numpy`` refuses, go through int16
 and are viewed back as ``torch.bfloat16``; ``ml_dtypes`` float8 arrays
 (the codes of an FP8-block checkpoint) go through uint8 the same way.
-``params_to_numpy`` is the way back, for comparisons.
+``params_to_numpy`` is the way back, for comparisons.  Both map every
+leaf of any tree, so the generalized graph's extra trees (the norms'
+biases, q/k norms, Gemma2's sandwich norms, learned positions, Bloom's
+embedding LayerNorm) carry over as the Llama ones do.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ calibration data -> blockwise optimization -> evals -> save.  Entry points:
     run_pipeline(cfg_dict, device=None)
 
 ``device=None`` is the CUDA device, and raises without one; the CPU is
-taken only when asked for.  Ported: the quantization methods registered
+taken only when asked for.  Every model of ``MODEL_REGISTRY`` builds from
+``model.path`` or an inline ``model.arch``: Llama and the Llama-family and
+generalized-graph families (Qwen2, Qwen3, Gemma2, Bloom, ...) and the MoE
+families.  Ported: the quantization methods registered
 in ``ALGO_REGISTRY`` (RTN, Awq, SmoothQuant, GPTQ, Quarot, OsPlus,
 LlmInt8, HQQ, AdaDim, QUIK, SpQR, DGQ, and the gradient-trained
 NormTweaking, OmniQuant and TesseraQ; their options checked by

@@ -1,5 +1,6 @@
-"""Model adapters (port of ``llmc_tpu/models/adapter.py:54-286`` and
-``build_model``): the protocol the compression engine and the evals
+"""Model adapters (port of ``llmc_tpu/models/adapter.py``: the protocol,
+the Llama-family and generalized-graph families, the MoE / MLA families
+and ``build_model``): the protocol the compression engine and the evals
 consume.
 
 ``QMap`` maps linear paths to their static ``LinearQcfg``.  The adapter
@@ -10,6 +11,7 @@ so the converter stays a tree map).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -124,7 +126,9 @@ class BaseAdapter(torch.nn.Module):
 
 @MODEL_REGISTRY.register(name='Llama')
 class LlamaAdapter(BaseAdapter):
-    """Llama / Llama-2 / Llama-3 and GQA variants sharing the graph."""
+    """Llama / Llama-2 / Llama-3 and GQA variants sharing the graph; the
+    other families' adapters below subclass it with their config, their
+    checkpoint's renaming and their ``arch_defaults``."""
 
     name = 'Llama'
     config_cls = L.LlamaConfig
@@ -143,6 +147,22 @@ class LlamaAdapter(BaseAdapter):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return cls(cfg, L.init_params(cfg, gen, device=dev))
 
+    # a family's defaults under an inline ``model.arch`` (the reference's
+    # ``setdefault``s in its ``from_config``)
+    arch_defaults: Dict = {}
+
+    @classmethod
+    def config_from_hf(cls, hf: dict):
+        """The family's config from its checkpoint's ``config.json``."""
+        return cls.config_cls.from_hf(hf)
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf: dict):
+        """The checkpoint's tensors in the canonical Llama namespace
+        (``model.layers.i.{self_attn,mlp,*norm}``), fused projections
+        split; Llama's own names pass as they are."""
+        return flat
+
     @classmethod
     def from_pretrained(cls, path: str, dtype=torch.bfloat16,
                         stream: Optional[bool] = None, offload: bool = False,
@@ -150,25 +170,28 @@ class LlamaAdapter(BaseAdapter):
         """Load an HF checkpoint directory onto ``device`` (``None``: the
         CUDA device).  ``stream`` reads the tensors one at a time from the
         (possibly sharded) safetensors files (default: on for a sharded
-        checkpoint).  FP8-block weights are dequantized on load."""
+        checkpoint; a family that renames its tensors reads them all).
+        FP8-block weights are dequantized on load."""
         from .hf_loader import llama_params_from_hf, load_hf_config
         if offload:
             raise NotImplementedError(
                 'offload=True (block params kept on the host) is not ported '
                 'yet (ROADMAP A13)')
         hf = load_hf_config(path)
-        cfg = cls.config_cls.from_hf(hf)
+        cfg = cls.config_from_hf(hf)
         params = _load_params(
             path, dtype, stream, device,
-            lambda flat: llama_params_from_hf(flat, cfg.num_hidden_layers,
+            lambda flat: llama_params_from_hf(cls.rename_flat(flat, cfg, hf),
+                                              cfg.num_hidden_layers,
                                               cfg.tie_word_embeddings))
         return cls(cfg, params, _load_tokenizer(path), hf)
 
     @classmethod
     def from_config(cls, config, device=None):
         """Build from a framework config dict: ``model.path`` (an HF
-        checkpoint directory) or ``model.arch`` (an inline architecture,
-        random weights from ``model.seed``)."""
+        checkpoint directory) or ``model.arch`` (an inline architecture
+        over the family's ``arch_defaults``, random weights from
+        ``model.seed``)."""
         m = config['model']
         if m.get('path'):
             return cls.from_pretrained(
@@ -179,8 +202,9 @@ class LlamaAdapter(BaseAdapter):
             raise ValueError(
                 'model.path is missing/empty; set model.path to a checkpoint '
                 'or pass model.arch explicitly for a synthetic model')
-        return cls.random(cls.config_cls(**dict(m['arch'])),
-                          seed=int(m.get('seed', 0)), device=device)
+        arch = dict(cls.arch_defaults, **dict(m['arch']))
+        return cls.random(cls.config_cls(**arch), seed=int(m.get('seed', 0)),
+                          device=device)
 
     def get_layout(self) -> BlockLayout:
         return self._layout
@@ -188,6 +212,8 @@ class LlamaAdapter(BaseAdapter):
     def block_fn(self):
         cfg = self.cfg
 
+        # no sliding window here, as in the reference's block function:
+        # only model_apply windows Gemma2's even layers
         def fn(bp, x, kw, qmap=None, capture=False):
             return L.block_apply(bp, cfg, x, kw['cos'], kw['sin'],
                                  kw.get('attn_bias'), qmap=qmap,
@@ -198,8 +224,7 @@ class LlamaAdapter(BaseAdapter):
         return L.make_inspect_fns(self.cfg)
 
     def embed_and_rope_p(self, params, input_ids, attention_mask=None):
-        cfg = self.cfg
-        x = L.embed_apply(params, cfg, input_ids)
+        x = self.embed(params, input_ids)
         S = input_ids.shape[1]
         dev = input_ids.device
         if attention_mask is not None:
@@ -224,6 +249,10 @@ class LlamaAdapter(BaseAdapter):
             causal = torch.where(q_pos >= k_pos, zero, neg)
             kw['attn_bias'] = bias + causal[None, None]
         return x, kw
+
+    def embed(self, params, input_ids):
+        """Block 0's input: the config's token (and position) embedding."""
+        return L.embed_apply(params, self.cfg, input_ids)
 
     def rope_tables(self, positions):
         """The block kwargs' cos / sin tables at ``positions``."""
@@ -337,6 +366,9 @@ class DeepseekV2Adapter(_MoEFamilyAdapter):
     family = DS
     layout_of = staticmethod(DS.deepseek_layout)
 
+    def embed(self, params, input_ids):
+        return params['embed_tokens']['w'][input_ids]
+
     def rope_tables(self, positions):
         return DS.rope_freqs(self.cfg, positions)
 
@@ -352,6 +384,472 @@ class DeepseekV2Adapter(_MoEFamilyAdapter):
 @MODEL_REGISTRY.register(name='DeepseekV3')
 class DeepseekV3Adapter(DeepseekV2Adapter):
     name = 'DeepseekV3'
+
+
+# --------------------------------------------------------------------------
+# The Llama-family adapters and the generalized-graph families (reference
+# adapter.py:679-1230, 1880-1925).  Each renames its checkpoint into the
+# canonical namespace (``rename_flat``), splitting fused projections, and
+# rides the Llama loader and graph.
+# --------------------------------------------------------------------------
+
+@MODEL_REGISTRY.register(name='Mistral')
+class MistralAdapter(LlamaAdapter):
+    name = 'Mistral'
+
+
+@MODEL_REGISTRY.register(name='SmolLM')
+class SmolLMAdapter(LlamaAdapter):
+    name = 'SmolLM'
+
+
+@MODEL_REGISTRY.register(name='Qwen2')
+class Qwen2Adapter(LlamaAdapter):
+    """Qwen2 / Qwen2.5: the Llama block with q/k/v biases.  An inline arch
+    takes ``attention_bias``, whose random tree (as the reference's) also
+    has a zero ``o_proj`` bias."""
+
+    name = 'Qwen2'
+    arch_defaults = dict(attention_bias=True)
+
+
+@MODEL_REGISTRY.register(name='Qwen3')
+class Qwen3Adapter(LlamaAdapter):
+    """Qwen3: the Llama block with per-head q/k RMSNorm (``use_qk_norm``).
+    A checkpoint whose ``model_type`` is qwen3, or whose blocks hold
+    q/k-norm weights, runs them; the reference leaves ``use_qk_norm`` off
+    for a checkpoint and loads the weights unused (ROADMAP C)."""
+
+    name = 'Qwen3'
+    arch_defaults = dict(use_qk_norm=True)
+
+    @classmethod
+    def config_from_hf(cls, hf: dict):
+        cfg = super().config_from_hf(hf)
+        if hf.get('model_type') == 'qwen3':
+            cfg = dataclasses.replace(cfg, use_qk_norm=True)
+        return cfg
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, stream=None,
+                        offload: bool = False, device=None):
+        m = super().from_pretrained(path, dtype, stream, offload, device)
+        if 'q_norm' in m.blocks[0]['self_attn'] and not m.cfg.use_qk_norm:
+            m.cfg = dataclasses.replace(m.cfg, use_qk_norm=True)
+        return m
+
+
+@MODEL_REGISTRY.register(name='Phi3')
+class Phi3Adapter(LlamaAdapter):
+    """Phi-3: the Llama graph with fused ``qkv_proj`` / ``gate_up_proj``
+    checkpoints, split at load (q/k/v and gate/up share their input, so
+    the per-subset transforms stay valid)."""
+
+    name = 'Phi3'
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        out = {n: flat[n] for n in flat.keys()}
+        H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        inter = cfg.intermediate_size
+        for i in range(cfg.num_hidden_layers):
+            b = f'model.layers.{i}'
+            qkv = out.pop(f'{b}.self_attn.qkv_proj.weight')
+            out[f'{b}.self_attn.q_proj.weight'] = qkv[:H * hd]
+            out[f'{b}.self_attn.k_proj.weight'] = qkv[H * hd:(H + KVH) * hd]
+            out[f'{b}.self_attn.v_proj.weight'] = qkv[(H + KVH) * hd:]
+            gu = out.pop(f'{b}.mlp.gate_up_proj.weight')
+            out[f'{b}.mlp.gate_proj.weight'] = gu[:inter]
+            out[f'{b}.mlp.up_proj.weight'] = gu[inter:]
+        return out
+
+
+@MODEL_REGISTRY.register(name='Gemma2')
+class Gemma2Adapter(LlamaAdapter):
+    """Gemma2: sandwich norms, GeGLU-tanh, attention and final logit
+    softcaps, the query scale, sqrt(D)-scaled tied embeddings, a sliding
+    window on even layers.  HF's norms apply x * (1 + w): the +1 is folded
+    in at load, so the norms and ``scale_ln_fcs`` apply unchanged; the
+    head dim comes from ``config.json`` (256 where it names none)."""
+
+    name = 'Gemma2'
+    arch_defaults = dict(
+        act_fn='gelu_tanh', sandwich_norms=True, embed_scale=True,
+        tie_word_embeddings=True, attn_logit_softcap=50.0,
+        final_logit_softcap=30.0, query_pre_attn_scalar=256.0,
+        rope_theta=10000.0, rms_norm_eps=1e-6)
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        return dataclasses.replace(
+            L.LlamaConfig.from_hf(hf),
+            act_fn='gelu_tanh', sandwich_norms=True, embed_scale=True,
+            tie_word_embeddings=True,
+            attn_logit_softcap=hf.get('attn_logit_softcapping', 50.0),
+            final_logit_softcap=hf.get('final_logit_softcapping', 30.0),
+            query_pre_attn_scalar=hf.get('query_pre_attn_scalar', 256.0),
+            sliding_window=hf.get('sliding_window'),
+            head_dim=hf.get('head_dim', 256))
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        return {n: (flat[n] + 1.0 if 'norm' in n and n.endswith('.weight')
+                    else flat[n]) for n in flat.keys()}
+
+
+def _renamed(flat, pairs) -> Dict:
+    """Every tensor of ``flat`` under its name with each (old, new)
+    substring of ``pairs`` replaced, in order."""
+    out = {}
+    for name in flat.keys():
+        n = name
+        for old, new in pairs:
+            n = n.replace(old, new)
+        out[n] = flat[name]
+    return out
+
+
+def _put_qkv(out, b: str, part: str, q, k, v) -> None:
+    for proj, t in (('q_proj', q), ('k_proj', k), ('v_proj', v)):
+        out[f'{b}.self_attn.{proj}.{part}'] = t
+
+
+@MODEL_REGISTRY.register(name='StableLm')
+class StableLmAdapter(LlamaAdapter):
+    """StableLM(-2): Llama's names with LayerNorm (biased), partial rotary
+    and biased q/k/v."""
+
+    name = 'StableLm'
+    arch_defaults = dict(norm_type='ln', rotary_pct=0.25)
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        return dataclasses.replace(
+            L.LlamaConfig.from_hf(hf), norm_type='ln',
+            rms_norm_eps=hf.get('layer_norm_eps', 1e-5),
+            rotary_pct=hf.get('partial_rotary_factor', 0.25))
+
+
+_BLOOM_FALCON_NAMES = (
+    ('transformer.word_embeddings_layernorm', 'model.embed_layernorm'),
+    ('transformer.word_embeddings', 'model.embed_tokens'),
+    ('transformer.ln_f', 'model.norm'),
+    ('transformer.h.', 'model.layers.'),
+    ('.self_attention.dense', '.self_attn.o_proj'),
+    ('.mlp.dense_h_to_4h', '.mlp.up_proj'),
+    ('.mlp.dense_4h_to_h', '.mlp.down_proj'))
+
+
+@MODEL_REGISTRY.register(name='Falcon')
+class FalconAdapter(LlamaAdapter):
+    """Falcon: a fused ``query_key_value`` (MQA, grouped or per-head
+    layouts), the parallel attention + MLP residual, LayerNorm, a
+    non-gated GELU MLP, and ALiBi in place of rope (Falcon-RW, with the
+    scores' scale on the bias)."""
+
+    name = 'Falcon'
+    arch_defaults = dict(norm_type='ln', parallel_residual=True,
+                         shared_ln=True, gated_mlp=False, act_fn='gelu',
+                         num_key_value_heads=1, tie_word_embeddings=True)
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        H, D = hf['num_attention_heads'], hf['hidden_size']
+        new_arch = hf.get('new_decoder_architecture', False)
+        parallel = hf.get('parallel_attn', True)
+        alibi = hf.get('alibi', False)
+        kvh = ((hf.get('num_kv_heads') or H) if new_arch
+               else 1 if hf.get('multi_query', True) else H)
+        return L.LlamaConfig(
+            vocab_size=hf['vocab_size'], hidden_size=D,
+            intermediate_size=hf.get('ffn_hidden_size', 4 * D),
+            num_hidden_layers=hf['num_hidden_layers'],
+            num_attention_heads=H, num_key_value_heads=kvh, head_dim=D // H,
+            rms_norm_eps=hf.get('layer_norm_epsilon', 1e-5),
+            rope_theta=hf.get('rope_theta', 10000.0),
+            max_position_embeddings=hf.get('max_position_embeddings', 2048),
+            tie_word_embeddings=hf.get('tie_word_embeddings', True),
+            norm_type='ln', parallel_residual=parallel,
+            shared_ln=parallel and not new_arch, gated_mlp=False,
+            act_fn='gelu', use_alibi=alibi, alibi_scaled=True,
+            rotary_pct=0.0 if alibi else 1.0)
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        out = _renamed(flat, _BLOOM_FALCON_NAMES + (
+            ('.ln_attn', '.input_layernorm'),       # the 40B two-norm layout
+            ('.ln_mlp', '.post_attention_layernorm')))
+        H, KVH, hd, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                         cfg.head_dim, cfg.hidden_size)
+        new_arch = hf.get('new_decoder_architecture', False)
+        for i in range(cfg.num_hidden_layers):
+            b = f'model.layers.{i}'
+            for part in ('weight', 'bias'):
+                qkv = out.pop(f'{b}.self_attention.query_key_value.{part}',
+                              None)
+                if qkv is None:
+                    continue
+                tail = (D,) if part == 'weight' else ()
+                if new_arch:             # [KVH, H/KVH + 2, hd] row groups
+                    g = qkv.reshape((KVH, H // KVH + 2, hd) + tail)
+                    q = g[:, :-2].reshape((H * hd,) + tail)
+                    k = g[:, -2].reshape((KVH * hd,) + tail)
+                    v = g[:, -1].reshape((KVH * hd,) + tail)
+                elif hf.get('multi_query', True):   # [H*hd | hd | hd]
+                    q, k, v = (qkv[:H * hd], qkv[H * hd:H * hd + hd],
+                               qkv[H * hd + hd:])
+                else:                    # per-head interleaved [H, 3, hd]
+                    g = qkv.reshape((H, 3, hd) + tail)
+                    q, k, v = (g[:, j].reshape((H * hd,) + tail)
+                               for j in range(3))
+                _put_qkv(out, b, part, q, k, v)
+        return out
+
+
+@MODEL_REGISTRY.register(name='Phi')
+class PhiAdapter(LlamaAdapter):
+    """Phi-1.5 / 2: parallel attention + MLP off one LayerNorm, partial
+    rotary, a non-gated gelu_new MLP (fc1 / fc2) and a biased head."""
+
+    name = 'Phi'
+    arch_defaults = dict(norm_type='ln', parallel_residual=True,
+                         shared_ln=True, gated_mlp=False, act_fn='gelu_tanh',
+                         rotary_pct=0.5)
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        return dataclasses.replace(
+            L.LlamaConfig.from_hf(hf), norm_type='ln',
+            parallel_residual=True, shared_ln=True, gated_mlp=False,
+            act_fn='gelu_tanh', rms_norm_eps=hf.get('layer_norm_eps', 1e-5),
+            rotary_pct=hf.get('partial_rotary_factor', 0.5))
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        return _renamed(flat, (('.self_attn.dense', '.self_attn.o_proj'),
+                               ('.mlp.fc1', '.mlp.up_proj'),
+                               ('.mlp.fc2', '.mlp.down_proj'),
+                               ('model.final_layernorm', 'model.norm')))
+
+
+@MODEL_REGISTRY.register(name='Starcoder')
+class StarcoderAdapter(LlamaAdapter):
+    """Starcoder (gpt_bigcode): MQA with a fused ``c_attn``, learned
+    absolute positions (no rope), LayerNorm, a non-gated gelu-tanh MLP and
+    a tied head."""
+
+    name = 'Starcoder'
+    arch_defaults = dict(norm_type='ln', gated_mlp=False, act_fn='gelu_tanh',
+                         rotary_pct=0.0, learned_pos=True,
+                         num_key_value_heads=1, tie_word_embeddings=True)
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        H = hf.get('n_head', hf.get('num_attention_heads'))
+        D = hf.get('n_embd', hf.get('hidden_size'))
+        return L.LlamaConfig(
+            vocab_size=hf['vocab_size'], hidden_size=D,
+            intermediate_size=hf.get('n_inner') or 4 * D,
+            num_hidden_layers=hf.get('n_layer', hf.get('num_hidden_layers')),
+            num_attention_heads=H,
+            num_key_value_heads=1 if hf.get('multi_query', True) else H,
+            head_dim=D // H, rms_norm_eps=hf.get('layer_norm_epsilon', 1e-5),
+            max_position_embeddings=hf.get('n_positions', 8192),
+            tie_word_embeddings=True, norm_type='ln', gated_mlp=False,
+            act_fn='gelu_tanh', rotary_pct=0.0, learned_pos=True)
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        out = _renamed(flat, (
+            ('transformer.wte', 'model.embed_tokens'),
+            ('transformer.wpe', 'model.embed_positions'),
+            ('transformer.ln_f', 'model.norm'),
+            ('transformer.h.', 'model.layers.'),
+            ('.ln_1', '.input_layernorm'),
+            ('.ln_2', '.post_attention_layernorm'),
+            ('.attn.c_proj', '.self_attn.o_proj'),
+            ('.mlp.c_fc', '.mlp.up_proj'),
+            ('.mlp.c_proj', '.mlp.down_proj')))
+        qd, kd = (cfg.num_attention_heads * cfg.head_dim,
+                  cfg.num_key_value_heads * cfg.head_dim)
+        for i in range(cfg.num_hidden_layers):
+            b = f'model.layers.{i}'
+            for part in ('weight', 'bias'):
+                qkv = out.pop(f'{b}.attn.c_attn.{part}', None)
+                if qkv is not None:
+                    _put_qkv(out, b, part, qkv[:qd], qkv[qd:qd + kd],
+                             qkv[qd + kd:])
+        return out
+
+
+@MODEL_REGISTRY.register(name='Bloom')
+class BloomAdapter(LlamaAdapter):
+    """Bloom: ALiBi (no rope), LayerNorm with an embedding LayerNorm, a
+    per-head interleaved fused q/k/v, a non-gated gelu-tanh MLP and a tied
+    head."""
+
+    name = 'Bloom'
+    arch_defaults = dict(norm_type='ln', gated_mlp=False, act_fn='gelu_tanh',
+                         rotary_pct=0.0, use_alibi=True,
+                         tie_word_embeddings=True)
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        H = hf.get('n_head', hf.get('num_attention_heads'))
+        D = hf['hidden_size']
+        return L.LlamaConfig(
+            vocab_size=hf['vocab_size'], hidden_size=D,
+            intermediate_size=4 * D,
+            num_hidden_layers=hf.get('n_layer', hf.get('num_hidden_layers')),
+            num_attention_heads=H, num_key_value_heads=H, head_dim=D // H,
+            rms_norm_eps=hf.get('layer_norm_epsilon', 1e-5),
+            tie_word_embeddings=True, norm_type='ln', gated_mlp=False,
+            act_fn='gelu_tanh', rotary_pct=0.0, use_alibi=True)
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        out = _renamed(flat, _BLOOM_FALCON_NAMES)
+        H, hd = cfg.num_attention_heads, cfg.head_dim
+        for i in range(cfg.num_hidden_layers):
+            b = f'model.layers.{i}'
+            for part in ('weight', 'bias'):
+                qkv = out.pop(f'{b}.self_attention.query_key_value.{part}',
+                              None)
+                if qkv is None:
+                    continue
+                tail = qkv.shape[1:]
+                g = qkv.reshape((H, 3, hd) + tuple(tail))
+                _put_qkv(out, b, part, *(g[:, j].reshape((H * hd,) + tail)
+                                         for j in range(3)))
+        return out
+
+
+@MODEL_REGISTRY.register(name='InternLM2')
+class InternLM2Adapter(LlamaAdapter):
+    """InternLM2: the Llama graph under other names, with a grouped fused
+    ``wqkv`` ([KVH, rep + 2, hd] row groups)."""
+
+    name = 'InternLM2'
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        out = _renamed(flat, (
+            ('model.tok_embeddings', 'model.embed_tokens'),
+            ('.attention.wo', '.self_attn.o_proj'),
+            ('.feed_forward.w1', '.mlp.gate_proj'),
+            ('.feed_forward.w3', '.mlp.up_proj'),
+            ('.feed_forward.w2', '.mlp.down_proj'),
+            ('.attention_norm', '.input_layernorm'),
+            ('.ffn_norm', '.post_attention_layernorm')))
+        if 'output.weight' in out:
+            out['lm_head.weight'] = out.pop('output.weight')
+        H, KVH, hd, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                         cfg.head_dim, cfg.hidden_size)
+        rep = H // KVH
+        for i in range(cfg.num_hidden_layers):
+            b = f'model.layers.{i}'
+            g = out.pop(f'{b}.attention.wqkv.weight').reshape(
+                KVH, rep + 2, hd, D)
+            _put_qkv(out, b, 'weight', g[:, :rep].reshape(H * hd, D),
+                     g[:, rep].reshape(KVH * hd, D),
+                     g[:, rep + 1].reshape(KVH * hd, D))
+        return out
+
+
+@MODEL_REGISTRY.register(name='Glm')
+@MODEL_REGISTRY.register(name='ChatGLM')
+class GlmAdapter(LlamaAdapter):
+    """GLM-4 / ChatGLM: the Llama graph with interleaved partial rotary
+    (adjacent pairs share a frequency), biased q/k/v and a fused
+    ``gate_up_proj`` split at load."""
+
+    name = 'Glm'
+    arch_defaults = dict(rotary_pct=0.5, rope_interleaved=True,
+                         attention_bias=True)
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        return dataclasses.replace(
+            L.LlamaConfig.from_hf(hf),
+            rotary_pct=hf.get('partial_rotary_factor', 0.5),
+            rope_interleaved=True)
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        out = {n: flat[n] for n in flat.keys()}
+        inter = cfg.intermediate_size
+        for i in range(cfg.num_hidden_layers):
+            b = f'model.layers.{i}'
+            for part in ('weight', 'bias'):
+                gu = out.pop(f'{b}.mlp.gate_up_proj.{part}', None)
+                if gu is not None:
+                    out[f'{b}.mlp.gate_proj.{part}'] = gu[:inter]
+                    out[f'{b}.mlp.up_proj.{part}'] = gu[inter:]
+        return out
+
+
+@MODEL_REGISTRY.register(name='MiniCPM')
+class MiniCPMAdapter(LlamaAdapter):
+    """MiniCPM: the Llama graph with depth and width scaling (``scale_emb``,
+    ``scale_depth`` / sqrt(L) on the residuals, hidden / dim_model_base as
+    the logit divisor)."""
+
+    name = 'MiniCPM'
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        return dataclasses.replace(
+            L.LlamaConfig.from_hf(hf),
+            embed_multiplier=hf.get('scale_emb', 1.0),
+            residual_multiplier=(hf.get('scale_depth', 1.0)
+                                 / hf['num_hidden_layers'] ** 0.5),
+            logit_divisor=(hf['hidden_size']
+                           / hf.get('dim_model_base', hf['hidden_size'])))
+
+
+@MODEL_REGISTRY.register(name='Qwen')
+class QwenAdapter(LlamaAdapter):
+    """Qwen (v1, QWenLMHeadModel): the Llama graph under ``transformer.h``
+    names, with a fused biased ``c_attn`` split into q/k/v at load and the
+    swapped-gate MLP ``c_proj(w1(x) * silu(w2(x)))`` (w2 is the gate).
+    HF's ``intermediate_size`` counts w1 and w2: the MLP is half of it."""
+
+    name = 'Qwen'
+
+    @classmethod
+    def config_from_hf(cls, hf):
+        heads = hf['num_attention_heads']
+        return L.LlamaConfig(
+            vocab_size=hf['vocab_size'], hidden_size=hf['hidden_size'],
+            intermediate_size=hf['intermediate_size'] // 2,
+            num_hidden_layers=hf['num_hidden_layers'],
+            num_attention_heads=heads, num_key_value_heads=heads,
+            head_dim=hf['hidden_size'] // heads,
+            rms_norm_eps=hf.get('layer_norm_epsilon', 1e-6),
+            rope_theta=hf.get('rotary_emb_base', 10000.0),
+            max_position_embeddings=hf.get('seq_length', 8192),
+            attention_bias=True)
+
+    @classmethod
+    def rename_flat(cls, flat, cfg, hf):
+        out = _renamed(flat, (
+            ('transformer.wte', 'model.embed_tokens'),
+            ('transformer.h.', 'model.layers.'),
+            ('.ln_1', '.input_layernorm'),
+            ('.ln_2', '.post_attention_layernorm'),
+            ('.attn.c_proj', '.self_attn.o_proj'),
+            ('.mlp.w2', '.mlp.gate_proj'),
+            ('.mlp.w1', '.mlp.up_proj'),
+            ('.mlp.c_proj', '.mlp.down_proj'),
+            ('transformer.ln_f', 'model.norm')))
+        for i in range(cfg.num_hidden_layers):
+            b = f'model.layers.{i}'
+            for part in ('weight', 'bias'):
+                ca = out.pop(f'{b}.attn.c_attn.{part}', None)
+                if ca is not None:
+                    _put_qkv(out, b, part, *torch.chunk(ca, 3, dim=0))
+        return out
 
 
 def _load_params(path: str, dtype, stream: Optional[bool], device, build):

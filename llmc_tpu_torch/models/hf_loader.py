@@ -144,32 +144,49 @@ def hf_attention(flat, b: str) -> Dict:
 
 
 def llama_params_from_hf(flat, num_layers: int, tie_embeddings: bool) -> Dict:
-    """Map HF Llama names onto the params tree."""
+    """Map HF Llama names (the canonical namespace every family's adapter
+    renames its checkpoint into) onto the params tree: the norms' biases
+    (LayerNorm families), the gate where the MLP has one, the
+    post-attention norm where the block has one, Gemma2's sandwich norms,
+    Qwen3's q/k norms, learned position embeddings (Starcoder) and Bloom's
+    embedding LayerNorm."""
     def lin(prefix: str) -> Dict:
         return hf_linear(flat, prefix)
 
     def ln(prefix: str) -> Dict:
-        return {'w': flat[f'{prefix}.weight']}
+        p = {'w': flat[f'{prefix}.weight']}
+        b = flat.get(f'{prefix}.bias')
+        if b is not None:
+            p['b'] = b
+        return p
 
     blocks = []
     for i in range(num_layers):
         b = f'model.layers.{i}'
-        blocks.append({
-            'input_layernorm': ln(f'{b}.input_layernorm'),
-            'self_attn': hf_attention(flat, b),
-            'mlp': {
-                'up_proj': lin(f'{b}.mlp.up_proj'),
-                'down_proj': lin(f'{b}.mlp.down_proj'),
-                'gate_proj': lin(f'{b}.mlp.gate_proj'),
-            },
-            'post_attention_layernorm': ln(
-                f'{b}.post_attention_layernorm'),
-        })
+        blk = {'input_layernorm': ln(f'{b}.input_layernorm'),
+               'self_attn': hf_attention(flat, b),
+               'mlp': {'up_proj': lin(f'{b}.mlp.up_proj'),
+                       'down_proj': lin(f'{b}.mlp.down_proj')}}
+        if f'{b}.mlp.gate_proj.weight' in flat:
+            blk['mlp']['gate_proj'] = lin(f'{b}.mlp.gate_proj')
+        for norm in ('post_attention_layernorm', 'pre_feedforward_layernorm',
+                     'post_feedforward_layernorm'):
+            if f'{b}.{norm}.weight' in flat:
+                blk[norm] = ln(f'{b}.{norm}')
+        if f'{b}.self_attn.q_norm.weight' in flat:
+            for norm in ('q_norm', 'k_norm'):
+                blk['self_attn'][norm] = {
+                    'w': flat[f'{b}.self_attn.{norm}.weight']}
+        blocks.append(blk)
     params = {
         'embed_tokens': {'w': flat['model.embed_tokens.weight']},
         'blocks': blocks,
         'norm': ln('model.norm'),
     }
+    if 'model.embed_positions.weight' in flat:
+        params['embed_positions'] = {'w': flat['model.embed_positions.weight']}
+    if 'model.embed_layernorm.weight' in flat:
+        params['embed_layernorm'] = ln('model.embed_layernorm')
     if not tie_embeddings:
         lm = flat.get('lm_head.weight')
         if lm is None:  # some checkpoints tie without the flag
@@ -182,8 +199,11 @@ def llama_params_from_hf(flat, num_layers: int, tie_embeddings: bool) -> Dict:
 
 def save_llama_params_to_hf(params: Dict, path: str,
                             hf_config: Optional[dict] = None) -> None:
-    """Write params back out as an HF-style safetensors checkpoint (the
-    ``save_trans`` / ``save_fake`` output)."""
+    """Write params back out as an HF-style safetensors checkpoint in the
+    canonical namespace (the ``save_trans`` / ``save_fake`` output), with
+    every norm's bias, the sandwich and q/k norms, the learned positions
+    and the embedding LayerNorm where the tree holds them; the block
+    entries it lacks (a gate, a post-attention norm) are left out."""
     from safetensors.torch import save_file
     os.makedirs(path, exist_ok=True)
     flat = {}
@@ -192,21 +212,30 @@ def save_llama_params_to_hf(params: Dict, path: str,
         if t is not None:
             flat[name] = t.detach().to('cpu').contiguous()
 
-    put('model.embed_tokens.weight', params['embed_tokens']['w'])
-    put('model.norm.weight', params['norm']['w'])
+    def put_tree(prefix, p):
+        put(f'{prefix}.weight', p['w'])
+        put(f'{prefix}.bias', p.get('b'))
+
+    put_tree('model.embed_tokens', params['embed_tokens'])
+    put_tree('model.norm', params['norm'])
+    for name in ('embed_positions', 'embed_layernorm'):
+        if name in params:
+            put_tree(f'model.{name}', params[name])
     if 'lm_head' in params:
-        put('lm_head.weight', params['lm_head']['w'])
+        put_tree('lm_head', params['lm_head'])
     for i, blk in enumerate(params['blocks']):
         b = f'model.layers.{i}'
-        put(f'{b}.input_layernorm.weight', blk['input_layernorm']['w'])
-        put(f'{b}.post_attention_layernorm.weight',
-            blk['post_attention_layernorm']['w'])
-        for proj in ('q_proj', 'k_proj', 'v_proj', 'o_proj'):
-            put(f'{b}.self_attn.{proj}.weight', blk['self_attn'][proj]['w'])
-            put(f'{b}.self_attn.{proj}.bias', blk['self_attn'][proj].get('b'))
-        for proj in ('gate_proj', 'up_proj', 'down_proj'):
-            put(f'{b}.mlp.{proj}.weight', blk['mlp'][proj]['w'])
-            put(f'{b}.mlp.{proj}.bias', blk['mlp'][proj].get('b'))
+        for norm in ('input_layernorm', 'post_attention_layernorm',
+                     'pre_feedforward_layernorm',
+                     'post_feedforward_layernorm'):
+            if norm in blk:
+                put_tree(f'{b}.{norm}', blk[norm])
+        for part, names in (('self_attn', ('q_proj', 'k_proj', 'v_proj',
+                                           'o_proj', 'q_norm', 'k_norm')),
+                            ('mlp', ('gate_proj', 'up_proj', 'down_proj'))):
+            for name in names:
+                if name in blk[part]:
+                    put_tree(f'{b}.{part}.{name}', blk[part][name])
     save_file(flat, os.path.join(path, 'model.safetensors'))
     if hf_config is not None:
         with open(os.path.join(path, 'config.json'), 'w') as f:

@@ -1,10 +1,16 @@
-"""Functional Llama model (port of ``llmc_tpu/models/llama.py``).
+"""Functional Llama-family model on the generalized block graph (port of
+``llmc_tpu/models/llama.py``).
 
 ``LlamaConfig`` keeps every field of the reference (so ``from_hf`` and
-hashing agree); the port runs the Llama graph — RMSNorm, full rotary
-(with 'linear' / 'llama3' scaling), GQA, gated MLP — and raises
-``NotImplementedError`` for the generalized-graph options it has not
-ported (``check_ported``).
+hashing agree).  The one block graph runs Llama, Mistral, Qwen2/3, Phi3
+and SmolLM, and through its options Gemma2 (sandwich norms, softcaps, the
+query scale, even-layer sliding window, sqrt(D) embedding scale),
+MiniCPM (its three multipliers), StableLm / Phi / GLM (partial and
+interleaved rope), Falcon / Phi (parallel residual, shared LayerNorm),
+Starcoder (learned positions) and Bloom / Falcon-RW (ALiBi), with
+LayerNorm and non-gated MLPs.  InternViT's ``layer_scale`` /
+``qk_norm_full`` and OPT's ``learned_pos_offset`` raise
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .base import (BlockLayout, LinearQcfg, SubsetSpec, attn_act_fq,
-                   linear_apply, matmul_f32_acc, rms_norm)
+                   layer_norm, linear_apply, matmul_f32_acc, rms_norm)
 
 F32 = torch.float32
 
@@ -111,40 +117,56 @@ def _norm_dtype(s) -> str:
     return s
 
 
-# graph options of LlamaConfig the port has not ported: name -> default
-_GRAPH_DEFAULTS = {
-    'use_qk_norm': False, 'sandwich_norms': False,
-    'attn_logit_softcap': None, 'final_logit_softcap': None,
-    'query_pre_attn_scalar': None, 'sliding_window': None,
-    'embed_scale': False, 'embed_multiplier': None,
-    'residual_multiplier': None, 'logit_divisor': None, 'norm_type': 'rms',
-    'rotary_pct': 1.0, 'rope_interleaved': False,
-    'parallel_residual': False, 'shared_ln': False, 'layer_scale': False,
-    'qk_norm_full': False, 'gated_mlp': True, 'use_alibi': False,
-    'alibi_scaled': False, 'learned_pos': False,
+# options of LlamaConfig the port does not run: name -> (default, owner).
+# They belong to models outside the Llama-family graph: InternViT (the VLM
+# tier) and OPT
+_UNPORTED = {
+    'layer_scale': (False, 'InternViT\'s per-channel layer scale (the VLM '
+                           'tier)'),
+    'qk_norm_full': (False, 'InternViT\'s qk-norm over the full embed dim '
+                            '(the VLM tier)'),
+    'learned_pos_offset': (0, 'OPT\'s learned positions at +2 (the OPT '
+                              'adapter)'),
 }
 
 
 def check_ported(cfg: LlamaConfig) -> None:
-    """Raise for a generalized-graph option the port does not run yet
-    (the other model families, ROADMAP A13)."""
-    for name, default in _GRAPH_DEFAULTS.items():
+    """Raise for an option the port does not run (ROADMAP A13: the VLM
+    tier's InternViT and OPT)."""
+    for name, (default, owner) in _UNPORTED.items():
         v = getattr(cfg, name)
         if v != default:
             raise NotImplementedError(
                 f'LlamaConfig.{name}={v!r} is not ported yet (ROADMAP A13: '
-                f'the generalized block graph of the other families)')
+                f'{owner})')
+
+
+def norm_apply(cfg: LlamaConfig, x: torch.Tensor, p: Dict) -> torch.Tensor:
+    """The block's norm: RMSNorm, or LayerNorm (with its bias where the
+    params hold one) under ``norm_type='ln'``."""
+    if cfg.norm_type == 'ln':
+        return layer_norm(x, p['w'], p.get('b'), cfg.rms_norm_eps)
+    return rms_norm(x, p['w'], cfg.rms_norm_eps)
 
 
 # --------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings and ALiBi
 # --------------------------------------------------------------------------
+
+def _rotary_dim(cfg: LlamaConfig) -> int:
+    rd = int(cfg.head_dim * cfg.rotary_pct)
+    return rd - rd % 2
+
 
 def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables for given positions, float32, [..., head_dim]."""
-    rd = cfg.head_dim - cfg.head_dim % 2
+    """cos/sin tables for given positions, float32, [..., rotary_dim]
+    (= head_dim unless ``rotary_pct`` < 1; empty when it is 0)."""
+    rd = _rotary_dim(cfg)
     dev = positions.device
+    if rd == 0:
+        z = torch.zeros(positions.shape + (0,), dtype=F32, device=dev)
+        return z, z
     inv_freq = 1.0 / (cfg.rope_theta ** (
         torch.arange(0, rd, 2, dtype=F32, device=dev) / rd))
     if cfg.rope_scaling_type == 'linear':
@@ -169,18 +191,82 @@ def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor
 
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """HF rotate-half rope.  q,k: [B,S,H,hd]; cos/sin: [B?,S,hd]."""
-    def rot(x):
-        x1, x2 = torch.chunk(x, 2, dim=-1)
-        return torch.cat([-x2, x1], dim=-1)
+               sin: torch.Tensor, interleaved: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF rotate-half rope.  q,k: [B,S,H,hd]; cos/sin: [B?,S,rd].  Where
+    rd < hd (partial rotary: StableLm, Phi, GLM) only the first rd
+    channels rotate and the tail passes through; ``interleaved`` (GLM)
+    rotates adjacent channel pairs instead of halves."""
+    if interleaved:
+        def rot(x):
+            x1, x2 = x[..., 0::2], x[..., 1::2]
+            return torch.stack([-x2, x1], dim=-1).reshape(x.shape)
+    else:
+        def rot(x):
+            x1, x2 = torch.chunk(x, 2, dim=-1)
+            return torch.cat([-x2, x1], dim=-1)
 
     while cos.ndim < q.ndim:
         cos, sin = cos[..., None, :], sin[..., None, :]
-    qf, kf = q.to(F32), k.to(F32)
+    rd, hd = cos.shape[-1], q.shape[-1]
+    qf, kf = q[..., :rd].to(F32), k[..., :rd].to(F32)
     q_out = (qf * cos + rot(qf) * sin).to(q.dtype)
     k_out = (kf * cos + rot(kf) * sin).to(k.dtype)
+    if rd < hd:
+        q_out = torch.cat([q_out, q[..., rd:]], dim=-1)
+        k_out = torch.cat([k_out, k[..., rd:]], dim=-1)
     return q_out, k_out
+
+
+def rope_qk(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
+            cos: torch.Tensor, sin: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The config's rope on q and k (none where ``rotary_pct`` is 0).
+    GLM's interleaved rope takes the first rd/2 frequencies, each on an
+    adjacent channel pair."""
+    if _rotary_dim(cfg) == 0:
+        return q, k
+    if cfg.rope_interleaved:
+        rd = cos.shape[-1]
+        cos = torch.repeat_interleave(cos[..., :rd // 2], 2, dim=-1)
+        sin = torch.repeat_interleave(sin[..., :rd // 2], 2, dim=-1)
+    return apply_rope(q, k, cos, sin, interleaved=cfg.rope_interleaved)
+
+
+_SLOPES: Dict = {}
+
+
+def _alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """Bloom-style ALiBi head slopes (geometric; a head count that is no
+    power of two gets the interleaved extension), float32.  Kept per
+    (heads, device): made once, outside any CUDA graph capture."""
+    key = (n_heads, str(device))
+    if key not in _SLOPES:
+        p = 2 ** math.floor(math.log2(n_heads))
+        base = [2.0 ** (-(2.0 ** -(math.log2(p) - 3)) * (i + 1))
+                for i in range(p)]
+        if p < n_heads:
+            base += [2.0 ** (-(2.0 ** -(math.log2(2 * p) - 3)) * (i + 1))
+                     for i in range(0, 2 * (n_heads - p), 2)]
+        _SLOPES[key] = torch.tensor(base, dtype=F32, device=device)
+    return _SLOPES[key]
+
+
+def attn_scale(cfg: LlamaConfig) -> float:
+    """The scores' scale: 1/sqrt(query_pre_attn_scalar) (Gemma2), else
+    1/sqrt(head_dim)."""
+    qs = cfg.query_pre_attn_scalar
+    return 1.0 / ((qs if qs else cfg.head_dim) ** 0.5)
+
+
+def alibi_bias(cfg: LlamaConfig, n_kv: int, device) -> torch.Tensor:
+    """[H, 1, n_kv] per-head linear bias in key position (the row-constant
+    query term cancels in the softmax, as in HF Bloom's alibi tensor);
+    Falcon's ``alibi_scaled`` scales it by the scores' scale too."""
+    slopes = _alibi_slopes(cfg.num_attention_heads, device) * (
+        attn_scale(cfg) if cfg.alibi_scaled else 1.0)
+    return slopes[:, None, None] * torch.arange(n_kv, dtype=F32,
+                                                device=device)[None, None]
 
 
 # --------------------------------------------------------------------------
@@ -196,8 +282,11 @@ def _qc(qmap, path: str) -> Optional[LinearQcfg]:
 def attention_apply(p: Dict, cfg: LlamaConfig, x: torch.Tensor,
                     cos: torch.Tensor, sin: torch.Tensor,
                     attn_bias: Optional[torch.Tensor], qmap=None,
-                    prefix: str = 'self_attn'):
-    """Full causal attention for one block.  Returns (out, o_in)."""
+                    prefix: str = 'self_attn', window: Optional[int] = None):
+    """Full attention for one block.  Returns (out, o_in).  Scores get
+    the config's query scale, logit softcap and ALiBi, then ``attn_bias``
+    (additive, in place of the causal mask) or the causal mask, within
+    ``window`` positions where one is given."""
     B, S, D = x.shape
     H, KVH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     q = linear_apply(p['q_proj'], x, _qc(qmap, f'{prefix}.q_proj'))
@@ -206,23 +295,34 @@ def attention_apply(p: Dict, cfg: LlamaConfig, x: torch.Tensor,
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KVH, hd)
     v = v.reshape(B, S, KVH, hd)
-    q, k = apply_rope(q, k, cos, sin)
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p['q_norm']['w'], cfg.rms_norm_eps)
+        k = rms_norm(k, p['k_norm']['w'], cfg.rms_norm_eps)
+    q, k = rope_qk(cfg, q, k, cos, sin)
     if KVH != H:
         rep = H // KVH
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     q = attn_act_fq(qmap, f'{prefix}.matmul_1', q)
     k = attn_act_fq(qmap, f'{prefix}.matmul_1', k)
-    scale = 1.0 / (hd ** 0.5)
-    scores = torch.einsum('bqhd,bkhd->bhqk', q.to(F32), k.to(F32)) * scale
+    scores = torch.einsum('bqhd,bkhd->bhqk', q.to(F32),
+                          k.to(F32)) * attn_scale(cfg)
     scores = attn_act_fq(qmap, f'{prefix}.softmax', scores)
+    cap = cfg.attn_logit_softcap
+    if cap:
+        scores = cap * torch.tanh(scores / cap)
     Skv = k.shape[1]
+    if cfg.use_alibi:
+        scores = scores + alibi_bias(cfg, Skv, x.device)
     if attn_bias is not None:
         scores = scores + attn_bias.to(F32)
     else:
         q_pos = torch.arange(S, device=x.device)[:, None] + (Skv - S)
         k_pos = torch.arange(Skv, device=x.device)[None, :]
-        scores = scores.masked_fill(~(q_pos >= k_pos), float('-inf'))
+        keep = q_pos >= k_pos
+        if window is not None:
+            keep = keep & (q_pos - k_pos < window)
+        scores = scores.masked_fill(~keep, float('-inf'))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     probs = attn_act_fq(qmap, f'{prefix}.matmul_2', probs)
     v = attn_act_fq(qmap, f'{prefix}.matmul_2', v)
@@ -247,11 +347,17 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
 
 def mlp_apply(p: Dict, x: torch.Tensor, qmap=None, prefix: str = 'mlp',
               act: str = 'silu'):
-    """Gated MLP.  Returns (out, down_in)."""
+    """Gated MLP (SwiGLU / GeGLU-tanh), or up -> act -> down where the
+    params hold no gate (Starcoder, Phi, Falcon, Bloom).  Returns (out,
+    down_in)."""
     u = linear_apply(p['up_proj'], x, _qc(qmap, f'{prefix}.up_proj'))
-    g = linear_apply(p['gate_proj'], x, _qc(qmap, f'{prefix}.gate_proj'))
-    g = attn_act_fq(qmap, f'{prefix}.act_fn', g)
-    down_in = _act(g.to(F32), act).to(x.dtype) * u
+    if 'gate_proj' in p:
+        g = linear_apply(p['gate_proj'], x, _qc(qmap, f'{prefix}.gate_proj'))
+        g = attn_act_fq(qmap, f'{prefix}.act_fn', g)
+        down_in = _act(g.to(F32), act).to(x.dtype) * u
+    else:
+        u = attn_act_fq(qmap, f'{prefix}.act_fn', u)
+        down_in = _act(u.to(F32), act).to(x.dtype)
     out = linear_apply(p['down_proj'], down_in,
                        _qc(qmap, f'{prefix}.down_proj'))
     return out, down_in
@@ -264,39 +370,82 @@ def mlp_apply(p: Dict, x: torch.Tensor, qmap=None, prefix: str = 'mlp',
 def block_apply(bp: Dict, cfg: LlamaConfig, x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None, qmap=None,
-                capture: bool = False):
+                capture: bool = False, window: Optional[int] = None):
     """One decoder block.  Returns (y, captures); captures is {} unless
-    ``capture`` (keys qkv_in, o_in, mlp_in, down_in)."""
+    ``capture`` (keys qkv_in, o_in, mlp_in, down_in).  ``parallel_residual``
+    (Falcon, Phi): y = x + attn(h) + mlp(h'), h' the attention's norm
+    under ``shared_ln``; ``sandwich_norms`` (Gemma2): each sublayer's
+    output is normed before its residual add; ``residual_multiplier``
+    (MiniCPM) scales both sublayers' outputs."""
     caps = {}
-    eps = cfg.rms_norm_eps
-    h = rms_norm(x, bp['input_layernorm']['w'], eps)
+    rm = cfg.residual_multiplier or 1.0
+    h = norm_apply(cfg, x, bp['input_layernorm'])
     if capture:
         caps['qkv_in'] = h
     attn_out, o_in = attention_apply(bp['self_attn'], cfg, h, cos, sin,
-                                     attn_bias, qmap)
+                                     attn_bias, qmap, window=window)
     if capture:
         caps['o_in'] = o_in
-    x = x + attn_out
-    h = rms_norm(x, bp['post_attention_layernorm']['w'], eps)
+    if cfg.parallel_residual:
+        h2 = h if cfg.shared_ln else norm_apply(
+            cfg, x, bp['post_attention_layernorm'])
+        if capture:
+            caps['mlp_in'] = h2
+        mlp_out, down_in = mlp_apply(bp['mlp'], h2, qmap, act=cfg.act_fn)
+        if capture:
+            caps['down_in'] = down_in
+        return x + attn_out + mlp_out, caps
+    if cfg.sandwich_norms:
+        x = x + norm_apply(cfg, attn_out, bp['post_attention_layernorm'])
+        h = norm_apply(cfg, x, bp['pre_feedforward_layernorm'])
+    else:
+        x = x + attn_out * rm
+        h = norm_apply(cfg, x, bp['post_attention_layernorm'])
     if capture:
         caps['mlp_in'] = h
     mlp_out, down_in = mlp_apply(bp['mlp'], h, qmap, act=cfg.act_fn)
     if capture:
         caps['down_in'] = down_in
-    return x + mlp_out, caps
+    if cfg.sandwich_norms:
+        mlp_out = norm_apply(cfg, mlp_out, bp['post_feedforward_layernorm'])
+    return x + mlp_out * rm, caps
 
 
-def embed_apply(params: Dict, cfg: LlamaConfig,
-                input_ids: torch.Tensor) -> torch.Tensor:
-    return params['embed_tokens']['w'][input_ids]
+def embed_apply(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embedding, scaled by sqrt(D) (Gemma) and by
+    ``embed_multiplier`` (MiniCPM), plus learned absolute positions
+    (Starcoder; ``positions`` default 0..S-1, clamped to the table as a
+    JAX gather clamps its indices), then Bloom's embedding LayerNorm."""
+    e = params['embed_tokens']['w'][input_ids]
+    if cfg.embed_scale:
+        e = (e.to(F32) * cfg.hidden_size ** 0.5).to(e.dtype)
+    if cfg.embed_multiplier:
+        e = (e.to(F32) * cfg.embed_multiplier).to(e.dtype)
+    if cfg.learned_pos:
+        table = params['embed_positions']['w']
+        if positions is None:
+            positions = torch.arange(input_ids.shape[1],
+                                     device=input_ids.device)[None, :]
+        e = e + table[torch.clamp(positions + cfg.learned_pos_offset, 0,
+                                  table.shape[0] - 1)]
+    if 'embed_layernorm' in params:
+        p = params['embed_layernorm']
+        e = layer_norm(e, p['w'], p.get('b'), cfg.rms_norm_eps)
+    return e
 
 
 def head_apply(params: Dict, cfg: LlamaConfig, x: torch.Tensor,
                qmap=None) -> torch.Tensor:
-    """Final norm + lm_head -> float32 logits.  A packed head goes through
-    the weight-only dequant-matmul of its bits with an f32 output."""
-    h = rms_norm(x, params['norm']['w'], cfg.rms_norm_eps)
-    head = params.get('lm_head') if not cfg.tie_word_embeddings else None
+    """Final norm + lm_head -> float32 logits, with MiniCPM's logit
+    divisor and the final softcap (Gemma2).  A packed head goes through
+    the weight-only dequant-matmul of its bits with an f32 output; a tied
+    model's head is packed as a copy of the embedding
+    (``serve.packed.pack_head``), which the token lookup keeps reading."""
+    h = norm_apply(cfg, x, params['norm'])
+    if cfg.logit_divisor:
+        h = (h.to(F32) / cfg.logit_divisor).to(h.dtype)
+    head = params.get('lm_head')
     if head is not None and 'qweight' in head:
         from ..ops.dequant_matmul import dequant_matmul
         qc = qmap.get('lm_head') if qmap is not None else None
@@ -305,15 +454,25 @@ def head_apply(params: Dict, cfg: LlamaConfig, x: torch.Tensor,
         logits = dequant_matmul(h.to(cfg.tdtype), head['qweight'],
                                 head['scales'], head.get('zeros'),
                                 qc.qmeta, out_dtype=F32)
-        if head.get('b') is not None:
-            logits = logits + head['b'].to(F32)
-        return logits
-    w = (params['embed_tokens']['w'] if cfg.tie_word_embeddings
-         else params['lm_head']['w'])
-    logits = matmul_f32_acc(h, w)
-    if not cfg.tie_word_embeddings and params['lm_head'].get('b') is not None:
-        logits = logits + params['lm_head']['b'].to(F32)
+    else:
+        w = (params['embed_tokens']['w'] if cfg.tie_word_embeddings
+             else head['w'])
+        logits = matmul_f32_acc(h, w)
+        if cfg.tie_word_embeddings:
+            head = None
+    if head is not None and head.get('b') is not None:
+        logits = logits + head['b'].to(F32)
+    cap = cfg.final_logit_softcap
+    if cap:
+        logits = cap * torch.tanh(logits / cap)
     return logits
+
+
+def layer_window(cfg: LlamaConfig, layer: int) -> Optional[int]:
+    """The sliding window of block ``layer``: Gemma2's even layers (HF's
+    convention), else none."""
+    return (cfg.sliding_window if cfg.sliding_window and layer % 2 == 0
+            else None)
 
 
 def model_apply(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
@@ -324,8 +483,9 @@ def model_apply(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
     B, S = input_ids.shape
     x = embed_apply(params, cfg, input_ids)
     cos, sin = rope_cos_sin(cfg, torch.arange(S, device=x.device)[None, :])
-    for bp in params['blocks']:
-        x, _ = block_apply(bp, cfg, x, cos, sin, attn_bias, qmap)
+    for i, bp in enumerate(params['blocks']):
+        x, _ = block_apply(bp, cfg, x, cos, sin, attn_bias, qmap,
+                           window=layer_window(cfg, i))
     return head_apply(params, cfg, x)
 
 
@@ -335,7 +495,15 @@ def model_apply(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
 
 def llama_layout(cfg: LlamaConfig) -> BlockLayout:
     gqa = cfg.num_key_value_heads != cfg.num_attention_heads
-    mlp_layers = ('mlp.gate_proj', 'mlp.up_proj')
+    # Gemma2's gate/up read the pre-ffn norm (its post-attention norm is
+    # an output norm, no scaling prev_op); a shared-LN parallel block's
+    # MLP reads the attention's norm
+    ffn_ln = ('pre_feedforward_layernorm' if cfg.sandwich_norms
+              else 'input_layernorm'
+              if cfg.parallel_residual and cfg.shared_ln
+              else 'post_attention_layernorm')
+    mlp_layers = (('mlp.gate_proj', 'mlp.up_proj') if cfg.gated_mlp
+                  else ('mlp.up_proj',))
     subsets = (
         SubsetSpec(name='qkv', layers=('self_attn.q_proj', 'self_attn.k_proj',
                                        'self_attn.v_proj'),
@@ -345,7 +513,7 @@ def llama_layout(cfg: LlamaConfig) -> BlockLayout:
                    prev_op='self_attn.v_proj', prev_kind='fc',
                    input_key='o_in', inspect='o_proj', is_gqa=gqa),
         SubsetSpec(name='gate_up', layers=mlp_layers,
-                   prev_op='post_attention_layernorm', prev_kind='ln',
+                   prev_op=ffn_ln, prev_kind='ln',
                    input_key='mlp_in', inspect='mlp', is_mlp=True),
         SubsetSpec(name='down', layers=('mlp.down_proj',),
                    prev_op='mlp.up_proj', prev_kind='fc',
@@ -358,9 +526,13 @@ def llama_layout(cfg: LlamaConfig) -> BlockLayout:
         ('self_attn.v_proj', 'qkv_in'), ('self_attn.o_proj', 'o_in'),
     ) + tuple((n, 'mlp_in') for n in mlp_layers) + (
         ('mlp.down_proj', 'down_in'),)
-    return BlockLayout(subsets=subsets, linears=linears,
-                       layernorms=('input_layernorm',
-                                   'post_attention_layernorm'),
+    if cfg.parallel_residual and cfg.shared_ln:
+        lns = ('input_layernorm',)
+    else:
+        lns = ('input_layernorm', 'post_attention_layernorm')
+    if cfg.sandwich_norms:
+        lns += ('pre_feedforward_layernorm', 'post_feedforward_layernorm')
+    return BlockLayout(subsets=subsets, linears=linears, layernorms=lns,
                        capture_of=capture_of)
 
 
@@ -420,6 +592,13 @@ class Init:
     def ones(self, n: int) -> Dict:
         return {'w': torch.ones((n,), dtype=self.dtype, device=self.device)}
 
+    def norm(self, n: int, bias: bool = False) -> Dict:
+        """A norm's ones, with a zero bias for a LayerNorm."""
+        p = self.ones(n)
+        if bias:
+            p['b'] = torch.zeros((n,), dtype=self.dtype, device=self.device)
+        return p
+
     def embed(self, vocab: int, d: int) -> Dict:
         return {'w': self.normal((vocab, d), 0.02)}
 
@@ -439,23 +618,40 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 dtype: Optional[torch.dtype] = None,
                 device=None) -> Dict:
     """Random params drawn from ``generator`` (on ``device``; the
-    generator must live on the same device)."""
+    generator must live on the same device), in the reference's tree:
+    LayerNorms with zero biases under ``norm_type='ln'``, no gate where
+    ``gated_mlp`` is off, Gemma2's sandwich norms, the learned position
+    table, and a zero ``o_proj`` bias wherever ``attention_bias`` is on (as
+    the reference builds it; HF's Qwen2 has none).  ``use_qk_norm`` gets
+    its q/k norms of ones [head_dim], which the reference's random tree
+    lacks (ROADMAP C)."""
     check_ported(cfg)
     ini = Init(generator, dtype or cfg.tdtype, device)
-    D, I = cfg.hidden_size, cfg.intermediate_size
+    D, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    ln = cfg.norm_type == 'ln'
     blocks = []
     for _ in range(cfg.num_hidden_layers):
-        blocks.append({
-            'input_layernorm': ini.ones(D),
-            'self_attn': attention_init(ini, cfg, cfg.attention_bias,
-                                        cfg.attention_bias),
-            'mlp': {'up_proj': ini.lin(I, D, cfg.mlp_bias),
-                    'down_proj': ini.lin(D, I, cfg.mlp_bias),
-                    'gate_proj': ini.lin(I, D, cfg.mlp_bias)},
-            'post_attention_layernorm': ini.ones(D),
-        })
+        mlp = {'up_proj': ini.lin(I, D, cfg.mlp_bias),
+               'down_proj': ini.lin(D, I, cfg.mlp_bias)}
+        if cfg.gated_mlp:
+            mlp['gate_proj'] = ini.lin(I, D, cfg.mlp_bias)
+        blk = {'input_layernorm': ini.norm(D, ln),
+               'self_attn': attention_init(ini, cfg, cfg.attention_bias,
+                                           cfg.attention_bias),
+               'mlp': mlp}
+        if not (cfg.parallel_residual and cfg.shared_ln):
+            blk['post_attention_layernorm'] = ini.norm(D, ln)
+        if cfg.sandwich_norms:
+            blk['pre_feedforward_layernorm'] = ini.norm(D, ln)
+            blk['post_feedforward_layernorm'] = ini.norm(D, ln)
+        if cfg.use_qk_norm:
+            blk['self_attn']['q_norm'] = ini.ones(hd)
+            blk['self_attn']['k_norm'] = ini.ones(hd)
+        blocks.append(blk)
     params = {'embed_tokens': ini.embed(cfg.vocab_size, D),
-              'blocks': blocks, 'norm': ini.ones(D)}
+              'blocks': blocks, 'norm': ini.norm(D, ln)}
+    if cfg.learned_pos:
+        params['embed_positions'] = ini.embed(cfg.max_position_embeddings, D)
     if not cfg.tie_word_embeddings:
         params['lm_head'] = ini.lin(cfg.vocab_size, D)
     return params

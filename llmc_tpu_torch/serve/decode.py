@@ -10,13 +10,20 @@ switch):
 - ``auto`` and ``flash``: ``ops.flash_decode.flash_decode_attention``;
 - ``batch``: ``ops.batch_decode.batch_decode_attention``, the
   serving-batch kernel;
-- ``chunked`` and ``full``: the reference's XLA reads; they come with the
-  long-context reads (ROADMAP A11) and raise.
+- ``chunked``: the reference's chunked read (``_decode_attn_chunked``, an
+  online softmax over the chunks up to the largest position, in torch
+  ops; the reference has no TPU kernel for it), on both devices;
+- ``full``: the plain masked read over the whole cache (``_attend_cached``),
+  on both devices.
 
-The ``kivi`` and ``sink`` caches never take a kernel, as in the reference
-(its ``attn_ok``, decode.py:272-274): their decode step reads the cache by
-the plain masked read, on both devices, KIVI's fp residual spliced in by
-``policy.read`` and Sink's row-dependent mask applied there for every S.
+A decode step takes a kernel or the chunked read only where the
+reference's ``attn_ok`` lets it (decode.py:272-274,
+``kernel_takes_attention``): one token on an ``fp`` or ``naive`` cache, in
+a graph without ALiBi (Bloom, Falcon-RW), an attention softcap or a
+sliding window (Gemma2).  Every other step reads the cache by the plain
+masked read, which carries those options, on both devices: the ``kivi``
+and ``sink`` caches too, KIVI's fp residual spliced in by ``policy.read``
+and Sink's row-dependent mask applied there for every S.
 
 The paged pool (``serve/paged_cache.py::PagedKVPolicy``) is a decode-step
 cache, as in the reference (decode.py:259-266): a step writes its token
@@ -25,8 +32,9 @@ reference's XLA loop in torch ops on both devices (no TPU kernel backs
 it); prefill runs on a dense local cache (``ServingEngine``).
 
 The asymmetric int8 cache (``k_z`` in the cache) has no kernel in the
-reference either: whatever ``ATTN_IMPL`` says, its decode step takes the
-plain masked read that prefill uses, on both devices.  Prefill (S > 1)
+reference either: its decode step takes the chunked read under
+``chunked`` (which dequantizes its codes) and the plain masked read that
+prefill uses otherwise, on both devices.  Prefill (S > 1)
 keeps the reference's plain masked attention (decode.py:319-363): the
 block writes its K/V first and then attends over what the policy reads
 back, so with an int8 cache prefill sees the dequantized codes it just
@@ -56,7 +64,7 @@ from ..models import mixtral as MX
 from ..models import qwen2moe as QM
 from ..models.base import linear_apply, rms_norm
 from ..ops.batch_decode import batch_decode_attention
-from ..ops.flash_decode import flash_decode_attention
+from ..ops.flash_decode import flash_decode_attention, online_softmax_step
 from ..utils.device import check_on, resolve_device
 from .kvcache import KVCachePolicy, _per_slot
 
@@ -67,35 +75,106 @@ ATTN_IMPL = os.environ.get('LLMC_ATTN', 'auto')
 _DECODE_KERNELS = {'auto': flash_decode_attention,
                    'flash': flash_decode_attention,
                    'batch': batch_decode_attention}
+_READS = ('chunked', 'full')
+_CHUNK_OPTS = (512, 256, 128, 64, 32)
 
 
 def _decode_kernel():
     """The decode-attention function ``ATTN_IMPL`` names."""
     if ATTN_IMPL in _DECODE_KERNELS:
         return _DECODE_KERNELS[ATTN_IMPL]
-    if ATTN_IMPL in ('chunked', 'full'):
-        raise NotImplementedError(
-            f'LLMC_ATTN={ATTN_IMPL}: the chunked and full decode reads are '
-            f'not ported yet (ROADMAP A11)')
     raise ValueError(f'LLMC_ATTN={ATTN_IMPL!r}: want auto, flash, batch, '
                      f'chunked or full')
 
 
+def _chunk_for(smax: int) -> Optional[int]:
+    """The chunked read's chunk: the largest of ``_CHUNK_OPTS`` that
+    divides the cache into at least two chunks (or the whole of a cache
+    of at most 32), else None (the full read), as in the reference."""
+    for c in _CHUNK_OPTS:
+        if smax % c == 0 and (c < smax or smax <= 32):
+            return c
+    return None
+
+
+def _decode_attn_chunked(q, cache, layer: int, policy: KVCachePolicy, cfg,
+                         chunk: int, n_chunks: Optional[int] = None
+                         ) -> torch.Tensor:
+    """The reference's chunked read (decode.py:107-207) in torch ops: an
+    online softmax over the cache's chunks up to the largest position, on
+    the ``fp`` and ``naive`` caches.  q [B, 1, H, hd] f32, pre-scaled ->
+    ctx [B, 1, H, hd] f32.  Symmetric int8 codes enter the dot as they are,
+    their K scale folded into the scores and their V scale into the
+    probabilities; asymmetric codes are dequantized first.  Query heads
+    group by their kv head.  ``n_chunks``: the chunks read from the start
+    of the buffer.  By default, eagerly, the loop stops at the chunk of
+    the largest position; while a CUDA graph captures it (no host read of
+    the positions there) it runs every chunk, whose masked tail adds
+    exactly nothing, as the reference's unrolled loop does."""
+    B, _, H, hd = q.shape
+    KVH = cfg.num_key_value_heads
+    G = H // KVH
+    pos = cache['pos']
+    pos = (pos.to(torch.long) if _per_slot(pos) else
+           torch.full((B,), int(pos), dtype=torch.long, device=q.device))
+    fp = policy.method == 'fp'
+    kbuf, vbuf = (cache['k'], cache['v']) if fp else (cache['k_q'],
+                                                      cache['v_q'])
+    smax = kbuf.shape[2]
+    if n_chunks is None:
+        n_chunks = (smax // chunk if q.is_cuda
+                    and torch.cuda.is_current_stream_capturing()
+                    else -(-(int(pos.max()) + 1) // chunk))
+    qg = q[:, 0].reshape(B, KVH, G, hd).to(F32)
+
+    def read(buf, sname, zname, off):
+        c = buf[layer, :, off:off + chunk]               # [B, C, KVH, hd]
+        if fp:
+            return c, None
+        s = cache[sname][layer, :, off:off + chunk]      # [B, C, KVH]
+        if zname not in cache:
+            return c, s
+        z = cache[zname][layer, :, off:off + chunk]
+        return (c.to(F32) - z[..., None]) * s[..., None], None
+
+    carry = (torch.full((B, KVH, G), float('-inf'), dtype=F32,
+                        device=q.device),
+             torch.zeros((B, KVH, G), dtype=F32, device=q.device),
+             torch.zeros((B, KVH, G, hd), dtype=F32, device=q.device))
+    for it in range(n_chunks):
+        off = it * chunk
+        k_c, k_sc = read(kbuf, 'k_s', 'k_z', off)
+        v_c, v_sc = read(vbuf, 'v_s', 'v_z', off)
+        carry = online_softmax_step(
+            qg, k_c, v_c, k_sc, v_sc,
+            off + torch.arange(chunk, device=q.device), pos, carry)
+    _, l, acc = carry
+    ctx = acc / torch.clamp(l[..., None], min=1e-30)
+    return ctx.reshape(B, 1, H, hd)
+
+
 def _attend_cached(q, cache, layer: int, policy: KVCachePolicy, cfg,
                    x_dtype) -> torch.Tensor:
-    """Plain masked attention over the whole cache buffer (prefill, and
-    the decode step of the asymmetric int8, kivi and sink caches).
-    q [B, S, H, hd] -> ctx [B, S, H, hd] in ``x_dtype``."""
+    """Plain masked attention over the whole cache buffer (prefill, the
+    ``full`` read, and every decode step no kernel takes): the config's
+    query scale, attention softcap and ALiBi, the causal mask from each
+    slot's position, Gemma2's window on even layers and Sink's
+    row-dependent window.  q [B, S, H, hd] -> ctx [B, S, H, hd] in
+    ``x_dtype``."""
     B, S, H, hd = q.shape
     KVH = cfg.num_key_value_heads
     k_full, v_full = policy.read(cache, layer, x_dtype)
     if KVH != H:
         k_full = torch.repeat_interleave(k_full, H // KVH, dim=2)
         v_full = torch.repeat_interleave(v_full, H // KVH, dim=2)
-    scale = 1.0 / (hd ** 0.5)
     scores = torch.einsum('bqhd,bkhd->bhqk', q.to(F32),
-                          k_full.to(F32)) * scale
+                          k_full.to(F32)) * L.attn_scale(cfg)
+    cap = cfg.attn_logit_softcap
+    if cap:
+        scores = cap * torch.tanh(scores / cap)
     smax = k_full.shape[1]
+    if cfg.use_alibi:
+        scores = scores + L.alibi_bias(cfg, smax, q.device)
     kv_idx = torch.arange(smax, device=q.device)
     pos = cache['pos']
     s_idx = torch.arange(S, device=q.device)
@@ -104,6 +183,9 @@ def _attend_cached(q, cache, layer: int, policy: KVCachePolicy, cfg,
     else:
         q_idx = int(pos) + s_idx[:, None]
     valid = kv_idx <= q_idx                     # [B, S, Smax] or [S, Smax]
+    window = L.layer_window(cfg, layer)
+    if window is not None:
+        valid = valid & (q_idx - kv_idx < window)
     # sink: each query row sees the sinks and its own recent window
     sink = policy.attention_mask_offset(q_idx + 1, smax)
     if sink is not None:
@@ -115,13 +197,28 @@ def _attend_cached(q, cache, layer: int, policy: KVCachePolicy, cfg,
                         v_full.to(F32)).to(x_dtype)
 
 
+def kernel_takes_attention(cfg, S: int, policy) -> bool:
+    """Whether a decode step's attention may take a kernel or the chunked
+    read (the reference's ``attn_ok``, decode.py:272-274): one token on an
+    ``fp`` or ``naive`` cache, and no ALiBi, softcap or sliding window in
+    the graph."""
+    return (S == 1 and policy.method in ('fp', 'naive')
+            and not cfg.use_alibi and not cfg.attn_logit_softcap
+            and not cfg.sliding_window)
+
+
 def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
                   policy: KVCachePolicy, qmap=None):
-    """One decoder block with cache write and read."""
+    """One decoder block with cache write and read, on the generalized
+    graph (the reference's decode.py:210-366): the config's norms, q/k
+    norm, partial / interleaved rope, and the attention read
+    ``ATTN_IMPL`` and ``kernel_takes_attention`` pick."""
     B, S, D = x.shape
     H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
-    h = rms_norm(x, bp['input_layernorm']['w'], cfg.rms_norm_eps)
+    # an unknown LLMC_ATTN raises on every path
+    attend = None if ATTN_IMPL in _READS else _decode_kernel()
+    h = L.norm_apply(cfg, x, bp['input_layernorm'])
     p = bp['self_attn']
 
     def qc(path):
@@ -138,19 +235,31 @@ def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
             B, S, KVH, hd)
         v = linear_apply(p['v_proj'], h, qc('self_attn.v_proj')).reshape(
             B, S, KVH, hd)
-    q, k = L.apply_rope(q, k, cos, sin)
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p['q_norm']['w'], cfg.rms_norm_eps)
+        k = rms_norm(k, p['k_norm']['w'], cfg.rms_norm_eps)
+    q, k = L.rope_qk(cfg, q, k, cos, sin)
     paged = policy.method == 'paged'
     if paged and S != 1:
         raise ValueError('the paged pool is a decode-step cache: prefill '
                          'runs on a dense local cache (ServingEngine)')
     cache = policy.update(cache, layer, k, v)
-    scale = 1.0 / (hd ** 0.5)
+    scale = L.attn_scale(cfg)
+    ok = kernel_takes_attention(cfg, S, policy)
+    chunk = ok and _chunk_for(cache['k' if policy.method == 'fp'
+                                    else 'k_q'].shape[2])
     if paged:
+        if cfg.use_alibi or cfg.attn_logit_softcap or cfg.sliding_window:
+            raise NotImplementedError(
+                'the paged pool\'s read has no ALiBi, softcap or sliding '
+                'window: the reference\'s drops them silently (ROADMAP C)')
         from .paged_cache import decode_attn_paged
         ctx = decode_attn_paged(q.to(F32) * scale, cache, layer, policy,
                                 cfg).to(x.dtype)
-    elif S == 1 and policy.method in ('fp', 'naive') and 'k_z' not in cache:
-        attend = _decode_kernel()
+    elif ok and ATTN_IMPL == 'chunked' and chunk:
+        ctx = _decode_attn_chunked(q.to(F32) * scale, cache, layer, policy,
+                                   cfg, chunk).to(x.dtype)
+    elif ok and attend is not None and 'k_z' not in cache:
         fp = policy.method == 'fp'
         pos = cache['pos']
         pos_b = (pos.to(torch.int32) if _per_slot(pos) else
@@ -166,7 +275,7 @@ def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
         ctx = _attend_cached(q, cache, layer, policy, cfg, x.dtype)
     attn_out = linear_apply(p['o_proj'], ctx.reshape(B, S, H * hd),
                             qc('self_attn.o_proj'))
-    return _finish_block(bp, cfg, x, attn_out, qc, qmap), cache
+    return _finish_block(bp, cfg, x, h, attn_out, qc, qmap), cache
 
 
 def moe_of(bp):
@@ -182,26 +291,43 @@ def moe_of(bp):
     return (QM if 'shared_expert' in mp else DS).moe_apply, mp
 
 
-def _finish_block(bp, cfg, x, attn_out, qc, qmap):
-    """Post-attention residual + MLP tail of the decoder block; an MoE
-    block's routed MLP is a [B, S, D] -> [B, S, D] operator like the
-    dense one (dense dispatch, as in the reference)."""
-    x = x + attn_out
-    h = rms_norm(x, bp['post_attention_layernorm']['w'], cfg.rms_norm_eps)
-    moe = moe_of(bp)
-    if moe is not None:
-        return x + moe[0](moe[1], cfg, h, qmap)[0]
-    mp = bp['mlp']
-    if 'gate_up_proj' in mp:  # fused serving layout
-        gu = linear_apply(mp['gate_up_proj'], h, qc('mlp.gate_up_proj'))
-        inter = gu.shape[-1] // 2
-        down_in = (L._act(gu[..., :inter].to(F32), cfg.act_fn)
-                   .to(x.dtype) * gu[..., inter:])
-        mlp_out = linear_apply(mp['down_proj'], down_in,
-                               qc('mlp.down_proj'))
+def _finish_block(bp, cfg, x, h, attn_out, qc, qmap):
+    """Post-attention residual + MLP tail of the decoder block (the
+    reference's decode.py:369-420): the parallel residual off ``h`` (or
+    the post-attention norm), Gemma2's sandwich norms, MiniCPM's residual
+    multiplier.  An MoE block's routed MLP is a [B, S, D] -> [B, S, D]
+    operator like the dense one (dense dispatch, as in the reference)."""
+    rm = cfg.residual_multiplier or 1.0
+
+    def mlp(h_in):
+        moe = moe_of(bp)
+        if moe is not None:
+            return moe[0](moe[1], cfg, h_in, qmap)[0]
+        mp = bp['mlp']
+        if 'gate_up_proj' in mp:  # fused serving layout (gated)
+            gu = linear_apply(mp['gate_up_proj'], h_in,
+                              qc('mlp.gate_up_proj'))
+            inter = gu.shape[-1] // 2
+            down_in = (L._act(gu[..., :inter].to(F32), cfg.act_fn)
+                       .to(x.dtype) * gu[..., inter:])
+            return linear_apply(mp['down_proj'], down_in,
+                                qc('mlp.down_proj'))
+        return L.mlp_apply(mp, h_in, qmap, act=cfg.act_fn)[0]
+
+    if cfg.parallel_residual:
+        h2 = h if cfg.shared_ln else L.norm_apply(
+            cfg, x, bp['post_attention_layernorm'])
+        return x + attn_out + mlp(h2)
+    if cfg.sandwich_norms:
+        x = x + L.norm_apply(cfg, attn_out, bp['post_attention_layernorm'])
+        h = L.norm_apply(cfg, x, bp['pre_feedforward_layernorm'])
     else:
-        mlp_out, _ = L.mlp_apply(mp, h, qmap, act=cfg.act_fn)
-    return x + mlp_out
+        x = x + attn_out * rm
+        h = L.norm_apply(cfg, x, bp['post_attention_layernorm'])
+    mlp_out = mlp(h)
+    if cfg.sandwich_norms:
+        mlp_out = L.norm_apply(cfg, mlp_out, bp['post_feedforward_layernorm'])
+    return x + mlp_out * rm
 
 
 def forward_cached(params, cfg, ids, cache: Dict, policy: KVCachePolicy,
@@ -217,7 +343,7 @@ def forward_cached(params, cfg, ids, cache: Dict, policy: KVCachePolicy,
         positions = pos0.to(torch.long)[:, None] + s_idx[None, :]
     else:
         positions = int(pos0) + s_idx[None, :]
-    x = L.embed_apply(params, cfg, ids)
+    x = L.embed_apply(params, cfg, ids, positions=positions)
     cos, sin = L.rope_cos_sin(cfg, positions)
     for layer, bp in enumerate(params['blocks']):
         x, cache = _block_cached(bp, cfg, x, cos, sin, cache, layer, policy,

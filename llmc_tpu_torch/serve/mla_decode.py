@@ -34,11 +34,10 @@ import torch
 from ..models import deepseek as DS
 from ..models.base import linear_apply, matmul_f32_acc, rms_norm
 from ..utils.device import check_on, resolve_device
+from .decode import _chunk_for
 from .kvcache import _per_slot, _upd
 
 F32 = torch.float32
-# the reference's decode chunk sizes (llmc_tpu/serve/decode.py:41)
-_CHUNK_OPTS = (512, 256, 128, 64, 32)
 
 
 def init_mla_cache(cfg: DS.DeepseekConfig, batch: int, max_len: int,
@@ -75,17 +74,6 @@ def _quant_latent(lat: torch.Tensor, bit: int = 8
     s = amax * (1.0 / qmax)
     q = torch.clamp(torch.round(lf / s[..., None]), -qmax - 1, qmax)
     return q.to(torch.int8), s
-
-
-def _chunk_for(smax: int) -> Optional[int]:
-    """The reference's decode chunk (``llmc_tpu/serve/decode.py:88``): the
-    largest of ``_CHUNK_OPTS`` that divides ``smax`` in at least two
-    chunks (or the whole of a cache of at most 32); None where none
-    divides."""
-    for c in _CHUNK_OPTS:
-        if smax % c == 0 and (c < smax or smax <= 32):
-            return c
-    return None
 
 
 def _mla_decode_attn_chunked(q_lat: torch.Tensor, q_pe: torch.Tensor,

@@ -32,12 +32,13 @@ F32 = torch.float32
 
 
 def _linear_dims(cfg):
-    """path -> (out_features, in_features) for Llama-family blocks."""
+    """path -> (out_features, in_features) for Llama-family blocks (no
+    gate where the MLP is not gated)."""
     D = cfg.hidden_size
     H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     I = cfg.intermediate_size
-    return {
+    dims = {
         'self_attn.q_proj': (H * hd, D),
         'self_attn.k_proj': (KVH * hd, D),
         'self_attn.v_proj': (KVH * hd, D),
@@ -46,6 +47,9 @@ def _linear_dims(cfg):
         'mlp.up_proj': (I, D),
         'mlp.down_proj': (D, I),
     }
+    if not getattr(cfg, 'gated_mlp', True):
+        del dims['mlp.gate_proj']
+    return dims
 
 
 def _meta(wspec: QuantSpec, out_f: int, in_f: int, pre_t: bool) -> QMeta:
@@ -59,8 +63,9 @@ def packed_qmap(cfg, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
                 fuse: bool = False, pre_t: bool = False, head: bool = False,
                 a_int8: bool = False) -> QMap:
     """QMap whose entries carry per-layer QMeta for the kernel path;
-    ``fuse`` adds the qkv_proj / gate_up_proj entries, ``head`` the packed
-    lm_head.  ``a_int8`` (W4A8) applies to the block linears; the head
+    ``fuse`` adds the qkv_proj / gate_up_proj entries (no gate_up for a
+    non-gated MLP), ``head`` the packed lm_head (a tied model's too,
+    ``pack_head``).  ``a_int8`` (W4A8) applies to the block linears; the head
     stays weight-only, its logits feed sampling.  ``a_spec`` fake-quantizes
     every entry's input."""
     pre_t = pre_t and int(wspec.bit) == 4
@@ -70,8 +75,9 @@ def packed_qmap(cfg, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
         H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                       cfg.head_dim)
         dims['self_attn.qkv_proj'] = ((H + 2 * KVH) * hd, D)
-        dims['mlp.gate_up_proj'] = (2 * cfg.intermediate_size, D)
-    if head and not cfg.tie_word_embeddings:
+        if 'mlp.gate_proj' in dims:
+            dims['mlp.gate_up_proj'] = (2 * cfg.intermediate_size, D)
+    if head:
         dims['lm_head'] = (cfg.vocab_size, cfg.hidden_size)
     return QMap({path: LinearQcfg(w_packed=True,
                                   qmeta=_meta(wspec, o, i, pre_t),
@@ -232,11 +238,14 @@ def fuse_packed_block(block: Dict) -> Dict:
 
 def pack_head(params: Dict, cfg, wspec: QuantSpec,
               pre_t: bool = True) -> Dict:
-    """Real-quantize + pack the lm_head weight (weight-only)."""
-    if cfg.tie_word_embeddings or params.get('lm_head') is None:
-        return params
-    lin = params['lm_head']
-    if 'qweight' in lin or lin.get('w') is None:
+    """Real-quantize + pack the lm_head weight (weight-only).  A tied
+    model's head (Gemma2's 256000 rows, Bloom's 250880) is packed as a
+    copy of the embedding, which the token lookup keeps reading in its
+    own type; the reference leaves a tied head unpacked."""
+    lin = params.get('lm_head')
+    if cfg.tie_word_embeddings:
+        lin = {'w': params['embed_tokens']['w'], 'b': None}
+    if lin is None or 'qweight' in lin or lin.get('w') is None:
         return params
     pre_t = pre_t and int(wspec.bit) == 4
     return dict(params, lm_head=_pack_linear(lin, wspec, pre_t))
@@ -273,8 +282,7 @@ def pack_model(model, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
         model.params = pack_head(model.params, model.cfg, wspec,
                                  pre_t=pre_t)
     return packed_qmap(model.cfg, wspec, a_spec, fuse=fuse, pre_t=pre_t,
-                       head=head and not model.cfg.tie_word_embeddings,
-                       a_int8=a_int8)
+                       head=head, a_int8=a_int8)
 
 
 def random_packed_llama(cfg, wspec: QuantSpec, seed: int = 0,
@@ -332,14 +340,12 @@ def random_packed_llama(cfg, wspec: QuantSpec, seed: int = 0,
         if fuse:
             blk = fuse_packed_block(blk)
         blocks.append(blk)
-    if head and not cfg.tie_word_embeddings:
-        lm_head = packed_lin(cfg.vocab_size, D)
-    else:
-        lm_head = {'w': normal((cfg.vocab_size, D)), 'b': None}
+    # a tied head packed too, as ``pack_head`` packs it
+    lm_head = (packed_lin(cfg.vocab_size, D) if head
+               else {'w': normal((cfg.vocab_size, D)), 'b': None})
     params = {'embed_tokens': {'w': normal((cfg.vocab_size, D))},
               'blocks': blocks,
               'norm': {'w': torch.ones((D,), dtype=dt, device=dev)},
               'lm_head': lm_head}
     return LlamaAdapter(cfg, params), packed_qmap(
-        cfg, wspec, fuse=fuse, pre_t=pre_t,
-        head=head and not cfg.tie_word_embeddings, a_int8=a_int8)
+        cfg, wspec, fuse=fuse, pre_t=pre_t, head=head, a_int8=a_int8)

@@ -1,9 +1,12 @@
 """Decorator registries mapping config strings to classes/functions.
 
 A copy of ``llmc_tpu/utils/registry.py`` (the port imports nothing from
-the JAX package).  The port registers what it ports: ``Llama``,
-``Mixtral``, ``Qwen2Moe``, ``DeepseekV2`` and ``DeepseekV3`` in
-MODEL_REGISTRY; ``Naive``, ``Kivi`` and ``SinkKV`` in KV_REGISTRY, whose
+the JAX package).  The port registers what it ports: ``Llama``, the
+Llama-family ``Mistral``, ``SmolLM``, ``Qwen2``, ``Qwen3`` and ``Phi3``,
+the generalized-graph ``Gemma2``, ``StableLm``, ``Falcon``, ``Phi``,
+``Starcoder``, ``Bloom``, ``InternLM2``, ``Glm`` / ``ChatGLM``, ``MiniCPM``
+and ``Qwen``, and ``Mixtral``, ``Qwen2Moe``, ``DeepseekV2`` and
+``DeepseekV3`` in MODEL_REGISTRY; ``Naive``, ``Kivi`` and ``SinkKV`` in KV_REGISTRY, whose
 ``ShadowKV`` raises.
 """
 

@@ -23,7 +23,7 @@ from llmc_tpu_torch.convert import params_to_numpy
 from llmc_tpu_torch.models import LlamaAdapter, build_model
 from llmc_tpu_torch.models.hf_loader import (LazyHFTensors, load_hf_tensors,
                                              save_llama_params_to_hf)
-from torch_port_helpers import TINY, to_np
+from torch_port_helpers import TINY, assert_trees_equal, to_np
 
 HF = dict({k: v for k, v in TINY.items() if k != 'dtype'},
           torch_dtype='float32', rms_norm_eps=1e-5)
@@ -53,23 +53,6 @@ def checkpoints(tmp_path_factory):
     with open(os.path.join(fp8, 'config.json'), 'w') as f:
         json.dump(HF, f)
     return plain, fp8
-
-
-def assert_trees_equal(got, want, path=''):
-    if isinstance(want, dict):
-        assert set(got) == set(want), path
-        for k in want:
-            assert_trees_equal(got[k], want[k], f'{path}.{k}')
-    elif isinstance(want, (list, tuple)):
-        assert len(got) == len(want), path
-        for i, (g, w) in enumerate(zip(got, want)):
-            assert_trees_equal(g, w, f'{path}[{i}]')
-    elif want is None:
-        assert got is None, path
-    else:
-        g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
-        assert g.shape == w.shape, path
-        np.testing.assert_array_equal(g, w, err_msg=path)
 
 
 @pytest.mark.parametrize('kind', ['plain', 'fp8_block'])

@@ -105,13 +105,18 @@ def test_config_from_hf_and_layout_match():
     assert [s.name for s in jl.subsets] == [s.name for s in tl.subsets]
 
 
-@pytest.mark.parametrize('opt', [dict(attn_logit_softcap=50.0),
-                                 dict(use_alibi=True),
-                                 dict(sandwich_norms=True),
-                                 dict(parallel_residual=True)])
-def test_unported_graph_options_raise(opt):
+@pytest.mark.parametrize('opt,owner', [
+    (dict(layer_scale=True), 'VLM tier'),
+    (dict(qk_norm_full=True), 'VLM tier'),
+    (dict(learned_pos_offset=2), 'OPT'),
+    (dict(learned_pos=True, learned_pos_offset=2), 'OPT')])
+def test_unported_graph_options_raise(opt, owner):
+    """The generalized graph's options run (tests/test_torch_families.py)
+    but for the three of models outside it: InternViT's layer scale and
+    full-width qk-norm, and OPT's offset positions, which raise naming
+    their ROADMAP A13 tier."""
     cfg = LlamaConfig(**dict(TINY, **opt))
-    with pytest.raises(NotImplementedError, match='A13'):
+    with pytest.raises(NotImplementedError, match=f'A13.*{owner}'):
         LlamaAdapter.random(cfg, device='cpu')
 
 

@@ -292,14 +292,25 @@ def test_attn_impl_batch_equals_flash(kv, monkeypatch):
 
 @pytest.mark.parametrize('impl', ['chunked', 'full', 'nonsense'])
 def test_attn_impl_unported_reads_raise(impl, monkeypatch):
+    """The chunked and full reads, which raised until they were ported,
+    give the decode logits of 'flash' (within 1e-5) on a packed model;
+    an unknown name raises."""
     _, _, tm, tq = _pair(seed=6)
-    monkeypatch.setattr(TDec, 'ATTN_IMPL', impl)
     tp = KVCachePolicy(method='fp')
-    tc = init_cache(tm, 1, 4, tp, device='cpu')
     ids = torch.zeros((1, 1), dtype=torch.long)
-    err = ValueError if impl == 'nonsense' else NotImplementedError
-    with pytest.raises(err, match='LLMC_ATTN'):
-        forward_cached(tm.params, tm.cfg, ids, tc, tp, tq)
+    outs = {}
+    for name in (impl, 'flash'):
+        monkeypatch.setattr(TDec, 'ATTN_IMPL', name)
+        tc = init_cache(tm, 1, 64, tp, device='cpu')
+        tc = dict(tc, pos=torch.tensor([37], dtype=torch.int32))
+        if name == 'nonsense':
+            with pytest.raises(ValueError, match='LLMC_ATTN'):
+                forward_cached(tm.params, tm.cfg, ids, tc, tp, tq)
+            continue
+        outs[name] = forward_cached(tm.params, tm.cfg, ids, tc, tp,
+                                    tq)[0].numpy()
+    if impl != 'nonsense':
+        assert rel_err(outs[impl], outs['flash']) < 1e-5
     assert TDec._decode_kernel.__module__ == TDec.__name__
 
 

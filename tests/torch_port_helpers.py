@@ -5,6 +5,7 @@ the CPU and through ``llmc_tpu_torch`` with ``device='cpu'``, and compared
 as numpy arrays.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -53,9 +54,162 @@ def method_quant(name):
     return cut(quant)
 
 
+# tests/test_decode_families.py's archs, and the Llama-family ones
+ARCHS = {
+    'llama': {},
+    'gemma2': dict(act_fn='gelu_tanh', sandwich_norms=True,
+                   embed_scale=True, tie_word_embeddings=True,
+                   attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                   query_pre_attn_scalar=16.0, sliding_window=6),
+    'glm': dict(rotary_pct=0.5, rope_interleaved=True, attention_bias=True),
+    'falcon': dict(norm_type='ln', parallel_residual=True, shared_ln=True,
+                   gated_mlp=False, act_fn='gelu', num_key_value_heads=1,
+                   tie_word_embeddings=True),
+    'bloom': dict(norm_type='ln', gated_mlp=False, act_fn='gelu_tanh',
+                  rotary_pct=0.0, use_alibi=True, tie_word_embeddings=True),
+    'falcon_alibi': dict(norm_type='ln', gated_mlp=False, act_fn='gelu',
+                         rotary_pct=0.0, use_alibi=True, alibi_scaled=True),
+    'stablelm': dict(norm_type='ln', rotary_pct=0.25, attention_bias=True),
+    'starcoder': dict(norm_type='ln', gated_mlp=False, act_fn='gelu_tanh',
+                      rotary_pct=0.0, learned_pos=True,
+                      num_key_value_heads=1, tie_word_embeddings=True),
+    'minicpm': dict(embed_multiplier=2.0, residual_multiplier=0.7,
+                    logit_divisor=2.0),
+    'qwen2': dict(attention_bias=True, rope_theta=1e6),
+    'qwen3': dict(use_qk_norm=True),
+    'phi3': dict(num_key_value_heads=4),
+    'mistral': dict(rope_theta=1e6),
+    'smollm': dict(tie_word_embeddings=True),
+}
+BASE = dict(vocab_size=96, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+            head_dim=8, dtype='float32', max_position_embeddings=64)
+
+
+def perturbed(tree, rng, key=''):
+    """A numpy param tree with every bias drawn N(0, 0.1) and every norm
+    weight (1-D ``w``) scaled by 1 + N(0, 0.2)."""
+    if isinstance(tree, dict):
+        return {k: perturbed(v, rng, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [perturbed(v, rng) for v in tree]
+    if tree is None:
+        return None
+    a = np.asarray(tree)
+    if key == 'b':
+        return (rng.randn(*a.shape) * 0.1).astype(a.dtype)
+    if a.ndim == 1:
+        return (a * (1 + 0.2 * rng.randn(*a.shape))).astype(a.dtype)
+    return a
+
+
+def family_pair(name, seed=0, **over):
+    """(JAX adapter, port adapter, numpy params) of arch ``name`` on the
+    same weights.  The reference's random tree has no q/k norms for
+    ``use_qk_norm`` (ROADMAP C): they are added to both."""
+    import jax.numpy as jnp
+    from llmc_tpu.models import llama as JL
+    arch = {**BASE, **ARCHS[name], **over}
+    jcfg = JL.LlamaConfig(**arch)
+    tree = jax.tree.map(np.asarray, JL.init_params(
+        jcfg, jax.random.PRNGKey(seed)))
+    if jcfg.use_qk_norm:
+        for blk in tree['blocks']:
+            for n in ('q_norm', 'k_norm'):
+                blk['self_attn'][n] = {'w': np.ones((jcfg.head_dim,),
+                                                    np.float32)}
+    tree = perturbed(tree, np.random.RandomState(seed + 1))
+    from llmc_tpu.models import LlamaAdapter as JAdapter
+    from llmc_tpu_torch.convert import params_from_numpy
+    from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
+    jm = JAdapter(jcfg, jax.tree.map(
+        lambda a: None if a is None else jnp.asarray(a), tree))
+    tm = LlamaAdapter(LlamaConfig(**arch), params_from_numpy(tree,
+                                                             device='cpu'))
+    return jm, tm, tree
+
+
+# the families' model types whose inline arch runs a graph of its own,
+# for the pipeline tests; MiniCPM takes its multipliers from the arch
+PIPELINE_FAMILIES = ('Bloom', 'Falcon', 'Gemma2', 'Glm', 'MiniCPM', 'Phi',
+                     'Qwen2', 'Qwen3', 'StableLm', 'Starcoder')
+
+
+def family_pipeline_config(model_type, method, special=None, weight=None,
+                           eval_pos=('pretrain', 'transformed',
+                                     'fake_quant')):
+    """A tiny pipeline config of ``model_type`` with an inline arch
+    (BASE's widths; MiniCPM's multipliers from ARCHS), synthetic data."""
+    arch = dict(BASE)
+    if model_type == 'MiniCPM':
+        arch.update(ARCHS['minicpm'])
+    quant = dict(method=method, weight=weight or dict(
+        bit=4, symmetric=False, granularity='per_group', group_size=16))
+    if special:
+        quant['special'] = dict(special)
+    return dict(
+        base=dict(seed=7), model=dict(type=model_type, arch=arch, seed=0),
+        calib=dict(name='synthetic', n_samples=2, bs=-1, seq_len=16, seed=0,
+                   vocab_size=96, preproc='random_truncate_txt'),
+        eval=dict(name='synthetic', num_tokens=512, seq_len=32,
+                  vocab_size=96, bs=2, eval_pos=list(eval_pos)),
+        quant=quant)
+
+
+def same_random_weights(monkeypatch):
+    """Both packages' random models draw the JAX package's tree from the
+    seed (``PRNGKey(seed)``), every bias and norm weight then moved off
+    its init (``perturbed``), so that a model built from the same inline
+    arch holds the same weights in both.  ``use_qk_norm`` gets its q/k
+    norms in both: the reference's random tree lacks them (ROADMAP C)."""
+    from llmc_tpu.models import llama as JL
+    from llmc_tpu_torch.convert import params_from_numpy
+    from llmc_tpu_torch.models import llama as TL
+    j_init = JL.init_params
+
+    def tree(cfg, seed):
+        t = jax.tree.map(np.asarray, j_init(cfg, jax.random.PRNGKey(seed)))
+        if cfg.use_qk_norm:
+            for blk in t['blocks']:
+                for n in ('q_norm', 'k_norm'):
+                    blk['self_attn'][n] = {'w': np.ones((cfg.head_dim,),
+                                                        np.float32)}
+        return perturbed(t, np.random.RandomState(seed + 1))
+
+    def jax_init(cfg, key, dtype=None):
+        import jax.numpy as jnp
+        seed = int(np.asarray(jax.random.key_data(key)).reshape(-1)[-1])
+        return jax.tree.map(lambda a: None if a is None else jnp.asarray(a),
+                            tree(cfg, seed))
+
+    def port_init(cfg, generator, dtype=None, device=None):
+        jcfg = JL.LlamaConfig(**dataclasses.asdict(cfg))
+        return params_from_numpy(tree(jcfg, generator.initial_seed()),
+                                 device=device)
+    monkeypatch.setattr(JL, 'init_params', jax_init)
+    monkeypatch.setattr(TL, 'init_params', port_init)
+
+
 def to_np(tree):
     """A JAX param tree as numpy arrays (None leaves stay None)."""
     return jax.tree.map(np.asarray, tree)
+
+
+def assert_trees_equal(got, want, path=''):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            assert_trees_equal(got[k], want[k], f'{path}.{k}')
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_equal(g, w, f'{path}[{i}]')
+    elif want is None:
+        assert got is None, path
+    else:
+        g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
+        assert g.shape == w.shape, path
+        np.testing.assert_array_equal(g, w, err_msg=path)
 
 
 def port_params(jax_params):
@@ -111,6 +265,24 @@ def reference_builds_its_step_per_block(monkeypatch, cls):
         self._jits.clear()
         return inner(self, idx, block, feats)
     monkeypatch.setattr(cls, 'block_transform', block_transform)
+
+
+def reference_loads_qk_norm(monkeypatch):
+    """The JAX package's Qwen3 loader with ``use_qk_norm`` on where the
+    checkpoint's blocks hold q/k norms (ROADMAP C)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from llmc_tpu.models import adapter as JA
+    inner = JA.Qwen3Adapter.from_pretrained.__func__
+
+    def from_pretrained(cls, path, dtype=jnp.bfloat16):
+        m = inner(cls, path, dtype=dtype)
+        if 'q_norm' in m.params['blocks'][0]['self_attn']:
+            m.cfg = dataclasses.replace(m.cfg, use_qk_norm=True)
+        return m
+    monkeypatch.setattr(JA.Qwen3Adapter, 'from_pretrained',
+                        classmethod(from_pretrained))
 
 
 def write_hf_moe_checkpoint(kind: str, path: str) -> str:
