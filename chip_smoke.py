@@ -111,7 +111,7 @@ Phases, each printing one JSON line, all of them on every run:
 13. ``compress``  ``run_pipeline`` at Llama-2-7B width (bf16,
                   random weights from a seed, synthetic calibration and
                   PPL data, W4 symmetric per-group 128): once RTN at its
-                  32 layers, once AWQ at ``AWQ_LAYERS`` (8) (scale
+                  32 layers, once AWQ at ``AWQ_LAYERS`` (4) (scale
                   search + clip v1) on weights that came
                   through the FP8-block ingest and whose norms give the
                   activations outlier channels.  PPLs finite,
@@ -145,9 +145,9 @@ Phases, each printing one JSON line, all of them on every run:
                   config's ``quant`` section as it stands, calibration
                   8 x 512, at Llama-2-7B's width: HQQ (``hqq_w4.yml``,
                   asymmetric g64) and AdaDim (``adadim_w8.yml``, per-channel
-                  W8) at full depth, NormTweaking, OmniQuant and TesseraQ
+                  W8) at 8 layers, NormTweaking, OmniQuant and TesseraQ
                   at the depths ``TRAINED_DEPTH`` sets (each cut with its
-                  reason in the record).  Each records its seconds a block,
+                  reason in the record, ``DEPTH_CUT``).  Each records its seconds a block,
                   the hyperparameters it read, and for the trained ones the
                   steps, milliseconds a step and the block loss before and
                   after training at the first, middle and last block; each
@@ -162,8 +162,9 @@ Phases, each printing one JSON line, all of them on every run:
                   is held to the pretrained one.
 17. ``compress`` + ``compress_serve`` of the last A10 methods, each on its
                   shipped config's ``quant`` section, calibration 8 x 512,
-                  at Llama-2-7B's width: QUIK (``quik_w4a8.yml``) at full
-                  depth, served W4A8 through the quantizer and B3, its
+                  at Llama-2-7B's width: QUIK (``quik_w4a8.yml``) at 8
+                  layers (``DEPTH_CUT``), served W4A8 through the
+                  quantizer and B3, its
                   int columns on its own per-channel grid and its fp
                   columns off it (their share recorded), held to QUIK's
                   own model within ``TOL_QUIK_VS_OWN``;
@@ -191,8 +192,9 @@ Phases, each printing one JSON line, all of them on every run:
                   bounds.
 18. ``moe_serve`` + ``moe_compress``: the MoE and MLA families at their
                   published widths (``MOE_MODELS``: Mixtral-8x7B at 4 of
-                  its 32 layers, Qwen1.5-MoE-A2.7B at 24, DeepSeek-V2-Lite
-                  at 27; bf16 random weights), each served unpacked by the
+                  its 32 layers, Qwen1.5-MoE-A2.7B at 4 of 24,
+                  DeepSeek-V2-Lite at 4 of 27, ``PHASE18_CUT``; bf16
+                  random weights), each served unpacked by the
                   engine over 10 requests through the captured step and
                   the eager one (tokens equal; Mixtral through B2 and B5,
                   Qwen2-MoE through B5, once a layer a host decode step;
@@ -209,7 +211,8 @@ Phases, each printing one JSON line, all of them on every run:
                   attention shape, int8 and bf16, each held to B2; then
                   the Llama-family and generalized-graph families at their
                   published widths (``FAMILY_MODELS``: Qwen2.5-7B,
-                  Qwen3-8B, Gemma-2-9B, BLOOM-7b1; bf16 random weights),
+                  Qwen3-8B, Gemma-2-9B, BLOOM-7b1 at full depth; bf16
+                  random weights),
                   each with its decode held to a prefill on fp / int8
                   caches (a planted 4-bit cache outside the bound), its
                   packed logits held to the fake-quant model at 2 layers,
@@ -226,6 +229,30 @@ Phases, each printing one JSON line, all of them on every run:
                   and AWQ with clip v1 on one block of Qwen2.5-7B and of
                   Gemma-2-9B (``FAMILY_COMPRESS``), the equivalences'
                   transformed PPL within ``TOL_PPL_EQUIV`` of pretrain.
+20. ``opt_serve`` + ``opt_compress`` + ``sink_serve`` + ``sparse`` +
+                  ``shadowkv`` + ``latency``: OPT-6.7B at its published
+                  widths and full depth through its generalized view
+                  (``OPT_6_7B``), as phase 19 runs a family (B1 once a
+                  packed linear and the head a forward, B2 / B5 once a
+                  layer a host decode step), and RTN and AWQ on one block
+                  of its native graph; the packed Llama-2-7B served by
+                  the engine under SinkKV (``SINK_KV``: the window bites on
+                  the serve prompts), no attention kernel launched, its
+                  first 2 layers' tokens on the card within bf16's reach
+                  of the CPU port's (``engine_vs_cpu``); the shipped
+                  Magnitude, Wanda and ShortGPT configs at
+                  ``SPARSE_LAYERS`` layers through ``run_pipeline`` (zero
+                  shares, ShortGPT's removed blocks and saved config,
+                  block 0's masks against the CPU port's; ShortGPT on a
+                  written checkpoint); ShadowKV's decode PPL over 4096
+                  tokens at 4 layers beside the dense PPL of the same
+                  tokens, the card's outlier chunks and retrieved
+                  positions equal to the CPU's at the run's prefill, and
+                  its PPL at 2 layers in float32 against the CPU's; and
+                  ``LatencyEval`` at batch 1 and 8 on the packed model
+                  (its captured decode's tokens equal to its eager
+                  warm-up's) and through ``run_pipeline`` at
+                  ``LATENCY_PIPELINE_LAYERS``.
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
@@ -255,6 +282,7 @@ import functools
 import importlib
 import itertools
 import json
+import os
 import re
 import sys
 import time
@@ -352,15 +380,16 @@ METHOD_QUANT = {
 }
 # GPTQ's column loop is a Python loop of torch ops, 35584 columns a
 # Llama-2-7B block at about 0.17 ms a column on an H100 (6 s a block): the
-# phase runs 2 of the 32 layers (4 before phase 18 took its 200 s)
-GPTQ_LAYERS = 2
+# phase runs 1 of the 32 layers (4 before phase 18 took its 200 s, 2
+# before phase 20)
+GPTQ_LAYERS = 1
 # Phase 16: each method's serving mode, and the depth of the trained
 # methods with its reason.  A training step is a forward and a backward of
 # one Llama-2-7B block over the 8 x 512 calibration tokens, its linears as
 # f32 matmuls (the fake-quant path's matmul_f32_acc) on the CUDA cores: on
 # an H100 about 86 ms (NormTweaking, input gradients only) and 124 ms
 # (OmniQuant, TesseraQ: the weights' gradients too).  HQQ (0.36 s a block)
-# and AdaDim (0.2 s) run all 32 layers.
+# and AdaDim (0.2 s) run 8 of the 32 layers (``DEPTH_CUT``).
 PHASE16 = (('hqq_w4', 'w4a16'), ('adadim_w8', 'w8a16'),
            ('normtweaking_w4', 'w4a16'), ('omniquant_w4', 'w4a16'),
            ('tesseraq_w4', 'w4a16'))
@@ -381,14 +410,21 @@ TRAINED_DEPTH = {
 # an absmax a subset).
 PHASE17 = (('quik_w4a8', 'w4a8'), ('spqr_w4', 'w4a16'),
            ('dgq_w4a8', 'w4a8'))
+# the depth cuts that pay for phase 20's time (the seconds of the 32-layer
+# run with its evals on an H100 at 700 W)
+PHASE20_DEPTH = 'cut to pay for phase 20\'s time'
 DEPTH_CUT = dict(TRAINED_DEPTH, **{
+    'QUIK': (8, f'{PHASE20_DEPTH} (32 layers: 11.4 s)'),
+    'HQQ': (8, f'{PHASE20_DEPTH} (32 layers: 15.8 s)'),
+    'AdaDim': (8, f'{PHASE20_DEPTH} (32 layers: 10.7 s)'),
     'SpQR': (GPTQ_LAYERS, 'GPTQ\'s column loop (a Python loop of torch '
                           'ops, 35584 columns a block) and the outlier '
                           'test in it, about 6-10 s a block'),
-    'DGQ': (2, '100 grid points a linear, each an f32 product over the '
+    'DGQ': (1, '100 grid points a linear, each an f32 product over the '
                '4096 calibration tokens (about 165 TFLOP a block on the '
-               'CUDA cores), about 5.4 s a block; 2 layers (8, then 4, '
-               'before phase 18) to keep the script inside its time limit'),
+               'CUDA cores), about 5.4 s a block; 1 layer (8, then 4, '
+               'before phase 18, 2 before phase 20) to keep the script '
+               'inside its time limit'),
 })
 # transformed PPL against pretrained where the method's transform is an
 # equivalence up to the bf16 rounding of rescaled weights (QUIK transforms
@@ -539,7 +575,15 @@ TOL_VS_CONTROL = {'w4a16': 3e-3, 'w4a8': 3e-3, 'w8a16': 3e-2}
 MIN_GREEDY_AGREE = 0.5
 
 
+_T_IMPORT = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's record also gets ``at_s``, the seconds
+    since the script started, so that each phase's share of the time
+    limit can be read off the output."""
+    if 'phase' in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T_IMPORT)
     print(json.dumps(obj), flush=True)
 
 
@@ -1669,6 +1713,11 @@ def phase_serve_graph(dev, model, qmap, graph_tokens, mode='w4a16', **kw):
         all_done=eager['all_done'] and window['all_done'])
 
 
+# the paged pool's eager serve at the model's depth: 13.8 s at 32 layers on
+# an H100; cut to pay for phase 20's time
+SERVE_PAGED_LAYERS = 16
+
+
 def phase_serve_paged(dev, model, qmap, cfg_kw, n_requests=10, max_batch=8,
                       max_len=256, page_size=16, n_pages=48, seed=0,
                       group_size=128, **kw):
@@ -2183,9 +2232,9 @@ AWQ_SOURCE = 'configs/quantization/methods/awq_w_only.yml'
 AWQ_SOURCE_SAMPLES = 128
 AWQ_SPECIAL = dict(trans=True, weight_clip=True, clip_version='v1')
 # AWQ with clipping takes 1.47-1.6 s a Llama-2-7B block at 8 x 512
-# tokens: 8 of the 32 layers (32 before phase 18 took its 200 s, 16
-# before phase 19 took its 65 s)
-AWQ_LAYERS = 8
+# tokens: 4 of the 32 layers (32 before phase 18 took its 200 s, 16
+# before phase 19 took its 65 s, 8 before phase 20)
+AWQ_LAYERS = 4
 
 
 def search_vs_rtn(dev, config, res, blocks):
@@ -2306,7 +2355,8 @@ def phase_compress(dev, cfg_kw, method, special=None, fp8_ingest=False,
                special=config['quant'].get('special', {}),
                fp8_block_ingest=fp8_ingest, layers=L,
                width=cfg_kw['hidden_size'],
-               intermediate=cfg_kw['intermediate_size'],
+               intermediate=cfg_kw.get('intermediate_size',
+                                       cfg_kw.get('ffn_dim')),
                dtype=cfg_kw['dtype'],
                calib=config['calib'], eval=config['eval'],
                weight=config['quant']['weight'],
@@ -2878,6 +2928,12 @@ DEEPSEEK_V2_LITE = dict(vocab_size=102400, hidden_size=2048,
                         first_k_dense_replace=1, moe_layer_freq=1,
                         rms_norm_eps=1e-6, rope_theta=10000.0,
                         dtype='bfloat16')
+# phase 18's share of the script's time limit went to phase 20: its two
+# deepest models are cut to the 4 layers its decode checks read (24 and 27
+# layers took 179.8 s with Mixtral's 4 on an H100 at 700 W, 8 and 9 took
+# 118.9 s); a layer repeats the first MoE layer's shapes
+PHASE18_CUT = ('cut to pay for phase 20\'s time: every layer '
+               'repeats the first MoE layer\'s shapes')
 MOE_MODELS = {
     'mixtral_8x7b': dict(
         type='Mixtral', arch=MIXTRAL_8X7B,
@@ -2888,11 +2944,11 @@ MOE_MODELS = {
     'qwen15_moe_a27b': dict(
         type='Qwen2Moe', arch=QWEN15_MOE_A27B,
         source='Qwen/Qwen1.5-MoE-A2.7B config.json',
-        layers=(24, None), attn=('batch',), reduced=[]),
+        layers=(4, PHASE18_CUT), attn=('batch',), reduced=[]),
     'deepseek_v2_lite': dict(
         type='DeepseekV2', arch=DEEPSEEK_V2_LITE,
         source='deepseek-ai/DeepSeek-V2-Lite config.json',
-        layers=(27, None), attn=(None,),
+        layers=(4, PHASE18_CUT), attn=(None,),
         reduced=['rope_scaling (yarn, factor 40) left out: the reference '
                  'computes DeepSeek\'s rope unscaled and the port refuses a '
                  'yarn config (ROADMAP C)']),
@@ -2920,9 +2976,9 @@ MOE_COMPRESS = {
          'GPTQ\'s column loop (a Python loop of torch ops): 196608 columns '
          'a Mixtral block, 5.5 times a Llama-2-7B block\'s (GPTQ_LAYERS '
          'cuts those to 2), about 37 s a block', False)],
-    'qwen15_moe_a27b': [('rtn_w4', RTN_W4, 24, None, True)],
+    'qwen15_moe_a27b': [('rtn_w4', RTN_W4, 4, PHASE18_CUT, True)],
     'deepseek_v2_lite': [
-        ('rtn_w4', RTN_W4, 27, None, True),
+        ('rtn_w4', RTN_W4, 4, PHASE18_CUT, True),
         # the router reads the post-attention norm that moe_gu scales:
         # AWQ on DeepSeek moves the routing (no equivalence, ROADMAP C)
         ('configs/quantization/deepseekv3/awq_w_only_dsv3.yml',
@@ -3001,9 +3057,11 @@ def adapter_serve_run(dev, model, attn, eager=False, n_requests=10,
                first_run_s=sum(g.first_s for g in graphs),
                capture_s=sum(g.capture_s for g in graphs),
                launches=counts, xla_branch_calls=xla,
+               kv_cache=policy.method,
                expected_launches=serve_expected_launches(
                    cfg, eng.stats['prefill_forwards'] + host_steps,
-                   host_steps, attn, packed=qmap is not None, mla=eng.mla),
+                   host_steps, attn, packed=qmap is not None, mla=eng.mla,
+                   policy=policy),
                all_done=all(r.done and len(r.output_ids) == r.max_new_tokens
                             and all(0 <= t < cfg.vocab_size
                                     for t in r.output_ids) for r in reqs))
@@ -3011,18 +3069,19 @@ def adapter_serve_run(dev, model, attn, eager=False, n_requests=10,
 
 
 def serve_expected_launches(cfg, forwards, decode_steps, attn, packed=True,
-                            mla=False):
+                            mla=False, policy=None):
     """A packed model's forward: 4 packed linears a layer (fused q/k/v,
     o, fused gate/up or a non-gated MLP's up, down) and the packed head
     through B1.  A decode step: B2 (``auto``) or B5 (``batch``) once a
     layer on a per-head cache where the reference's attn_ok lets a
-    kernel take it; none on the latent cache, whose read is torch ops as
-    the reference's is XLA."""
+    kernel take it (the graph's and the ``policy``'s: none on SinkKV's);
+    none on the latent cache, whose read is torch ops as the reference's
+    is XLA."""
     n = dict.fromkeys(KERNEL_NAMES, 0)
     L_ = cfg.num_hidden_layers
     if packed:
         n['w4_dequant_matmul'] = (4 * L_ + 1) * forwards
-    if not mla and attention_kernel_takes(cfg):
+    if not mla and attention_kernel_takes(cfg, policy):
         n['batch_decode' if attn == 'batch' else 'flash_decode'] = \
             L_ * decode_steps
     return n
@@ -3429,11 +3488,13 @@ def family_model(dev, name, layers=None, arch=None, seed=0):
     return model, arch
 
 
-def attention_kernel_takes(cfg) -> bool:
-    """The reference's attn_ok for a decode step on an fp / naive cache."""
+def attention_kernel_takes(cfg, policy=None) -> bool:
+    """The reference's attn_ok for a decode step of ``cfg`` over
+    ``policy``'s cache (default an fp one)."""
     from llmc_tpu_torch.serve import KVCachePolicy
     from llmc_tpu_torch.serve.decode import kernel_takes_attention
-    return kernel_takes_attention(cfg, 1, KVCachePolicy(method='fp'))
+    return kernel_takes_attention(cfg, 1,
+                                  policy or KVCachePolicy(method='fp'))
 
 
 def fake_quant_twin(model, wspec):
@@ -3513,23 +3574,19 @@ def family_step_bound(model, peaks, B=8, prompt=128) -> dict:
                 bound_batch=B, bound_prompt=prompt, bound_by='bytes')
 
 
-def phase19_serve(dev, name, peaks, layers=None, arch=None, serve_kw=None,
-                  timing_kw=None, decode_kw=None, seed=0):
-    """One family at its published widths (``arch``: other widths, for a
-    test) and ``layers`` (default the cut ``FAMILY_MODELS`` sets): its
-    decode held to a prefill (fp / int8 caches and the planted 4-bit one,
-    a 3-bit one read beside it, on its first 4 blocks unpacked, B2 once a
-    layer a step where attn_ok),
-    its packed logits held to the fake-quant model at 2 layers, then the
-    whole model packed (W4 g128 RTN, fused, packed head) and served over
-    an int8 cache through the captured step and the eager one per
-    attention kernel (tokens equal, the launches the path implies,
+def packed_serve_checks(dev, model, peaks, attns=('auto', 'batch'),
+                        serve_kw=None, timing_kw=None, decode_kw=None):
+    """A Llama-graph model's decode held to a prefill (fp / int8 caches
+    and the planted 4-bit one, a 3-bit one read beside it, on its first 4
+    blocks unpacked, B2 once a layer a step where attn_ok), its packed
+    logits held to the fake-quant model at 2 layers, then the whole model
+    packed (W4 g128 RTN, fused, packed head) and served over an int8 cache
+    through the captured step and the eager one per attention kernel of
+    ``attns`` (tokens equal, the launches the path implies,
     ``xla_branch_calls`` 0), and the captured step's ms at B=8 after a
-    128-token prefill beside its byte bound.  Returns (record, model)."""
+    128-token prefill beside its byte bound: the record's fields, with
+    ``ok``.  Packs ``model`` in place."""
     from llmc_tpu_torch.serve import pack_model
-    spec = FAMILY_MODELS[name]
-    model, arch = family_model(dev, name, layers, arch, seed)
-    L_ = model.cfg.num_hidden_layers
     checks = moe_decode_checks(dev, model, **dict(
         dict(fault_bit=4, record_bits=(3,)), **(decode_kw or {})))
     packed_check = packed_vs_fake_quant(dev, model)
@@ -3539,7 +3596,7 @@ def phase19_serve(dev, name, peaks, layers=None, arch=None, serve_kw=None,
     _sync(dev)
     pack_s = time.perf_counter() - t0
     runs, times = {}, {}
-    for attn in spec['attn']:
+    for attn in attns:
         got = {mode: adapter_serve_run(dev, model, attn,
                                        eager=mode == 'eager', qmap=qmap,
                                        **(serve_kw or MOE_SERVE))
@@ -3548,15 +3605,7 @@ def phase19_serve(dev, name, peaks, layers=None, arch=None, serve_kw=None,
                           tokens_equal=got['graph'][1] == got['eager'][1])
         times[attn] = moe_step_times(dev, model, attn, qmap=qmap,
                                      **(timing_kw or {}))
-    reduced = []
-    full = spec['arch']['num_hidden_layers']
-    if L_ < full:
-        reduced.append(f'{L_} of {full} layers'
-                       + (f': {spec["layers"][1]}' if layers is None
-                          and spec['layers'][1] else ''))
-    rec = dict(phase=f'family_serve.{name}', model=spec['type'],
-               source=spec['source'], layers=L_, arch=arch, reduced=reduced,
-               weights='W4A16 g128 symmetric RTN, fused q/k/v and gate/up, '
+    rec = dict(weights='W4A16 g128 symmetric RTN, fused q/k/v and gate/up, '
                        'packed head', kv_cache='int8',
                attention_kernel=attention_kernel_takes(model.cfg),
                pack_s=pack_s, runs=runs, timing=times,
@@ -3567,40 +3616,687 @@ def phase19_serve(dev, name, peaks, layers=None, arch=None, serve_kw=None,
         and r[m]['launches'] == r[m]['expected_launches']
         and r[m]['xla_branch_calls'] == 0 and r[m]['requests'] >= 8
         for r in runs.values() for m in ('graph', 'eager'))
+    return rec
+
+
+def phase19_serve(dev, name, peaks, layers=None, arch=None, serve_kw=None,
+                  timing_kw=None, decode_kw=None, seed=0):
+    """One family at its published widths (``arch``: other widths, for a
+    test) and ``layers`` (default the cut ``FAMILY_MODELS`` sets) through
+    ``packed_serve_checks``.  Returns (record, model)."""
+    spec = FAMILY_MODELS[name]
+    model, arch = family_model(dev, name, layers, arch, seed)
+    L_ = model.cfg.num_hidden_layers
+    checks = packed_serve_checks(dev, model, peaks, spec['attn'], serve_kw,
+                                 timing_kw, decode_kw)
+    reduced = []
+    full = spec['arch']['num_hidden_layers']
+    if L_ < full:
+        reduced.append(f'{L_} of {full} layers'
+                       + (f': {spec["layers"][1]}' if layers is None
+                          and spec['layers'][1] else ''))
+    rec = dict(phase=f'family_serve.{name}', model=spec['type'],
+               source=spec['source'], layers=L_, arch=arch, reduced=reduced,
+               **checks)
     return rec, model
 
 
 def phase19_compress(dev, name, arch=None, **sizes):
-    """RTN, AWQ's scale transform alone and AWQ with clip v1
-    (``AWQ_SPECIAL``) on one block of the family through ``run_pipeline``:
-    PPLs finite; RTN's transformed PPL equal to pretrain, the scale
-    transform's (an equivalence through the family's norms: Gemma2's
-    pre-ffn norm, Qwen2's biased q/k/v) within ``TOL_PPL_EQUIV`` of it
-    on the block in float32, and with clip v1 (which clamps weights in
-    place) within ``TOL_PPL_TRANSFORMED``, its searched block erring no
-    more than RTN's."""
+    """``family_compress`` of one of ``FAMILY_MODELS``."""
     spec = FAMILY_MODELS[name]
+    return family_compress(dev, spec['type'], arch or spec['arch'],
+                           spec['source'], f'family_compress.{name}',
+                           spec['arch']['num_hidden_layers'], **sizes)
+
+
+def family_compress(dev, model_type, arch, source, phase, full_layers,
+                    **sizes):
+    """RTN, AWQ's scale transform alone and AWQ with clip v1
+    (``AWQ_SPECIAL``) on one block of ``model_type`` at ``arch``'s widths
+    through ``run_pipeline``: PPLs finite; RTN's transformed PPL equal to
+    pretrain, the scale transform's (an equivalence through the family's
+    norms and biases: Gemma2's pre-ffn norm, Qwen2's biased q/k/v, OPT's
+    biased linears and LayerNorms) within ``TOL_PPL_EQUIV`` of it on the
+    block in float32, and with clip v1 (which clamps weights in place)
+    within ``TOL_PPL_TRANSFORMED``, its searched block erring no more
+    than RTN's."""
     recs = []
     for method, special, dtype, tol in (
             ('RTN', None, None, TOL_PPL_EQUIV),
             ('Awq', dict(trans=True, weight_clip=False), 'float32',
              TOL_PPL_EQUIV),
             ('Awq', AWQ_SPECIAL, None, TOL_PPL_TRANSFORMED)):
-        cfg_kw = dict(arch or spec['arch'], num_hidden_layers=1)
+        cfg_kw = dict(arch, num_hidden_layers=1)
         if dtype:
             cfg_kw['dtype'] = dtype
         rec, res = phase_compress(dev, cfg_kw, method, special,
-                                  model_type=spec['type'], **sizes)
+                                  model_type=model_type, **sizes)
         del res
         _free(dev)
-        rec.update(phase=f'family_compress.{name}', model=spec['type'],
-                   source=spec['source'],
-                   reduced=[f'1 of {spec["arch"]["num_hidden_layers"]} '
-                            f'layers: one block shows the layout'],
+        rec.update(phase=phase, model=model_type, source=source,
+                   reduced=[f'1 of {full_layers} layers: one block shows '
+                            f'the layout'],
                    tolerance_ppl_transformed=tol)
         rec['ok'] = rec['ok'] and rec['ppl_transformed_rel_drift'] <= tol
         recs.append(rec)
     return recs
+
+
+# --------------------------------------------------------------------------
+# phase 20: OPT, the engine's SinkKV, sparsification, ShadowKV and the
+# latency eval
+# --------------------------------------------------------------------------
+
+OPT_6_7B = dict(vocab_size=50272, hidden_size=4096, ffn_dim=16384,
+                num_hidden_layers=32, num_attention_heads=32,
+                max_position_embeddings=2048, dtype='bfloat16')
+OPT_SOURCE = 'facebook/opt-6.7b config.json'
+# SinkKV in the engine: 4 sinks and a window of 32, which the 10 to 200
+# token prompts of ``serve_requests`` outgrow
+SINK_KV = dict(method='sink', num_sink_tokens=4, window_length=32)
+# its first 2 layers served on the card against the CPU port: prompts
+# longer than the window
+SINK_VS_CPU = dict(layers=2, prompts=(40, 75, 110, 130), new_tokens=8)
+# a token the card picked against the CPU's best under teacher forcing,
+# relative to the largest logit: bf16 roundings that fall otherwise
+# through two layers (tests/test_torch_families_gpu.py's bound)
+TOL_TOKEN_GAP = 3e-2
+# the shipped sparsification configs' ``sparse`` sections, as the files
+# hold them (tests/test_torch_phase20.py reads the files)
+SPARSE_CONFIGS = {
+    'configs/sparsification/magnitude.yml':
+        dict(method='Magnitude', weight=dict(sparsity=0.5)),
+    'configs/sparsification/wanda.yml':
+        dict(method='Wanda', weight=dict(sparsity=0.5)),
+    'configs/sparsification/shortgpt.yml':
+        dict(method='ShortGPT', special=dict(n_prune_layers=4)),
+}
+SPARSE_LAYERS = 8
+# ShadowKV at Llama-2-7B's width: 2048 prefilled tokens in 256 chunks of
+# 8; 48 outlier and 4 local chunks always attended, the top 128 of the
+# other 204 retrieved each step
+SHADOWKV = dict(sparse_budget=1024, chunk_size=8, rank=160, outlier_chunk=48,
+                max_gen=2048)
+SHADOWKV_RUN = dict(layers=4, tokens=4096)
+# the dense decode's step is timed over the first tokens (its PPL over the
+# same scored tokens comes from one teacher-forced forward)
+DENSE_TIMED_TOKENS = 257
+# the card against the CPU port, both in float32 on the same weights, at
+# 2 layers over 512 tokens, under a policy whose retrieval selects at that
+# length (256 prefilled tokens in 32 chunks of 8: 6 outlier and 4 local
+# chunks, the top 16 of the other 22 retrieved; SHADOWKV at that length
+# would keep 28 outliers and retrieve none)
+SHADOWKV_CPU = dict(layers=2, tokens=512,
+                    policy=dict(sparse_budget=128, chunk_size=8, rank=64,
+                                outlier_chunk=6, max_gen=256))
+# relative, the PPL of the card's float32 run against the CPU's
+# (tests/test_torch_text_tier_gpu.py's bound)
+TOL_SHADOWKV_VS_CPU = 1e-4
+LATENCY = dict(prompt_len=128, gen_len=64, iters=5, batches=(1, 8))
+# the latency entry through run_pipeline runs the fake-quant QMap, whose
+# every decode step re-quantizes every weight (on an H100: 8.3 ms a layer
+# eager at Llama-2-7B's width, 31.3 ms a captured step at 4 layers, B=1)
+LATENCY_PIPELINE_LAYERS = (1, 'a fake-quant decode step re-quantizes every '
+                              'weight: 31 ms captured at 4 layers, and 64 '
+                              'eager warm-up steps at 32 layers are about '
+                              '17 s a batch size')
+
+
+def opt_model(dev, layers=None, arch=None, seed=0):
+    """A random OPT (native graph, ``OptAdapter``) at OPT-6.7B's widths
+    (``arch``: other widths, for a test) and ``layers``."""
+    from llmc_tpu_torch.models.adapter import OptAdapter
+    from llmc_tpu_torch.models.opt import OptConfig
+    arch = dict(arch or OPT_6_7B)
+    if layers:
+        arch['num_hidden_layers'] = layers
+    return OptAdapter.random(OptConfig(**arch), seed=seed, device=dev), arch
+
+
+def phase20_opt(dev, peaks, layers=None, arch=None, serve_kw=None,
+                timing_kw=None, decode_kw=None, seed=0):
+    """OPT-6.7B viewed through the generalized Llama graph
+    (``as_generalized``: LayerNorm with biases, learned positions at +2, a
+    non-gated ReLU MLP, biased q/k/v fused) through
+    ``packed_serve_checks``: B1 (4L + 1) a forward, B2 / B5 L a host
+    decode step.  Returns the record."""
+    native, arch = opt_model(dev, layers, arch, seed)
+    model = native.as_generalized()
+    del native      # the generalized view shares every tensor
+    L_ = model.cfg.num_hidden_layers
+    checks = packed_serve_checks(dev, model, peaks, ('auto', 'batch'),
+                                 serve_kw, timing_kw, decode_kw)
+    full = OPT_6_7B['num_hidden_layers']
+    rec = dict(phase='opt_serve.opt_6_7b', model='Opt', source=OPT_SOURCE,
+               layers=L_, arch=arch,
+               reduced=[f'{L_} of {full} layers'] if L_ < full else [],
+               graph='the generalized Llama graph (as_generalized)',
+               **checks)
+    del model
+    _free(dev)
+    return rec
+
+
+def phase20_opt_compress(dev, arch=None, **sizes):
+    """RTN and AWQ on one block of the native OPT graph
+    (``family_compress``)."""
+    return family_compress(dev, 'Opt', arch or OPT_6_7B, OPT_SOURCE,
+                           'opt_compress.opt_6_7b',
+                           OPT_6_7B['num_hidden_layers'], **sizes)
+
+
+def engine_vs_cpu(dev, model, qmap, policy, prompts, new_tokens):
+    """``prompts`` served by the engine on the card under ``policy``
+    (captured steps), then each request teacher-forced on the CPU port on
+    the same weights: one forward of its prompt and tokens, whose row
+    masks are the decode steps' (SinkKV's sinks and window at each row's
+    own position).  Every token the card picked must be within bf16's
+    reach of the CPU's best (``TOL_TOKEN_GAP`` of the largest logit); the
+    share picked exactly as the CPU's argmax is recorded."""
+    from llmc_tpu_torch.models.adapter import _tree_to
+    from llmc_tpu_torch.serve import Request, ServingEngine
+    from llmc_tpu_torch.serve.decode import forward_cached, init_cache
+    eng = ServingEngine(model, qmap=qmap, max_batch=len(prompts),
+                        max_len=max(map(len, prompts)) + new_tokens + 1,
+                        prefill_buckets=(32, 64, 128), kv_policy=policy,
+                        device=dev)
+    reqs = [Request(uid=i, prompt_ids=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    eng.run(reqs)
+    cpu = type(model)(model.cfg, _tree_to(model.params, 'cpu'))
+    gaps, same = [], []
+    with torch.no_grad():
+        for p, r in zip(prompts, reqs):
+            out = list(r.output_ids)
+            seq = torch.as_tensor(np.concatenate([p, out[:-1]])[None])
+            cache = init_cache(cpu, 1, seq.shape[1], policy, device='cpu')
+            rows = forward_cached(cpu.params, cpu.cfg, seq, cache, policy,
+                                  qmap)[0][0, len(p) - 1:].float()
+            picked = rows[torch.arange(len(out)), torch.as_tensor(out)]
+            gaps.append(float(((rows.max(-1).values - picked)
+                               / rows.abs().max()).max()))
+            same += (rows.argmax(-1) == torch.as_tensor(out)).tolist()
+    del cpu
+    return dict(layers=model.cfg.num_hidden_layers,
+                prompts=[len(p) for p in prompts], new_tokens=new_tokens,
+                max_token_gap=max(gaps), tolerance_token_gap=TOL_TOKEN_GAP,
+                tokens_equal_share=float(np.mean(same)),
+                all_done=all(r.done for r in reqs),
+                ok=bool(max(gaps) <= TOL_TOKEN_GAP
+                        and all(r.done for r in reqs)))
+
+
+def phase20_sink(dev, peaks, layers=None, cfg_kw=LLAMA2_7B, serve_kw=None,
+                 vs_cpu=SINK_VS_CPU, seed=0):
+    """The packed Llama-2-7B (random W4A16 g128, fused, packed head) served
+    by the engine under SinkKV (``SINK_KV``) through the captured step and
+    the eager one, under ``auto`` and ``batch``: every request finishes,
+    the captured tokens equal the eager ones, B1 launches as a forward
+    implies and B2 / B5 never (no kernel takes a sink step, as the
+    reference's attn_ok takes none).  Then its first ``vs_cpu['layers']``
+    layers served on the card against the CPU port (``engine_vs_cpu``),
+    on prompts longer than the window."""
+    from llmc_tpu_torch.serve import KVCachePolicy
+    policy = KVCachePolicy(**SINK_KV)
+    cfg_kw = dict(cfg_kw, num_hidden_layers=layers
+                  or cfg_kw['num_hidden_layers'])
+    model, qmap = make_model('w4a16', cfg_kw, dev, seed)
+    runs = {}
+    for attn in ('auto', 'batch'):
+        got = {mode: adapter_serve_run(dev, model, attn,
+                                       eager=mode == 'eager', qmap=qmap,
+                                       kv_policy=policy,
+                                       **(serve_kw or MOE_SERVE))
+               for mode in ('graph', 'eager')}
+        runs[attn] = dict(graph=got['graph'][0], eager=got['eager'][0],
+                          tokens_equal=got['graph'][1] == got['eager'][1])
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg_kw['vocab_size'], (n,))
+               for n in vs_cpu['prompts']]
+    cpu_check = engine_vs_cpu(dev, shallow(model, vs_cpu['layers']), qmap,
+                              policy, prompts, vs_cpu['new_tokens'])
+    del model
+    _free(dev)
+    attn_launches = sum(r[m]['launches'][k] for r in runs.values()
+                        for m in ('graph', 'eager')
+                        for k in ('flash_decode', 'batch_decode'))
+    rec = dict(phase='sink_serve', model='Llama',
+               source='bench.py:58-62 (Llama-2-7B)',
+               layers=cfg_kw['num_hidden_layers'], kv_policy=SINK_KV,
+               weights='random W4A16 g128, fused, packed head', runs=runs,
+               attention_launches=attn_launches, vs_cpu=cpu_check)
+    rec['ok'] = bool(cpu_check['ok'] and attn_launches == 0 and all(
+        r['tokens_equal'] and r[m]['all_done']
+        and r[m]['launches'] == r[m]['expected_launches']
+        and r[m]['xla_branch_calls'] == 0
+        for r in runs.values() for m in ('graph', 'eager')))
+    return rec
+
+
+def sparse_config(rel, cfg_kw, n_samples=8, seq_len=512, eval_tokens=4096,
+                  eval_bs=4, seed=0):
+    """A shipped sparsification config's ``sparse`` section
+    (``SPARSE_CONFIGS``) on a random Llama of ``cfg_kw``, synthetic
+    calibration and PPL data at ``pretrain`` and ``transformed``."""
+    sparse = json.loads(json.dumps(SPARSE_CONFIGS[rel]))
+    cfg = compress_config(cfg_kw, 'RTN', n_samples=n_samples,
+                          seq_len=seq_len, eval_tokens=eval_tokens,
+                          eval_bs=eval_bs, seed=seed)
+    del cfg['quant']
+    cfg['eval']['eval_pos'] = ['pretrain', 'transformed']
+    return dict(cfg, sparse=sparse)
+
+
+def write_llama_checkpoint(dev, cfg_kw, path, seed=0) -> dict:
+    """A random Llama of ``cfg_kw`` written to ``path`` as an HF
+    checkpoint (``config.json`` in HF's names), for a pipeline that loads
+    it and saves what it made; returns the ``model`` section that loads
+    it."""
+    from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
+    model = LlamaAdapter.random(LlamaConfig(**cfg_kw), seed=seed, device=dev)
+    model.hf_config = dict(cfg_kw, model_type='llama',
+                           torch_dtype=cfg_kw['dtype'])
+    model.save_to_hf(path)
+    del model
+    _free(dev)
+    return dict(type='Llama', path=path, torch_dtype=cfg_kw['dtype'])
+
+
+def zero_shares(model) -> dict:
+    """Each linear of each block: its share of zeros, and the least count
+    of zeros a row over its input width."""
+    from llmc_tpu_torch.models.base import get_path
+    out = {}
+    for i, blk in enumerate(model.blocks):
+        for p in model.get_layout().linears:
+            w = get_path(blk, p)['w']
+            z = w == 0
+            out[f'{i}.{p}'] = dict(share=float(z.float().mean()),
+                                   min_row_share=float(
+                                       z.sum(1).min()) / w.shape[1])
+    return out
+
+
+def sparse_masks_vs_cpu(dev, config, names=('Magnitude', 'Wanda')):
+    """Block 0 of ``config``'s model, its subset inputs captured on the
+    card over the calibration batches, pruned by each method on the card
+    and by the CPU port on the same weights and inputs: the masks'
+    agreement.  Magnitude's sort of |w| is exact on both; Wanda's row
+    statistic is a sum whose order differs, so an entry may fall
+    otherwise only where its metric ties the row's k-th value within a few
+    ulps (``wanda_off_tie``: the mismatches whose CPU metric lies more
+    than 1e-5 relative from that value, which must be none)."""
+    from llmc_tpu_torch.compression import sparsification as TS
+    from llmc_tpu_torch.data import CalibDataset
+    from llmc_tpu_torch.models import build_model
+    from llmc_tpu_torch.models.base import get_path
+    model = build_model(config, device=dev)
+    batches, _ = CalibDataset(config['calib'],
+                              model.tokenizer).get_calib_dataset()
+    with torch.no_grad():
+        xs, kws = model.collect_first_block_input(batches)
+        inputs = {'data': xs, 'kwargs': kws}
+        out = {}
+        for name in names:
+            sc = dict(method=name, weight=dict(sparsity=0.5))
+            algo = getattr(TS, name)(model, sc, inputs, None, config)
+            _, feats = algo.block_forward_capture(model.blocks[0])
+            cpu_feats = {k: [x.cpu().float() for x in v]
+                         for k, v in feats.items()}
+            blk, cpu_blk = model.blocks[0], tree_to(model.blocks[0], 'cpu')
+            rows = {}
+            for subset in algo.layout.subsets:
+                got = algo.subset_transform(0, blk, subset, feats)
+                want = algo.subset_transform(0, cpu_blk, subset, cpu_feats)
+                for p in subset.layers:
+                    gm = get_path(got, p)['w'].cpu() == 0
+                    wm = get_path(want, p)['w'] == 0
+                    diff = gm != wm
+                    row = dict(mismatches=int(diff.sum()),
+                               entries=int(diff.numel()))
+                    if name == 'Wanda' and row['mismatches']:
+                        w = get_path(cpu_blk, p)['w'].float()
+                        sr = TS.Wanda.scaler_row(cpu_feats[subset.input_key])
+                        metric = w.abs() * sr.sqrt()[None]
+                        k = int(w.shape[1] * 0.5)
+                        kth = metric.sort(-1).values[:, k - 1:k]
+                        near = (metric - kth).abs() <= 1e-5 * kth
+                        row['off_tie'] = int((diff & ~near).sum())
+                    rows[p] = row
+            out[name] = rows
+    del model
+    _free(dev)
+    return out
+
+
+def phase20_sparse(dev, cfg_kw=None, layers=SPARSE_LAYERS, mask_check=True,
+                   **sizes):
+    """Magnitude and Wanda at sparsity 0.5 and ShortGPT with the shipped
+    ``n_prune_layers`` on a random Llama-2-7B at ``layers`` layers
+    (``cfg_kw``: other widths, for a test) through ``run_pipeline``: PPLs
+    finite, seconds a block, each linear's share of zeros (Wanda at least
+    floor(K / 2) a row, Magnitude at least half of each layer), ShortGPT's
+    removed blocks and the ``num_hidden_layers`` of the config
+    ``save_trans`` wrote; then block 0's masks on the card against the
+    CPU port's (``sparse_masks_vs_cpu``).  ShortGPT runs on a written
+    checkpoint (``write_llama_checkpoint``), whose config its save
+    shortens."""
+    import tempfile
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.ops import reset_launch_counts
+    cfg_kw = dict(cfg_kw or LLAMA2_7B, num_hidden_layers=layers)
+    recs = []
+    for rel in SPARSE_CONFIGS:
+        config = sparse_config(rel, cfg_kw, **sizes)
+        method = config['sparse']['method']
+        with tempfile.TemporaryDirectory() as tmp:
+            if method == 'ShortGPT':
+                config['model'] = write_llama_checkpoint(
+                    dev, cfg_kw, os.path.join(tmp, 'in'),
+                    config['model']['seed'])
+                config['save'] = dict(save_trans=True,
+                                      save_path=os.path.join(tmp, 'out'))
+            reset_launch_counts()
+            res = run_pipeline(config, device=dev)
+            counts, xla = read_counts()
+            saved = None
+            if method == 'ShortGPT':
+                with open(os.path.join(tmp, 'out', 'config.json')) as f:
+                    saved = json.load(f)['num_hidden_layers']
+        ppl = {k: res[k] for k in ('ppl_pretrain', 'ppl_transformed')}
+        calib = res['phase_times'][f'calib_{method}']
+        rec = dict(phase='sparse', config=rel, method=method,
+                   sparse=config['sparse'], layers=layers,
+                   width=cfg_kw['hidden_size'], calib=config['calib'],
+                   eval=config['eval'], **ppl,
+                   block_loop_s_per_block=calib / layers,
+                   phase_times_s=res['phase_times'], wall_s=res['wall_s'],
+                   launches=counts, xla_branch_calls=xla)
+        ok = all(np.isfinite(v) for v in ppl.values())
+        if method == 'ShortGPT':
+            n = int(config['sparse']['special']['n_prune_layers'])
+            imp = res['opt'].importances
+            rec.update(importances=imp.tolist(),
+                       removed=sorted(res['opt'].removed),
+                       blocks_after=res['model'].n_blocks,
+                       saved_num_hidden_layers=saved)
+            ok = ok and res['model'].n_blocks == layers - n == saved \
+                and rec['removed'] == sorted(np.argsort(imp)[:n].tolist())
+        else:
+            shares = zero_shares(res['model'])
+            sp = float(config['sparse']['weight']['sparsity'])
+            rec.update(min_zero_share=min(v['share'] for v in
+                                          shares.values()),
+                       min_row_zero_share=min(v['min_row_share'] for v in
+                                              shares.values()))
+            key = 'min_row_zero_share' if method == 'Wanda' \
+                else 'min_zero_share'
+            ok = ok and rec[key] >= sp - 1e-6
+        rec['ok'] = bool(ok)
+        del res
+        _free(dev)
+        recs.append(rec)
+    if mask_check:
+        masks = sparse_masks_vs_cpu(dev, sparse_config(
+            'configs/sparsification/wanda.yml', cfg_kw, **sizes))
+        rec = dict(phase='sparse_masks_vs_cpu', block=0, masks=masks,
+                   magnitude_mismatches=sum(
+                       r['mismatches'] for r in masks['Magnitude'].values()),
+                   wanda_mismatches=sum(
+                       r['mismatches'] for r in masks['Wanda'].values()),
+                   wanda_off_tie=sum(r.get('off_tie', 0)
+                                     for r in masks['Wanda'].values()))
+        rec['ok'] = rec['magnitude_mismatches'] == 0 \
+            and rec['wanda_off_tie'] == 0
+        recs.append(rec)
+    return recs
+
+
+def shadowkv_retrieval_vs_cpu(dev, cfg_kw, policy_kw, prefill, seed=0):
+    """``init_from_prefill`` and one step's ``retrieve`` of one layer on
+    the card and on the CPU, in float32, on the same random prefill K / V
+    and query at ``cfg_kw``'s widths: the outlier chunks and the retrieved
+    positions of each kv head, compared as sets (the card must pick
+    exactly the CPU's), and the rebuilt K's largest difference relative
+    to its largest entry (a record).  The unroped K is of rank half the
+    policy's plus 1% noise, low-rank as keys are (ShadowKV's premise: a
+    full-rank random K's truncated SVD is ill-posed); the seeded data keep
+    every selection 3e-5 (relative) away from a tie."""
+    from llmc_tpu_torch.models import LlamaConfig
+    from llmc_tpu_torch.models import llama as Lm
+    from llmc_tpu_torch.serve.shadowkv import ShadowKVPolicy
+    policy = ShadowKVPolicy(**policy_kw)
+    cfg = LlamaConfig(**dict(cfg_kw, num_hidden_layers=1, dtype='float32'))
+    kvh, hd = cfg.num_key_value_heads, cfg.head_dim
+    rng = np.random.RandomState(seed)
+    r = max(policy.rank // 2, 1)
+    ku = torch.as_tensor((rng.standard_normal((prefill, r))
+                          @ rng.standard_normal((r, kvh * hd)) / r ** 0.5
+                          + 0.01 * rng.standard_normal((prefill, kvh * hd))
+                          ).astype(np.float32).reshape(1, prefill, kvh, hd))
+    v = torch.as_tensor(rng.standard_normal(
+        (1, prefill, kvh, hd)).astype(np.float32))
+    q = torch.as_tensor(rng.standard_normal(
+        (1, 1, cfg.num_attention_heads, hd)).astype(np.float32))
+    picks = {}
+    for where in (dev, torch.device('cpu')):
+        k, vv, qq = (t.to(where) for t in (ku, v, q))
+        cos, sin = Lm.rope_cos_sin(cfg, torch.arange(prefill,
+                                                     device=where)[None])
+        kr = Lm.apply_rope(k, k, cos, sin)[0]
+        state = policy.init_from_prefill(cfg, [k], [kr], [vv])
+        k_sel, _, pos = policy.retrieve(cfg, state, 0, qq)
+        # the top-k's order among the retrieved is not part of the result
+        pos, order = pos.sort(-1)
+        k_sel = k_sel.gather(2, order[..., None].expand(-1, -1, -1, hd))
+        picks[where.type] = (state['out_idx'][0].sort(-1).values.cpu(),
+                             pos.cpu(), k_sel.cpu())
+    (co, cp, ck), (ho, hp, hk) = picks[dev.type], picks['cpu']
+    rec = dict(layers=1, prefill=prefill, outlier_mismatches=int(
+                   (co != ho).sum()), outlier_entries=int(co.numel()),
+               position_mismatches=int((cp != hp).sum()),
+               position_entries=int(cp.numel()),
+               k_rebuilt_max_rel=float((ck - hk).abs().max()
+                                       / hk.abs().max()))
+    rec['ok'] = rec['outlier_mismatches'] == 0 == rec['position_mismatches']
+    return rec
+
+
+def phase20_shadowkv(dev, cfg_kw=LLAMA2_7B, run=SHADOWKV_RUN,
+                     cpu=SHADOWKV_CPU, policy_kw=SHADOWKV, seed=0,
+                     dense_timed=DENSE_TIMED_TOKENS):
+    """``shadowkv_decode_nll`` on a random bf16 Llama-2-7B at
+    ``run['layers']`` layers over ``run['tokens']`` random ids (half
+    prefilled): its PPL and seconds (the prefill's SVD included) beside
+    the dense model's PPL over the same scored tokens (one teacher-forced
+    forward) and the dense ``decode_nll``'s milliseconds a step over the
+    first ``dense_timed`` ids; the card's retrieval against the CPU's at
+    the run's prefill (``shadowkv_retrieval_vs_cpu``); then at
+    ``cpu['layers']`` layers and ``cpu['tokens']`` tokens, under
+    ``cpu['policy']``, the card's PPL against the CPU port's, both in
+    float32 on the same weights, within ``TOL_SHADOWKV_VS_CPU``."""
+    from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
+    from llmc_tpu_torch.serve.decode import decode_nll
+    from llmc_tpu_torch.serve.shadowkv import (ShadowKVPolicy,
+                                               shadowkv_decode_nll)
+    policy = ShadowKVPolicy(**policy_kw)
+    model = LlamaAdapter.random(LlamaConfig(**dict(
+        cfg_kw, num_hidden_layers=run['layers'])), seed=seed, device=dev)
+    ids = np.random.RandomState(seed).randint(0, cfg_kw['vocab_size'],
+                                              (1, run['tokens']))
+    S_pre = (run['tokens'] // 2 // policy.chunk_size) * policy.chunk_size
+    _sync(dev)
+    t0 = time.perf_counter()
+    ppl, n = shadowkv_decode_nll(model, ids, policy)
+    _sync(dev)
+    sparse_s = time.perf_counter() - t0
+    # the dense PPL of the tokens ShadowKV scores, ids[S_pre:], each from
+    # the logits of the position before it
+    with torch.no_grad():
+        t_ids = torch.as_tensor(ids, device=dev)
+        lp = torch.log_softmax(model.forward_logits(t_ids)[
+            0, S_pre - 1:-1].float(), dim=-1)
+        dense_ppl = float(torch.exp(-lp.gather(
+            -1, t_ids[0, S_pre:, None]).mean()))
+        del lp
+    _sync(dev)
+    t0 = time.perf_counter()
+    decode_nll(model, ids[:, :dense_timed], device=dev)
+    _sync(dev)
+    dense_ms = (time.perf_counter() - t0) * 1e3 / (dense_timed - 1)
+    n_chunks = S_pre // policy.chunk_size
+    n_out = min(policy.outlier_chunk, n_chunks - policy._local(n_chunks))
+    retrieval = shadowkv_retrieval_vs_cpu(dev, cfg_kw, policy_kw, S_pre,
+                                          seed)
+    small = dict(cfg_kw, num_hidden_layers=cpu['layers'], dtype='float32')
+    m_card = LlamaAdapter(LlamaConfig(**small), tree_to(
+        {**model.params, 'blocks': model.params['blocks'][:cpu['layers']]},
+        dev, F32))
+    del model
+    _free(dev)
+    m_cpu = LlamaAdapter(LlamaConfig(**small), tree_to(m_card.params, 'cpu'))
+    small_ids = ids[:, :cpu['tokens']]
+    cpu_policy = ShadowKVPolicy(**cpu['policy'])
+    checks = {}
+    for name, m in (('card', m_card), ('cpu', m_cpu)):
+        t0 = time.perf_counter()
+        checks[name] = shadowkv_decode_nll(m, small_ids, cpu_policy)[0]
+        checks[f'{name}_s'] = time.perf_counter() - t0
+    rec = dict(phase='shadowkv', model='Llama', source='bench.py:58-62 '
+               '(Llama-2-7B)', layers=run['layers'], tokens=run['tokens'],
+               reduced=[f'{run["layers"]} of {cfg_kw["num_hidden_layers"]} '
+                        f'layers: 2047 decode steps'],
+               policy=policy_kw, prefill_tokens=S_pre, prefill_chunks=n_chunks,
+               outlier_chunks=n_out, local_chunks=policy._local(n_chunks),
+               retrieved_chunks=min(policy.sparse_budget // policy.chunk_size,
+                                    n_chunks - n_out
+                                    - policy._local(n_chunks)),
+               ppl=ppl, scored=n, s=sparse_s,
+               ms_a_step_prefill_included=sparse_s * 1e3 / (n - 1),
+               dense_ppl=dense_ppl, dense_ms_per_step=dense_ms,
+               dense_timed_steps=dense_timed - 1,
+               ppl_rel_vs_dense=abs(ppl - dense_ppl) / dense_ppl,
+               retrieval_vs_cpu=retrieval,
+               cpu_check=dict(layers=cpu['layers'], tokens=cpu['tokens'],
+                              policy=cpu['policy'], dtype='float32',
+                              card_ppl=checks['card'],
+                              cpu_ppl=checks['cpu'],
+                              rel=abs(checks['card'] - checks['cpu'])
+                              / checks['cpu'],
+                              card_s=checks['card_s'],
+                              cpu_s=checks['cpu_s'],
+                              tolerance=TOL_SHADOWKV_VS_CPU))
+    rec['ok'] = bool(np.isfinite(ppl) and np.isfinite(dense_ppl)
+                     and n == run['tokens'] - S_pre and retrieval['ok']
+                     and rec['cpu_check']['rel'] <= TOL_SHADOWKV_VS_CPU)
+    del m_card, m_cpu
+    _free(dev)
+    return rec
+
+
+def latency_launches(L, runs, gen_len, packed):
+    """What one ``LatencyEval`` counts: B1 (4L + 1) a forward of a packed
+    model over its prefills and the decode's counted passes (its eager
+    warm-up and its capture: a replay counts nothing), B2 once a layer a
+    counted decode step (an fp cache)."""
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    steps = 2 * gen_len
+    if packed:
+        n['w4_dequant_matmul'] = (4 * L + 1) * (runs + steps)
+    n['flash_decode'] = L * steps
+    return n
+
+
+def phase20_latency(dev, cfg_kw=LLAMA2_7B, lat=LATENCY,
+                    pipeline_layers=LATENCY_PIPELINE_LAYERS[0], seed=0):
+    """``LatencyEval`` at batch 1 and 8: on the packed model's serving
+    QMap (random W4A16 g128, fused, packed head) over an fp cache, and
+    through ``run_pipeline`` with a ``latency`` entry at ``fake_quant``
+    of an RTN W4 config (at ``pipeline_layers``).  TTFT p50 / p99, decode
+    tok/s (records), the captured decode's tokens equal to its eager
+    warm-up's, and the launches its path implies."""
+    from llmc_tpu_torch.eval.latency import LatencyEval
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.ops import reset_launch_counts
+    model, qmap = make_model('w4a16', cfg_kw, dev, seed)
+    L = cfg_kw['num_hidden_layers']
+    rows = []
+    with attn_impl('auto'):
+        for B in lat['batches']:
+            ev = LatencyEval(prompt_len=lat['prompt_len'],
+                             gen_len=lat['gen_len'], batch=B,
+                             iters=lat['iters'])
+            reset_launch_counts()
+            stats = ev.eval(model, qmap=qmap)
+            counts, xla = read_counts()
+            rows.append(dict(
+                qmap='packed', batch=B, layers=L, **stats,
+                captured_equals_eager=bool(torch.equal(ev.first_tokens,
+                                                       ev.tokens)),
+                counts=ev.stats, launches=counts, xla_branch_calls=xla,
+                expected_launches=latency_launches(
+                    L, 1 + lat['iters'], lat['gen_len'], True)))
+    del model
+    _free(dev)
+    pl = dict(cfg_kw, num_hidden_layers=pipeline_layers)
+    config = compress_config(pl, 'RTN', seed=seed)
+    config['eval'] = [dict(type='latency', name=f'bs{B}',
+                           prompt_len=lat['prompt_len'],
+                           gen_len=lat['gen_len'], bs=B, iters=lat['iters'],
+                           eval_pos=['fake_quant'])
+                      for B in lat['batches']]
+    reset_launch_counts()
+    with attn_impl('auto'):
+        res = run_pipeline(config, device=dev)
+    counts, xla = read_counts()
+    piped = {k: v for k, v in res.items() if k.startswith('latency')}
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want['flash_decode'] = sum(latency_launches(
+        pipeline_layers, 0, lat['gen_len'], False)['flash_decode']
+        for _ in lat['batches'])
+    del res
+    _free(dev)
+    rec = dict(phase='latency', source='bench.py:58-62 (Llama-2-7B)',
+               prompt_len=lat['prompt_len'], gen_len=lat['gen_len'],
+               iters=lat['iters'], kv_cache='fp', packed=rows,
+               pipeline=dict(layers=pipeline_layers,
+                             reduced=[f'{pipeline_layers} of {L} layers: '
+                                      f'{LATENCY_PIPELINE_LAYERS[1]}'],
+                             config='RTN W4 g128 symmetric, a latency '
+                                    'entry a batch size at fake_quant',
+                             results=piped, launches=counts,
+                             xla_branch_calls=xla, expected_launches=want))
+    rec['ok'] = bool(all(
+        r['captured_equals_eager'] and r['launches'] == r['expected_launches']
+        and r['xla_branch_calls'] == 0 and r['ttft_p50_ms'] > 0
+        and r['decode_tokens_per_s'] > 0 for r in rows)
+        and counts == want and xla == 0
+        and all(v['decode_tokens_per_s'] > 0 for v in piped.values()))
+    return rec
+
+
+def phase20(dev, peaks):
+    """Every record of phase 20, in its order (a generator: each record
+    is emitted and checked before the next part runs)."""
+    yield phase20_opt(dev, peaks)
+    yield from phase20_opt_compress(dev)
+    yield phase20_sink(dev, peaks)
+    yield from phase20_sparse(dev)
+    yield phase20_shadowkv(dev)
+    yield phase20_latency(dev)
+
+
+def phase20_failure(rec) -> dict:
+    """The fields of a phase-20 record that its ``ok`` reads, for the
+    failure's message."""
+    keys = ('runs', 'decode_vs_prefill', 'packed_vs_fake_quant',
+            'ppl_transformed_rel_drift', 'block_output_mse',
+            'attention_launches', 'vs_cpu', 'min_zero_share',
+            'min_row_zero_share', 'removed', 'blocks_after',
+            'saved_num_hidden_layers', 'magnitude_mismatches',
+            'wanda_off_tie', 'retrieval_vs_cpu', 'cpu_check', 'ppl',
+            'packed', 'pipeline')
+    return {k: rec[k] for k in keys if k in rec}
 
 
 def check_reads(dev, peaks, B=128, smax=96, kvh=32, H=32, hd=128):
@@ -3876,7 +4572,8 @@ def drive_mode(mode, dev, peaks, card):
                 f'{graph}): the device ran {rec["kernel_calls"]} port '
                 f'kernels in {rec["steps"]} steps, the path implies {want}')
     if mode == 'w4a16':
-        rec = phase_serve_paged(dev, model, qmap, LLAMA2_7B)
+        rec = phase_serve_paged(dev, shallow(model, SERVE_PAGED_LAYERS),
+                                qmap, LLAMA2_7B)
         rec.update(card)
         emit(rec)
         require_served(rec)
@@ -4277,6 +4974,17 @@ def main(argv=None) -> int:
                         f'searched block errs more than RTN: '
                         f'{rec["block_output_mse"]}')
     emit(dict(phase='phase19', wall_s=time.perf_counter() - t19, **card))
+
+    # phase 20: OPT-6.7B served packed through B1 and B2 / B5 and
+    # compressed on its native graph; the engine under SinkKV (no attention
+    # kernel); sparsification, ShadowKV and the latency eval
+    t20 = time.perf_counter()
+    for rec in phase20(dev, peaks):
+        rec.update(card)
+        emit(rec)
+        require(rec['ok'], f'{rec["phase"]}: a check failed: '
+                f'{phase20_failure(rec)}')
+    emit(dict(phase='phase20', wall_s=time.perf_counter() - t20, **card))
 
     require(min(launches.values()) > 0,
             f'a kernel of the main paths was never launched: {launches}')

@@ -43,7 +43,12 @@ F32 = torch.float32
 
 
 class BlockwiseOpt:
-    """The abstract block loop."""
+    """The abstract block loop, and what ``run_pipeline`` asks of every
+    algorithm: ``deploy`` (the QMap of an eval stage; None where the
+    params are all that was deployed), ``kv_module`` (the evals' KV-cache
+    policy) and ``bake_fake_quant_weights``."""
+
+    kv_module = None
 
     def __init__(self, model: BaseAdapter, compress_config, inputs,
                  padding_mask, config):
@@ -82,6 +87,30 @@ class BlockwiseOpt:
 
     def block_opt(self, idx: int):
         raise NotImplementedError
+
+    def deploy(self, quant_format: str):
+        raise NotImplementedError
+
+    def bake_fake_quant_weights(self):
+        """Nothing to bake: the params already hold what was deployed."""
+
+    def block_forward_capture(self, block, qmap=None):
+        """(outputs, {capture key: [one tensor a batch]}) of ``block``
+        (the subclass's ``block_fn``) over the current inputs."""
+        outs, feats = [], {}
+        for x, kw in zip(self.inputs, self._kwargs_iter()):
+            y, caps = self.block_fn(block, x, kw, qmap=qmap, capture=True)
+            outs.append(y)
+            for k, v in caps.items():
+                feats.setdefault(k, []).append(v)
+        return outs, feats
+
+    def _kwargs_iter(self):
+        if not self.kwargs_list:
+            return [{}] * len(self.inputs)
+        if len(self.kwargs_list) == 1:
+            return self.kwargs_list * len(self.inputs)
+        return self.kwargs_list
 
 
 def load_search_artifact(path: Optional[str], name: str):
@@ -324,22 +353,6 @@ class BaseBlockwiseQuantization(BlockwiseOpt):
         inputs = self.inputs if inputs is None else inputs
         return [self.block_fn(block, x, kw, qmap=qmap)[0]
                 for x, kw in zip(inputs, self._kwargs_iter())]
-
-    def block_forward_capture(self, block, qmap=None):
-        outs, feats = [], {}
-        for x, kw in zip(self.inputs, self._kwargs_iter()):
-            y, caps = self.block_fn(block, x, kw, qmap=qmap, capture=True)
-            outs.append(y)
-            for k, v in caps.items():
-                feats.setdefault(k, []).append(v)
-        return outs, feats
-
-    def _kwargs_iter(self):
-        if not self.kwargs_list:
-            return [{}] * len(self.inputs)
-        if len(self.kwargs_list) == 1:
-            return self.kwargs_list * len(self.inputs)
-        return self.kwargs_list
 
     # ------------------------------------------------------------------
     # the per-block step

@@ -11,7 +11,9 @@ and are viewed back as ``torch.bfloat16``; ``ml_dtypes`` float8 arrays
 ``params_to_numpy`` is the way back, for comparisons.  Both map every
 leaf of any tree, so the generalized graph's extra trees (the norms'
 biases, q/k norms, Gemma2's sandwich norms, learned positions, Bloom's
-embedding LayerNorm) carry over as the Llama ones do.
+embedding LayerNorm) carry over as the Llama ones do, and so do OPT's
+native tree (its absent projections stay ``None``) and its generalized
+view.
 """
 
 from __future__ import annotations

@@ -8,9 +8,12 @@ dataset on disk, with ``eval_token_consist`` (the argmax agreement of the
 fake-quant deploy with the params under no QMap, at ``fake_quant``); and
 entries of type ``decode_ppl``, which run at every configured position
 (the calibrated KV-cache quantizer only at ``fake_quant``; an entry with no
-positions runs at ``fake_quant``).  The other types (acc, code,
-custom_gen, latency, vqa, video_gen) and ``inference_per_block`` raise
-``NotImplementedError`` (ROADMAP A13).
+positions runs at ``fake_quant``); entries of type ``latency``
+(``eval/latency.py``: TTFT and decode tokens/s, under the calibrated KV
+policy at ``fake_quant``) and ``custom_gen`` (``eval/harness.py``: greedy
+continuations of the entry's ``prompts`` or the lines of its ``path``).
+The other types (acc, code, vqa, img_txt, video_gen) and
+``inference_per_block`` raise ``NotImplementedError`` (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -23,8 +26,7 @@ import numpy as np
 from .ppl import DecodePerplexityEval, PerplexityEval, TokenConsistencyEval
 
 _UNPORTED_TYPES = {
-    'latency': 'ROADMAP A13',
-    'acc': 'ROADMAP A13', 'code': 'ROADMAP A13', 'custom_gen': 'ROADMAP A13',
+    'acc': 'ROADMAP A13', 'code': 'ROADMAP A13',
     'vqa': 'ROADMAP A13', 'img_txt': 'ROADMAP A13',
     'video_gen': 'ROADMAP A13',
 }
@@ -104,7 +106,7 @@ class EvalOrchestrator:
         if t in _UNPORTED_TYPES:
             raise NotImplementedError(
                 f'eval type {t!r} is not ported yet ({_UNPORTED_TYPES[t]})')
-        if t not in (None, 'ppl', 'decode_ppl'):
+        if t not in (None, 'ppl', 'decode_ppl', 'latency', 'custom_gen'):
             raise ValueError(f'unknown eval type {t!r}')
         if ev.get('name') == 'imagenet':
             raise NotImplementedError(
@@ -137,10 +139,19 @@ class EvalOrchestrator:
         for e in self.entries:
             if not self._active(e, position):
                 continue
-            if e.ev['_etype'] == 'decode_ppl':
+            etype = e.ev['_etype']
+            if etype == 'decode_ppl':
                 kv = kv_policy if position == 'fake_quant' else None
                 results[f'{e.key}_{position}'] = self._decode_ppl(
                     e, model, qmap, kv)
+                continue
+            if etype == 'latency':
+                results[f'{e.key}_{position}'] = self._latency(
+                    e, model, qmap, kv_policy)
+                continue
+            if etype == 'custom_gen':
+                results[f'{e.key}_{position}'] = self._custom_gen(
+                    e, model, qmap)
                 continue
             results[f'{e.key}_{position}'] = self._ppl(e, model, qmap)
             if position == 'fake_quant' and qmap is not None \
@@ -165,6 +176,30 @@ class EvalOrchestrator:
                     seq_len=ev.get('seq_len', 2048),
                     num_samples=ev.get('num_samples', 4))
         return e.evaluator.eval(model, qmap=qmap, kv_policy=kv_policy)
+
+    def _latency(self, e, model, qmap, kv_policy):
+        if e.evaluator is None:
+            from .latency import LatencyEval
+            ev = e.ev
+            e.evaluator = LatencyEval(
+                prompt_len=int(ev.get('prompt_len', 128)),
+                gen_len=int(ev.get('gen_len', 64)),
+                batch=int(ev.get('bs', 1)), iters=int(ev.get('iters', 5)))
+        return e.evaluator.eval(model, qmap=qmap, kv_policy=kv_policy)
+
+    def _custom_gen(self, e, model, qmap):
+        if e.evaluator is None:
+            from .harness import CustomGenerate
+            ev = e.ev
+            prompts = ev.get('prompts')
+            if prompts is None and ev.get('path') \
+                    and os.path.isfile(ev['path']):
+                with open(ev['path']) as f:
+                    prompts = [ln.rstrip('\n') for ln in f if ln.strip()]
+            e.evaluator = CustomGenerate(
+                prompts or ['Hello'],
+                max_new_tokens=int(ev.get('max_new_tokens', 64)))
+        return e.evaluator.eval(model, qmap=qmap)
 
     def _ppl(self, e, model, qmap):
         if e.evaluator is None:

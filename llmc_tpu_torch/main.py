@@ -14,17 +14,28 @@ LlmInt8, HQQ, AdaDim, QUIK, SpQR, DGQ, and the gradient-trained
 NormTweaking, OmniQuant and TesseraQ; their options checked by
 ``check_special`` before any heavy work), weight and activation
 quantization, the KV-cache quantizers (``quant.kvcache``: Naive, Kivi,
-SinkKV), the PPL, decode-PPL and token-consistency evals at ``pretrain``
-/ ``transformed`` / ``fake_quant`` / ``fake_quant_wo_kv`` (the fake-quant
-deploy over an fp KV cache), ``save_trans`` / ``save_fake``.  Data
-parallel calibration, sparsification, the backend exports and the
-external evals raise ``NotImplementedError``.
+SinkKV, ShadowKV), the sparsifiers of a ``sparse`` section (Dense,
+Magnitude, Wanda, ShortGPT: deployed before the transformed eval, where
+ShortGPT removes its blocks), the PPL, decode-PPL, token-consistency,
+latency and custom-generation evals at ``pretrain`` / ``transformed`` /
+``fake_quant`` / ``fake_quant_wo_kv`` (the fake-quant deploy over an fp
+KV cache), ``save_trans`` / ``save_fake`` (OPT's in its own HF names).
+Data parallel calibration, the backend exports and the external evals
+raise ``NotImplementedError``.
+
+As in the reference, a ``sparse.kvcache`` section reaches no eval: a
+sparsifier has no KV policy (ROADMAP C).  The port warns that it is not
+applied and otherwise computes what the reference computes.  A
+sparsifier's ``deploy`` returns no QMap, so its fake-quant evals run its
+params as they are, where the reference's ShortGPT passes its list of
+removed blocks on as a QMap and fails (ROADMAP C).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+import warnings
 from typing import Dict
 
 import torch
@@ -43,9 +54,6 @@ _UNPORTED_SAVES = ('save_lightx2v', 'save_vllm', 'save_sgl', 'save_lightllm',
 
 def _check_ported(config: Cfg) -> None:
     """Raise before any heavy work for what the port does not run yet."""
-    if 'sparse' in config:
-        raise NotImplementedError(
-            'sparsification is not ported yet (ROADMAP A13)')
     if int((config.get('parallel', {}) or {}).get('dp', 1) or 1) > 1:
         raise NotImplementedError(
             'parallel.dp > 1 (data-parallel calibration) is not ported yet '
@@ -79,6 +87,10 @@ def run_pipeline(config: Dict, device=None) -> Dict:
     config = Cfg(config)
     check_config(config)
     _check_ported(config)
+    if 'kvcache' in (config.get('sparse', {}) or {}):
+        warnings.warn(
+            'sparse.kvcache is not applied: a sparsifier has no KV-cache '
+            'policy, so no eval reads it, as in the reference (ROADMAP C)')
     seed_all(config.get('base', {}).get('seed', 42))
     results = {}
     timer = PhaseTimer()
@@ -109,8 +121,9 @@ def run_pipeline(config: Dict, device=None) -> Dict:
             blockwise_opt.run_block_loop()
 
     if orch.wants('transformed'):
-        # an online-rotate checkpoint keeps its Hadamard in the fp evals
-        tmap = (blockwise_opt.transform_qmap()
+        # an online-rotate checkpoint keeps its Hadamard in the fp evals;
+        # ShortGPT removes its blocks here, as in the reference
+        tmap = (blockwise_opt.deploy('transformed')
                 if blockwise_opt is not None else None)
         with timer.phase('eval_transformed'):
             results.update(orch.run('transformed', model, qmap=tmap))
@@ -130,7 +143,6 @@ def run_pipeline(config: Dict, device=None) -> Dict:
 
     save = config.get('save', {}) or {}
     if save.get('save_trans') or save.get('save_fake'):
-        from .models.hf_loader import save_llama_params_to_hf
         out = save.get('save_path', './save')
         # skip the baking if a fake_quant deploy already did it: a second
         # pass would compute minmax qparams on quantized weights
@@ -139,7 +151,7 @@ def run_pipeline(config: Dict, device=None) -> Dict:
             blockwise_opt.bake_fake_quant_weights()
             blockwise_opt._baked = True
         with timer.phase('save'):
-            save_llama_params_to_hf(model.params, out, model.hf_config)
+            model.save_to_hf(out)
         results['saved_to'] = out
 
     results['wall_s'] = time.time() - t0

@@ -1,6 +1,6 @@
 """Model adapters (port of ``llmc_tpu/models/adapter.py``: the protocol,
-the Llama-family and generalized-graph families, the MoE / MLA families
-and ``build_model``): the protocol the compression engine and the evals
+the Llama-family and generalized-graph families, the MoE / MLA families,
+OPT and ``build_model``): the protocol the compression engine and the evals
 consume.
 
 ``QMap`` maps linear paths to their static ``LinearQcfg``.  The adapter
@@ -22,6 +22,7 @@ from ..utils.registry import MODEL_REGISTRY
 from . import deepseek as DS
 from . import llama as L
 from . import mixtral as MX
+from . import opt as O
 from . import qwen2moe as QM
 from .base import BlockLayout, LinearQcfg, matmul_f32_acc, rms_norm
 
@@ -122,6 +123,12 @@ class BaseAdapter(torch.nn.Module):
 
     def set_block(self, idx: int, new_block: Dict) -> None:
         self.params['blocks'][idx] = new_block
+
+    def save_to_hf(self, path: str) -> None:
+        """Write the params (and ``hf_config``) as an HF checkpoint in the
+        Llama names, the ``save_trans`` / ``save_fake`` output."""
+        from .hf_loader import save_llama_params_to_hf
+        save_llama_params_to_hf(self.params, path, self.hf_config)
 
 
 @MODEL_REGISTRY.register(name='Llama')
@@ -237,17 +244,7 @@ class LlamaAdapter(BaseAdapter):
         cos, sin = self.rope_tables(positions)
         kw = {'cos': cos, 'sin': sin}
         if attention_mask is not None:
-            # additive [B,1,S,S] bias: the padding mask plus the causal
-            # mask, with a finite value so that an all-masked pad row
-            # softmaxes to finite garbage, not NaN
-            neg = torch.tensor(-1e9, dtype=torch.float32, device=dev)
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            bias = torch.where(attention_mask[:, None, None, :] > 0, zero,
-                               neg)
-            q_pos = torch.arange(S, device=dev)[:, None]
-            k_pos = torch.arange(S, device=dev)[None, :]
-            causal = torch.where(q_pos >= k_pos, zero, neg)
-            kw['attn_bias'] = bias + causal[None, None]
+            kw['attn_bias'] = _causal_pad_bias(attention_mask, S, dev)
         return x, kw
 
     def embed(self, params, input_ids):
@@ -384,6 +381,113 @@ class DeepseekV2Adapter(_MoEFamilyAdapter):
 @MODEL_REGISTRY.register(name='DeepseekV3')
 class DeepseekV3Adapter(DeepseekV2Adapter):
     name = 'DeepseekV3'
+
+
+def _causal_pad_bias(attention_mask, S: int, dev):
+    """The additive [B, 1, S, S] bias of a padding mask plus the causal
+    mask, finite so that an all-masked pad row softmaxes to finite
+    garbage, not NaN."""
+    neg = torch.tensor(-1e9, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    bias = torch.where(attention_mask[:, None, None, :] > 0, zero, neg)
+    causal = torch.where(torch.arange(S, device=dev)[:, None]
+                         >= torch.arange(S, device=dev)[None, :], zero, neg)
+    return bias + causal[None, None]
+
+
+@MODEL_REGISTRY.register(name='Opt')
+class OptAdapter(BaseAdapter):
+    """OPT (facebook/opt-*) on its native graph (``models/opt.py``), which
+    calibration and the PPL evals run; ``as_generalized`` views it through
+    the Llama graph for the cached decode, packing and the engine.  A
+    checkpoint loads in float32 by default, as in the reference."""
+
+    name = 'Opt'
+
+    def __init__(self, cfg: O.OptConfig, params, tokenizer=None,
+                 hf_config=None):
+        super().__init__(cfg, params, tokenizer, hf_config)
+        self._layout = O.opt_layout(cfg)
+
+    @classmethod
+    def random(cls, cfg: O.OptConfig, seed: int = 0, device=None):
+        """Random params from a ``torch.Generator`` seeded with ``seed``
+        on ``device`` (``None``: the CUDA device)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return cls(cfg, O.init_params(cfg, gen, device=dev))
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.float32,
+                        stream: Optional[bool] = None, device=None):
+        """Load an HF checkpoint directory onto ``device`` (``None``: the
+        CUDA device)."""
+        from .hf_loader import load_hf_config
+        hf = load_hf_config(path)
+        cfg = O.OptConfig.from_hf(hf)
+        params = _load_params(path, dtype, stream, device,
+                              lambda flat: O.params_from_hf(flat, cfg))
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        m = config['model']
+        if m.get('path'):
+            return cls.from_pretrained(m['path'], device=device)
+        if 'arch' not in m:
+            raise ValueError(
+                'model.path is missing/empty; set model.path to a checkpoint '
+                'or pass model.arch explicitly for a synthetic model')
+        return cls.random(O.OptConfig(**dict(m['arch'])),
+                          seed=int(m.get('seed', 0)), device=device)
+
+    def get_layout(self) -> BlockLayout:
+        return self._layout
+
+    def block_fn(self):
+        cfg = self.cfg
+
+        def fn(bp, x, kw, qmap=None, capture=False):
+            return O.block_apply(bp, cfg, x, kw.get('attn_bias'), qmap=qmap,
+                                 capture=capture)
+        return fn
+
+    def inspect_fns(self):
+        return O.make_inspect_fns(self.cfg)
+
+    def embed_and_rope_p(self, params, input_ids, attention_mask=None):
+        x = O.embed_apply(params, self.cfg, input_ids)
+        kw = {}
+        if attention_mask is not None:
+            kw['attn_bias'] = _causal_pad_bias(
+                attention_mask, input_ids.shape[1], input_ids.device)
+        return x, kw
+
+    def head_fn(self):
+        cfg = self.cfg
+
+        def fn(params, x):
+            return O.head_apply(params, cfg, x)
+        return fn
+
+    def forward_logits(self, input_ids, qmap=None):
+        return O.model_apply(self.params, self.cfg, input_ids, qmap=qmap)
+
+    def as_generalized(self) -> LlamaAdapter:
+        """The same model (its tensors shared) through the generalized
+        Llama graph, which the cached decode, ``pack_model`` and the
+        serving engine run."""
+        lcfg, gp = O.to_generalized(self.cfg, self.params)
+        return LlamaAdapter(lcfg, gp, self.tokenizer, self.hf_config)
+
+    def has_bias(self) -> bool:
+        return True
+
+    def save_to_hf(self, path: str) -> None:
+        """Write the params (and ``hf_config``) as an HF OPT checkpoint,
+        the ``save_trans`` / ``save_fake`` output."""
+        from .hf_loader import save_flat_to_hf
+        save_flat_to_hf(O.params_to_hf(self.params), path, self.hf_config)
 
 
 # --------------------------------------------------------------------------

@@ -204,13 +204,11 @@ def save_llama_params_to_hf(params: Dict, path: str,
     every norm's bias, the sandwich and q/k norms, the learned positions
     and the embedding LayerNorm where the tree holds them; the block
     entries it lacks (a gate, a post-attention norm) are left out."""
-    from safetensors.torch import save_file
-    os.makedirs(path, exist_ok=True)
     flat = {}
 
     def put(name, t):
         if t is not None:
-            flat[name] = t.detach().to('cpu').contiguous()
+            flat[name] = t
 
     def put_tree(prefix, p):
         put(f'{prefix}.weight', p['w'])
@@ -236,7 +234,18 @@ def save_llama_params_to_hf(params: Dict, path: str,
             for name in names:
                 if name in blk[part]:
                     put_tree(f'{b}.{part}.{name}', blk[part][name])
-    save_file(flat, os.path.join(path, 'model.safetensors'))
+    save_flat_to_hf(flat, path, hf_config)
+
+
+def save_flat_to_hf(flat: Dict, path: str,
+                    hf_config: Optional[dict] = None) -> None:
+    """Write flat named tensors as ``model.safetensors`` (host copies)
+    beside ``config.json`` from ``hf_config``."""
+    from safetensors.torch import save_file
+    os.makedirs(path, exist_ok=True)
+    save_file({n: t.detach().to('cpu').contiguous()
+               for n, t in flat.items()},
+              os.path.join(path, 'model.safetensors'))
     if hf_config is not None:
         with open(os.path.join(path, 'config.json'), 'w') as f:
             json.dump(hf_config, f, indent=2)

@@ -7,9 +7,9 @@ and SmolLM, and through its options Gemma2 (sandwich norms, softcaps, the
 query scale, even-layer sliding window, sqrt(D) embedding scale),
 MiniCPM (its three multipliers), StableLm / Phi / GLM (partial and
 interleaved rope), Falcon / Phi (parallel residual, shared LayerNorm),
-Starcoder (learned positions) and Bloom / Falcon-RW (ALiBi), with
-LayerNorm and non-gated MLPs.  InternViT's ``layer_scale`` /
-``qk_norm_full`` and OPT's ``learned_pos_offset`` raise
+Starcoder and OPT (learned positions, OPT's at +2,
+``learned_pos_offset``) and Bloom / Falcon-RW (ALiBi), with LayerNorm and
+non-gated MLPs.  InternViT's ``layer_scale`` / ``qk_norm_full`` raise
 (``check_ported``).
 """
 
@@ -118,21 +118,18 @@ def _norm_dtype(s) -> str:
 
 
 # options of LlamaConfig the port does not run: name -> (default, owner).
-# They belong to models outside the Llama-family graph: InternViT (the VLM
-# tier) and OPT
+# They belong to InternViT, outside the Llama-family graph (the VLM tier)
 _UNPORTED = {
     'layer_scale': (False, 'InternViT\'s per-channel layer scale (the VLM '
                            'tier)'),
     'qk_norm_full': (False, 'InternViT\'s qk-norm over the full embed dim '
                             '(the VLM tier)'),
-    'learned_pos_offset': (0, 'OPT\'s learned positions at +2 (the OPT '
-                              'adapter)'),
 }
 
 
 def check_ported(cfg: LlamaConfig) -> None:
     """Raise for an option the port does not run (ROADMAP A13: the VLM
-    tier's InternViT and OPT)."""
+    tier's InternViT)."""
     for name, (default, owner) in _UNPORTED.items():
         v = getattr(cfg, name)
         if v != default:
@@ -415,8 +412,9 @@ def embed_apply(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embedding, scaled by sqrt(D) (Gemma) and by
     ``embed_multiplier`` (MiniCPM), plus learned absolute positions
-    (Starcoder; ``positions`` default 0..S-1, clamped to the table as a
-    JAX gather clamps its indices), then Bloom's embedding LayerNorm."""
+    (Starcoder; OPT's at ``positions + learned_pos_offset``; ``positions``
+    default 0..S-1, clamped to the table as a JAX gather clamps its
+    indices), then Bloom's embedding LayerNorm."""
     e = params['embed_tokens']['w'][input_ids]
     if cfg.embed_scale:
         e = (e.to(F32) * cfg.hidden_size ** 0.5).to(e.dtype)

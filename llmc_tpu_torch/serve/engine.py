@@ -26,7 +26,8 @@ of K steps per host sync; retirement on EOS or ``max_new_tokens``.
 The compiled steps: where the reference ``jax.jit``s its decode step and
 the K-step ``lax.scan`` (engine.py:254-256), the port, on a CUDA device
 with a dense ``fp`` or ``naive`` cache, runs each as one captured CUDA
-graph (``serve/graphs.py``) that replays the hand kernels; its inputs and
+graph (``serve/graphs.py``) that replays the hand kernels (the ``sink``
+cache's step too, which reads by the plain masked read); its inputs and
 outputs are the engine's static buffers (the cache, ``pos``,
 ``last_tok``, the active mask, the slots' nonces and start positions),
 which admission, splice and retirement write in place.  The window's graph
@@ -55,8 +56,13 @@ bit under ``naive``; every program then rides ``mla_forward_cached``, and
 the decode steps are captured as the per-head ones are.  The reference
 takes no other policy there, nor does the port (the paged pool included).
 
-Not ported yet, and raising: ``mesh`` (ROADMAP A14) and the kivi / sink KV
-policies (A11).
+The ``sink`` policy (SinkKV) serves on its dense fp cache: every slot
+masks the sinks and its own recent window at its own position, through
+the plain masked read (``serve/decode.py::_attend_cached``; no decode
+kernel takes it, as the reference's ``attn_ok`` takes none), captured
+like the fp step.  Not ported yet, and raising: ``mesh`` (ROADMAP A14);
+the kivi policy, whose one residual ring cannot hold per-slot positions,
+is refused as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -169,10 +175,11 @@ class ServingEngine(torch.nn.Module):
             raise ValueError('prefill_w8 / decode_w8 on an MLA model: the '
                              'reference ignores them there, and the port '
                              'packs no MLA model (ROADMAP C)')
-        if kv_policy.method not in ('fp', 'naive', 'paged'):
-            raise NotImplementedError(
-                f'the engine serves the fp, naive and paged KV policies; '
-                f'{kv_policy.method!r} is not ported (ROADMAP A11)')
+        if kv_policy.method not in ('fp', 'naive', 'paged', 'sink'):
+            raise ValueError(
+                f'the engine serves the fp, naive, paged and sink KV '
+                f'policies, as the reference does; not '
+                f'{kv_policy.method!r}')
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f'prefill_chunk must be >= 1, got '
                              f'{prefill_chunk}')
@@ -260,7 +267,7 @@ class ServingEngine(torch.nn.Module):
     @property
     def graphed(self) -> bool:
         """Whether the decode steps replay captured CUDA graphs: on a CUDA
-        device with a dense (fp or naive) cache."""
+        device with a dense (fp, naive or sink) cache."""
         return self.device.type == 'cuda' and not self.paged
 
     # ------------------------------------------------------------------

@@ -9,10 +9,12 @@
   upstream method's quantize-at-eviction.
 - ``sink``: the fp cache; the attention keeps the first
   ``num_sink_tokens`` positions and the last ``window_length`` before each
-  query (``attention_mask_offset``).  The serving engine does not take it
-  (ROADMAP A11).
+  query (``attention_mask_offset``), each slot at its own position in the
+  serving engine.
 
-ShadowKV raises (ROADMAP A11).  The paged pool is a policy of its own,
+``KV_REGISTRY['ShadowKV']`` builds ``serve/shadowkv.py::ShadowKVPolicy``
+as the reference does, whose ``shadowkv_decode_nll`` scores a sequence
+under retrieval.  The paged pool is a policy of its own,
 ``serve.paged_cache.PagedKVPolicy``, as in the reference, whose
 ``KVCachePolicy`` has no paged method.
 
@@ -139,7 +141,7 @@ class KVCachePolicy:
                 raise NotImplementedError(
                     'the kivi cache keeps one residual ring for the batch: '
                     'lockstep positions only (the serving engine does not '
-                    'take it, ROADMAP A11)')
+                    'take it, nor does the reference\'s)')
             _roll_in(cache['k_r'], layer, k_new)
             _roll_in(cache['v_r'], layer, v_new)
             cache['kivi_total'] = int(pos) + k_new.shape[1]
@@ -236,5 +238,9 @@ def _sink(quant_type, kvcfg, n_blocks, **kw):
 
 @KV_REGISTRY.register(name='ShadowKV')
 def _shadowkv(quant_type, kvcfg, n_blocks, **kw):
-    raise NotImplementedError('the ShadowKV cache is not ported yet '
-                              '(ROADMAP A11)')
+    from .shadowkv import ShadowKVPolicy
+    return ShadowKVPolicy(
+        sparse_budget=int(kw.get('sparse_budget', 1024)),
+        chunk_size=int(kw.get('chunk_size', 8)),
+        rank=int(kw.get('rank', 160)),
+        outlier_chunk=int(kw.get('outlier_chunk', 48)))

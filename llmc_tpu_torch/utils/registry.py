@@ -5,9 +5,11 @@ the JAX package).  The port registers what it ports: ``Llama``, the
 Llama-family ``Mistral``, ``SmolLM``, ``Qwen2``, ``Qwen3`` and ``Phi3``,
 the generalized-graph ``Gemma2``, ``StableLm``, ``Falcon``, ``Phi``,
 ``Starcoder``, ``Bloom``, ``InternLM2``, ``Glm`` / ``ChatGLM``, ``MiniCPM``
-and ``Qwen``, and ``Mixtral``, ``Qwen2Moe``, ``DeepseekV2`` and
-``DeepseekV3`` in MODEL_REGISTRY; ``Naive``, ``Kivi`` and ``SinkKV`` in KV_REGISTRY, whose
-``ShadowKV`` raises.
+and ``Qwen``, the MoE ``Mixtral``, ``Qwen2Moe``, ``DeepseekV2`` and
+``DeepseekV3``, and ``Opt`` in MODEL_REGISTRY; ``Naive``, ``Kivi``, ``SinkKV`` and
+``ShadowKV`` in KV_REGISTRY; the quantization methods and the
+sparsifiers (``Dense``, ``Magnitude``, ``Wanda``, ``ShortGPT``) in
+ALGO_REGISTRY.
 """
 
 from __future__ import annotations

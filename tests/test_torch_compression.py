@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import llmc_tpu.serve  # noqa: F401  (registers the reference's KV policies)
 from llmc_tpu.compression import transforms as JT
 from llmc_tpu.compression.quantization.auto_clip import \
     AutoClipper as JAutoClipper
@@ -401,16 +402,18 @@ def test_ignored_layers_bake_and_qmap_match():
     (dict(weight=W4, act=dict(bit=8, symmetric=True,
                               granularity='per_token')), None),
     (dict(weight=dict(W4, bit=48)), None),
-    (dict(weight=W4, kvcache=dict(method='ShadowKV')), 'ROADMAP A11'),
+    # the id it had while the ShadowKV policy raised with its item
+    pytest.param(dict(weight=W4, kvcache=dict(method='ShadowKV')), None,
+                 id='quant2-ROADMAP A11'),
     (dict(weight=W4, kvcache=dict(method='Kivi', bit=4)), None),
     (dict(weight=W4, special=dict(online_rotate=True)), None),
 ])
 def test_options_outside_the_slice_raise_with_their_roadmap_item(quant,
                                                                  item):
-    """The ShadowKV cache raises with its ROADMAP item; activation
-    quantization, ``bit: 48``, the online rotation and a KV-cache
-    quantizer, which raised until they were ported, build the policy the
-    reference builds (and the same KV policy)."""
+    """Activation quantization, ``bit: 48``, the online rotation and the
+    KV-cache policies (a quantizer, and the ShadowKV policy), which raised
+    until they were ported, build the policy the reference builds (and
+    the same KV policy, field for field)."""
     cfg = dict(model=dict(type='Llama'), quant=dict(quant, method='RTN'))
     tm = LlamaAdapter.random(LlamaConfig(**TINY), seed=0, device='cpu')
     if item is not None:
@@ -429,6 +432,7 @@ def test_options_outside_the_slice_raise_with_their_roadmap_item(quant,
     assert te == je and len(te) == 7
     assert (ta.kv_module is None) == (ja.kv_module is None)
     if ta.kv_module is not None:
+        assert type(ta.kv_module).__name__ == type(ja.kv_module).__name__
         assert dataclasses.asdict(ta.kv_module) == \
             dataclasses.asdict(ja.kv_module)
     tt, jt = ta.transform_qmap(), ja.transform_qmap()

@@ -10,6 +10,7 @@ fp and naive caches by the chunked XLA read on the CPU and the port by
 the kernels' plain versions, which differ in the order of their sums
 only."""
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,8 +146,8 @@ def test_sink_mask_equals_reference():
 
 
 def test_registry_builds_the_reference_policies():
-    """Naive, Kivi and SinkKV read the same keys as the reference's
-    registry entries; ShadowKV raises with its ROADMAP item."""
+    """Naive, Kivi, SinkKV and ShadowKV read the same keys as the
+    reference's registry entries (ShadowKV raised until it was ported)."""
     for name, cfg, special in (('Naive', dict(bit=4, symmetric=False), {}),
                                ('Kivi', dict(bit=4), dict(
                                    residual_length=16)),
@@ -163,8 +164,13 @@ def test_registry_builds_the_reference_policies():
                                            'residual_length',
                                            'num_sink_tokens',
                                            'window_length')}
-    with pytest.raises(NotImplementedError, match='A11'):
-        KV_REGISTRY['ShadowKV']('int-quant', {}, 2)
+    from llmc_tpu.utils.registry import KV_REGISTRY as JREG
+    for special in ({}, dict(sparse_budget=64, chunk_size=4, rank=16,
+                             outlier_chunk=3, local_chunk=9, max_gen=7)):
+        want = JREG['ShadowKV']('int-quant', {}, 2, **special)
+        got = KV_REGISTRY['ShadowKV']('int-quant', {}, 2, **special)
+        assert type(got).__name__ == 'ShadowKVPolicy'
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize('policy', list(POLICIES))

@@ -112,12 +112,35 @@ def test_config_from_hf_and_layout_match():
     (dict(learned_pos=True, learned_pos_offset=2), 'OPT')])
 def test_unported_graph_options_raise(opt, owner):
     """The generalized graph's options run (tests/test_torch_families.py)
-    but for the three of models outside it: InternViT's layer scale and
-    full-width qk-norm, and OPT's offset positions, which raise naming
-    their ROADMAP A13 tier."""
+    but for the two of InternViT, outside it: its layer scale and
+    full-width qk-norm raise naming the VLM tier of ROADMAP A13.  OPT's
+    offset positions, which raised until OPT was ported, run: the logits
+    of ``model_apply`` and of a cached prefill plus two decode steps (each
+    slot at its own position) within 1e-5 of the reference's."""
     cfg = LlamaConfig(**dict(TINY, **opt))
-    with pytest.raises(NotImplementedError, match=f'A13.*{owner}'):
-        LlamaAdapter.random(cfg, device='cpu')
+    if owner != 'OPT':
+        with pytest.raises(NotImplementedError, match=f'A13.*{owner}'):
+            LlamaAdapter.random(cfg, device='cpu')
+        return
+    from llmc_tpu.serve import decode as JD
+    from llmc_tpu_torch.serve import decode as TD
+    jm = JAdapter.random(JConfig(**dict(TINY, **opt)), seed=4)
+    tm = LlamaAdapter(cfg, port_params(jm.params))
+    ids = np.random.RandomState(2).randint(0, 128, (2, 7))
+    want = np.asarray(jm.forward_logits(jnp.asarray(ids)))
+    assert rel_err(tm.forward_logits(torch.as_tensor(ids)).numpy(),
+                   want) < 1e-5
+    jc = JD.init_cache(jm, 2, 9)
+    tc = TD.init_cache(tm, 2, 9, device='cpu')
+    jc['pos'] = jnp.asarray([0, 0], jnp.int32)
+    tc['pos'] = torch.zeros(2, dtype=torch.int32)
+    for s in (slice(0, 5), slice(5, 6), slice(6, 7)):
+        jl, jc = JD.forward_cached(jm.params, jm.cfg, jnp.asarray(ids[:, s]),
+                                   jc, JD.FP_POLICY)
+        tl, tc = TD.forward_cached(tm.params, tm.cfg,
+                                   torch.as_tensor(ids[:, s]), tc,
+                                   TD.FP_POLICY)
+        assert rel_err(tl.numpy(), np.asarray(jl)) < 1e-5
 
 
 def test_linear_qcfg_unported_fields_raise(pair):

@@ -484,11 +484,11 @@ def test_chip_smoke_cpu_phase16_tiny(name, mode):
     method = chip_smoke.METHOD_QUANT[name]['method']
     assert rec['ok'] and rec['launches'] == ZERO_LAUNCHES
     assert rec['hyperparams'] == res['opt'].hyperparams()
-    cut = chip_smoke.TRAINED_DEPTH.get(method)
+    cut = chip_smoke.DEPTH_CUT.get(method)
     L = 2 if cut is None else min(2, cut[0])
     assert rec['layers'] == L
     assert (rec['depth_cut'] is None) == (cut is None)
-    if cut is not None:
+    if method in chip_smoke.TRAINED_DEPTH:
         steps = {'NormTweaking': 10, 'OmniQuant': 20, 'TesseraQ': 300}
         assert rec['train_steps'] == steps[method] * L
         assert [r['block'] for r in rec['block_loss']] == list(range(L))
@@ -551,8 +551,9 @@ def test_chip_smoke_cpu_phase17_tiny(name, mode, monkeypatch):
         group_size=128 if method == 'DGQ' else 32, n_samples=4, seq_len=24,
         eval_tokens=480, eval_bs=2)
     cut = chip_smoke.DEPTH_CUT.get(method)
+    L = 2 if cut is None else min(2, cut[0])
     assert rec['ok'] and rec['launches'] == ZERO_LAUNCHES
-    assert rec['layers'] == 2 and rec['config'].endswith(f'{name}.yml')
+    assert rec['layers'] == L and rec['config'].endswith(f'{name}.yml')
     assert (rec['depth_cut'] is None) == (cut is None)
     assert rec['hyperparams'] == res['opt'].hyperparams()
     assert (rec['fp_column_share'] is None) == (method != 'QUIK')
@@ -567,16 +568,16 @@ def test_chip_smoke_cpu_phase17_tiny(name, mode, monkeypatch):
         assert rec['tolerance_ppl_transformed'] == chip_smoke.TOL_PPL_EQUIV
         assert rec['ppl_transformed_rel_drift'] <= chip_smoke.TOL_PPL_EQUIV
     assert srv['ok'] and srv['all_done'] and srv['launches'] == ZERO_LAUNCHES
-    assert srv['mode'] == mode and srv['layers'] == 2
+    assert srv['mode'] == mode and srv['layers'] == L
     fw = srv['prefill_forwards'] + srv['decode_steps']
     want = srv['expected_launches']
     if mode == 'w4a8':
         # the block linears through the quantizer and B3, the head B1
         assert want['w4a8_dequant_matmul'] == want['quant_act_token'] \
-            == 4 * 2 * fw
+            == 4 * L * fw
         assert want['w4_dequant_matmul'] == fw
     else:
-        assert want['w4_dequant_matmul'] == (4 * 2 + 1) * fw
+        assert want['w4_dequant_matmul'] == (4 * L + 1) * fw
     gap = srv['packed_weight_gap']
     assert gap['max_excess_steps_stored_qparams'] <= chip_smoke.STORED_MOVE
     if method == 'DGQ':

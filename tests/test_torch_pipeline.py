@@ -161,7 +161,18 @@ def test_compress_pack_greedy_decode_tokens_match(checkpoint):
     (dict(opencompass=dict(cfg_path='x', output_path='y')), 'ROADMAP A13'),
 ])
 def test_pipeline_options_outside_the_slice_raise(checkpoint, extra, item):
+    """Data parallelism, the backend exports and opencompass raise with
+    their ROADMAP item.  A ``sparse`` section, which raised until
+    sparsification was ported, runs: Magnitude's PPLs within 1e-3 of the
+    JAX package's."""
     cfg = dict(pipeline_config(checkpoint, 'RTN'), **extra)
+    if 'sparse' in extra:
+        del cfg['quant']
+        jres, tres = j_run_pipeline(cfg), run_pipeline(cfg, device='cpu')
+        for k in PPLS:
+            assert abs(tres[k] - jres[k]) / jres[k] <= 1e-3
+        assert tres['ppl_transformed'] != tres['ppl_pretrain']
+        return
     with pytest.raises(NotImplementedError, match=item):
         run_pipeline(cfg, device='cpu')
 
@@ -173,8 +184,27 @@ def test_pipeline_options_outside_the_slice_raise(checkpoint, extra, item):
     (dict(type='code'), 'ROADMAP A13'),
 ])
 def test_eval_entries_outside_the_slice_raise(checkpoint, ev, item):
+    """The ImageNet accuracy, code and per-block evals raise with their
+    ROADMAP item.  A ``latency`` entry, which raised until it was ported,
+    runs at each position: positive times, and the greedy tokens of its
+    runs equal the JAX package's greedy decode of the same ids."""
     cfg = pipeline_config(checkpoint, 'RTN')
     cfg['eval'] = dict(cfg['eval'], **ev)
+    if ev.get('type') == 'latency':
+        cfg['eval'].update(prompt_len=6, gen_len=3, bs=2, iters=2)
+        res = run_pipeline(cfg, device='cpu')
+        for pos in cfg['eval']['eval_pos']:
+            assert min(res[f'latency_{pos}'].values()) > 0
+        from llmc_tpu_torch.eval.latency import LatencyEval
+        from llmc_tpu_torch.models import LlamaAdapter
+        ids = np.random.RandomState(0).randint(0, 128, (2, 6))
+        jm = JAdapter.from_pretrained(checkpoint, dtype=jnp.float32)
+        want = np.asarray(j_greedy(jm, jnp.asarray(ids), 4))[:, 6:]
+        le = LatencyEval(prompt_len=6, gen_len=3, batch=2, iters=1)
+        le.eval(LlamaAdapter.from_pretrained(checkpoint, dtype=torch.float32,
+                                             device='cpu'))
+        np.testing.assert_array_equal(le.tokens.numpy(), want)
+        return
     with pytest.raises(NotImplementedError, match=item):
         run_pipeline(cfg, device='cpu')
 

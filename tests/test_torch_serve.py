@@ -178,11 +178,29 @@ def test_engine_sampling_independent_of_co_scheduling(packed_pair):
                                 dict(mesh=object()),
                                 dict(prefill_w8=True), dict(decode_w8=True)])
 def test_engine_unported_options_raise(packed_pair, kw):
-    """Unported engine options raise instead of being ignored (a sink KV
-    policy, which the decode evals take and the engine does not, ROADMAP
-    A11; a mesh); so do prefill_w8 / decode_w8 with qmap=None
-    (ValueError), which the reference ignores silently."""
-    _, _, tm, _ = packed_pair
+    """Unported engine options raise instead of being ignored (a mesh,
+    ROADMAP A14); so do prefill_w8 / decode_w8 with qmap=None
+    (ValueError), which the reference ignores silently.  The sink KV
+    policy, which raised until the engine took it, serves: a request whose
+    prompt outgrows the window decodes the tokens of the lockstep greedy
+    decode under the same policy, while the kivi policy, which neither
+    engine takes, raises ValueError."""
+    _, _, tm, tq = packed_pair
+    if 'kv_policy' in kw:
+        policy = KVCachePolicy(method='sink', num_sink_tokens=2,
+                               window_length=5)
+        prompt = np.random.RandomState(11).randint(0, 128, 9)
+        req = Request(uid=0, prompt_ids=prompt, max_new_tokens=6)
+        ServingEngine(tm, qmap=tq, max_batch=2, max_len=32, device='cpu',
+                      kv_policy=policy).run([req])
+        want = greedy_generate(tm, torch.as_tensor(prompt[None]), 6,
+                               qmap=tq, kv_policy=policy, device='cpu')
+        assert req.output_ids == want[0, 9:].tolist()
+        with pytest.raises(ValueError, match='kivi'):
+            ServingEngine(tm, qmap=None, max_batch=2, max_len=48,
+                          device='cpu',
+                          kv_policy=KVCachePolicy(method='kivi'))
+        return
     err = (ValueError if 'prefill_w8' in kw or 'decode_w8' in kw
            else NotImplementedError)
     with pytest.raises(err):
