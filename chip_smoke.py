@@ -3793,7 +3793,7 @@ def engine_vs_cpu(dev, model, qmap, policy, prompts, new_tokens):
     own position).  Every token the card picked must be within bf16's
     reach of the CPU's best (``TOL_TOKEN_GAP`` of the largest logit); the
     share picked exactly as the CPU's argmax is recorded."""
-    from llmc_tpu_torch.models.adapter import _tree_to
+    from llmc_tpu_torch.utils.offload import tree_to_device
     from llmc_tpu_torch.serve import Request, ServingEngine
     from llmc_tpu_torch.serve.decode import forward_cached, init_cache
     eng = ServingEngine(model, qmap=qmap, max_batch=len(prompts),
@@ -3803,7 +3803,7 @@ def engine_vs_cpu(dev, model, qmap, policy, prompts, new_tokens):
     reqs = [Request(uid=i, prompt_ids=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
     eng.run(reqs)
-    cpu = type(model)(model.cfg, _tree_to(model.params, 'cpu'))
+    cpu = type(model)(model.cfg, tree_to_device(model.params, 'cpu'))
     gaps, same = [], []
     with torch.no_grad():
         for p, r in zip(prompts, reqs):
@@ -4296,6 +4296,628 @@ def phase20_failure(rec) -> dict:
             'saved_num_hidden_layers', 'magnitude_mismatches',
             'wanda_off_tie', 'retrieval_vs_cpu', 'cpu_check', 'ppl',
             'packed', 'pipeline')
+    return {k: rec[k] for k in keys if k in rec}
+
+
+# --------------------------------------------------------------------------
+# phase 21: the backend exports, block offload and the code eval
+# --------------------------------------------------------------------------
+
+# meta-llama/Llama-2-70b-hf config.json's widths
+LLAMA2_70B = dict(vocab_size=32000, hidden_size=8192, intermediate_size=28672,
+                  num_hidden_layers=80, num_attention_heads=64,
+                  num_key_value_heads=8, head_dim=128, dtype='bfloat16')
+OFFLOAD_LAYERS = (8, 'one block is 1.71 GB in bf16: the 80 layers would need '
+                     '137 GB of pinned host memory and most of the script\'s '
+                     'time limit; the check is that the device\'s peak does '
+                     'not grow with depth')
+OFFLOAD_CHECK_LAYERS = 2
+OFFLOAD_EVAL = dict(num_tokens=2048, seq_len=512, bs=4)   # 4 x 512 tokens
+PEAK_FLAT = 0.05          # the 8-layer peak within 5% of the 2-layer peak
+TOL_OFFLOAD_PPL = 1e-4    # offloaded against resident, relative
+# The quant and save sections of the shipped backend configs phase 21 runs
+# (copied: this script reads no YAML).  The AWQ-searched configs' weight
+# specs run under RTN: the writers read the weight spec alone.
+_W4G = dict(bit=4, symmetric=False, granularity='per_group', group_size=128)
+_W8C = dict(bit=8, symmetric=True, granularity='per_channel')
+EXPORT_CONFIGS = {
+    'autoawq_rtn_w4a16': ('configs/backend/autoawq/rtn_w4a16.yml',
+                          dict(method='RTN', weight=_W4G),
+                          dict(save_autoawq=True)),
+    'vllm_w4a16_pack': ('configs/backend/vllm_w4a16_pack.yml',
+                        dict(method='RTN', weight=dict(_W4G, need_pack=True)),
+                        dict(save_vllm=True)),
+    'vllm_rtn_w8a16': ('configs/backend/vllm/rtn_w8a16.yml',
+                       dict(method='RTN', weight=_W8C), dict(save_vllm=True)),
+    'vllm_gptq_w4a16': ('configs/backend/vllm/gptq_w4a16.yml',
+                        dict(method='GPTQ', weight=_W4G, quant_out=True,
+                             special=dict(actorder=True, static_groups=False,
+                                          percdamp=0.01, blocksize=128,
+                                          true_sequential=True)),
+                        dict(save_vllm=True)),
+    'lightllm_w8a8': ('configs/backend/lightllm_w8a8.yml',
+                      dict(method='RTN', weight=_W8C),
+                      dict(save_lightllm=True)),
+    'mlcllm_rtn_w4a16': ('configs/backend/mlcllm/rtn_w4a16.yml',
+                         dict(method='RTN', weight=_W4G),
+                         dict(save_mlcllm=True)),
+    'trtllm_w4a16_tp2': ('configs/backend/trtllm_w4a16.yml',
+                         dict(method='RTN', weight=_W4G),
+                         dict(save_trtllm=True, tp_size=2)),
+}
+WRITERS = ('vllm_w4a16_pack', 'vllm_rtn_w8a16', 'vllm_gptq_w4a16',
+           'lightllm_w8a8', 'mlcllm_rtn_w4a16', 'trtllm_w4a16_tp2')
+# the writers' depth on the card, and on the CPU that holds them
+WRITER_LAYERS = {'vllm_gptq_w4a16': (1, 'GPTQ\'s column loop: about 6 s a '
+                                        '7B block')}
+WRITER_CPU_LAYERS = 1
+CODE_EVAL = dict(layers=2, max_new_tokens=16)
+CODE_PROBLEMS = ({'task_id': 'smoke/0', 'prompt': 'def add(a, b):\n'},
+                 {'task_id': 'smoke/1',
+                  'prompt': 'class Stack:\n    def pop(self):\n'})
+
+
+class ByteTokenizer:
+    """UTF-8 bytes as ids (``tests/test_eval_orchestration.py``'s
+    tokenizer): an id decodes to the character of its value mod 128."""
+
+    def __call__(self, text):
+        return {'input_ids': list(text.encode())}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return ''.join(chr(int(i) % 128) for i in ids)
+
+
+def export_config(cfg_kw, name, out, seed=0, n_samples=2, seq_len=512,
+                  **model_kw):
+    """``EXPORT_CONFIGS[name]``'s quant and save sections (the save into
+    ``out``) on a random Llama of ``cfg_kw`` from ``model.arch``, synthetic
+    calibration data, no eval."""
+    _, quant, save = EXPORT_CONFIGS[name]
+    return dict(
+        base=dict(seed=seed),
+        model=dict(type='Llama', arch=dict(cfg_kw), seed=seed, **model_kw),
+        calib=dict(name='synthetic', n_samples=n_samples, bs=-1,
+                   seq_len=seq_len, seed=seed,
+                   vocab_size=cfg_kw['vocab_size']),
+        quant=json.loads(json.dumps(quant)),
+        save=dict(save, save_path=out))
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+@contextlib.contextmanager
+def scratch_dir():
+    """A temporary directory, deleted with what it holds on exit."""
+    import shutil
+    import tempfile
+    path = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def awq_dequant(flat, prefix, gs):
+    """(q - z) * s of one linear of an AWQ-GEMM checkpoint, [out, in] f32 on
+    the tensors' device, and the linear's largest scale."""
+    from llmc_tpu_torch.native import unpack_awq_order
+    q = unpack_awq_order(flat[f'{prefix}.qweight'], 4).float()
+    z = unpack_awq_order(flat[f'{prefix}.qzeros'], 4).float()
+    s = flat[f'{prefix}.scales'].float()
+    w = (q - z.repeat_interleave(gs, 0)) * s.repeat_interleave(gs, 0)
+    return w.t(), float(s.max())
+
+
+def codes_vs_b1(model, flat, wspec) -> dict:
+    """An AWQ-GEMM checkpoint's codes, zero points and fp16 scales, unpacked
+    on the card, against what ``pack_model`` (unfused, ``pre_t=False``)
+    packed for B1 into ``model`` (read back with ``unpack_weight``): the
+    counts that differ.  A symmetric model's exported codes and zero point
+    carry the offset 2^(bits-1) (ROADMAP C)."""
+    from llmc_tpu_torch.models.base import get_path
+    from llmc_tpu_torch.native import unpack_awq_order
+    from llmc_tpu_torch.ops.dequant_matmul import QMeta, unpack_weight
+    off = 8 if wspec.symmetric else 0
+    n = dict(codes=0, zeros=0, scales=0, linears=0, codes_checked=0)
+    for i in range(model.n_blocks):
+        blk = model.blocks[i]
+        for path in model.get_layout().linears:
+            pre = f'model.layers.{i}.{path}'
+            lin = get_path(blk, path)
+            N, half = lin['qweight'].shape
+            meta = QMeta(bits=4, group_size=wspec.group_size,
+                         symmetric=wspec.symmetric, out_features=N,
+                         in_features=2 * half)
+            codes = unpack_weight(lin['qweight'], meta) + off
+            got = unpack_awq_order(flat[f'{pre}.qweight'], 4).t().float()
+            n['codes'] += int((got != codes).sum())
+            z = unpack_awq_order(flat[f'{pre}.qzeros'], 4).t().float()
+            zb = lin['zeros'] if lin.get('zeros') is not None \
+                else torch.full_like(z, off)
+            n['zeros'] += int((z != zb).sum())
+            n['scales'] += int((flat[f'{pre}.scales'].t()
+                                != lin['scales'].to(torch.float16)).sum())
+            n['linears'] += 1
+            n['codes_checked'] += codes.numel()
+    return n
+
+
+def file_model(flat, cfg, layers, gs):
+    """A plain (unpacked) model of the first ``layers`` blocks whose
+    weights are an AWQ-GEMM checkpoint's, dequantized, in ``cfg``'s
+    dtype."""
+    from llmc_tpu_torch.models import LlamaAdapter
+    from llmc_tpu_torch.models.hf_loader import llama_params_from_hf
+    cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    hf = {k: v for k, v in flat.items()
+          if not k.startswith('model.layers.')
+          or int(k.split('.')[2]) < layers and k.endswith('norm.weight')}
+    for i in range(layers):
+        for path in ('self_attn.q_proj', 'self_attn.k_proj',
+                     'self_attn.v_proj', 'self_attn.o_proj', 'mlp.gate_proj',
+                     'mlp.up_proj', 'mlp.down_proj'):
+            pre = f'model.layers.{i}.{path}'
+            hf[f'{pre}.weight'] = awq_dequant(flat, pre, gs)[0].to(
+                cfg.tdtype)
+    return LlamaAdapter(cfg, llama_params_from_hf(hf, layers,
+                                                  cfg.tie_word_embeddings))
+
+
+def file_vs_b1(dev, model, qmap, flat, wspec, layers=2, prompt_len=32,
+               seed=0) -> dict:
+    """On the packed model's first ``layers`` blocks: its prefill logits
+    through B1 against a plain forward over the weights dequantized from
+    the written checkpoint, within ``TOL_COMPRESS_SERVE`` of the largest
+    logit; B1 launched once a packed linear (the head is not packed)."""
+    from llmc_tpu_torch.serve.decode import (FP_POLICY, forward_cached,
+                                             init_cache)
+    from llmc_tpu_torch.ops import reset_launch_counts
+    m = shallow(model, layers)
+    plain = file_model(flat, model.cfg, layers, wspec.group_size)
+    ids = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, m.cfg.vocab_size, (1, prompt_len)), device=dev)
+
+    def prefill(mm, q):
+        cache = init_cache(mm, 1, prompt_len, device=dev)
+        return forward_cached(mm.params, mm.cfg, ids, cache, FP_POLICY,
+                              q)[0].float()
+    with torch.no_grad():
+        reset_launch_counts()
+        got = prefill(m, qmap)
+        counts, xla = read_counts()
+        want = prefill(plain, None)
+    err, rel = _rel(got, want)
+    expected = dict.fromkeys(counts, 0)
+    expected['w4_dequant_matmul'] = len(m.get_layout().linears) * layers
+    return dict(layers=layers, prompt=prompt_len,
+                max_abs_logit_err_vs_file=err, rel_logit_err_vs_file=rel,
+                tolerance_vs_file=TOL_COMPRESS_SERVE, launches=counts,
+                expected_launches=expected, xla_branch_calls=xla,
+                ok=bool(torch.isfinite(got).all()
+                        and rel <= TOL_COMPRESS_SERVE))
+
+
+def phase21_export(dev, cfg_kw=LLAMA2_7B, name='autoawq_rtn_w4a16',
+                   check_layers=2, **sizes):
+    """``run_pipeline`` at ``cfg_kw``'s full depth with ``name``'s quant
+    section and ``save_autoawq``: the ``save`` phase's seconds and the
+    bytes written; the written codes, zero points and fp16 scales against
+    what ``pack_model`` packs for B1 from the same compressed model (0
+    mismatched); at ``check_layers`` the packed prefill through B1 held to
+    a plain forward over the weights dequantized from the file."""
+    from llmc_tpu_torch.export import read_checkpoint
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.serve import pack_model
+    with scratch_dir() as out:
+        config = export_config(cfg_kw, name, out, **sizes)
+        reset_launch_counts()
+        res = run_pipeline(config, device=dev)
+        counts, xla = read_counts()
+        written = dir_bytes(out)
+        flat = read_checkpoint(out, dev)['model.safetensors']
+    parts = collections.Counter()
+    for k, t in flat.items():
+        part = k.rsplit('.', 1)[1]
+        parts[part if part in ('qweight', 'qzeros', 'scales') else 'other'] \
+            += t.numel() * t.element_size()
+    model, wspec = res['model'], res['opt'].wspec
+    times = res['phase_times']
+    with torch.no_grad():
+        qmap = pack_model(model, wspec, pre_t=False)
+    mism = codes_vs_b1(model, flat, wspec)
+    check = file_vs_b1(dev, model, qmap, flat, wspec, layers=check_layers)
+    del res, model, flat
+    _free(dev)
+    return dict(phase='export', config=EXPORT_CONFIGS[name][0],
+                weight=config['quant']['weight'], save=config['save'],
+                layers=cfg_kw['num_hidden_layers'],
+                width=cfg_kw['hidden_size'], save_s=times['save'],
+                phase_times_s=times, bytes_written=written,
+                bytes_by_part=dict(parts), pipeline_launches=counts,
+                pipeline_xla_branch_calls=xla, codes_vs_b1=mism,
+                file_vs_b1=check, launches=check['launches'],
+                expected_launches=check['expected_launches'],
+                xla_branch_calls=check['xla_branch_calls'],
+                ok=bool(not (mism['codes'] or mism['zeros']
+                             or mism['scales'])
+                        and check['ok'] and not any(counts.values())
+                        and xla == 0))
+
+
+def phase21_symmetric(dev, cfg_kw=None, name='autoawq_rtn_w4a16', **sizes):
+    """The main path's symmetric W4 g128 model exported for AutoAWQ: every
+    linear's unpacked checkpoint dequantizes to the fake-quant weights
+    within the fp16 rounding of its scales (|q - z| <= 8 steps of a scale
+    rounded to 2^-11 of itself), the port's departure from the reference
+    (ROADMAP C); the codes against B1's packing as in ``phase21_export``."""
+    from llmc_tpu_torch.export import read_checkpoint
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.models.base import get_path
+    from llmc_tpu_torch.quant.quantizer import fake_quant_weight
+    from llmc_tpu_torch.serve import pack_model
+    cfg_kw = cfg_kw or dict(LLAMA2_7B, num_hidden_layers=2)
+    with scratch_dir() as out:
+        config = export_config(cfg_kw, name, out, **sizes)
+        config['quant']['weight']['symmetric'] = True
+        res = run_pipeline(config, device=dev)
+        flat = read_checkpoint(out, dev)['model.safetensors']
+    model, wspec = res['model'], res['opt'].wspec
+    worst = 0.0
+    with torch.no_grad():
+        for i in range(model.n_blocks):
+            blk = model.blocks[i]
+            for path in model.get_layout().linears:
+                fq = fake_quant_weight(wspec, get_path(blk, path)['w'].float())
+                deq, smax = awq_dequant(flat, f'model.layers.{i}.{path}',
+                                        wspec.group_size)
+                bound = 8 * smax * 2 ** -11
+                worst = max(worst, float((deq - fq).abs().max()) / bound)
+        pack_model(model, wspec, pre_t=False)
+    mism = codes_vs_b1(model, flat, wspec)
+    del res, model, flat
+    _free(dev)
+    return dict(phase='export_symmetric', config=EXPORT_CONFIGS[name][0],
+                weight=config['quant']['weight'],
+                layers=cfg_kw['num_hidden_layers'],
+                width=cfg_kw['hidden_size'],
+                worst_err_over_fp16_bound=worst, codes_vs_b1=mism,
+                ok=bool(worst <= 1.0 and not (mism['codes'] or mism['zeros']
+                                              or mism['scales'])))
+
+
+def host_copy(model, layers):
+    """The model's first ``layers`` blocks (and its embedding, norm and
+    head) copied to the CPU, in their dtype."""
+    cfg = dataclasses.replace(model.cfg, num_hidden_layers=layers)
+    params = dict(model.params, blocks=[model.blocks[i]
+                                        for i in range(layers)])
+    return type(model)(cfg, tree_to(params, 'cpu'))
+
+
+def checkpoint_vs(got, want) -> dict:
+    """Every tensor of ``want`` (the CPU's) against ``got`` (the card's):
+    missing names, dtype or shape mismatches, and the elements that differ
+    in their bytes; the JSON files equal but for ``num_hidden_layers``."""
+    n = dict(tensors=0, missing=[], layout=[], elements_differ=0,
+             json_differ=[])
+    for fn, w in want.items():
+        g = got.get(fn)
+        if fn.endswith('.json'):
+            def depthless(d):
+                return {k: v for k, v in (d or {}).items()
+                        if k != 'num_hidden_layers'}
+            if depthless(g) != depthless(w):
+                n['json_differ'].append(fn)
+            continue
+        for name, t in w.items():
+            n['tensors'] += 1
+            if g is None or name not in g:
+                n['missing'].append(name)
+                continue
+            c = g[name]
+            if (c.dtype, tuple(c.shape)) != (t.dtype, tuple(t.shape)):
+                n['layout'].append(name)
+                continue
+            u = t.view(torch.uint8).reshape(t.numel(), -1)
+            n['elements_differ'] += int(
+                (c.view(torch.uint8).reshape(c.numel(), -1) != u)
+                .any(-1).sum())
+    return n
+
+
+def phase21_writers(dev, cfg_kw=None, names=WRITERS,
+                    cpu_layers=WRITER_CPU_LAYERS, **sizes):
+    """Each writer of ``names`` at ``cfg_kw``'s width (2 layers, or the
+    depth ``WRITER_LAYERS`` sets) through ``run_pipeline`` on the card,
+    its checkpoint held to what the port writes on the CPU from the same
+    compressed weights (the first ``cpu_layers`` blocks copied there):
+    names, dtypes and shapes equal, every byte equal."""
+    from llmc_tpu_torch.export import export_backends, read_checkpoint
+    from llmc_tpu_torch.main import run_pipeline
+    cfg_kw = cfg_kw or dict(LLAMA2_7B, num_hidden_layers=2)
+    for name in names:
+        layers, why = WRITER_LAYERS.get(name, (cfg_kw['num_hidden_layers'],
+                                               None))
+        kw = dict(cfg_kw, num_hidden_layers=min(
+            layers, cfg_kw['num_hidden_layers']))
+        with scratch_dir() as out, scratch_dir() as cpu_out:
+            config = export_config(kw, name, out, **sizes)
+            res = run_pipeline(config, device=dev)
+            card = read_checkpoint(out)
+            t0 = time.perf_counter()
+            cpu_model = host_copy(res['model'], min(cpu_layers,
+                                                    kw['num_hidden_layers']))
+            export_backends(cpu_model, res['opt'],
+                            dict(config['save'], save_path=cpu_out))
+            cpu = read_checkpoint(cpu_out)
+            cpu_s = time.perf_counter() - t0
+            written = dir_bytes(out)
+        vs = checkpoint_vs(card, cpu)
+        times = res['phase_times']
+        del res, cpu_model, card, cpu
+        _free(dev)
+        yield dict(phase='writer', name=name, config=EXPORT_CONFIGS[name][0],
+                   quant=config['quant'], save=config['save'],
+                   layers=kw['num_hidden_layers'], depth_cut=why,
+                   width=kw['hidden_size'], cpu_layers=cpu_layers,
+                   save_s=times['save'], phase_times_s=times,
+                   bytes_written=written, cpu_s=cpu_s, vs_cpu=vs,
+                   ok=bool(vs['tensors'] and not (
+                       vs['missing'] or vs['layout'] or vs['json_differ']
+                       or vs['elements_differ'])))
+
+
+def offload_config(cfg_kw, layers, offload, out, seed=0, n_samples=4,
+                   seq_len=512, eval_kw=OFFLOAD_EVAL):
+    """RTN W4 g128 (the main path's symmetric grid, packed for vLLM) on a
+    random Llama of ``cfg_kw`` at ``layers``, its blocks in host memory
+    with ``offload``; a PPL entry with ``inference_per_block`` at pretrain
+    and fake_quant; ``save_vllm`` into ``out``."""
+    return dict(
+        base=dict(seed=seed),
+        model=dict(type='Llama', seed=seed, offload=offload,
+                   arch=dict(cfg_kw, num_hidden_layers=layers)),
+        calib=dict(name='synthetic', n_samples=n_samples, bs=-1,
+                   seq_len=seq_len, seed=seed,
+                   vocab_size=cfg_kw['vocab_size']),
+        eval=dict(name='synthetic', vocab_size=cfg_kw['vocab_size'],
+                  inference_per_block=True,
+                  eval_pos=['pretrain', 'fake_quant'], **eval_kw),
+        quant=dict(method='RTN', weight=dict(
+            bit=4, symmetric=True, granularity='per_group', group_size=128,
+            need_pack=True)),
+        save=dict(save_vllm=True, save_path=out))
+
+
+def tree_bytes(tree) -> int:
+    from llmc_tpu_torch.export.exporter import leaf_paths
+    return sum(t.numel() * t.element_size() for _, t in leaf_paths(tree))
+
+
+def transfer_times(dev, host_block, reps=3) -> dict:
+    """Seconds to upload one host block (pinned, ``non_blocking``) and to
+    take it back to pinned host memory, the least of ``reps``, beside one
+    plain pinned copy of the same bytes each way (the link's rate)."""
+    from llmc_tpu_torch.utils.offload import tree_to_device, tree_to_host
+    nbytes = tree_bytes(host_block)
+    up, down = [], []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        blk = tree_to_device(host_block, dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        tree_to_host(blk, pin=dev.type == 'cuda')
+        _sync(dev)
+        up.append(t1 - t0)
+        down.append(time.perf_counter() - t1)
+        del blk
+    flat = torch.empty(nbytes, dtype=torch.uint8,
+                       pin_memory=dev.type == 'cuda')
+    link_up, link_down = [], []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        d = flat.to(dev, non_blocking=True)
+        _sync(dev)
+        t1 = time.perf_counter()
+        flat.copy_(d)
+        _sync(dev)
+        link_up.append(t1 - t0)
+        link_down.append(time.perf_counter() - t1)
+        del d
+    return dict(block_bytes=nbytes, upload_s=min(up), download_s=min(down),
+                link_up_bytes_per_s=nbytes / min(link_up),
+                link_down_bytes_per_s=nbytes / min(link_down),
+                upload_over_link=min(up) / min(link_up),
+                download_over_link=min(down) / min(link_down))
+
+
+def phase21_offload(dev, cfg_kw=LLAMA2_70B, layers=OFFLOAD_LAYERS[0],
+                    check_layers=OFFLOAD_CHECK_LAYERS, **sizes):
+    """``model.offload`` at ``cfg_kw``'s widths through ``run_pipeline``
+    (RTN, the per-block PPL at pretrain and fake_quant, ``save_vllm``) at
+    ``layers`` and at ``check_layers``, and at ``check_layers`` resident:
+    the run's own device peak (over what was allocated at its start) flat
+    in depth (within ``PEAK_FLAT``), the offloaded PPLs within
+    ``TOL_OFFLOAD_PPL`` of the resident ones and the written tensors
+    equal; the seconds to upload and take back one block beside
+    the link's rate, and the seconds of each pipeline phase."""
+    from llmc_tpu_torch.export import read_checkpoint
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.ops import reset_launch_counts
+    cuda = dev.type == 'cuda'
+    runs, files = {}, {}
+    for key, n, offload in (('resident', check_layers, False),
+                            ('offload_check', check_layers, True),
+                            ('offload', layers, True)):
+        with scratch_dir() as out:
+            _free(dev)
+            start = 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+                start = torch.cuda.memory_allocated(dev)
+            reset_launch_counts()
+            res = run_pipeline(offload_config(cfg_kw, n, offload, out,
+                                              **sizes), device=dev)
+            counts, xla = read_counts()
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+            runs[key] = dict(
+                layers=n, offload=offload, peak_bytes=peak,
+                allocated_at_start_bytes=start if cuda else None,
+                # the run's own peak: what it allocated over what earlier
+                # phases still hold
+                own_peak_bytes=peak - start if cuda else None,
+                ppl_pretrain=res['ppl_pretrain'],
+                ppl_fake_quant=res['ppl_fake_quant'],
+                phase_times_s=res['phase_times'], bytes_written=dir_bytes(out),
+                launches=counts, xla_branch_calls=xla)
+            if key != 'offload':
+                files[key] = read_checkpoint(out)
+        if key == 'offload':
+            model = res['model']
+            host = model.params['blocks'].host(0)
+            runs[key]['blocks_bytes'] = sum(
+                tree_bytes(model.params['blocks'].host(i))
+                for i in range(model.n_blocks))
+            runs[key]['resident_bytes'] = tree_bytes(
+                {k: v for k, v in model.params.items() if k != 'blocks'})
+            runs[key]['pinned'] = bool(
+                host['self_attn']['q_proj']['w'].is_pinned())
+            moves = transfer_times(dev, host)
+            del model, host
+        del res
+    _free(dev)
+    vs = checkpoint_vs(files['offload_check'], files['resident'])
+    r, c, o = runs['resident'], runs['offload_check'], runs['offload']
+    ppl_rel = max(abs(c[k] - r[k]) / r[k]
+                  for k in ('ppl_pretrain', 'ppl_fake_quant'))
+    peak_rel = abs(o['own_peak_bytes'] - c['own_peak_bytes']) \
+        / c['own_peak_bytes'] if cuda else None
+    return dict(phase='offload', source='meta-llama/Llama-2-70b-hf '
+                'config.json', width=cfg_kw['hidden_size'],
+                intermediate=cfg_kw['intermediate_size'],
+                depth_cut=dict(layers=layers, of=cfg_kw['num_hidden_layers'],
+                               reason=OFFLOAD_LAYERS[1]),
+                eval=OFFLOAD_EVAL, runs=runs, transfers=moves,
+                peak_rel_8_vs_2=peak_rel, tolerance_peak=PEAK_FLAT,
+                ppl_rel_offload_vs_resident=ppl_rel,
+                tolerance_ppl=TOL_OFFLOAD_PPL, written_vs_resident=vs,
+                ok=bool(ppl_rel <= TOL_OFFLOAD_PPL
+                        and (not cuda or peak_rel <= PEAK_FLAT)
+                        and (not cuda or o['pinned'])
+                        and vs['tensors'] and not (
+                            vs['missing'] or vs['layout']
+                            or vs['elements_differ'] or vs['json_differ'])
+                        and all(not any(x['launches'].values())
+                                and x['xla_branch_calls'] == 0
+                                for x in runs.values())))
+
+
+def phase21_code_eval(dev, cfg_kw=None, max_new_tokens=None,
+                      problems=CODE_PROBLEMS):
+    """``eval/code.py``'s HumanEval on a random float32 Llama of
+    ``cfg_kw`` (Llama-2-7B's widths at ``CODE_EVAL``'s depth) under RTN's
+    W4 g128 fake-quant QMap, on a problems file of two tasks with the byte
+    tokenizer: ``samples.jsonl`` holds both tasks, its completions equal
+    the CPU port's on the same weights (there baked once: RTN's weight
+    qdq is a function of the weight alone), and so do the generated token
+    ids (the byte tokenizer maps ids 128 apart to one character, and the
+    stop strings cut the text), and B2 launched once a layer a decode
+    step."""
+    from llmc_tpu_torch.eval.code import HumanEval
+    from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
+    from llmc_tpu_torch.models.adapter import QMap
+    from llmc_tpu_torch.models.base import LinearQcfg, get_path, set_path
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.quant.quantizer import fake_quant_weight
+    cfg_kw = cfg_kw or dict(LLAMA2_7B, num_hidden_layers=CODE_EVAL['layers'],
+                            dtype='float32')
+    new = max_new_tokens or CODE_EVAL['max_new_tokens']
+    cfg = LlamaConfig(**cfg_kw)
+    model = LlamaAdapter.random(cfg, seed=0, device=dev)
+    model.tokenizer = ByteTokenizer()
+    wspec = _wspec(4)
+    layout = model.get_layout()
+    qmap = QMap({p: LinearQcfg(w_spec=wspec) for p in layout.linears})
+    samples = {}
+    with scratch_dir() as root:
+        path = os.path.join(root, 'problems.jsonl')
+        with open(path, 'w') as f:
+            f.writelines(json.dumps(p) + '\n' for p in problems)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        card_eval = HumanEval(path, max_new_tokens=new,
+                              res_path=os.path.join(root, 'card'))
+        res = card_eval.eval(model, qmap)
+        card_s = time.perf_counter() - t0
+        counts, xla = read_counts()
+        cpu = LlamaAdapter(cfg, tree_to(model.params, 'cpu'))
+        del model
+        _free(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(cpu.n_blocks):
+                blk = cpu.blocks[i]
+                for p in layout.linears:
+                    lin = get_path(blk, p)
+                    blk = set_path(blk, p, dict(
+                        lin, w=fake_quant_weight(wspec, lin['w'])))
+                cpu.set_block(i, blk)
+        cpu.tokenizer = ByteTokenizer()
+        cpu_eval = HumanEval(path, max_new_tokens=new,
+                             res_path=os.path.join(root, 'cpu'))
+        cpu_eval.eval(cpu)
+        cpu_s = time.perf_counter() - t0
+        for name in ('card', 'cpu'):
+            with open(os.path.join(root, name, 'samples.jsonl')) as f:
+                samples[name] = [json.loads(ln) for ln in f]
+    # per task, the positions where the card's ids leave the CPU's
+    cpu_ids = cpu_eval.token_ids
+    ids_differ = {t: [i for i, (a, b) in enumerate(zip(ids, cpu_ids[t]))
+                      if a != b]
+                  for t, ids in card_eval.token_ids.items()
+                  if ids != cpu_ids[t]}
+    steps = sum(new - 1 for _ in problems)
+    expected = dict.fromkeys(counts, 0)
+    if attention_kernel_takes(cfg):
+        expected['flash_decode'] = cfg.num_hidden_layers * steps
+    return dict(phase='code_eval', layers=cfg.num_hidden_layers,
+                width=cfg.hidden_size, dtype=cfg_kw['dtype'],
+                max_new_tokens=new, tasks=[p['task_id'] for p in problems],
+                result_keys=sorted(res), samples=samples['card'],
+                completions_equal_cpu=samples['card'] == samples['cpu'],
+                token_ids=card_eval.token_ids, token_ids_differ=ids_differ,
+                card_s=card_s, cpu_s=cpu_s, launches=counts,
+                expected_launches=expected, xla_branch_calls=xla,
+                ok=bool(samples['card'] == samples['cpu'] and not ids_differ
+                        and [s['task_id'] for s in samples['card']]
+                        == [p['task_id'] for p in problems]))
+
+
+def phase21(dev):
+    """Every record of phase 21, in its order (a generator: each record
+    is emitted and checked before the next part runs)."""
+    yield phase21_export(dev)
+    yield phase21_symmetric(dev)
+    yield from phase21_writers(dev)
+    yield phase21_offload(dev)
+    yield phase21_code_eval(dev)
+
+
+def phase21_failure(rec) -> dict:
+    """The fields of a phase-21 record that its ``ok`` reads, for the
+    failure's message."""
+    keys = ('codes_vs_b1', 'file_vs_b1', 'pipeline_launches',
+            'worst_err_over_fp16_bound', 'vs_cpu', 'runs',
+            'peak_rel_8_vs_2', 'ppl_rel_offload_vs_resident',
+            'written_vs_resident', 'samples', 'completions_equal_cpu',
+            'token_ids_differ')
     return {k: rec[k] for k in keys if k in rec}
 
 
@@ -4985,6 +5607,19 @@ def main(argv=None) -> int:
         require(rec['ok'], f'{rec["phase"]}: a check failed: '
                 f'{phase20_failure(rec)}')
     emit(dict(phase='phase20', wall_s=time.perf_counter() - t20, **card))
+
+    # phase 21: the backend exports at Llama-2-7B (the full-depth AWQ-GEMM
+    # export against B1's packing, each writer against the CPU's), block
+    # offload at Llama-2-70B's widths, and the code eval through B2
+    t21 = time.perf_counter()
+    for rec in phase21(dev):
+        rec.update(card)
+        emit(rec)
+        require(rec['ok'], f'{rec["phase"]}: a check failed: '
+                f'{phase21_failure(rec)}')
+        if 'expected_launches' in rec:
+            require_launches(rec)
+    emit(dict(phase='phase21', wall_s=time.perf_counter() - t21, **card))
 
     require(min(launches.values()) > 0,
             f'a kernel of the main paths was never launched: {launches}')

@@ -18,6 +18,11 @@ the quantized-attention and act-fn pseudo-paths, the QuaRot online
 rotation (``special.online_rotate``) that any method honours, and the
 KV-cache quantizer of the evals (``quant.kvcache``: Naive, Kivi or SinkKV
 from ``KV_REGISTRY``, as ``kv_module``).
+
+On an offloaded model (``utils/offload.py``) ``model.blocks[i]`` uploads
+block i and ``set_block`` takes it back to host memory, so every
+algorithm's block step, the static act install and the weight bake hold
+one block on the device at a time, with no code of their own for it.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ padding masks.
 Samples are numpy int32, as in the reference, and the ``synthetic`` ids
 come from ``np.random.RandomState(seed + rank)``: both packages calibrate
 on the same tokens.  The multimodal, audio and video sources raise
-(ROADMAP A13).
+(ROADMAP A13e).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ class CalibDataset:
         if self.name.startswith('synthetic') or self.name in ('t2v', 'i2v'):
             raise NotImplementedError(
                 f'calib source {self.name!r} (multimodal / audio / video) '
-                f'is not ported yet (ROADMAP A13)')
+                f'is not ported yet (ROADMAP A13e)')
         if self.name == 'custom_txt':
             return self._load_custom_txt(self.path)
         if download:

@@ -4,7 +4,7 @@ Each preprocessor maps (text records, tokenizer, n_samples, seq_len) to a
 list of int32 numpy arrays of shape [1, seq].  They stay numpy and draw
 from python's ``random`` exactly as the reference does, so both packages
 calibrate on the same tokens.  The image preprocessor is not ported
-(ROADMAP A13).
+(ROADMAP A13e).
 """
 
 from __future__ import annotations

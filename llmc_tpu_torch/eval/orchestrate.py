@@ -11,9 +11,12 @@ entries of type ``decode_ppl``, which run at every configured position
 positions runs at ``fake_quant``); entries of type ``latency``
 (``eval/latency.py``: TTFT and decode tokens/s, under the calibrated KV
 policy at ``fake_quant``) and ``custom_gen`` (``eval/harness.py``: greedy
-continuations of the entry's ``prompts`` or the lines of its ``path``).
-The other types (acc, code, vqa, img_txt, video_gen) and
-``inference_per_block`` raise ``NotImplementedError`` (ROADMAP A13).
+continuations of the entry's ``prompts`` or the lines of its ``path``)
+and ``code`` (``eval/code.py``: HumanEval completions of a problems file).
+A ``ppl`` entry with ``inference_per_block`` runs block-outer
+(``OffloadPPL``: each block uploaded once, the way a model larger than the
+card is evaluated).  The VLM, audio and video types (acc, vqa, img_txt,
+video_gen) raise ``NotImplementedError`` (ROADMAP A13e).
 """
 
 from __future__ import annotations
@@ -26,9 +29,8 @@ import numpy as np
 from .ppl import DecodePerplexityEval, PerplexityEval, TokenConsistencyEval
 
 _UNPORTED_TYPES = {
-    'acc': 'ROADMAP A13', 'code': 'ROADMAP A13',
-    'vqa': 'ROADMAP A13', 'img_txt': 'ROADMAP A13',
-    'video_gen': 'ROADMAP A13',
+    'acc': 'ROADMAP A13e', 'vqa': 'ROADMAP A13e', 'img_txt': 'ROADMAP A13e',
+    'video_gen': 'ROADMAP A13e',
 }
 
 
@@ -74,6 +76,23 @@ def load_eval_texts(ev: Dict):
     return datasets.load_from_disk(path)['text']
 
 
+class OffloadPPL:
+    """The PPL of ``inference_per_block``: block-outer through
+    ``utils/offload.py::streaming_ppl``, so each block of an offloaded model
+    is uploaded once for every chunk."""
+
+    def __init__(self, test_ids: np.ndarray, seq_len: int = 2048,
+                 bs: int = 8):
+        ids = np.asarray(test_ids).reshape(-1)
+        n = ids.shape[0] // seq_len
+        self.chunks = ids[:n * seq_len].reshape(n, seq_len)
+        self.bs = bs
+
+    def eval(self, model, qmap=None) -> float:
+        from ..utils.offload import streaming_ppl
+        return streaming_ppl(model, self.chunks, qmap=qmap, bs=self.bs)
+
+
 class _Entry:
     def __init__(self, ev: Dict, key: str):
         self.ev = ev
@@ -106,14 +125,12 @@ class EvalOrchestrator:
         if t in _UNPORTED_TYPES:
             raise NotImplementedError(
                 f'eval type {t!r} is not ported yet ({_UNPORTED_TYPES[t]})')
-        if t not in (None, 'ppl', 'decode_ppl', 'latency', 'custom_gen'):
+        if t not in (None, 'ppl', 'decode_ppl', 'latency', 'custom_gen',
+                     'code'):
             raise ValueError(f'unknown eval type {t!r}')
         if ev.get('name') == 'imagenet':
             raise NotImplementedError(
-                'the ImageNet accuracy eval is not ported yet (ROADMAP A13)')
-        if ev.get('inference_per_block'):
-            raise NotImplementedError('eval option inference_per_block is '
-                                      'not ported yet (ROADMAP A13)')
+                'the ImageNet accuracy eval is not ported yet (ROADMAP A13e)')
         return t or 'ppl'
 
     def positions(self) -> List[str]:
@@ -152,6 +169,9 @@ class EvalOrchestrator:
             if etype == 'custom_gen':
                 results[f'{e.key}_{position}'] = self._custom_gen(
                     e, model, qmap)
+                continue
+            if etype == 'code':
+                results[f'{e.key}_{position}'] = self._code(e, model, qmap)
                 continue
             results[f'{e.key}_{position}'] = self._ppl(e, model, qmap)
             if position == 'fake_quant' and qmap is not None \
@@ -201,10 +221,25 @@ class EvalOrchestrator:
                 max_new_tokens=int(ev.get('max_new_tokens', 64)))
         return e.evaluator.eval(model, qmap=qmap)
 
+    def _code(self, e, model, qmap):
+        if e.evaluator is None:
+            from .code import HumanEval
+            ev = e.ev
+            e.evaluator = HumanEval(
+                problem_file=ev.get('path') or ev.get('problem_file'),
+                max_new_tokens=int(ev.get('max_new_tokens', 256)),
+                n_samples_per_task=int(ev.get('n_samples_per_task', 1)),
+                res_path=ev.get('res_path', './humaneval_out'))
+        return e.evaluator.eval(model, qmap=qmap)
+
     def _ppl(self, e, model, qmap):
         if e.evaluator is None:
             ev = e.ev
-            e.evaluator = PerplexityEval(
-                load_eval_ids(ev, model.tokenizer),
-                seq_len=ev.get('seq_len', 2048), bs=ev.get('bs', 1))
+            ids = load_eval_ids(ev, model.tokenizer)
+            if ev.get('inference_per_block'):
+                e.evaluator = OffloadPPL(ids, seq_len=ev.get('seq_len', 2048),
+                                         bs=ev.get('bs', 8))
+            else:
+                e.evaluator = PerplexityEval(
+                    ids, seq_len=ev.get('seq_len', 2048), bs=ev.get('bs', 1))
         return e.evaluator.eval(model, qmap=qmap)

@@ -17,11 +17,18 @@ quantization, the KV-cache quantizers (``quant.kvcache``: Naive, Kivi,
 SinkKV, ShadowKV), the sparsifiers of a ``sparse`` section (Dense,
 Magnitude, Wanda, ShortGPT: deployed before the transformed eval, where
 ShortGPT removes its blocks), the PPL, decode-PPL, token-consistency,
-latency and custom-generation evals at ``pretrain`` / ``transformed`` /
-``fake_quant`` / ``fake_quant_wo_kv`` (the fake-quant deploy over an fp
-KV cache), ``save_trans`` / ``save_fake`` (OPT's in its own HF names).
-Data parallel calibration, the backend exports and the external evals
-raise ``NotImplementedError``.
+latency, custom-generation and code evals at ``pretrain`` /
+``transformed`` / ``fake_quant`` / ``fake_quant_wo_kv`` (the fake-quant
+deploy over an fp KV cache; a PPL entry also block by block with
+``inference_per_block``), ``save_trans`` / ``save_fake`` (OPT's in its own
+HF names), the backend exports (``save_vllm``, ``save_sgl``,
+``save_lightllm``, ``save_autoawq``, ``save_mlcllm``, ``save_trtllm``:
+``export/``), ``model.offload`` (the blocks in host memory, one on the
+device at a time: ``utils/offload.py``) and the opencompass shell-out.
+Data parallel calibration raises ``NotImplementedError`` (ROADMAP A14),
+``save_lightx2v`` too (it needs the Wan model, ROADMAP A13e), and so does
+a backend export of float weights, before any work (the reference fails
+on it after its evals: ROADMAP C).
 
 As in the reference, a ``sparse.kvcache`` section reaches no eval: a
 sparsifier has no KV policy (ROADMAP C).  The port warns that it is not
@@ -34,6 +41,7 @@ removed blocks on as a QMap and fails (ROADMAP C).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 import warnings
 from typing import Dict
@@ -43,13 +51,12 @@ import torch
 from . import compression  # noqa: F401  (registers ALGO_REGISTRY entries)
 from .data import CalibDataset
 from .eval.orchestrate import EvalOrchestrator
+from .export import BACKENDS, export_backends
 from .models import build_model
+from .quant.qspec import spec_from_config
 from .utils import (ALGO_REGISTRY, Cfg, check_config, get_modality,
                     load_config, resolve_device, seed_all)
 from .utils.profiler import PhaseTimer, trace
-
-_UNPORTED_SAVES = ('save_lightx2v', 'save_vllm', 'save_sgl', 'save_lightllm',
-                   'save_autoawq', 'save_mlcllm', 'save_trtllm')
 
 
 def _check_ported(config: Cfg) -> None:
@@ -59,18 +66,23 @@ def _check_ported(config: Cfg) -> None:
             'parallel.dp > 1 (data-parallel calibration) is not ported yet '
             '(ROADMAP A14)')
     save = config.get('save', {}) or {}
-    for flag in _UNPORTED_SAVES:
-        if save.get(flag):
-            raise NotImplementedError(
-                f'save.{flag} (a backend export) is not ported yet '
-                f'(ROADMAP A13)')
-    if 'opencompass' in config:
+    if save.get('save_lightx2v'):
         raise NotImplementedError(
-            'the opencompass eval is not ported yet (ROADMAP A13)')
+            'save.save_lightx2v (the Wan video export) is not ported yet '
+            '(ROADMAP A13e)')
+    if 'opencompass' in config and not save.get('save_trans'):
+        raise ValueError('opencompass eval requires save.save_trans')
+    exports = [f for f in BACKENDS if save.get(f)]
     for modality, mcfg in get_modality(config):
         if modality != 'language':
             raise NotImplementedError(
-                f'modality {modality!r} is not ported yet (ROADMAP A13)')
+                f'modality {modality!r} is not ported yet (ROADMAP A13e)')
+        wspec = spec_from_config(mcfg.get('weight')) if exports else None
+        if wspec is not None and wspec.is_float:
+            raise NotImplementedError(
+                f'save.{exports[0]} of float weights: the reference writes no '
+                f'float-quantized checkpoint (it fails on int('
+                f'{mcfg["weight"].get("bit")!r}) after its evals: ROADMAP C)')
         # an unknown algorithm raises here; an invalid option combination
         # raises before any heavy work (eval_pretrain can take minutes)
         check = getattr(ALGO_REGISTRY[mcfg['method']], 'check_special', None)
@@ -153,6 +165,14 @@ def run_pipeline(config: Dict, device=None) -> Dict:
         with timer.phase('save'):
             model.save_to_hf(out)
         results['saved_to'] = out
+    if any(save.get(f) for f in list(BACKENDS) + ['save_trtllm']):
+        with timer.phase('save'):
+            outs = export_backends(model, blockwise_opt, save)
+        if outs:
+            results['saved_to'] = outs[-1]
+    if 'opencompass' in config:
+        results['opencompass_rc'] = run_opencompass(
+            config['opencompass'], save)
 
     results['wall_s'] = time.time() - t0
     results['phase_times'] = timer.as_dict()
@@ -161,6 +181,26 @@ def run_pipeline(config: Dict, device=None) -> Dict:
     results['model'] = model
     results['opt'] = blockwise_opt
     return results
+
+
+def run_opencompass(oc: Dict, save: Dict) -> int:
+    """The OpenCompass eval on the saved transformed checkpoint, in a
+    process of its own (the reference's shell-out): its exit code.  Raises
+    ``ValueError`` without ``save.save_trans`` and ``RuntimeError``, with
+    the command line, where the ``opencompass`` binary is missing."""
+    if not save.get('save_trans'):
+        raise ValueError('opencompass eval requires save.save_trans')
+    import shutil
+    import subprocess
+    binary = shutil.which('opencompass')
+    cmd = [binary or 'opencompass', oc['cfg_path'], '-w', oc['output_path'],
+           '--llmc_eval_mode', 'quant', '--llmc_model_path',
+           os.path.abspath(save.get('save_path', './save'))]
+    if binary is None:
+        raise RuntimeError(
+            'opencompass is not installed; install it and re-run: '
+            + ' '.join(cmd))
+    return subprocess.call(cmd)
 
 
 def main(argv=None):

@@ -18,6 +18,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..utils.device import resolve_device, tree_device
+from ..utils.offload import (HostBlocks, offload_model_blocks,
+                             tree_to_device)
 from ..utils.registry import MODEL_REGISTRY
 from . import deepseek as DS
 from . import llama as L
@@ -147,12 +149,21 @@ class LlamaAdapter(BaseAdapter):
         self._layout = L.llama_layout(cfg)
 
     @classmethod
-    def random(cls, cfg: L.LlamaConfig, seed: int = 0, device=None):
+    def random(cls, cfg: L.LlamaConfig, seed: int = 0, device=None,
+               offload: bool = False):
         """Random params from a ``torch.Generator`` seeded with ``seed``
-        on ``device`` (``None``: the CUDA device)."""
+        on ``device`` (``None``: the CUDA device).  ``offload`` moves each
+        block to host memory as soon as it is drawn (the same weights: the
+        generator draws in the same order), so the device never holds more
+        than one block."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return cls(cfg, L.init_params(cfg, gen, device=dev))
+        if not offload:
+            return cls(cfg, L.init_params(cfg, gen, device=dev))
+        m = cls(cfg, L.init_params(cfg, gen, device=dev,
+                                   blocks=HostBlocks([], dev)))
+        m.offloaded = True
+        return m
 
     # a family's defaults under an inline ``model.arch`` (the reference's
     # ``setdefault``s in its ``from_config``)
@@ -178,20 +189,32 @@ class LlamaAdapter(BaseAdapter):
         CUDA device).  ``stream`` reads the tensors one at a time from the
         (possibly sharded) safetensors files (default: on for a sharded
         checkpoint; a family that renames its tensors reads them all).
-        FP8-block weights are dequantized on load."""
+        FP8-block weights are dequantized on load.  ``offload`` reads the
+        blocks' tensors one at a time straight to host memory, where they
+        stay (pinned for a CUDA device, ``utils/offload.py``): a checkpoint
+        larger than the card never lands on it whole; the embedding, final
+        norm and head go to ``device``."""
         from .hf_loader import llama_params_from_hf, load_hf_config
-        if offload:
-            raise NotImplementedError(
-                'offload=True (block params kept on the host) is not ported '
-                'yet (ROADMAP A13)')
         hf = load_hf_config(path)
         cfg = cls.config_from_hf(hf)
-        params = _load_params(
-            path, dtype, stream, device,
-            lambda flat: llama_params_from_hf(cls.rename_flat(flat, cfg, hf),
-                                              cfg.num_hidden_layers,
-                                              cfg.tie_word_embeddings))
-        return cls(cfg, params, _load_tokenizer(path), hf)
+
+        def build(flat):
+            return llama_params_from_hf(cls.rename_flat(flat, cfg, hf),
+                                        cfg.num_hidden_layers,
+                                        cfg.tie_word_embeddings)
+        if not offload:
+            params = _load_params(path, dtype, stream, device, build)
+            return cls(cfg, params, _load_tokenizer(path), hf)
+        dev = resolve_device(device)
+        params = _load_params(path, dtype, True, 'cpu', build)
+        blocks, host = params.pop('blocks'), HostBlocks([], dev)
+        for i in range(len(blocks)):   # pin one block, release its copy
+            host.append(blocks[i])
+            blocks[i] = None
+        params = dict(tree_to_device(params, dev), blocks=host)
+        m = cls(cfg, params, _load_tokenizer(path), hf)
+        m.offloaded = True
+        return m
 
     @classmethod
     def from_config(cls, config, device=None):
@@ -200,18 +223,19 @@ class LlamaAdapter(BaseAdapter):
         over the family's ``arch_defaults``, random weights from
         ``model.seed``)."""
         m = config['model']
+        offload = bool(m.get('offload'))
         if m.get('path'):
             return cls.from_pretrained(
                 m['path'], dtype=_config_dtype(m.get('torch_dtype',
                                                      'bfloat16')),
-                device=device)
+                offload=offload, device=device)
         if 'arch' not in m:
             raise ValueError(
                 'model.path is missing/empty; set model.path to a checkpoint '
                 'or pass model.arch explicitly for a synthetic model')
         arch = dict(cls.arch_defaults, **dict(m['arch']))
         return cls.random(cls.config_cls(**arch), seed=int(m.get('seed', 0)),
-                          device=device)
+                          device=device, offload=offload)
 
     def get_layout(self) -> BlockLayout:
         return self._layout
@@ -968,7 +992,7 @@ def _load_params(path: str, dtype, stream: Optional[bool], device, build):
             os.path.join(path, 'model.safetensors.index.json'))
     if not stream:
         return build(load_hf_tensors(path, dtype=dtype, device=dev))
-    return _tree_to(build(LazyHFTensors(path, dtype=dtype)), dev)
+    return tree_to_device(build(LazyHFTensors(path, dtype=dtype)), dev)
 
 
 def _config_dtype(s) -> torch.dtype:
@@ -1005,20 +1029,16 @@ _TOKENIZER_FILES = ('tokenizer.json', 'tokenizer_config.json',
                     'tokenizer.model', 'vocab.json')
 
 
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_to(v, device) for v in tree]
-    return tree if tree is None else tree.to(device)
-
-
 def build_model(config, device=None) -> BaseAdapter:
     """The adapter ``config.model.type`` names, on ``device`` (``None``:
-    the CUDA device)."""
+    the CUDA device).  ``model.offload`` keeps the blocks in host memory
+    (``utils/offload.py``; ``offload_model_blocks`` leaves a model whose
+    blocks are there already as it is).  The Llama graph's loaders put
+    each block there as it is read or drawn, so its model may be larger
+    than the card; the other families build on the card and move their
+    blocks after the build (ROADMAP A, item 8)."""
     m = config['model']
+    model = MODEL_REGISTRY[m['type']].from_config(config, device=device)
     if m.get('offload'):
-        raise NotImplementedError(
-            'model.offload (block params kept on the host) is not ported '
-            'yet (ROADMAP A13)')
-    return MODEL_REGISTRY[m['type']].from_config(config, device=device)
+        offload_model_blocks(model)
+    return model

@@ -203,12 +203,15 @@ def save_llama_params_to_hf(params: Dict, path: str,
     canonical namespace (the ``save_trans`` / ``save_fake`` output), with
     every norm's bias, the sandwich and q/k norms, the learned positions
     and the embedding LayerNorm where the tree holds them; the block
-    entries it lacks (a gate, a post-attention norm) are left out."""
+    entries it lacks (a gate, a post-attention norm) are left out.  Each
+    tensor is copied to the host as it is gathered, so an offloaded model's
+    blocks (uploaded one at a time as they are read) never sit on the
+    device together."""
     flat = {}
 
     def put(name, t):
         if t is not None:
-            flat[name] = t
+            flat[name] = t.detach().to('cpu')
 
     def put_tree(prefix, p):
         put(f'{prefix}.weight', p['w'])

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -128,13 +128,13 @@ _UNPORTED = {
 
 
 def check_ported(cfg: LlamaConfig) -> None:
-    """Raise for an option the port does not run (ROADMAP A13: the VLM
+    """Raise for an option the port does not run (ROADMAP A13e: the VLM
     tier's InternViT)."""
     for name, (default, owner) in _UNPORTED.items():
         v = getattr(cfg, name)
         if v != default:
             raise NotImplementedError(
-                f'LlamaConfig.{name}={v!r} is not ported yet (ROADMAP A13: '
+                f'LlamaConfig.{name}={v!r} is not ported yet (ROADMAP A13e: '
                 f'{owner})')
 
 
@@ -614,7 +614,7 @@ def attention_init(ini: Init, cfg, bias: bool = False,
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 dtype: Optional[torch.dtype] = None,
-                device=None) -> Dict:
+                device=None, blocks: Optional[List] = None) -> Dict:
     """Random params drawn from ``generator`` (on ``device``; the
     generator must live on the same device), in the reference's tree:
     LayerNorms with zero biases under ``norm_type='ln'``, no gate where
@@ -622,12 +622,14 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     table, and a zero ``o_proj`` bias wherever ``attention_bias`` is on (as
     the reference builds it; HF's Qwen2 has none).  ``use_qk_norm`` gets
     its q/k norms of ones [head_dim], which the reference's random tree
-    lacks (ROADMAP C)."""
+    lacks (ROADMAP C).  ``blocks``: the list each block is appended to as
+    it is drawn (an offloaded model's ``HostBlocks``), a new list by
+    default."""
     check_ported(cfg)
     ini = Init(generator, dtype or cfg.tdtype, device)
     D, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     ln = cfg.norm_type == 'ln'
-    blocks = []
+    blocks = [] if blocks is None else blocks
     for _ in range(cfg.num_hidden_layers):
         mlp = {'up_proj': ini.lin(I, D, cfg.mlp_bias),
                'down_proj': ini.lin(D, I, cfg.mlp_bias)}

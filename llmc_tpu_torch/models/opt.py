@@ -256,16 +256,18 @@ def params_from_hf(flat, cfg: OptConfig) -> Dict:
 
 def params_to_hf(params: Dict) -> Dict[str, torch.Tensor]:
     """The flat HF tensors of a params tree, ``params_from_hf``'s way
-    back (the head left out: OPT ties it to the embedding)."""
+    back (the head left out: OPT ties it to the embedding), as host copies
+    taken one block at a time (an offloaded model's blocks never sit on
+    the device together)."""
     pre = 'model.decoder'
     flat = {}
 
     def put(prefix, p):
         if p is None:
             return
-        flat[f'{prefix}.weight'] = p['w']
+        flat[f'{prefix}.weight'] = p['w'].detach().to('cpu')
         if p.get('b') is not None:
-            flat[f'{prefix}.bias'] = p['b']
+            flat[f'{prefix}.bias'] = p['b'].detach().to('cpu')
 
     put(f'{pre}.embed_tokens', params['embed_tokens'])
     put(f'{pre}.embed_positions', params['embed_positions'])

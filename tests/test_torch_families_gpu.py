@@ -43,12 +43,12 @@ def _pair(name, dev):
     """(CPU model, card model, QMap): one packed model, copied to the
     card."""
     import chip_smoke
-    from llmc_tpu_torch.models.adapter import _tree_to
+    from llmc_tpu_torch.utils.offload import tree_to_device
     from llmc_tpu_torch.serve import pack_model
     cpu, _ = chip_smoke.family_model(torch.device('cpu'), name, 2,
                                      FAMILIES[name])
     qmap = pack_model(cpu, chip_smoke._wspec(4), fuse=True, head=True)
-    card = type(cpu)(cpu.cfg, _tree_to(cpu.params, dev))
+    card = type(cpu)(cpu.cfg, tree_to_device(cpu.params, dev))
     return cpu, card, qmap
 
 

@@ -91,9 +91,13 @@ def test_from_config_reads_model_path_and_build_model_dispatches(
     b = LlamaAdapter.from_pretrained(checkpoints[0], dtype=torch.float32,
                                      device='cpu')
     assert_trees_equal(params_to_numpy(a.params), params_to_numpy(b.params))
-    with pytest.raises(NotImplementedError, match='ROADMAP A13'):
-        build_model(dict(model=dict(type='Llama', path=checkpoints[0],
-                                    offload=True)), device='cpu')
+    # model.offload, which raised until offload was ported, loads the same
+    # params with the blocks kept in host memory
+    c = build_model(dict(model=dict(type='Llama', path=checkpoints[0],
+                                    torch_dtype='float32', offload=True)),
+                    device='cpu')
+    assert c.offloaded and type(c.params['blocks']).__name__ == 'HostBlocks'
+    assert_trees_equal(params_to_numpy(c.params), params_to_numpy(b.params))
     with pytest.raises(ValueError, match='model.path'):
         build_model(dict(model=dict(type='Llama')), device='cpu')
 

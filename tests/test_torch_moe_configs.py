@@ -7,8 +7,8 @@ static groups, true-sequential, quant_out), their ``quant`` sections on
 checkpoints written with transformers, each PPL within 1e-3 of the JAX
 package's; and the serving engine's Mixtral tokens against the JAX
 engine's, in the scenario of the JAX package's MoE engine test.  The
-configs' ``save`` sections are left out: the backend exports are not
-ported (ROADMAP A13).  Part 2: ``test_torch_moe_configs_w8a8.py``."""
+configs' ``save`` sections are left out: the exports are held in
+``test_torch_export*.py``.  Part 2: ``test_torch_moe_configs_w8a8.py``."""
 
 import json
 

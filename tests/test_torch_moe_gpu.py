@@ -43,8 +43,8 @@ def _model(name, dev, seed=0):
 
 
 def _to(model, dev):
-    from llmc_tpu_torch.models.adapter import _tree_to
-    model.params = _tree_to(model.params, dev)
+    from llmc_tpu_torch.utils.offload import tree_to_device
+    model.params = tree_to_device(model.params, dev)
     return model
 
 

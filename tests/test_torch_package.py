@@ -61,7 +61,10 @@ NEW_MODULES = ('main.py', '__main__.py', 'compression/blockwise.py',
                'compression/quantization/gptq.py',
                'compression/quantization/quarot.py',
                'compression/quantization/osplus.py',
-               'compression/quantization/llmint8.py')
+               'compression/quantization/llmint8.py', 'native/__init__.py',
+               'export/__init__.py', 'export/formats.py',
+               'export/exporter.py', 'export/trtllm.py', 'utils/offload.py',
+               'eval/code.py', 'eval/harness.py')
 
 
 def _module_level_imports(path):
@@ -86,10 +89,11 @@ def test_compression_slice_is_under_the_import_check():
 
 
 def test_optional_packages_are_imported_only_inside_functions():
-    """safetensors, yaml, datasets and transformers may be missing where
-    the port runs: no module imports them at import time, and
-    chip_smoke.py nowhere."""
-    optional = ('safetensors', 'yaml', 'datasets', 'transformers')
+    """safetensors, yaml, datasets, transformers, lm_eval and human_eval
+    may be missing where the port runs: no module imports them at import
+    time, and chip_smoke.py nowhere."""
+    optional = ('safetensors', 'yaml', 'datasets', 'transformers', 'lm_eval',
+                'human_eval')
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in PORT_FILES
            for m in _module_level_imports(p) if m.split('.')[0] in optional]
     assert bad == []

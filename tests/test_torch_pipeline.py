@@ -159,12 +159,17 @@ def test_compress_pack_greedy_decode_tokens_match(checkpoint):
     (dict(save=dict(save_vllm=True)), 'ROADMAP A13'),
     (dict(save=dict(save_trtllm=True)), 'ROADMAP A13'),
     (dict(opencompass=dict(cfg_path='x', output_path='y')), 'ROADMAP A13'),
+    (dict(save=dict(save_lightx2v=True)), 'ROADMAP A13e'),
 ])
-def test_pipeline_options_outside_the_slice_raise(checkpoint, extra, item):
-    """Data parallelism, the backend exports and opencompass raise with
-    their ROADMAP item.  A ``sparse`` section, which raised until
-    sparsification was ported, runs: Magnitude's PPLs within 1e-3 of the
-    JAX package's."""
+def test_pipeline_options_outside_the_slice_raise(checkpoint, extra, item,
+                                                  tmp_path):
+    """Data parallelism and the Wan video export raise with their ROADMAP
+    item.  What raised until its slice ported it runs as the JAX package
+    runs it: a ``sparse`` section (Magnitude's PPLs within 1e-3 of the JAX
+    package's), the backend exports (``save_vllm``, ``save_trtllm``: the
+    written tensors and ``config.json`` equal to the JAX package's), and
+    opencompass, which without ``save.save_trans`` raises ``ValueError``
+    as the reference's does (here before any work)."""
     cfg = dict(pipeline_config(checkpoint, 'RTN'), **extra)
     if 'sparse' in extra:
         del cfg['quant']
@@ -172,6 +177,20 @@ def test_pipeline_options_outside_the_slice_raise(checkpoint, extra, item):
         for k in PPLS:
             assert abs(tres[k] - jres[k]) / jres[k] <= 1e-3
         assert tres['ppl_transformed'] != tres['ppl_pretrain']
+        return
+    if 'opencompass' in extra:
+        with pytest.raises(ValueError, match='save_trans'):
+            run_pipeline(cfg, device='cpu')
+        return
+    save = extra.get('save', {})
+    if save.get('save_vllm') or save.get('save_trtllm'):
+        from test_torch_export import assert_same_checkpoint, read_checkpoint
+        j_run_pipeline(dict(cfg, save=dict(save, save_path=str(
+            tmp_path / 'jax'))))
+        run_pipeline(dict(cfg, save=dict(save, save_path=str(
+            tmp_path / 'port'))), device='cpu')
+        assert_same_checkpoint(read_checkpoint(str(tmp_path / 'port')),
+                               read_checkpoint(str(tmp_path / 'jax')))
         return
     with pytest.raises(NotImplementedError, match=item):
         run_pipeline(cfg, device='cpu')
@@ -184,10 +203,16 @@ def test_pipeline_options_outside_the_slice_raise(checkpoint, extra, item):
     (dict(type='code'), 'ROADMAP A13'),
 ])
 def test_eval_entries_outside_the_slice_raise(checkpoint, ev, item):
-    """The ImageNet accuracy, code and per-block evals raise with their
-    ROADMAP item.  A ``latency`` entry, which raised until it was ported,
-    runs at each position: positive times, and the greedy tokens of its
-    runs equal the JAX package's greedy decode of the same ids."""
+    """The ImageNet accuracy eval raises with its ROADMAP item (A13e, the
+    VLM tier).  What raised until its slice ported it runs as the JAX
+    package runs it: a ``latency`` entry at each position (positive
+    times, and the greedy tokens of its runs equal the JAX package's
+    greedy decode of the same ids), the per-block PPL
+    (``inference_per_block``: the PPLs within 1e-5 of the resident eval's
+    and 1e-3 of the JAX package's), and a ``code`` entry, which without a
+    problems file reads ``human_eval``'s set and raises
+    ``ModuleNotFoundError`` where the package is missing, as the JAX
+    package's does."""
     cfg = pipeline_config(checkpoint, 'RTN')
     cfg['eval'] = dict(cfg['eval'], **ev)
     if ev.get('type') == 'latency':
@@ -205,7 +230,22 @@ def test_eval_entries_outside_the_slice_raise(checkpoint, ev, item):
                                              device='cpu'))
         np.testing.assert_array_equal(le.tokens.numpy(), want)
         return
-    with pytest.raises(NotImplementedError, match=item):
+    if ev.get('inference_per_block'):
+        res = run_pipeline(cfg, device='cpu')
+        dense = run_pipeline(pipeline_config(checkpoint, 'RTN'),
+                             device='cpu')
+        jres = j_run_pipeline(cfg)
+        for k in PPLS:
+            assert res[k] == pytest.approx(dense[k], rel=1e-5)
+            assert res[k] == pytest.approx(jres[k], rel=1e-3)
+        return
+    if ev.get('type') == 'code':
+        for run, kw in ((j_run_pipeline, {}), (run_pipeline,
+                                              dict(device='cpu'))):
+            with pytest.raises(ModuleNotFoundError, match='human_eval'):
+                run(cfg, **kw)
+        return
+    with pytest.raises(NotImplementedError, match=f'{item}e'):
         run_pipeline(cfg, device='cpu')
 
 

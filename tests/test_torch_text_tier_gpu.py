@@ -40,23 +40,24 @@ def _wspec():
 def _opt_pair(dev):
     """(CPU model, card model, QMap): a random OPT's generalized view,
     packed on the CPU and copied to the card."""
-    from llmc_tpu_torch.models.adapter import OptAdapter, _tree_to
+    from llmc_tpu_torch.models.adapter import OptAdapter
+    from llmc_tpu_torch.utils.offload import tree_to_device
     from llmc_tpu_torch.models.opt import OptConfig
     from llmc_tpu_torch.serve import pack_model
     cpu = OptAdapter.random(OptConfig(**OPT_CARD), seed=1,
                             device='cpu').as_generalized()
     qmap = pack_model(cpu, _wspec(), fuse=True, head=True)
-    return cpu, type(cpu)(cpu.cfg, _tree_to(cpu.params, dev)), qmap
+    return cpu, type(cpu)(cpu.cfg, tree_to_device(cpu.params, dev)), qmap
 
 
 def _llama_pair(dev):
     from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
-    from llmc_tpu_torch.models.adapter import _tree_to
+    from llmc_tpu_torch.utils.offload import tree_to_device
     from llmc_tpu_torch.serve import pack_model
     cpu = LlamaAdapter.random(LlamaConfig(**LLAMA_CARD), seed=2,
                               device='cpu')
     qmap = pack_model(cpu, _wspec(), fuse=True, head=True)
-    return cpu, type(cpu)(cpu.cfg, _tree_to(cpu.params, dev)), qmap
+    return cpu, type(cpu)(cpu.cfg, tree_to_device(cpu.params, dev)), qmap
 
 
 def _serve(model, qmap, dev, policy, eager=True, attn='auto'):
@@ -136,13 +137,13 @@ def test_shadowkv_on_card_against_cpu(cuda_device):
     top-k and gathers, the re-rope) on the card equals the CPU's within
     1e-4, at a policy whose retrieval selects 4 of 11 chunks."""
     from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
-    from llmc_tpu_torch.models.adapter import _tree_to
+    from llmc_tpu_torch.utils.offload import tree_to_device
     from llmc_tpu_torch.serve.shadowkv import (ShadowKVPolicy,
                                                shadowkv_decode_nll)
     cpu = LlamaAdapter.random(LlamaConfig(**dict(LLAMA_CARD,
                                                  dtype='float32')),
                               seed=4, device='cpu')
-    card = LlamaAdapter(cpu.cfg, _tree_to(cpu.params, cuda_device))
+    card = LlamaAdapter(cpu.cfg, tree_to_device(cpu.params, cuda_device))
     ids = np.random.RandomState(5).randint(0, 256, (1, 128))
     pol = ShadowKVPolicy(sparse_budget=16, chunk_size=4, rank=8,
                          outlier_chunk=3, local_chunk=2, max_gen=64)

@@ -182,10 +182,15 @@ def same_random_weights(monkeypatch):
         return jax.tree.map(lambda a: None if a is None else jnp.asarray(a),
                             tree(cfg, seed))
 
-    def port_init(cfg, generator, dtype=None, device=None):
+    def port_init(cfg, generator, dtype=None, device=None, blocks=None):
         jcfg = JL.LlamaConfig(**dataclasses.asdict(cfg))
-        return params_from_numpy(tree(jcfg, generator.initial_seed()),
-                                 device=device)
+        params = params_from_numpy(tree(jcfg, generator.initial_seed()),
+                                   device=device)
+        if blocks is not None:   # an offloaded model's host list
+            for b in params['blocks']:
+                blocks.append(b)
+            params['blocks'] = blocks
+        return params
     monkeypatch.setattr(JL, 'init_params', jax_init)
     monkeypatch.setattr(TL, 'init_params', port_init)
 
@@ -314,8 +319,8 @@ def moe_config(rel: str, path: str, group_size: int = 16) -> dict:
     tests run it: its ``model`` and ``quant`` sections on the tiny
     checkpoint at ``path`` (per-group 128 cut to ``group_size``: DS_TINY's
     experts are 48 wide), synthetic calibration and PPL data in place of
-    its datasets.  Its ``save`` section is left out: the backend exports
-    are not ported (ROADMAP A13)."""
+    its datasets.  Its ``save`` section is left out: the exports are held
+    in ``test_torch_export*.py``."""
     with open(os.path.join(MOE_CONFIGS, rel)) as f:
         cfg = yaml.safe_load(f)
 
