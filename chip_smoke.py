@@ -86,8 +86,8 @@ Phases, each printing one JSON line, all of them on every run:
                   (``LONG_PROFILE``), where a step is mostly attention.
    ``serve_paged``  (W4A16) an int8 ``PagedKVPolicy`` pool of 48 pages of
                   16, a third of the dense allocation, with chunked
-                  admission (64-token chunks, two a step): at 32 layers
-                  every request finishes, some wait on the pool, and the
+                  admission (64-token chunks, two a step): at
+                  ``SERVE_PAGED_LAYERS`` layers every request finishes, some wait on the pool, and the
                   free list is whole at the end; at 2 layers of a float32
                   model an fp pool's tokens equal the dense fp engine's,
                   and on an unpacked float32 model the int8 pool's tokens
@@ -235,7 +235,8 @@ Phases, each printing one JSON line, all of them on every run:
                   (``OPT_6_7B``), as phase 19 runs a family (B1 once a
                   packed linear and the head a forward, B2 / B5 once a
                   layer a host decode step), and RTN and AWQ on one block
-                  of its native graph; the packed Llama-2-7B served by
+                  of its native graph; the packed Llama-2-7B
+                  (``SINK_LAYERS``) served by
                   the engine under SinkKV (``SINK_KV``: the window bites on
                   the serve prompts), no attention kernel launched, its
                   first 2 layers' tokens on the card within bf16's reach
@@ -245,14 +246,38 @@ Phases, each printing one JSON line, all of them on every run:
                   shares, ShortGPT's removed blocks and saved config,
                   block 0's masks against the CPU port's; ShortGPT on a
                   written checkpoint); ShadowKV's decode PPL over 4096
-                  tokens at 4 layers beside the dense PPL of the same
+                  tokens at ``SHADOWKV_RUN`` layers beside the dense PPL of the same
                   tokens, the card's outlier chunks and retrieved
                   positions equal to the CPU's at the run's prefill, and
                   its PPL at 2 layers in float32 against the CPU's; and
                   ``LatencyEval`` at batch 1 and 8 on the packed model
-                  (its captured decode's tokens equal to its eager
+                  (``LATENCY_LAYERS``; its captured decode's tokens equal to its eager
                   warm-up's) and through ``run_pipeline`` at
                   ``LATENCY_PIPELINE_LAYERS``.
+21. ``export`` + ``export_symmetric`` + ``export_writers`` + ``offload`` +
+                  ``code_eval``: the backend exports at Llama-2-7B, block
+                  offload at Llama-2-70B's widths (``OFFLOAD_LAYERS``) and
+                  the code eval through B2.
+22. ``vlm_serve`` + ``vlm_fastv`` + ``vlm_compress`` + ``videollava`` +
+                  ``vit``: LLaVA-1.5-7B (``LLAVA15_7B``: the CLIP
+                  ViT-L/14-336 tower, the projector, Llama-2-7B's LM at 32
+                  layers) with its LM packed W4A16 g128 and served by
+                  ``vlm_greedy_generate`` (8 prompts of an image and 32
+                  text tokens, 64 new tokens, an int8 cache) under
+                  ``auto`` (B2) and ``batch`` (B5): the captured decode's
+                  tokens equal to the eager decode's, the launches the path
+                  implies, the tower + projector ms, TTFT and the replayed
+                  step beside its byte bound, the packed prefill logits
+                  within ``TOL_COMPRESS_SERVE`` of the fake-quant model's,
+                  VisionZip's 576 image tokens served as 64, and the card's
+                  tokens equal to the CPU port's at 2 LM layers in float32;
+                  FastV in the eager forward (``FASTV_LAYERS``) against the
+                  CPU; ``run_pipeline`` of the tower RTN W8 and the LM RTN
+                  W4 g128 with the vqa eval; Video-LLaVA at 224 pixels x 8
+                  frames with DyCoke (``VIDEOLLAVA_LAYERS``) against the
+                  CPU; ViT-B/16 (``VIT_B16``) W8A8 with the quantized
+                  attention and the ImageNet accuracy eval, its predictions
+                  equal to the CPU's at 2 layers.
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
@@ -413,6 +438,7 @@ PHASE17 = (('quik_w4a8', 'w4a8'), ('spqr_w4', 'w4a16'),
 # the depth cuts that pay for phase 20's time (the seconds of the 32-layer
 # run with its evals on an H100 at 700 W)
 PHASE20_DEPTH = 'cut to pay for phase 20\'s time'
+PHASE22_DEPTH = 'cut to pay for phase 22\'s time'
 DEPTH_CUT = dict(TRAINED_DEPTH, **{
     'QUIK': (8, f'{PHASE20_DEPTH} (32 layers: 11.4 s)'),
     'HQQ': (8, f'{PHASE20_DEPTH} (32 layers: 15.8 s)'),
@@ -1714,8 +1740,8 @@ def phase_serve_graph(dev, model, qmap, graph_tokens, mode='w4a16', **kw):
 
 
 # the paged pool's eager serve at the model's depth: 13.8 s at 32 layers on
-# an H100; cut to pay for phase 20's time
-SERVE_PAGED_LAYERS = 16
+# an H100; cut to 16 to pay for phase 20's time, to 8 for phase 22's
+SERVE_PAGED_LAYERS = 8
 
 
 def phase_serve_paged(dev, model, qmap, cfg_kw, n_requests=10, max_batch=8,
@@ -3717,7 +3743,7 @@ SPARSE_LAYERS = 8
 # other 204 retrieved each step
 SHADOWKV = dict(sparse_budget=1024, chunk_size=8, rank=160, outlier_chunk=48,
                 max_gen=2048)
-SHADOWKV_RUN = dict(layers=4, tokens=4096)
+SHADOWKV_RUN = dict(layers=2, tokens=4096)   # 4 until phase 22
 # the dense decode's step is timed over the first tokens (its PPL over the
 # same scored tokens comes from one teacher-forced forward)
 DENSE_TIMED_TOKENS = 257
@@ -3733,6 +3759,9 @@ SHADOWKV_CPU = dict(layers=2, tokens=512,
 # (tests/test_torch_text_tier_gpu.py's bound)
 TOL_SHADOWKV_VS_CPU = 1e-4
 LATENCY = dict(prompt_len=128, gen_len=64, iters=5, batches=(1, 8))
+# the packed model's depth of LatencyEval, and SinkKV's serve
+LATENCY_LAYERS = (16, PHASE22_DEPTH)
+SINK_LAYERS = (16, PHASE22_DEPTH)
 # the latency entry through run_pipeline runs the fake-quant QMap, whose
 # every decode step re-quantizes every weight (on an H100: 8.3 ms a layer
 # eager at Llama-2-7B's width, 31.3 ms a captured step at 4 layers, B=1)
@@ -3860,9 +3889,13 @@ def phase20_sink(dev, peaks, layers=None, cfg_kw=LLAMA2_7B, serve_kw=None,
     attn_launches = sum(r[m]['launches'][k] for r in runs.values()
                         for m in ('graph', 'eager')
                         for k in ('flash_decode', 'batch_decode'))
+    full = LLAMA2_7B['num_hidden_layers']
     rec = dict(phase='sink_serve', model='Llama',
                source='bench.py:58-62 (Llama-2-7B)',
                layers=cfg_kw['num_hidden_layers'], kv_policy=SINK_KV,
+               reduced=[f'{cfg_kw["num_hidden_layers"]} of {full} layers: '
+                        f'{SINK_LAYERS[1]}']
+               if cfg_kw['num_hidden_layers'] < full else [],
                weights='random W4A16 g128, fused, packed head', runs=runs,
                attention_launches=attn_launches, vs_cpu=cpu_check)
     rec['ok'] = bool(cpu_check['ok'] and attn_launches == 0 and all(
@@ -4165,7 +4198,7 @@ def phase20_shadowkv(dev, cfg_kw=LLAMA2_7B, run=SHADOWKV_RUN,
     rec = dict(phase='shadowkv', model='Llama', source='bench.py:58-62 '
                '(Llama-2-7B)', layers=run['layers'], tokens=run['tokens'],
                reduced=[f'{run["layers"]} of {cfg_kw["num_hidden_layers"]} '
-                        f'layers: 2047 decode steps'],
+                        f'layers: 2047 decode steps; {PHASE22_DEPTH}'],
                policy=policy_kw, prefill_tokens=S_pre, prefill_chunks=n_chunks,
                outlier_chunks=n_out, local_chunks=policy._local(n_chunks),
                retrieved_chunks=min(policy.sparse_budget // policy.chunk_size,
@@ -4256,11 +4289,14 @@ def phase20_latency(dev, cfg_kw=LLAMA2_7B, lat=LATENCY,
         for _ in lat['batches'])
     del res
     _free(dev)
+    full = LLAMA2_7B['num_hidden_layers']
     rec = dict(phase='latency', source='bench.py:58-62 (Llama-2-7B)',
                prompt_len=lat['prompt_len'], gen_len=lat['gen_len'],
                iters=lat['iters'], kv_cache='fp', packed=rows,
+               reduced=[f'{L} of {full} layers: {LATENCY_LAYERS[1]}']
+               if L < full else [],
                pipeline=dict(layers=pipeline_layers,
-                             reduced=[f'{pipeline_layers} of {L} layers: '
+                             reduced=[f'{pipeline_layers} of {full} layers: '
                                       f'{LATENCY_PIPELINE_LAYERS[1]}'],
                              config='RTN W4 g128 symmetric, a latency '
                                     'entry a batch size at fake_quant',
@@ -4280,10 +4316,11 @@ def phase20(dev, peaks):
     is emitted and checked before the next part runs)."""
     yield phase20_opt(dev, peaks)
     yield from phase20_opt_compress(dev)
-    yield phase20_sink(dev, peaks)
+    yield phase20_sink(dev, peaks, layers=SINK_LAYERS[0])
     yield from phase20_sparse(dev)
     yield phase20_shadowkv(dev)
-    yield phase20_latency(dev)
+    yield phase20_latency(dev, cfg_kw=dict(
+        LLAMA2_7B, num_hidden_layers=LATENCY_LAYERS[0]))
 
 
 def phase20_failure(rec) -> dict:
@@ -4921,6 +4958,575 @@ def phase21_failure(rec) -> dict:
     return {k: rec[k] for k in keys if k in rec}
 
 
+# --------------------------------------------------------------------------
+# phase 22: the LLaVA tier and ViT
+# --------------------------------------------------------------------------
+
+# LLaVA-1.5-7B (llava-hf/llava-1.5-7b-hf config.json): the CLIP
+# ViT-L/14-336 tower, a 1024 -> 4096 -> 4096 GELU projector and the
+# Llama-2-7B LM with its 32064-token vocab, image token 32000
+CLIP_L14 = dict(hidden_size=1024, intermediate_size=4096,
+                num_hidden_layers=24, num_attention_heads=16)
+LLAVA15_7B = dict(text=dict(LLAMA2_7B, vocab_size=32064), vision=CLIP_L14,
+                  image_size=336, patch_size=14, image_token_index=32000)
+LLAVA_SOURCE = 'llava-hf/llava-1.5-7b-hf config.json'
+# the serve shape: 8 prompts of an image and 32 text tokens, 64 new tokens;
+# the card against the CPU at 2 LM layers, one prompt, 8 new tokens
+VLM_SERVE = dict(batch=8, text_tokens=32, new_tokens=64, cpu_layers=2,
+                 cpu_new_tokens=8)
+# configs/sparsification/token_reduction/{visionzip,fastv,dycoke}.yml
+VISIONZIP = dict(method='VisionZip', dominant=54, contextual=10)
+FASTV = dict(method='FastV', prune_layer=2, keep=144)
+FASTV_LAYERS = (3, 'FastV ranks the image tokens by block 2\'s attention: '
+                   'the shallowest LM that prunes holds 3 blocks')
+DYCOKE = dict(method='DyCoke', merging_ratio=0.3)
+# Video-LLaVA: the same tower at 224 pixels (256 patches a frame) x 8
+# frames, cut in LM depth; its check against the CPU also in tower depth
+VIDEOLLAVA = dict(image_size=224, num_frames=8, video_token_index=32001)
+VIDEOLLAVA_LAYERS = (4, 'phase 22 has 120 s: 4 LM layers carry DyCoke\'s '
+                        'shrunk span through the LM')
+VIDEOLLAVA_CPU = dict(layers=2, tower_layers=(
+    4, 'the 24-layer tower over 8 frames is 2.5 TFLOP on the CPU: 4 of its '
+       'layers, the select layer -2 their third'))
+# ViT-B/16 (google/vit-base-patch16-224 config.json), float32 as the
+# repository's vit_rtn_w8a8.yml loads it
+VIT_B16 = dict(image_size=224, patch_size=16, hidden_size=768,
+               intermediate_size=3072, num_hidden_layers=12,
+               num_attention_heads=12, num_labels=1000)
+VIT_SOURCE = 'google/vit-base-patch16-224 config.json'
+VIT_RUN = dict(images=64, calib_images=4, cpu_layers=2, cpu_images=16)
+# the vqa eval of vlm_compress: 4 synthetic_vlm samples, 3 answer tokens
+VLM_COMPRESS = dict(samples=4, answer_tokens=3, calib_samples=2)
+W8_CHANNEL = dict(bit=8, symmetric=True, granularity='per_channel')
+W4_G128 = dict(bit=4, symmetric=False, granularity='per_group',
+               group_size=128)
+CPU = torch.device('cpu')
+# the card against the CPU in float32: the largest logit error over the
+# largest logit (a token's top-k selections must agree for the spans to)
+TOL_VLM_VS_CPU = 1e-3
+
+
+def llava_model(dev, spec=LLAVA15_7B, layers=None, tower_layers=None,
+                dtype=BF16, seed=0, video=None):
+    """A random Llava (``video``: a VideoLlava with those fields) at
+    ``spec``'s widths in ``dtype``, tower and LM alike; ``layers`` /
+    ``tower_layers`` cut the depths."""
+    from llmc_tpu_torch.models import LlamaConfig
+    from llmc_tpu_torch.models import llava as LV
+    from llmc_tpu_torch.models.adapter import (LlavaAdapter,
+                                               VideoLlavaAdapter)
+    dt = str(dtype).replace('torch.', '')
+    text = dict(spec['text'], dtype=dt)
+    if layers:
+        text['num_hidden_layers'] = layers
+    v = dict(spec['vision'])
+    if tower_layers:
+        v['num_hidden_layers'] = tower_layers
+    vcfg = dataclasses.replace(LV.LlavaConfig.clip_block_cfg(
+        v['hidden_size'], v['intermediate_size'], v['num_hidden_layers'],
+        v['num_attention_heads']), dtype=dt)
+    extra = {k: spec[k] for k in ('image_size', 'patch_size',
+                                  'image_token_index')}
+    extra.update(video or {})
+    cfg = LV.LlavaConfig(text=LlamaConfig(**text), vision=vcfg, **extra)
+    return (VideoLlavaAdapter if video else LlavaAdapter).random(
+        cfg, seed=seed, device=dev)
+
+
+def vlm_copy(model, device, dtype=F32, layers=None, tower_layers=None):
+    """The model's first ``layers`` LM blocks and ``tower_layers`` tower
+    blocks (default all) with everything else, copied to ``device`` in
+    ``dtype``: a float32 twin for the card-against-CPU checks."""
+    cfg = model.llava_cfg
+    text, vision = cfg.text, cfg.vision
+    dt = str(dtype).replace('torch.', '')
+    text = dataclasses.replace(text, dtype=dt, num_hidden_layers=(
+        layers or text.num_hidden_layers))
+    vision = dataclasses.replace(vision, dtype=dt, num_hidden_layers=(
+        tower_layers or vision.num_hidden_layers))
+    p = model.params
+    params = dict(p, blocks=p['blocks'][:text.num_hidden_layers],
+                  vision=dict(p['vision'], blocks=p['vision']['blocks'][
+                      :vision.num_hidden_layers]))
+    return type(model)(dataclasses.replace(cfg, text=text, vision=vision),
+                       tree_to(params, device, dtype))
+
+
+def vlm_prompts(cfg, B, text_tokens, seed=0, video=False):
+    """Ids [B, 1 + span + text_tokens] (BOS, the image or video span, text
+    ids below the image token) and the pixels, numpy."""
+    rng = np.random.RandomState(seed)
+    span = cfg.image_seq_length * (cfg.num_frames if video else 1)
+    ids = rng.randint(1, cfg.image_token_index, (B, 1 + span + text_tokens))
+    ids[:, 1:1 + span] = (cfg.video_token_index if video
+                          else cfg.image_token_index)
+    shape = ((B, cfg.num_frames) if video else (B,)) + (
+        3, cfg.image_size, cfg.image_size)
+    return ids, rng.randn(*shape).astype(np.float32)
+
+
+def vlm_fake_quant_twin(model, wspec):
+    """The VLM with its LM under RTN's fake-quant QMap of ``wspec`` and
+    its head's weight fake-quantized onto the grid packing gives it
+    (``fake_quant_twin``'s, the tower left as it is): (twin, its QMap)."""
+    from llmc_tpu_torch.models.adapter import QMap
+    from llmc_tpu_torch.models.base import LinearQcfg
+    from llmc_tpu_torch.quant.quantizer import fake_quant_weight_static
+    from llmc_tpu_torch.serve.packed import packed_grid
+    head = model.params['lm_head']
+    fq = dict(head, w=fake_quant_weight_static(wspec, head['w'],
+                                               packed_grid(head, wspec)))
+    twin = type(model)(model.llava_cfg, dict(model.params, lm_head=fq))
+    twin.set_modality('language')
+    return twin, QMap({p: LinearQcfg(w_spec=wspec)
+                       for p in twin.get_layout().linears})
+
+
+def vlm_prefill_logits(model, ids, px, qmap, token_reduction=None):
+    """Every position's f32 logits of the cached prefill (fp cache)."""
+    from llmc_tpu_torch.serve.decode import FP_POLICY, forward_cached
+    dev = model.device
+    embeds, ids2 = model.prefill_embeds(
+        torch.as_tensor(ids, device=dev), qmap=qmap,
+        pixel_values=torch.as_tensor(px, device=dev),
+        token_reduction=token_reduction)
+    cfg = model.lm_cfg
+    cache = FP_POLICY.init_cache(ids2.shape[0], ids2.shape[1],
+                                 cfg.num_key_value_heads, cfg.head_dim,
+                                 cfg.num_hidden_layers, dtype=cfg.tdtype,
+                                 device=dev)
+    return forward_cached(model.params, cfg, None, cache, FP_POLICY, qmap,
+                          input_embeds=embeds)[0].float()
+
+
+def vlm_expected_launches(L, decode_steps, attn, prefills=1):
+    """What one ``vlm_greedy_generate`` of a packed LM counts: B1 (4L + 1)
+    a forward over its prefills and counted decode steps, B2 (``auto``)
+    or B5 (``batch``) once a layer a counted decode step (the prefill's
+    attention is no kernel's).  On the card a captured decode counts two
+    steps (its eager first run and its capture), a replay none."""
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    n['w4_dequant_matmul'] = (4 * L + 1) * (prefills + decode_steps)
+    n['batch_decode' if attn == 'batch' else 'flash_decode'] = \
+        L * decode_steps
+    return n
+
+
+def _generate(model, ids, px, G, qmap, policy, graph, tr=None):
+    """One ``vlm_greedy_generate`` with its timings, launches and XLA
+    branch calls."""
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.serve.decode import vlm_greedy_generate
+    dev = model.device
+    t = {}
+    reset_launch_counts()
+    out = vlm_greedy_generate(model, ids, G, qmap=qmap, kv_policy=policy,
+                              token_reduction=tr, timings=t, graph=graph,
+                              device=dev,
+                              pixel_values=torch.as_tensor(px, device=dev))
+    counts, xla = read_counts()
+    return out.cpu(), t, counts, xla
+
+
+def phase22_serve(dev, peaks, spec=LLAVA15_7B, layers=None, serve=VLM_SERVE,
+                  group_size=128, seed=0):
+    """LLaVA-1.5-7B served: its LM packed W4A16 g128 (fused qkv / gate_up,
+    the head packed), an int8 cache, 8 prompts of an image and 32 text
+    tokens, 64 greedy tokens through ``vlm_greedy_generate`` under
+    ``auto`` (B2) and ``batch`` (B5): the captured decode's tokens equal
+    to the eager decode's, the launches the path implies, the tower +
+    projector ms, TTFT and the replayed step's ms beside its byte bound;
+    the packed prefill logits against the fake-quant model's; VisionZip
+    served through the same cached path (576 image tokens to 64); and
+    the card against the CPU port at ``cpu_layers`` LM layers in float32."""
+    from llmc_tpu_torch.serve import KVCachePolicy, pack_model
+    from llmc_tpu_torch.serve.decode import vlm_greedy_generate
+    wspec = dataclasses.replace(_wspec(4, group_size), symmetric=False)
+    model = llava_model(dev, spec, layers, seed=seed)
+    cfg = model.llava_cfg
+    L = cfg.text.num_hidden_layers
+    B, G = serve['batch'], serve['new_tokens']
+    ids, px = vlm_prompts(cfg, B, serve['text_tokens'], seed)
+    rec = dict(phase='vlm_serve', source=LLAVA_SOURCE, layers=L,
+               tower_layers=cfg.vision.num_hidden_layers,
+               image_tokens=cfg.image_seq_length, batch=B,
+               prompt=ids.shape[1], new_tokens=G,
+               weights='random, seed 0, bf16; LM packed W4A16 g128 '
+                       '(asymmetric), fused qkv / gate_up, head packed',
+               kv_cache='naive int8')
+    # the card-against-CPU twins, before packing replaces the LM's weights
+    c = serve['cpu_layers']
+    twins = [vlm_copy(model, d, F32, layers=c) for d in (dev, CPU)]
+    with torch.no_grad():
+        one = ids[:1], px[:1]
+        twin, fq_map = vlm_fake_quant_twin(model, wspec)
+        want = vlm_prefill_logits(twin, *one, fq_map)
+        del twin
+        qmap = pack_model(model, wspec, fuse=True, head=True)
+        got = vlm_prefill_logits(model, *one, qmap)
+        err, rel = _rel(got, want)
+        rec['packed_vs_fake_quant'] = dict(
+            prompt=one[0].shape[1], max_abs_logit_err=err,
+            rel_logit_err=rel, tolerance=TOL_COMPRESS_SERVE,
+            argmax_agreement=float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean()))
+        del got, want
+        # the tower and projector alone, B images (warm, then timed)
+        pxt = torch.as_tensor(px, device=dev)
+        idt = torch.as_tensor(ids, device=dev)
+        model.prefill_embeds(idt, pixel_values=pxt)
+        _sync(dev)
+        t0 = time.perf_counter()
+        model.prefill_embeds(idt, pixel_values=pxt)
+        _sync(dev)
+        rec['tower_projector_ms'] = (time.perf_counter() - t0) * 1e3
+        policy = KVCachePolicy(method='naive', bit=8)
+        runs = {}
+        for attn in ('auto', 'batch'):
+            with attn_impl(attn):
+                g_out, t, g_counts, g_xla = _generate(model, ids, px, G, qmap,
+                                                      policy, None)
+                e_out, _, e_counts, e_xla = _generate(model, ids, px, G, qmap,
+                                                      policy, False)
+            graphed = dev.type == 'cuda'
+            runs[attn] = dict(
+                tokens_equal_eager=bool(torch.equal(g_out, e_out)),
+                timings_s=t, ttft_ms=(t['embeds_s'] + t['prefill_s']) * 1e3,
+                step_ms=((t['decode_s'] - t['decode_first_s'])
+                         / max(G - 2, 1) * 1e3),
+                graph=dict(launches=g_counts, xla_branch_calls=g_xla,
+                           expected_launches=vlm_expected_launches(
+                               L, 2 if graphed else G - 1, attn)),
+                eager=dict(launches=e_counts, xla_branch_calls=e_xla,
+                           expected_launches=vlm_expected_launches(
+                               L, G - 1, attn)))
+        rec['runs'] = runs
+        rec.update(family_step_bound(model, peaks, B=B,
+                                     prompt=ids.shape[1] + G // 2))
+        # VisionZip through the same cached path: the span shrinks
+        with attn_impl('auto'):
+            z_out, zt, z_counts, z_xla = _generate(model, ids, px, G, qmap,
+                                                   policy, None, VISIONZIP)
+            z_eager = _generate(model, ids, px, G, qmap, policy, False,
+                                VISIONZIP)[0]
+        span = z_out.shape[1] - G - (ids.shape[1] - cfg.image_seq_length)
+        rec['visionzip'] = dict(
+            config=VISIONZIP, image_tokens_before=cfg.image_seq_length,
+            image_tokens_after=span,
+            tokens_equal_eager=bool(torch.equal(z_out, z_eager)),
+            ttft_ms=(zt['embeds_s'] + zt['prefill_s']) * 1e3,
+            launches=z_counts, xla_branch_calls=z_xla,
+            expected_launches=vlm_expected_launches(
+                L, 2 if dev.type == 'cuda' else G - 1, 'auto'))
+        # the card against the CPU: float32, cpu_layers LM layers, 1 prompt
+        toks = []
+        for tw in twins:
+            tq = pack_model(tw, wspec, fuse=True, head=True)
+            toks.append(vlm_greedy_generate(
+                tw, ids[:1], serve['cpu_new_tokens'], qmap=tq,
+                kv_policy=policy, device=tw.device,
+                pixel_values=torch.as_tensor(px[:1], device=tw.device)).cpu())
+        del twins
+    rec['vs_cpu'] = dict(layers=c, dtype='float32', batch=1,
+                         new_tokens=serve['cpu_new_tokens'],
+                         tokens_equal=bool(torch.equal(*toks)))
+    rec['ok'] = bool(
+        rel <= TOL_COMPRESS_SERVE and rec['vs_cpu']['tokens_equal']
+        and all(r['tokens_equal_eager'] for r in runs.values())
+        and rec['visionzip']['tokens_equal_eager']
+        and span == VISIONZIP['dominant'] + VISIONZIP['contextual'])
+    return rec, model
+
+
+def _logits_vs_cpu(card, cpu):
+    err, rel = _rel(card.cpu().float(), cpu.float())
+    return dict(max_abs_logit_err=err, rel_logit_err=rel,
+                same_shape=card.shape == cpu.shape,
+                last_argmax_equal=bool(torch.equal(
+                    card.cpu()[:, -1].argmax(-1), cpu[:, -1].argmax(-1))),
+                tolerance=TOL_VLM_VS_CPU)
+
+
+def phase22_fastv(dev, model, prompt_tokens=32, layers=FASTV_LAYERS[0],
+                  seed=0):
+    """FastV (``fastv.yml``) in the eager forward at ``layers`` LM layers,
+    float32: the card against the CPU port on the same weights (the same
+    pruned length, logits within ``TOL_VLM_VS_CPU``)."""
+    cfg = model.llava_cfg
+    ids, px = vlm_prompts(cfg, 1, prompt_tokens, seed + 1)
+    outs = []
+    with torch.no_grad():
+        for d in (dev, CPU):
+            m = vlm_copy(model, d, F32, layers=layers)
+            t0 = time.perf_counter()
+            outs.append(m.forward_logits(
+                torch.as_tensor(ids), pixel_values=torch.as_tensor(px),
+                token_reduction=FASTV))
+            _sync(d)
+            outs.append((time.perf_counter() - t0) * 1e3)
+            del m
+    rec = dict(phase='vlm_fastv', source=LLAVA_SOURCE, config=FASTV,
+               layers=layers, reduced=[f'{layers} of '
+                                       f'{cfg.text.num_hidden_layers} LM '
+                                       f'layers: {FASTV_LAYERS[1]}'],
+               dtype='float32', prompt=ids.shape[1],
+               pruned_length=outs[0].shape[1], card_ms=outs[1],
+               cpu_ms=outs[3], vs_cpu=_logits_vs_cpu(outs[0], outs[2]))
+    v = rec['vs_cpu']
+    rec['ok'] = bool(v['same_shape'] and v['rel_logit_err'] <= TOL_VLM_VS_CPU
+                     and rec['pruned_length'] == ids.shape[1]
+                     - cfg.image_seq_length + FASTV['keep'])
+    return rec
+
+
+def vlm_compress_config(spec=LLAVA15_7B, layers=None, sizes=VLM_COMPRESS,
+                        seed=0):
+    """``run_pipeline``'s config of ``vlm_compress``: the tower RTN W8
+    per-channel, the LM RTN W4 g128, the vqa eval on ``synthetic_vlm``."""
+    text = dict(spec['text'])
+    if layers:
+        text['num_hidden_layers'] = layers
+    span = (spec['image_size'] // spec['patch_size']) ** 2
+    data = dict(name='synthetic_vlm', seq_len=1 + span + 32,
+                vocab_size=spec['image_token_index'],
+                image_token=spec['image_token_index'], image_seq_length=span,
+                image_size=spec['image_size'], seed=seed)
+    return dict(
+        base=dict(seed=seed),
+        model=dict(type='Llava', seed=seed, arch=dict(
+            text, vision=dict(spec['vision'], dtype=text['dtype']),
+            **{k: spec[k] for k in ('image_size', 'patch_size',
+                                    'image_token_index')})),
+        calib=dict(data, n_samples=sizes['calib_samples'], bs=1),
+        eval=dict(data, type='vqa', n_samples=sizes['samples'], bs=1,
+                  answer_tokens=sizes['answer_tokens'],
+                  eval_pos=['pretrain', 'fake_quant']),
+        quant=dict(vision=dict(method='RTN', weight=W8_CHANNEL),
+                   language=dict(method='RTN', weight=W4_G128)))
+
+
+def phase22_compress(dev, spec=LLAVA15_7B, layers=None, sizes=VLM_COMPRESS,
+                     seed=0):
+    """``run_pipeline`` over both modalities (the tower RTN W8, then the
+    LM RTN W4 g128) with the vqa eval at pretrain and fake_quant: the
+    pretrain accuracy 1.0 by construction, the fake-quant deploy a
+    ``ModalQMap``, and the launches of its cached answers (B2 once a layer
+    a counted decode step over the fp cache; no B1: fake-quant weights
+    are no packed ones)."""
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.ops import reset_launch_counts
+    config = vlm_compress_config(spec, layers, sizes, seed)
+    L = config['model']['arch']['num_hidden_layers']
+    reset_launch_counts()
+    with attn_impl('auto'):
+        res = run_pipeline(config, device=dev)
+    counts, xla = read_counts()
+    # a sample's decode steps; on the card its captured step counts two
+    steps = sizes['answer_tokens'] - 1
+    counted = (2 if steps else 0) if dev.type == 'cuda' else steps
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want['flash_decode'] = L * counted * sizes['samples'] * 2
+    rec = dict(phase='vlm_compress', source=LLAVA_SOURCE, layers=L,
+               quant='vision RTN W8 per-channel, language RTN W4 g128',
+               eval=f'vqa on synthetic_vlm, {sizes["samples"]} samples, '
+                    f'{sizes["answer_tokens"]} answer tokens',
+               results={k: v for k, v in res.items()
+                        if isinstance(v, (int, float))},
+               phase_times=res['phase_times'], launches=counts,
+               xla_branch_calls=xla, expected_launches=want)
+    acc = res.get('vqa_fake_quant_acc')
+    rec['ok'] = bool(res.get('vqa_pretrain_acc') == 1.0 and acc is not None
+                     and 0.0 <= acc <= 1.0
+                     and res['model'].modality == 'language')
+    del res
+    return rec
+
+
+def phase22_videollava(dev, spec=LLAVA15_7B, layers=VIDEOLLAVA_LAYERS[0],
+                       video=VIDEOLLAVA, cpu=VIDEOLLAVA_CPU,
+                       prompt_tokens=32, seed=0):
+    """Video-LLaVA: the tower at ``video['image_size']`` over 8 frames and
+    ``layers`` LM layers in bf16, DyCoke (``dycoke.yml``) shrinking the
+    video span in the eager forward (timed); then the card against the CPU
+    port in float32 at ``cpu['layers']`` LM layers and
+    ``cpu['tower_layers']`` tower layers (the same kept span, logits
+    within ``TOL_VLM_VS_CPU``)."""
+    spec = dict(spec, image_size=video['image_size'])
+    vfields = {k: video[k] for k in ('num_frames', 'video_token_index')}
+    model = llava_model(dev, spec, layers, seed=seed, video=vfields)
+    cfg = model.llava_cfg
+    ids, vids = vlm_prompts(cfg, 1, prompt_tokens, seed + 2, video=True)
+    span = cfg.num_frames * cfg.image_seq_length
+    with torch.no_grad():
+        args = (torch.as_tensor(ids, device=dev),)
+        kw = dict(pixel_values_videos=torch.as_tensor(vids, device=dev),
+                  token_reduction=DYCOKE)
+        model.forward_logits(*args, **kw)
+        _sync(dev)
+        t0 = time.perf_counter()
+        full = model.forward_logits(*args, pixel_values_videos=kw[
+            'pixel_values_videos'])
+        _sync(dev)
+        t1 = time.perf_counter()
+        red = model.forward_logits(*args, **kw)
+        _sync(dev)
+        t2 = time.perf_counter()
+        tl = cpu['tower_layers'][0]
+        outs = [vlm_copy(model, d, F32, layers=cpu['layers'],
+                         tower_layers=tl).forward_logits(
+            torch.as_tensor(ids), **dict(kw, pixel_values_videos=torch
+                                         .as_tensor(vids))) for d in (dev,
+                                                                      CPU)]
+    keep = int((1 - DYCOKE['merging_ratio']) * cfg.image_seq_length)
+    F_ = cfg.num_frames
+    pruned = sum(1 for i in range(F_) if i % 2) + len(range(0, F_ - 4, 4))
+    want_span = span - pruned * (cfg.image_seq_length - keep)
+    kept = red.shape[1] - (ids.shape[1] - span)
+    rec = dict(phase='videollava', source=LLAVA_SOURCE + ' (the Llava '
+               'graph of Video-LLaVA-7B at 224 pixels)', layers=layers,
+               reduced=[f'{layers} of {spec["text"]["num_hidden_layers"]} LM '
+                        f'layers: {VIDEOLLAVA_LAYERS[1]}',
+                        f'CPU check at {cpu["layers"]} LM and {tl} tower '
+                        f'layers: {cpu["tower_layers"][1]}'],
+               frames=F_, image_size=cfg.image_size,
+               video_tokens=span, dycoke=DYCOKE, video_tokens_kept=kept,
+               video_tokens_kept_expected=want_span,
+               full_forward_ms=(t1 - t0) * 1e3,
+               dycoke_forward_ms=(t2 - t1) * 1e3,
+               full_length=full.shape[1], vs_cpu=_logits_vs_cpu(*outs))
+    v = rec['vs_cpu']
+    rec['ok'] = bool(kept == want_span and v['same_shape']
+                     and v['rel_logit_err'] <= TOL_VLM_VS_CPU
+                     and bool(torch.isfinite(red).all()))
+    del model
+    return rec
+
+
+def vit_qmap():
+    """RTN W8A8's fake-quant deploy on ViT (``vit_rtn_w8a8.yml`` with the
+    quantized attention): W8 per-channel weights and per-token 8-bit
+    activations on every linear, and the attention's pseudo-paths."""
+    from llmc_tpu_torch.models import LinearQcfg, QMap
+    from llmc_tpu_torch.quant import QuantSpec
+    a = QuantSpec(bit=8, symmetric=True, granularity='per_token')
+    lin = LinearQcfg(w_spec=QuantSpec(**W8_CHANNEL), a_spec=a)
+    return QMap({p: LinearQcfg(a_spec=a) for p in (
+        'attention.matmul_1', 'attention.matmul_2', 'attention.softmax',
+        'act_fn')}, default=lin)
+
+
+def phase22_vit(dev, arch=VIT_B16, run=VIT_RUN, seed=0):
+    """ViT-B/16 at full depth (float32, random weights): ``run_pipeline``
+    of RTN W8A8 with the quantized attention over the ``vision``
+    modality and the ``acc`` eval on ``run['images']`` synthetic images
+    (labels the pretrain model's predictions); then the card's W8A8
+    predictions against the CPU port's at ``cpu_layers`` layers."""
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.models import VitAdapter
+    from llmc_tpu_torch.ops import reset_launch_counts
+    act = dict(bit=8, symmetric=True, granularity='per_token',
+               quant_attn=True, quant_softmax=True, quant_act_fn=True)
+    config = dict(
+        base=dict(seed=seed), model=dict(type='Vit', arch=dict(arch),
+                                         seed=seed),
+        calib=dict(name='synthetic_img', n_samples=run['calib_images'],
+                   bs=1, seed=seed, image_size=arch['image_size']),
+        eval=dict(name='imagenet', n_samples=run['images'], bs=16,
+                  eval_pos=['pretrain', 'fake_quant']),
+        quant=dict(vision=dict(method='RTN', weight=W8_CHANNEL, act=act)))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_pipeline(config, device=dev)
+    wall = time.perf_counter() - t0
+    counts, xla = read_counts()
+    model = res['model']
+    L = run['cpu_layers']
+    cfg = dataclasses.replace(model.cfg, num_hidden_layers=L)
+    px = np.random.RandomState(seed + 3).randn(
+        run['cpu_images'], 3, arch['image_size'], arch['image_size']).astype(
+        np.float32)
+    # the float32 logits within TOL_VLM_VS_CPU; under W8A8 the card's other
+    # summation order flips activation codes at their rounding edges, so
+    # there the predictions are held equal and the logits' gap recorded
+    logits = {}
+    with torch.no_grad():
+        for d in (dev, CPU):
+            m = VitAdapter(cfg, tree_to(dict(model.params, blocks=model.params[
+                'blocks'][:L]), d))
+            for q in ('fp', 'w8a8'):
+                logits.setdefault(q, []).append(m.classify(
+                    px, qmap=vit_qmap() if q == 'w8a8' else None).cpu())
+    err, rel = _rel(*logits['fp'])
+    q_err, q_rel = _rel(*logits['w8a8'])
+    rec = dict(phase='vit', source=VIT_SOURCE, layers=model.cfg
+               .num_hidden_layers, dtype='float32',
+               quant='RTN W8 per-channel, A8 per-token, quantized attention',
+               images=run['images'], acc_pretrain=res['acc_pretrain'],
+               acc_fake_quant=res['acc_fake_quant'], pipeline_s=wall,
+               phase_times=res['phase_times'], launches=counts,
+               xla_branch_calls=xla,
+               expected_launches=dict.fromkeys(KERNEL_NAMES, 0),
+               vs_cpu=dict(layers=L, images=run['cpu_images'],
+                           max_abs_logit_err=err, rel_logit_err=rel,
+                           tolerance=TOL_VLM_VS_CPU,
+                           w8a8_predictions_equal=all(bool(torch.equal(
+                               a.argmax(-1), b.argmax(-1)))
+                               for a, b in logits.values()),
+                           w8a8_max_abs_logit_err=q_err,
+                           w8a8_rel_logit_err=q_rel))
+    rec['ok'] = bool(res['acc_pretrain'] == 1.0
+                     and 0.0 <= res['acc_fake_quant'] <= 1.0
+                     and rec['vs_cpu']['w8a8_predictions_equal']
+                     and rel <= TOL_VLM_VS_CPU)
+    del res, model
+    return rec
+
+
+def phase22(dev, peaks):
+    """Every record of phase 22, in its order (a generator: each record is
+    emitted and checked before the next part runs)."""
+    rec, model = phase22_serve(dev, peaks)
+    yield rec
+    del model
+    _free(dev)
+    unpacked = llava_model(dev)
+    yield phase22_fastv(dev, unpacked)
+    del unpacked
+    _free(dev)
+    yield phase22_compress(dev)
+    _free(dev)
+    yield phase22_videollava(dev)
+    _free(dev)
+    yield phase22_vit(dev)
+    _free(dev)
+
+
+def phase22_launch_checks(rec):
+    """(name, launches, expected launches, XLA branch calls) of every run
+    a phase-22 record counts, for ``require_launches`` (on the CPU no
+    kernel launches: the tests read the predictions apart)."""
+    subs = [(f'{rec["phase"]}.{attn}.{m}', run[m])
+            for attn, run in rec.get('runs', {}).items()
+            for m in ('graph', 'eager')]
+    if 'visionzip' in rec:
+        subs.append((f'{rec["phase"]}.visionzip', rec['visionzip']))
+    if 'expected_launches' in rec:
+        subs.append((rec['phase'], rec))
+    return [dict(phase=name, launches=r['launches'],
+                 expected_launches=r['expected_launches'],
+                 xla_branch_calls=r['xla_branch_calls']) for name, r in subs]
+
+
+def phase22_failure(rec) -> dict:
+    """The fields of a phase-22 record that its ``ok`` reads, for the
+    failure's message."""
+    keys = ('packed_vs_fake_quant', 'runs', 'visionzip', 'vs_cpu',
+            'pruned_length', 'results', 'launches', 'expected_launches',
+            'video_tokens_kept', 'video_tokens_kept_expected',
+            'acc_pretrain', 'acc_fake_quant')
+    return {k: rec[k] for k in keys if k in rec}
+
+
 def check_reads(dev, peaks, B=128, smax=96, kvh=32, H=32, hd=128):
     """``LLMC_ATTN`` = chunked and full at the bench attention shape (B=128
     over 96 positions, 32 heads of 128, int8 and bf16 caches), each held
@@ -5196,7 +5802,8 @@ def drive_mode(mode, dev, peaks, card):
     if mode == 'w4a16':
         rec = phase_serve_paged(dev, shallow(model, SERVE_PAGED_LAYERS),
                                 qmap, LLAMA2_7B)
-        rec.update(card)
+        rec.update(card, reduced=[f'{SERVE_PAGED_LAYERS} of 32 layers: '
+                                  f'{PHASE22_DEPTH}'])
         emit(rec)
         require_served(rec)
         require(rec['pool_whole_at_end'], 'serve_paged: pages were lost')
@@ -5620,6 +6227,19 @@ def main(argv=None) -> int:
         if 'expected_launches' in rec:
             require_launches(rec)
     emit(dict(phase='phase21', wall_s=time.perf_counter() - t21, **card))
+
+    # phase 22: the LLaVA tier and ViT: LLaVA-1.5-7B's LM packed and served
+    # through B1 and B2 / B5 (VisionZip too), FastV, the two-modality
+    # pipeline with the vqa eval, Video-LLaVA with DyCoke, ViT-B/16 W8A8
+    t22 = time.perf_counter()
+    for rec in phase22(dev, peaks):
+        rec.update(card)
+        emit(rec)
+        require(rec['ok'], f'{rec["phase"]}: a check failed: '
+                f'{phase22_failure(rec)}')
+        for run in phase22_launch_checks(rec):
+            require_launches(run)
+    emit(dict(phase='phase22', wall_s=time.perf_counter() - t22, **card))
 
     require(min(launches.values()) > 0,
             f'a kernel of the main paths was never launched: {launches}')

@@ -5,8 +5,12 @@ padding masks.
 
 Samples are numpy int32, as in the reference, and the ``synthetic`` ids
 come from ``np.random.RandomState(seed + rank)``: both packages calibrate
-on the same tokens.  The multimodal, audio and video sources raise
-(ROADMAP A13e).
+on the same tokens.  The LLaVA tier's synthetic sources draw theirs the
+same way, one batch a sample: ``synthetic_vlm`` (ids with one image
+placeholder span, and ``pixel_values``), ``synthetic_img`` (pixels alone,
+ViT) and ``synthetic_videollava`` (ids with a video span, and F-frame
+``pixel_values_videos``).  The other multimodal, audio and video sources
+raise (ROADMAP A13e).
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ from . import preproc as _preproc  # noqa: F401  (registers preprocs)
 
 TEXT_KEY = {'pileval': 'text', 'c4': 'text', 'wikitext2': 'text',
             'ptb': 'sentence'}
+
+
+# the synthetic multimodal sources of the LLaVA tier
+SYNTHETIC_VLM = ('synthetic_vlm', 'synthetic_img', 'synthetic_videollava')
 
 
 class CalibDataset:
@@ -42,7 +50,7 @@ class CalibDataset:
 
     # --- sources --------------------------------------------------------
     def _build(self, download: bool):
-        if self.name == 'synthetic':
+        if self.name in ('synthetic',) + SYNTHETIC_VLM:
             return None  # generated directly in get_calib_dataset
         if self.name.startswith('synthetic') or self.name in ('t2v', 'i2v'):
             raise NotImplementedError(
@@ -80,6 +88,9 @@ class CalibDataset:
         """Returns (batches, padding_masks).  Each batch:
         {'input_ids': np.int32 [bs, seq], 'attention_mask': optional}."""
         random.seed(self.seed)
+        if self.name in SYNTHETIC_VLM:
+            return self._synthetic_vlm(np.random.RandomState(
+                self.seed + rank)), None
         if self.name == 'synthetic':
             rng = np.random.RandomState(self.seed + rank)
             vocab = int(self.cfg.get('vocab_size', 32000))
@@ -101,6 +112,33 @@ class CalibDataset:
         masks = [b.get('attention_mask') for b in batches] \
             if self.padding else None
         return batches, masks
+
+    def _synthetic_vlm(self, rng) -> List[Dict]:
+        """One batch a sample, drawn in the reference's order."""
+        c = self.cfg
+        size = int(c.get('image_size', 32 if self.name == 'synthetic_img'
+                         else 28))
+        chans = int(c.get('num_channels', 3))
+        if self.name == 'synthetic_img':
+            return [{'pixel_values': rng.randn(1, chans, size, size).astype(
+                np.float32)} for _ in range(self.n_samples)]
+        video = self.name == 'synthetic_videollava'
+        vocab = int(c.get('vocab_size', 64 if video else 32000))
+        tok = int(c.get('video_token' if video else 'image_token', vocab))
+        per = int(c.get('image_seq_length', 4))
+        frames = int(c.get('num_frames', 4))
+        span = frames * per if video else per
+        out = []
+        for _ in range(self.n_samples):
+            ids = rng.randint(0, vocab, size=(1, self.seq_len))
+            ids[0, 1:1 + span] = tok
+            shape = (1, frames, chans, size, size) if video else (
+                1, chans, size, size)
+            px = rng.randn(*shape).astype(np.float32)
+            out.append({'input_ids': ids.astype(np.int32),
+                        'pixel_values_videos' if video else 'pixel_values':
+                        px})
+        return out
 
     def _batch(self, samples: List[np.ndarray]) -> List[Dict]:
         if self.bs == -1:

@@ -3,8 +3,8 @@
 Each preprocessor maps (text records, tokenizer, n_samples, seq_len) to a
 list of int32 numpy arrays of shape [1, seq].  They stay numpy and draw
 from python's ``random`` exactly as the reference does, so both packages
-calibrate on the same tokens.  The image preprocessor is not ported
-(ROADMAP A13e).
+calibrate on the same tokens.  ``img_general`` turns image records into
+``pixel_values`` batches (ViT and the VLMs' image calibration).
 """
 
 from __future__ import annotations
@@ -154,3 +154,23 @@ def _shuffled(calib_dataset, key):
     texts = list(texts)
     rng.shuffle(texts)
     return texts
+
+
+@PREPROC_REGISTRY.register
+def img_general(calib_dataset, tokenizer, n_samples, seq_len=None,
+                batch_process=None):
+    """Image calibration samples: shuffle (python's ``random``), take
+    ``n_samples``, and run the model's ``batch_process`` on them; without
+    one, each item (an array, or a record's ``image``) is a
+    {'pixel_values': [1, C, H, W] float32} batch."""
+    items = list(calib_dataset)
+    random.shuffle(items)
+    items = items[:n_samples]
+    if batch_process is not None:
+        return batch_process(items)
+    out = []
+    for it in items:
+        px = np.asarray(it['image'] if isinstance(it, dict) else it,
+                        np.float32)
+        out.append({'pixel_values': px[None] if px.ndim == 3 else px})
+    return out

@@ -15,8 +15,14 @@ continuations of the entry's ``prompts`` or the lines of its ``path``)
 and ``code`` (``eval/code.py``: HumanEval completions of a problems file).
 A ``ppl`` entry with ``inference_per_block`` runs block-outer
 (``OffloadPPL``: each block uploaded once, the way a model larger than the
-card is evaluated).  The VLM, audio and video types (acc, vqa, img_txt,
-video_gen) raise ``NotImplementedError`` (ROADMAP A13e).
+card is evaluated).  The ImageNet accuracy (``type: acc``, ``name:
+imagenet``, or any entry on a ``Vit``: ``acc_{pos}``) reads an .npz /
+.npy pair from ``path``, or else scores synthetic pixels against the
+pretrain model's own predictions; ``vqa`` / ``img_txt`` entries
+(``eval/vqa.py``: ``vqa_{pos}_acc``) answer samples from a calibration
+source whose answers are the pretrain model's greedy continuations.  Both
+build their labels before calibration changes the weights (``prebuild``).
+``video_gen`` raises ``NotImplementedError`` (ROADMAP A13e).
 """
 
 from __future__ import annotations
@@ -25,13 +31,11 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .ppl import DecodePerplexityEval, PerplexityEval, TokenConsistencyEval
 
-_UNPORTED_TYPES = {
-    'acc': 'ROADMAP A13e', 'vqa': 'ROADMAP A13e', 'img_txt': 'ROADMAP A13e',
-    'video_gen': 'ROADMAP A13e',
-}
+_UNPORTED_TYPES = {'video_gen': 'ROADMAP A13e'}
 
 
 def get_eval_list(config) -> List[Dict]:
@@ -122,16 +126,22 @@ class EvalOrchestrator:
     @staticmethod
     def _etype(ev: Dict, config) -> str:
         t = ev.get('type')
-        if t in _UNPORTED_TYPES:
+        if t in _UNPORTED_TYPES or config['model']['type'] in ('WanT2V',
+                                                               'WanI2V'):
             raise NotImplementedError(
-                f'eval type {t!r} is not ported yet ({_UNPORTED_TYPES[t]})')
-        if t not in (None, 'ppl', 'decode_ppl', 'latency', 'custom_gen',
-                     'code'):
+                f'eval type {t or "video_gen"!r} is not ported yet '
+                f'({_UNPORTED_TYPES["video_gen"]})')
+        if t in ('img_txt', 'vqa'):
+            return 'vqa'
+        if t in ('decode_ppl', 'latency', 'custom_gen', 'code', 'acc'):
+            return t
+        if t not in (None, 'ppl'):
             raise ValueError(f'unknown eval type {t!r}')
-        if ev.get('name') == 'imagenet':
-            raise NotImplementedError(
-                'the ImageNet accuracy eval is not ported yet (ROADMAP A13e)')
-        return t or 'ppl'
+        # ImageNet accuracy keys off the ViT model type, as in the
+        # reference (the only eval its Vit configs use)
+        if ev.get('name') == 'imagenet' or config['model']['type'] == 'Vit':
+            return 'acc'
+        return 'ppl'
 
     def positions(self) -> List[str]:
         return sorted({p for e in self.entries for p in e.positions})
@@ -145,6 +155,16 @@ class EvalOrchestrator:
 
     def wants(self, position: str) -> bool:
         return any(self._active(e, position) for e in self.entries)
+
+    def prebuild(self, model) -> None:
+        """Build the evaluators whose labels are the pretrain model's (the
+        VQA answers, the synthetic accuracy labels): before calibration
+        changes the weights, whether or not 'pretrain' is a position."""
+        for e in self.entries:
+            if e.evaluator is None and e.ev['_etype'] == 'vqa':
+                self._vqa_build(e, model)
+            if e.evaluator is None and e.ev['_etype'] == 'acc':
+                self._acc_build(e, model)
 
     def run(self, position: str, model, qmap=None, kv_policy=None) -> Dict:
         """Run every eval entry active at ``position``.  ``qmap=None`` is
@@ -172,6 +192,13 @@ class EvalOrchestrator:
                 continue
             if etype == 'code':
                 results[f'{e.key}_{position}'] = self._code(e, model, qmap)
+                continue
+            if etype == 'acc':
+                key = ('acc' if e.key == 'acc' else e.key) + f'_{position}'
+                results[key] = self._acc(e, model, qmap)
+                continue
+            if etype == 'vqa':
+                results[f'vqa_{position}_acc'] = self._vqa(e, model, qmap)
                 continue
             results[f'{e.key}_{position}'] = self._ppl(e, model, qmap)
             if position == 'fake_quant' and qmap is not None \
@@ -243,3 +270,86 @@ class EvalOrchestrator:
                 e.evaluator = PerplexityEval(
                     ids, seq_len=ev.get('seq_len', 2048), bs=ev.get('bs', 1))
         return e.evaluator.eval(model, qmap=qmap)
+
+    def _acc_build(self, e, model):
+        """ImageNet pixels and labels from ``path`` (one .npz with
+        ``pixels`` / ``labels``, or a directory of pixels.npy and
+        labels.npy); without them ``n_samples`` synthetic images
+        (``RandomState(seed)``) labelled by the pretrain model's own
+        predictions, so ``acc_pretrain`` is 1.0 and later positions measure
+        the predictions' consistency under compression."""
+        from ..models.adapter import AccuracyEval, VitAdapter
+        if not isinstance(model, VitAdapter):
+            raise ValueError(f'the acc eval classifies images: it needs a '
+                             f'Vit model, not {type(model).__name__}')
+        ev = e.ev
+        path = ev.get('path')
+        bs = int(ev.get('bs', 16))
+        if path and os.path.isfile(path):
+            d = np.load(path)
+            pixels, labels = d['pixels'], d['labels']
+        elif path and os.path.isdir(path):
+            pixels = np.load(os.path.join(path, 'pixels.npy'))
+            labels = np.load(os.path.join(path, 'labels.npy'))
+        else:
+            cfg = model.cfg
+            rng = np.random.RandomState(ev.get('seed', 0))
+            pixels = rng.randn(int(ev.get('n_samples', 16)), cfg.num_channels,
+                               cfg.image_size, cfg.image_size).astype(
+                np.float32)
+            labels = AccuracyEval(pixels, np.zeros(len(pixels)),
+                                  bs).predictions(model)
+        e.evaluator = AccuracyEval(pixels, labels, bs=bs)
+
+    def _acc(self, e, model, qmap):
+        if e.evaluator is None:
+            self._acc_build(e, model)
+        return e.evaluator.eval(model, qmap=qmap)
+
+    def _vqa_build(self, e, model):
+        """The entry's samples from its calibration source (``name``,
+        ``synthetic_vlm`` by default), each answered by the pretrain model
+        (``answer_tokens`` greedy tokens)."""
+        from ..data import CalibDataset
+        from .vqa import VQAEval
+        ev = e.ev
+        batches, _ = CalibDataset(dict(ev, name=ev.get('name',
+                                                       'synthetic_vlm')),
+                                  model.tokenizer).get_calib_dataset()
+        ans_len = int(ev.get('answer_tokens', 4))
+        e.evaluator = VQAEval(vqa_samples(model, batches, ans_len),
+                              max_new_tokens=ans_len)
+
+    def _vqa(self, e, model, qmap):
+        if e.evaluator is None:
+            self._vqa_build(e, model)
+        return e.evaluator.eval(model, qmap=qmap)['accuracy']
+
+
+@torch.no_grad()
+def vqa_samples(model, batches, ans_len: int) -> List[Dict]:
+    """Native VQA samples: each batch's first row becomes (prompt, image
+    inputs, answer), the answer the model's eager greedy continuation of
+    ``ans_len`` tokens (lmms-eval's generate-and-match, with no network)."""
+    dev = model.device
+    samples = []
+    for b in batches:
+        bs = int(np.asarray(b['input_ids']).shape[0])
+        img = {k: (v[:1] if bs > 1 and isinstance(v, np.ndarray)
+                   and v.ndim > 1 and v.shape[0] == bs else v)
+               for k, v in b.items() if k not in ('input_ids',
+                                                  'attention_mask')}
+        prompt = np.asarray(b['input_ids'], np.int64)[:1]
+        cur = torch.as_tensor(prompt, device=dev)
+        timg = {k: (torch.as_tensor(v, device=dev)
+                    if isinstance(v, np.ndarray) else v)
+                for k, v in img.items()}
+        ans = []
+        for _ in range(ans_len):
+            nxt = int(torch.argmax(model.forward_logits(cur, **timg)[0, -1]))
+            ans.append(nxt)
+            cur = torch.cat([cur, torch.tensor([[nxt]], dtype=cur.dtype,
+                                               device=dev)], dim=1)
+        samples.append(dict({'input_ids': prompt[0].astype(np.int32),
+                             'answer_ids': ans}, **img))
+    return samples

@@ -25,6 +25,14 @@ HF names), the backend exports (``save_vllm``, ``save_sgl``,
 ``save_lightllm``, ``save_autoawq``, ``save_mlcllm``, ``save_trtllm``:
 ``export/``), ``model.offload`` (the blocks in host memory, one on the
 device at a time: ``utils/offload.py``) and the opencompass shell-out.
+The LLaVA tier (``Llava``, ``LlavaHf``, ``VideoLlava``) and ``Vit`` run
+with their ``vision`` modality: a ``quant: {vision: ..., language: ...}``
+section calibrates the tower, then the LM (``set_modality``), and the
+fake-quant evals take each modality's own deploy (``ModalQMap``: the LM's
+QMap never reaches the tower, ROADMAP C); ``sparse: {method:
+TokenReduction}`` installs a token reduction; the ``acc`` and ``vqa``
+evals build their labels from the pretrain model before any calibration.
+Another model's ``vision`` modality raises (ROADMAP A13e).
 Data parallel calibration raises ``NotImplementedError`` (ROADMAP A14),
 ``save_lightx2v`` too (it needs the Wan model, ROADMAP A13e), and so does
 a backend export of float weights, before any work (the reference fails
@@ -53,10 +61,35 @@ from .data import CalibDataset
 from .eval.orchestrate import EvalOrchestrator
 from .export import BACKENDS, export_backends
 from .models import build_model
+from .models.adapter import ModalQMap
 from .quant.qspec import spec_from_config
 from .utils import (ALGO_REGISTRY, Cfg, check_config, get_modality,
                     load_config, resolve_device, seed_all)
 from .utils.profiler import PhaseTimer, trace
+
+
+# the model types whose vision modality the port calibrates
+VISION_MODELS = ('Llava', 'LlavaHf', 'VideoLlava', 'VideoLLaVA', 'Vit')
+
+
+def deploy_modalities(model, opts, quant_format: str):
+    """The deploy of ``quant_format`` over every modality's algorithm, in
+    (modality, algorithm) order: each deploys on its own block stack.  A
+    VLM whose tower was compressed gets a ``ModalQMap`` (the LM's QMap, and
+    the tower's beside it); otherwise the last algorithm's deploy, as in
+    the reference."""
+    if not opts:
+        return None
+    if not hasattr(model, 'set_modality'):
+        return opts[-1][1].deploy(quant_format)
+    qmaps = {}
+    for modality, opt in opts:
+        model.set_modality(modality)
+        qmaps[modality] = opt.deploy(quant_format)
+    model.set_modality('language')
+    if qmaps.get('vision') is None:
+        return qmaps.get('language')
+    return ModalQMap(qmaps.get('language'), qmaps['vision'])
 
 
 def _check_ported(config: Cfg) -> None:
@@ -74,9 +107,12 @@ def _check_ported(config: Cfg) -> None:
         raise ValueError('opencompass eval requires save.save_trans')
     exports = [f for f in BACKENDS if save.get(f)]
     for modality, mcfg in get_modality(config):
-        if modality != 'language':
+        if modality != 'language' and not (
+                modality == 'vision'
+                and config['model']['type'] in VISION_MODELS):
             raise NotImplementedError(
-                f'modality {modality!r} is not ported yet (ROADMAP A13e)')
+                f'modality {modality!r} of {config["model"]["type"]} is not '
+                f'ported yet (ROADMAP A13e)')
         wspec = spec_from_config(mcfg.get('weight')) if exports else None
         if wspec is not None and wspec.is_float:
             raise NotImplementedError(
@@ -112,11 +148,16 @@ def run_pipeline(config: Dict, device=None) -> Dict:
         model = build_model(config, device=dev)
     orch = EvalOrchestrator(config, model)
     with timer.phase('eval_pretrain'):
+        # the VQA answers and synthetic accuracy labels are the pretrain
+        # model's: built before calibration changes the weights
+        orch.prebuild(model)
         if orch.wants('pretrain'):
             results.update(orch.run('pretrain', model))
 
-    blockwise_opt = None
-    for _, mcfg in get_modality(config):
+    blockwise_opt, opts = None, []
+    for modality, mcfg in get_modality(config):
+        if hasattr(model, 'set_modality'):
+            model.set_modality(modality)
         calib_cfg = config.get('calib')
         algo_cls = ALGO_REGISTRY[mcfg['method']]
         if calib_cfg and getattr(algo_cls, 'needs_calib', True):
@@ -131,17 +172,19 @@ def run_pipeline(config: Dict, device=None) -> Dict:
         with timer.phase(f"calib_{mcfg['method']}"), \
                 trace(config.get('base', {}).get('trace_dir')):
             blockwise_opt.run_block_loop()
+        opts.append((modality, blockwise_opt))
+    if hasattr(model, 'set_modality'):
+        model.set_modality('language')   # the evals run the LM's stack
 
     if orch.wants('transformed'):
         # an online-rotate checkpoint keeps its Hadamard in the fp evals;
         # ShortGPT removes its blocks here, as in the reference
-        tmap = (blockwise_opt.deploy('transformed')
-                if blockwise_opt is not None else None)
+        tmap = deploy_modalities(model, opts, 'transformed')
         with timer.phase('eval_transformed'):
             results.update(orch.run('transformed', model, qmap=tmap))
     if blockwise_opt is not None and (orch.wants('fake_quant')
                                       or orch.wants('fake_quant_wo_kv')):
-        qmap = blockwise_opt.deploy('fake_quant')
+        qmap = deploy_modalities(model, opts, 'fake_quant')
         if orch.wants('fake_quant'):
             with timer.phase('eval_fake_quant'):
                 results.update(orch.run('fake_quant', model, qmap=qmap,

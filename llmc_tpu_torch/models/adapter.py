@@ -1,9 +1,11 @@
 """Model adapters (port of ``llmc_tpu/models/adapter.py``: the protocol,
 the Llama-family and generalized-graph families, the MoE / MLA families,
-OPT and ``build_model``): the protocol the compression engine and the evals
-consume.
+OPT, the LLaVA tier (Llava, LlavaHf, VideoLlava), ViT with its accuracy
+eval, and ``build_model``): the protocol the compression engine and the
+evals consume.
 
-``QMap`` maps linear paths to their static ``LinearQcfg``.  The adapter
+``QMap`` maps linear paths to their static ``LinearQcfg``; ``ModalQMap``
+carries a VLM tower's own QMap beside the LM's.  The adapter
 is an ``nn.Module`` because it owns the params: a nested dict of tensors
 under the reference's HF-style paths (not registered ``nn.Parameter``s,
 so the converter stays a tree map).
@@ -15,6 +17,7 @@ import dataclasses
 import os
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.device import resolve_device, tree_device
@@ -26,6 +29,8 @@ from . import llama as L
 from . import mixtral as MX
 from . import opt as O
 from . import qwen2moe as QM
+from . import llava as LV
+from . import vit as V
 from .base import BlockLayout, LinearQcfg, matmul_f32_acc, rms_norm
 
 
@@ -55,6 +60,30 @@ class QMap:
 
     def __repr__(self):
         return f'QMap(default={self._default}, n={len(self._items)})'
+
+
+class ModalQMap(QMap):
+    """A VLM's deploy: the LM's policy (what ``get`` answers) and the
+    tower's own QMap (``vision``, or None), which only the tower reads.
+    The tower's block linears carry the LM's path names, so a flat QMap
+    cannot keep the two apart (ROADMAP C)."""
+
+    def __init__(self, language: Optional[QMap] = None,
+                 vision: Optional[QMap] = None):
+        lang = language if language is not None else QMap({})
+        super().__init__(dict(lang._d), lang._default)
+        self.vision = vision
+
+    def __hash__(self):
+        return hash((self._items, self._default, self.vision))
+
+    def __eq__(self, other):
+        return (isinstance(other, ModalQMap) and super().__eq__(other)
+                and self.vision == other.vision)
+
+    def __repr__(self):
+        return (f'ModalQMap(language={QMap.__repr__(self)}, '
+                f'vision={self.vision!r})')
 
 
 class BaseAdapter(torch.nn.Module):
@@ -978,6 +1007,379 @@ class QwenAdapter(LlamaAdapter):
                 if ca is not None:
                     _put_qkv(out, b, part, *torch.chunk(ca, 3, dim=0))
         return out
+
+
+# --------------------------------------------------------------------------
+# ViT and the LLaVA tier (reference adapter.py:288-365, 1233-1390,
+# 1935-2040)
+# --------------------------------------------------------------------------
+
+def _on(x, dev, dtype=None):
+    """A batch's array (numpy or tensor) as a tensor on ``dev``."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    return t.to(device=dev, dtype=dtype)
+
+
+def _arch(m) -> dict:
+    if 'arch' not in m:
+        raise ValueError(
+            'model.path is missing/empty; set model.path to a checkpoint '
+            'or pass model.arch explicitly for a synthetic model')
+    return dict(m['arch'])
+
+
+@MODEL_REGISTRY.register(name='Vit')
+class VitAdapter(BaseAdapter):
+    """ViT ImageNet classifier; calibration batches carry
+    ``pixel_values``.  Besides the reference's checkpoint, an inline
+    ``model.arch`` builds a random ViT (``VitConfig``'s fields)."""
+
+    name = 'Vit'
+
+    def __init__(self, cfg: V.VitConfig, params, tokenizer=None,
+                 hf_config=None):
+        super().__init__(cfg, params, tokenizer, hf_config)
+        self._layout = V.vit_layout(cfg)
+
+    @classmethod
+    def random(cls, cfg: V.VitConfig, seed: int = 0, device=None):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return cls(cfg, V.init_params(cfg, gen, device=dev))
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.float32, device=None):
+        from .hf_loader import load_hf_config
+        hf = load_hf_config(path)
+        cfg = dataclasses.replace(V.VitConfig.from_hf(hf),
+                                  dtype=str(dtype).replace('torch.', ''))
+        params = _load_params(path, dtype, False, device,
+                              lambda flat: V.params_from_hf(flat, cfg))
+        return cls(cfg, params, None, hf)
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        m = config['model']
+        if m.get('path'):
+            return cls.from_pretrained(
+                m['path'], dtype=_config_dtype(m.get('torch_dtype',
+                                                     'float32')),
+                device=device)
+        return cls.random(V.VitConfig(**_arch(m)), seed=int(m.get('seed', 0)),
+                          device=device)
+
+    def get_layout(self) -> BlockLayout:
+        return self._layout
+
+    def block_fn(self):
+        cfg = self.cfg
+
+        def fn(bp, x, kw, qmap=None, capture=False):
+            return V.block_apply(bp, cfg, x, qmap=qmap, capture=capture)
+        return fn
+
+    def inspect_fns(self):
+        return V.make_inspect_fns(self.cfg)
+
+    def embed_and_rope_p(self, params, pixel_values, attention_mask=None):
+        return V.patch_embed(params, self.cfg, pixel_values), {}
+
+    def collect_first_block_input(self, calib_batches):
+        dev = self.device
+        xs, kws = [], []
+        with torch.no_grad():
+            for batch in calib_batches:
+                px = batch.get('pixel_values', batch.get('input_ids'))
+                x, kw = self.embed_and_rope_p(self.params, _on(px, dev))
+                xs.append(x)
+                kws.append(kw)
+        return xs, kws
+
+    def classify(self, pixels, qmap=None):
+        return V.classify(self.params, self.cfg, _on(pixels, self.device),
+                          qmap=qmap)
+
+    def forward_logits(self, pixels, qmap=None):
+        return self.classify(pixels, qmap=qmap)
+
+
+class AccuracyEval:
+    """ImageNet top-1 over (pixels, labels) arrays, ``bs`` images a
+    forward."""
+
+    def __init__(self, pixels, labels, bs: int = 16):
+        self.pixels = pixels
+        self.labels = np.asarray(labels)
+        self.bs = bs
+
+    @torch.no_grad()
+    def predictions(self, model: VitAdapter, qmap=None) -> np.ndarray:
+        return np.concatenate([
+            torch.argmax(model.classify(self.pixels[i:i + self.bs],
+                                        qmap=qmap), -1).cpu().numpy()
+            for i in range(0, len(self.labels), self.bs)])
+
+    def eval(self, model: VitAdapter, qmap=None) -> float:
+        return float((self.predictions(model, qmap) == self.labels).sum()
+                     / len(self.labels))
+
+
+def _clip_cfg(varch: dict) -> L.LlamaConfig:
+    """The tower's block config of an inline ``model.arch.vision`` (float32
+    unless it names a ``dtype``)."""
+    cfg = LV.LlavaConfig.clip_block_cfg(
+        varch.get('hidden_size', 32), varch.get('intermediate_size', 64),
+        varch.get('num_hidden_layers', 2), varch.get('num_attention_heads', 2))
+    return dataclasses.replace(cfg, dtype=varch.get('dtype', cfg.dtype))
+
+
+@MODEL_REGISTRY.register(name='Llava')
+class LlavaAdapter(LlamaAdapter):
+    """Llava: CLIP tower + MLP projector + Llama LM.  ``set_modality``
+    switches the block stack the compression engine sees ('vision' or
+    'language'); ``cfg`` is the LM's config, ``llava_cfg`` the whole.
+    Calibration batches may carry ``pixel_values`` beside ``input_ids``.
+    The tower takes only a ``ModalQMap``'s ``vision`` QMap."""
+
+    name = 'Llava'
+
+    def __init__(self, cfg: LV.LlavaConfig, params, tokenizer=None,
+                 hf_config=None):
+        super().__init__(cfg.text, params, tokenizer, hf_config)
+        self.llava_cfg = cfg
+        self._modality = 'language'
+        self._vlayout = L.llama_layout(cfg.vision)
+
+    @classmethod
+    def random(cls, cfg: LV.LlavaConfig, seed: int = 0, device=None):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return cls(cfg, LV.init_params(cfg, gen, device=dev))
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device=None):
+        """An HF LlavaForConditionalGeneration checkpoint onto ``device``
+        (``None``: the CUDA device)."""
+        from .hf_loader import load_hf_config
+        hf = load_hf_config(path)
+        v = hf['vision_config']
+        cfg = LV.LlavaConfig(
+            text=L.LlamaConfig.from_hf(hf['text_config']),
+            vision=LV.LlavaConfig.clip_block_cfg(
+                v['hidden_size'], v['intermediate_size'],
+                v['num_hidden_layers'], v['num_attention_heads'],
+                v.get('layer_norm_eps', 1e-5)),
+            image_size=v.get('image_size', 336),
+            patch_size=v.get('patch_size', 14),
+            image_token_index=hf.get('image_token_index', 32000),
+            vision_feature_layer=hf.get('vision_feature_layer', -2),
+            vision_feature_select_strategy=hf.get(
+                'vision_feature_select_strategy', 'default'))
+        params = _load_params(path, dtype, False, device,
+                              lambda flat: LV.params_from_hf(flat, cfg))
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    # the inline arch keys that belong to LlavaConfig, not the LM
+    _LLAVA_KEYS = ('image_size', 'patch_size', 'image_token_index')
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        m = config['model']
+        if m.get('path'):
+            return cls.from_pretrained(
+                m['path'], dtype=_config_dtype(m.get('torch_dtype',
+                                                     'bfloat16')),
+                device=device)
+        arch = _arch(m)
+        vcfg = _clip_cfg(arch.pop('vision', {}))
+        extra = {k: arch.pop(k) for k in cls._LLAVA_KEYS if k in arch}
+        cfg = LV.LlavaConfig(text=L.LlamaConfig(**arch), vision=vcfg,
+                             **extra)
+        return cls.random(cfg, seed=int(m.get('seed', 0)), device=device)
+
+    # --- modality dispatch ---------------------------------------------
+    def set_modality(self, modality: str) -> None:
+        if modality not in ('language', 'vision'):
+            raise ValueError(f'modality {modality!r}: want language or '
+                             f'vision')
+        self._modality = modality
+
+    @property
+    def modality(self) -> str:
+        return self._modality
+
+    @property
+    def blocks(self):
+        if self._modality == 'vision':
+            return self.params['vision']['blocks']
+        return self.params['blocks']
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.blocks)
+
+    def set_block(self, idx: int, new_block) -> None:
+        self.blocks[idx] = new_block
+
+    def get_layout(self) -> BlockLayout:
+        return self._vlayout if self._modality == 'vision' else self._layout
+
+    def block_fn(self):
+        if self._modality == 'language':
+            return super().block_fn()
+        vc = self.llava_cfg.vision
+
+        def fn(bp, x, kw, qmap=None, capture=False):
+            return L.block_apply(bp, vc, x, None, None,
+                                 attn_bias=kw.get('attn_bias'), qmap=qmap,
+                                 capture=capture)
+        return fn
+
+    def inspect_fns(self):
+        return L.make_inspect_fns(self.llava_cfg.vision
+                                  if self._modality == 'vision' else self.cfg)
+
+    # --- embeddings / forward -------------------------------------------
+    def _pixels(self, px):
+        return None if px is None else _on(px, self.device)
+
+    def embed_and_rope_p(self, params, input_ids, attention_mask=None,
+                         pixel_values=None):
+        cfg = self.llava_cfg
+        if self._modality == 'vision':
+            x = LV.clip_embed(params['vision'], cfg, pixel_values
+                              if pixel_values is not None else input_ids)
+            return x, {'attn_bias': torch.zeros((1, 1, 1, 1),
+                                                dtype=torch.float32,
+                                                device=x.device)}
+        x = LV.llava_embed(params, cfg, input_ids, pixel_values)
+        S = input_ids.shape[1]
+        cos, sin = L.rope_cos_sin(cfg.text, torch.arange(
+            S, device=input_ids.device)[None, :])
+        return x, {'cos': cos, 'sin': sin}
+
+    def collect_first_block_input(self, calib_batches):
+        dev = self.device
+        xs, kws = [], []
+        with torch.no_grad():
+            for batch in calib_batches:
+                ids = batch.get('input_ids')
+                x, kw = self.embed_and_rope_p(
+                    self.params, None if ids is None else _on(ids, dev,
+                                                              torch.long),
+                    None, self._pixels(batch.get('pixel_values')))
+                xs.append(x)
+                kws.append(kw)
+        return xs, kws
+
+    def _reduction(self, token_reduction, *pixels):
+        # the one the TokenReduction algorithm installed, where a call
+        # with pixels names none
+        if token_reduction is None and any(p is not None for p in pixels):
+            return getattr(self, 'token_reduction', None)
+        return token_reduction
+
+    def forward_logits(self, input_ids, qmap=None, pixel_values=None,
+                       token_reduction=None):
+        return LV.llava_forward(
+            self.params, self.llava_cfg, _on(input_ids, self.device,
+                                             torch.long),
+            self._pixels(pixel_values), qmap=qmap,
+            token_reduction=self._reduction(token_reduction, pixel_values))
+
+    # --- KV-cached serving (serve/decode.py::vlm_greedy_generate) -------
+    @property
+    def lm_cfg(self) -> L.LlamaConfig:
+        return self.llava_cfg.text
+
+    def prefill_embeds(self, input_ids, qmap=None, pixel_values=None,
+                       token_reduction=None):
+        return LV.llava_prefill_embeds(
+            self.params, self.llava_cfg, _on(input_ids, self.device,
+                                             torch.long),
+            self._pixels(pixel_values), qmap=qmap,
+            token_reduction=self._reduction(token_reduction, pixel_values))
+
+
+@MODEL_REGISTRY.register(name='LlavaHf')
+class LlavaHfAdapter(LlavaAdapter):
+    """The reference's HF-transformers Llava wrapper: the same graph and
+    checkpoint layout under its registry name."""
+
+    name = 'LlavaHf'
+
+
+@MODEL_REGISTRY.register(name='VideoLLaVA')
+@MODEL_REGISTRY.register(name='VideoLlava')
+class VideoLlavaAdapter(LlavaAdapter):
+    """Video-LLaVA: the Llava graph whose one CLIP tower also encodes F
+    frames of a clip, spliced at ``video_token_index``.  Calibration
+    batches may carry ``pixel_values_videos`` [B, F, C, H, W]; the video
+    methods (DyCoke, PruneVid, FastVID, HoliTom) reduce them."""
+
+    name = 'VideoLlava'
+    _LLAVA_KEYS = LlavaAdapter._LLAVA_KEYS + ('video_token_index',
+                                              'num_frames')
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        m = config['model']
+        if m.get('path'):
+            self = super().from_config(config, device=device)
+            hf = self.hf_config
+            self.llava_cfg = dataclasses.replace(
+                self.llava_cfg,
+                video_token_index=hf.get('video_token_index', 32001),
+                num_frames=hf.get('num_frames', 8))
+            return self
+        arch = _arch(m)
+        arch.setdefault('video_token_index', 32001)
+        return super().from_config(dict(config, model=dict(m, arch=arch)),
+                                   device=device)
+
+    def collect_first_block_input(self, calib_batches):
+        cfg, dev = self.llava_cfg, self.device
+        xs, kws = [], []
+        with torch.no_grad():
+            for batch in calib_batches:
+                vids = self._pixels(batch.get('pixel_values_videos'))
+                imgs = self._pixels(batch.get('pixel_values'))
+                if self._modality == 'vision':
+                    # a clip's frames go through the tower as images
+                    px = (vids.flatten(0, 1) if vids is not None
+                          else imgs)
+                    x, kw = self.embed_and_rope_p(self.params, None,
+                                                  pixel_values=px)
+                else:
+                    ids = _on(batch['input_ids'], dev, torch.long)
+                    x = self._lm_embeds(ids, imgs, vids)
+                    cos, sin = L.rope_cos_sin(cfg.text, torch.arange(
+                        ids.shape[1], device=dev)[None, :])
+                    kw = {'cos': cos, 'sin': sin}
+                xs.append(x)
+                kws.append(kw)
+        return xs, kws
+
+    def _lm_embeds(self, ids, imgs, vids):
+        cfg, p = self.llava_cfg, self.params
+        x = L.embed_apply(p, cfg.text, ids)
+        for px, feats_of, tok in (
+                (vids, LV.video_features, cfg.video_token_index),
+                (imgs, LV.vision_features, cfg.image_token_index)):
+            if px is not None:
+                feats = LV.project_features(p['projector'], cfg,
+                                            feats_of(p['vision'], cfg, px))
+                x = LV.merge_embeddings(x, feats, ids, tok)
+        return x
+
+    def forward_logits(self, input_ids, qmap=None, pixel_values=None,
+                       pixel_values_videos=None, token_reduction=None):
+        return LV.videollava_forward(
+            self.params, self.llava_cfg, _on(input_ids, self.device,
+                                             torch.long),
+            self._pixels(pixel_values), self._pixels(pixel_values_videos),
+            qmap=qmap, token_reduction=self._reduction(
+                token_reduction, pixel_values, pixel_values_videos))
 
 
 def _load_params(path: str, dtype, stream: Optional[bool], device, build):

@@ -331,19 +331,23 @@ def _finish_block(bp, cfg, x, h, attn_out, qc, qmap):
 
 
 def forward_cached(params, cfg, ids, cache: Dict, policy: KVCachePolicy,
-                   qmap=None, last_only: bool = False):
+                   qmap=None, last_only: bool = False, input_embeds=None):
     """Run ``ids`` [B, S] against the cache; returns (logits, cache) with
     the cache's buffers written in place and ``pos`` advanced by S.
-    ``last_only`` projects just the final position through the lm_head."""
+    ``last_only`` projects just the final position through the lm_head.
+    ``input_embeds`` [B, S, D] takes the token embedding's place (``ids``
+    may be None): the VLM prefill's merged multimodal embeddings."""
     L.check_ported(cfg)
-    S = ids.shape[1]
+    ref = ids if input_embeds is None else input_embeds
+    S = ref.shape[1]
     pos0 = cache['pos']
-    s_idx = torch.arange(S, device=ids.device)
+    s_idx = torch.arange(S, device=ref.device)
     if _per_slot(pos0):
         positions = pos0.to(torch.long)[:, None] + s_idx[None, :]
     else:
         positions = int(pos0) + s_idx[None, :]
-    x = L.embed_apply(params, cfg, ids, positions=positions)
+    x = (input_embeds if input_embeds is not None
+         else L.embed_apply(params, cfg, ids, positions=positions))
     cos, sin = L.rope_cos_sin(cfg, positions)
     for layer, bp in enumerate(params['blocks']):
         x, cache = _block_cached(bp, cfg, x, cos, sin, cache, layer, policy,
@@ -455,4 +459,86 @@ def greedy_generate(model, prompt_ids: torch.Tensor, max_new_tokens: int,
                                        cache, policy, qmap)
         tok = logits[:, -1].argmax(-1)
         out.append(tok[:, None])
+    return torch.cat(out, dim=1)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+@torch.no_grad()
+def vlm_greedy_generate(model, input_ids, max_new_tokens: int, qmap=None,
+                        kv_policy: Optional[KVCachePolicy] = None,
+                        token_reduction: Optional[dict] = None,
+                        timings: Optional[dict] = None,
+                        graph: Optional[bool] = None, device=None,
+                        **img_kwargs) -> torch.Tensor:
+    """KV-cached greedy generation of a VLM: one multimodal prefill (the
+    tower, the projector and the merged embeddings, a tower-side reduction
+    applied; ``model.prefill_embeds``) through ``forward_cached``, then
+    one token a step through the LM's cache.  An LM-side reduction raises
+    ``NotImplementedError``: it prunes inside the eager forward.  Returns
+    [B, S' + new] ids, S' the prompt after any reduction; ``timings``
+    gets ``embeds_s`` (the tower, the projector and the merge),
+    ``prefill_s`` (the LM's prefill), ``decode_first_s`` (the first decode
+    step: on the card its eager run and its capture) and ``decode_s`` (every
+    decode step), each ended by a device synchronise.
+
+    The decode steps read the slots' positions from a tensor, so one step
+    serves every position: on a CUDA device (or where ``graph``) the step
+    is one captured CUDA graph (``serve/graphs.py::CapturedStep``; its
+    first call runs eagerly, the others replay), on the CPU it runs
+    eagerly; the tokens are the same either way."""
+    import time
+    from .graphs import CapturedStep
+    dev = resolve_device(device)
+    check_on(model.params, dev, 'the model')
+    policy = kv_policy or FP_POLICY
+    t_e = time.perf_counter()
+    embeds, ids = model.prefill_embeds(
+        _ids_on(input_ids, dev), qmap=qmap, token_reduction=token_reduction,
+        **img_kwargs)
+    _sync(dev)
+    cfg, params = model.lm_cfg, model.params
+    B, P = ids.shape
+    cache = policy.init_cache(B, P + max_new_tokens, cfg.num_key_value_heads,
+                              cfg.head_dim, cfg.num_hidden_layers,
+                              dtype=cfg.tdtype, device=dev)
+    t0 = time.perf_counter()
+    logits, cache = forward_cached(params, cfg, None, cache, policy, qmap,
+                                   last_only=True, input_embeds=embeds)
+    tok = logits[:, -1].argmax(-1)
+    _sync(dev)
+    t1 = time.perf_counter()
+    out = [ids, tok[:, None]]
+    if max_new_tokens > 1:
+        # per-slot positions (the KIVI ring takes lockstep ones only)
+        if policy.method != 'kivi':
+            cache['pos'] = torch.full((B,), P, dtype=torch.int32, device=dev)
+        cur = tok.clone()
+
+        def step():
+            lg, nxt_cache = forward_cached(params, cfg, cur[:, None], cache,
+                                           policy, qmap)
+            nxt = lg[:, -1].argmax(-1)
+            if _per_slot(cache['pos']):
+                cache['pos'].copy_(nxt_cache['pos'])
+            else:
+                cache['pos'] = nxt_cache['pos']
+            cur.copy_(nxt)
+            return nxt
+        graphed = dev.type == 'cuda' if graph is None else graph
+        run = CapturedStep(step, dev) if graphed else step
+        for i in range(max_new_tokens - 1):
+            out.append(run().clone()[:, None])
+            if i == 0:
+                _sync(dev)
+                t2 = time.perf_counter()
+        _sync(dev)
+    if timings is not None:
+        t3 = time.perf_counter()
+        timings.update(embeds_s=t0 - t_e, prefill_s=t1 - t0,
+                       decode_first_s=(t2 - t1) if max_new_tokens > 1
+                       else 0.0, decode_s=t3 - t1)
     return torch.cat(out, dim=1)

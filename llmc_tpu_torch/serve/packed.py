@@ -264,7 +264,15 @@ def pack_model(model, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
     Llama-family linears only, so a packed expert has no qcfg and its
     forward looks for the unpacked weight (a ``KeyError: 'w'`` at the
     engine's first admission); packed MoE serving is a feature the
-    reference lacks (ROADMAP C)."""
+    reference lacks (ROADMAP C).
+
+    A VLM (``LlavaAdapter``) packs its LM's blocks and head, whatever
+    modality the engine last saw: its tower and projector stay as they
+    are, and the serving QMap reaches the LM only
+    (``models/llava.py::vision_qmap``), where the reference's reaches the
+    tower's unpacked linears too and cannot serve (ROADMAP C)."""
+    if hasattr(model, 'set_modality'):
+        model.set_modality('language')
     unserved = [p for p in model.get_layout().linears
                 if p not in _linear_dims(model.cfg)]
     if unserved:

@@ -203,9 +203,11 @@ def test_pipeline_options_outside_the_slice_raise(checkpoint, extra, item,
     (dict(type='code'), 'ROADMAP A13'),
 ])
 def test_eval_entries_outside_the_slice_raise(checkpoint, ev, item):
-    """The ImageNet accuracy eval raises with its ROADMAP item (A13e, the
-    VLM tier).  What raised until its slice ported it runs as the JAX
-    package runs it: a ``latency`` entry at each position (positive
+    """What raised until its slice ported it runs as the JAX package runs
+    it.  The ImageNet accuracy eval (the VLM tier's) classifies images:
+    on a Llama both packages fail before calibration, the port with a
+    ``ValueError`` that names the Vit it needs, the JAX package on the
+    Llama config's missing ``num_channels``.  A ``latency`` entry at each position (positive
     times, and the greedy tokens of its runs equal the JAX package's
     greedy decode of the same ids), the per-block PPL
     (``inference_per_block``: the PPLs within 1e-5 of the resident eval's
@@ -244,6 +246,12 @@ def test_eval_entries_outside_the_slice_raise(checkpoint, ev, item):
                                               dict(device='cpu'))):
             with pytest.raises(ModuleNotFoundError, match='human_eval'):
                 run(cfg, **kw)
+        return
+    if ev.get('type') == 'acc':
+        with pytest.raises(AttributeError, match='num_channels'):
+            j_run_pipeline(cfg)
+        with pytest.raises(ValueError, match='needs a Vit model'):
+            run_pipeline(cfg, device='cpu')
         return
     with pytest.raises(NotImplementedError, match=f'{item}e'):
         run_pipeline(cfg, device='cpu')

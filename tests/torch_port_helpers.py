@@ -355,3 +355,129 @@ def load_moe_checkpoints_in_f32(monkeypatch):
         def load(c, path, dtype=f32, inner=inner, **kw):
             return inner(c, path, dtype, **kw)
         monkeypatch.setattr(cls, 'from_pretrained', classmethod(load))
+
+
+# the tiny Llava of the JAX package's own VLM tests (tests/test_llava.py,
+# test_token_reduction.py): a 56-pixel image of 14-pixel patches is 16
+# placeholders; VideoLlava's adds a video token and 4 frames of 28 pixels
+LLAVA_ARCH = dict(vocab_size=72, hidden_size=32, intermediate_size=64,
+                  num_hidden_layers=3, num_attention_heads=4,
+                  num_key_value_heads=2, head_dim=8, dtype='float32',
+                  image_size=56, patch_size=14, image_token_index=70)
+VIDEOLLAVA_ARCH = dict(LLAVA_ARCH, num_hidden_layers=2, image_size=28,
+                       video_token_index=71, num_frames=4)
+# the tiny ViT of tests/test_vit.py
+VIT_ARCH = dict(image_size=32, patch_size=8, num_channels=3, hidden_size=64,
+                intermediate_size=128, num_hidden_layers=2,
+                num_attention_heads=4, num_labels=10)
+
+
+def vlm_pair(model_type='Llava', seed=0, **arch):
+    """(JAX adapter, port adapter) of a tiny ``model_type`` (a Llava-tier
+    name, or ``Vit``, whose arch is a ``VitConfig``'s fields) on the same
+    weights: the JAX package's random tree, every bias and norm weight
+    moved off its init (``perturbed``)."""
+    import jax.numpy as jnp
+    from llmc_tpu.utils.registry import MODEL_REGISTRY as JREG
+    import llmc_tpu.models  # noqa: F401  (registers the adapters)
+    from llmc_tpu_torch.convert import params_from_numpy
+    from llmc_tpu_torch.utils.registry import MODEL_REGISTRY as TREG
+    import llmc_tpu_torch.models  # noqa: F401
+    base = {'VideoLlava': VIDEOLLAVA_ARCH, 'Vit': VIT_ARCH}.get(model_type,
+                                                              LLAVA_ARCH)
+    m = dict(type=model_type, arch=dict(base, **arch), seed=seed)
+    tm = TREG[model_type].from_config(dict(model=m), device='cpu')
+    if model_type == 'Vit':
+        from llmc_tpu.models import vit as JV
+        from llmc_tpu.models.adapter import VitAdapter as JVit
+        jcfg = JV.VitConfig(**dataclasses.asdict(tm.cfg))
+        jm = JVit(jcfg, None)
+        from llmc_tpu_torch.convert import params_to_numpy
+        tree = perturbed(params_to_numpy(tm.params),
+                         np.random.RandomState(seed + 1))
+    else:
+        jm = JREG[model_type].from_config(dict(model=dict(
+            m, arch=dict(m['arch']))))
+        tree = perturbed(to_np(jm.params), np.random.RandomState(seed + 1))
+    jm.params = jax.tree.map(lambda a: None if a is None else jnp.asarray(a),
+                             tree)
+    tm.params = params_from_numpy(tree, device='cpu')
+    return jm, tm
+
+
+def jax_llava_cfg(cfg):
+    """The JAX package's LlavaConfig of a port ``LlavaConfig``."""
+    from llmc_tpu.models import llama as JL
+    from llmc_tpu.models import llava as JLV
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw['text'] = JL.LlamaConfig(**dataclasses.asdict(cfg.text))
+    kw['vision'] = JL.LlamaConfig(**dataclasses.asdict(cfg.vision))
+    return JLV.LlavaConfig(**kw)
+
+
+def same_random_vlm_weights(monkeypatch):
+    """Both packages' random Llava-tier models draw the JAX package's tree
+    from the seed, its biases and norm weights then perturbed, so that a
+    model built from the same inline arch holds the same weights in both;
+    a random ViT (an inline arch the JAX package does not take) draws the
+    port's tree, perturbed, in both."""
+    import jax.numpy as jnp
+    from llmc_tpu.models import llava as JLV
+    from llmc_tpu_torch.convert import params_from_numpy
+    from llmc_tpu_torch.models import llava as TLV
+    j_init = JLV.init_params
+
+    def tree(jcfg, seed):
+        t = to_np(j_init(jcfg, jax.random.PRNGKey(seed)))
+        return perturbed(t, np.random.RandomState(seed + 1))
+
+    def jax_init(cfg, key):
+        seed = int(np.asarray(jax.random.key_data(key)).reshape(-1)[-1])
+        return jax.tree.map(lambda a: None if a is None else jnp.asarray(a),
+                            tree(cfg, seed))
+
+    def port_init(cfg, generator, dtype=None, device=None):
+        return params_from_numpy(tree(jax_llava_cfg(cfg),
+                                      generator.initial_seed()),
+                                 device=device)
+    monkeypatch.setattr(JLV, 'init_params', jax_init)
+    monkeypatch.setattr(TLV, 'init_params', port_init)
+
+
+def reference_tower_takes_its_own_qmap(monkeypatch):
+    """The JAX package's VLM tower under its own modality's deploy: its
+    ``vision_features`` / ``video_features`` take the fake-quant QMap of
+    the algorithm that calibrated the ``vision`` modality (none where no
+    algorithm did) in place of the LM's QMap, which the reference passes
+    on to the tower (ROADMAP C)."""
+    from llmc_tpu.compression.blockwise import BlockwiseOpt
+    from llmc_tpu.models import llava as JLV
+    state = {}
+    inner_init = BlockwiseOpt.__init__
+
+    def init(self, model, *a, **kw):
+        inner_init(self, model, *a, **kw)
+        if getattr(model, '_modality', None) == 'vision':
+            state['opt'] = self
+
+    def tower_qmap(qmap):
+        if qmap is None or 'opt' not in state:
+            return None
+        if 'qmap' not in state:
+            opt = state['opt']
+            opt.model.set_modality('vision')
+            try:
+                state['qmap'] = opt.deploy('fake_quant')
+            finally:
+                opt.model.set_modality('language')
+        return state['qmap']
+
+    for name in ('vision_features', 'video_features'):
+        inner = getattr(JLV, name)
+
+        def confined(vp, cfg, px, qmap=None, reduction=None, inner=inner):
+            return inner(vp, cfg, px, qmap=tower_qmap(qmap),
+                         reduction=reduction)
+        monkeypatch.setattr(JLV, name, confined)
+    monkeypatch.setattr(BlockwiseOpt, '__init__', init)
+    return state
