@@ -278,6 +278,26 @@ Phases, each printing one JSON line, all of them on every run:
                   CPU; ViT-B/16 (``VIT_B16``) W8A8 with the quantized
                   attention and the ImageNet accuracy eval, its predictions
                   equal to the CPU's at 2 layers.
+23. ``qwen2vl_serve`` + ``qwen2vl_compress`` + ``internvl`` +
+                  ``onevision`` + ``minicpmv``: Qwen2-VL-7B (``QWEN2VL_7B``)
+                  at 28 LM and 32 tower layers, its LM packed W4A16 g128:
+                  4 prompts of a 448-pixel image (256 merged tokens) and
+                  32 text tokens through the eager forward and B1 (the
+                  tower + merger timed), their logits within
+                  ``TOL_COMPRESS_SERVE`` of the fake-quant model's; 8 text
+                  prompts of 32 tokens served from an int8 cache under
+                  ``auto`` (B2) and ``batch`` (B5), captured against eager,
+                  the step beside its byte bound; the card against the CPU
+                  at 2 + 2 layers in float32; ``run_pipeline`` of
+                  ``qwen2vl_awq_w4.yml``'s two AWQ sections with the vqa
+                  eval (``QWEN2VL_COMPRESS``); InternVL3-8B
+                  (``INTERNVL3_8B``: the full InternViT-300M, the LM cut),
+                  InternViT-6B's qk-norm block against the CPU;
+                  LLaVA-OneVision-7B (``ONEVISION_7B``: the full SigLIP, the
+                  LM cut) on an anyres_max_9 image and 8 frames of video
+                  plain, with PruneVid and with DyCoke; MiniCPM-V
+                  (``MINICPMV_25``) after RTN; each LM packed through B1,
+                  held to its fake-quant model and the card to the CPU.
 
 Every phase that drives the model or the probe tools on the card sets the
 kernels' launch counters to 0 just before its run, reads them just after,
@@ -1602,16 +1622,19 @@ def phase_parity(dev, ref_dev, cfg_kw, prompt_len=32, steps=8, seed=0,
                     cfg.num_hidden_layers, 1 + steps, steps, mode))
 
 
-def serve_requests(n, vocab, max_prompt=200, seed=0, new_tokens=16):
+def serve_requests(n, vocab, max_prompt=200, seed=0, new_tokens=16,
+                   fixed=False):
     """``n`` requests, prompts spread over 10 to ``max_prompt`` tokens,
-    each asking for ``new_tokens`` to about twice that many."""
+    each asking for ``new_tokens`` to about twice that many; ``fixed``:
+    every prompt ``max_prompt`` tokens, each asking ``new_tokens``."""
     from llmc_tpu_torch.serve import Request
     rng = np.random.RandomState(seed)
-    lens = np.linspace(10, max_prompt, n).astype(int)
+    lens = (np.full(n, max_prompt) if fixed
+            else np.linspace(10, max_prompt, n).astype(int))
     rng.shuffle(lens)
     return [Request(uid=i, prompt_ids=rng.randint(0, vocab, (int(p),)),
-                    max_new_tokens=int(new_tokens + (i * 7)
-                                       % (new_tokens + 1)))
+                    max_new_tokens=int(new_tokens if fixed else new_tokens
+                                       + (i * 7) % (new_tokens + 1)))
             for i, p in enumerate(lens)]
 
 
@@ -3048,7 +3071,7 @@ MOE_SERVE = dict(n_requests=10, max_batch=8, max_len=256,
 def adapter_serve_run(dev, model, attn, eager=False, n_requests=10,
                       max_batch=8, max_len=256, buckets=(32, 64, 128, 256),
                       max_prompt=200, new_tokens=16, kv_policy=None,
-                      qmap=None):
+                      qmap=None, fixed=False):
     """``ServingEngine.run`` (or the eager engine's) over ``serve_requests``
     under ``ATTN_IMPL = attn``, over an int8 cache by default: (the record
     with the launches the path implies, ``serve_expected_launches``, the
@@ -3065,7 +3088,7 @@ def adapter_serve_run(dev, model, attn, eager=False, n_requests=10,
             model, qmap=qmap, max_batch=max_batch, max_len=max_len,
             prefill_buckets=buckets, kv_policy=policy, device=dev)
         reqs = serve_requests(n_requests, cfg.vocab_size, max_prompt,
-                              new_tokens=new_tokens)
+                              new_tokens=new_tokens, fixed=fixed)
         reset_launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
@@ -5036,8 +5059,9 @@ def llava_model(dev, spec=LLAVA15_7B, layers=None, tower_layers=None,
 def vlm_copy(model, device, dtype=F32, layers=None, tower_layers=None):
     """The model's first ``layers`` LM blocks and ``tower_layers`` tower
     blocks (default all) with everything else, copied to ``device`` in
-    ``dtype``: a float32 twin for the card-against-CPU checks."""
-    cfg = model.llava_cfg
+    ``dtype``: a float32 twin for the card-against-CPU checks (any VLM
+    adapter: its ``vl_cfg``)."""
+    cfg = model.vl_cfg
     text, vision = cfg.text, cfg.vision
     dt = str(dtype).replace('torch.', '')
     text = dataclasses.replace(text, dtype=dt, num_hidden_layers=(
@@ -5076,7 +5100,7 @@ def vlm_fake_quant_twin(model, wspec):
     head = model.params['lm_head']
     fq = dict(head, w=fake_quant_weight_static(wspec, head['w'],
                                                packed_grid(head, wspec)))
-    twin = type(model)(model.llava_cfg, dict(model.params, lm_head=fq))
+    twin = type(model)(model.vl_cfg, dict(model.params, lm_head=fq))
     twin.set_modality('language')
     return twin, QMap({p: LinearQcfg(w_spec=wspec)
                        for p in twin.get_layout().linears})
@@ -5524,6 +5548,626 @@ def phase22_failure(rec) -> dict:
             'pruned_length', 'results', 'launches', 'expected_launches',
             'video_tokens_kept', 'video_tokens_kept_expected',
             'acc_pretrain', 'acc_fake_quant')
+    return {k: rec[k] for k in keys if k in rec}
+
+
+# --------------------------------------------------------------------------
+# phase 23: Qwen2-VL, InternVL, LLaVA-OneVision and MiniCPM-V
+# --------------------------------------------------------------------------
+
+# Qwen2-VL-7B-Instruct (Qwen/Qwen2-VL-7B-Instruct config.json): the
+# 1280-wide 32-layer ViT with 2-D rope (patch 14, temporal patch 2), the
+# 2x2 patch merger into 3584, the Qwen2-7B LM with M-RoPE (16, 24, 24)
+QWEN2VL_7B = dict(
+    text=dict(QWEN25_7B, max_position_embeddings=32768,
+              rope_scaling_type='mrope'),
+    vision=dict(hidden_size=1280, intermediate_size=5120,
+                num_hidden_layers=32, num_attention_heads=16),
+    mrope_section=(16, 24, 24), patch_size=14, temporal_patch_size=2,
+    spatial_merge_size=2, image_token_id=151655,
+    vision_start_token_id=151652)
+QWEN2VL_SOURCE = 'Qwen/Qwen2-VL-7B-Instruct config.json'
+# B = 4 prompts of a 448-pixel image (grid 1 x 32 x 32: 1024 patches, 256
+# merged tokens) and 32 text tokens, one eager forward each (the
+# reference's forward takes one image); text: 8 prompts of 32 tokens, 32
+# greedy steps; the card against the CPU at 2 LM and 2 tower layers with
+# a 1 x 8 x 8 grid
+QWEN2VL_RUN = dict(batch=4, grid=(1, 32, 32), text_tokens=32, text_batch=8,
+                   text_prompt=32, new_tokens=32, cpu_layers=2,
+                   cpu_grid=(1, 8, 8))
+# qwen2vl_awq_w4.yml's two quant sections at 4 LM and 4 tower layers
+QWEN2VL_COMPRESS = dict(
+    layers=(4, 'AWQ with clip v1 over 4 LM blocks and 4 tower blocks shows '
+               'both modalities; the full-depth model runs in qwen2vl_serve'),
+    samples=4, answer_tokens=3, calib_samples=2, grid=(32, 32),
+    quant=dict(vision=dict(method='Awq', weight=dict(
+        bit=8, symmetric=False, granularity='per_group', group_size=128),
+        special=dict(trans=True, weight_clip=False)),
+        language=dict(method='Awq', weight=dict(
+            bit=4, symmetric=False, granularity='per_group', group_size=128),
+            special=AWQ_SPECIAL)))
+# InternVL3-8B-hf (OpenGVLab/InternVL3-8B-hf config.json): InternViT-300M
+# (1024 wide, 24 layers, LayerNorm, layer scale, attention bias, 448
+# pixels of 14), the pixel shuffle 0.5 (256 tokens of 4096), the projector
+# LN -> 3584 -> GELU -> 3584 and the Qwen2.5-7B LM with 151674 tokens
+INTERNVL3_8B = dict(
+    text=dict(QWEN25_7B, vocab_size=151674),
+    vision=dict(hidden_size=1024, intermediate_size=4096,
+                num_hidden_layers=24, num_attention_heads=16),
+    image_size=448, patch_size=14, image_token_id=151667,
+    downsample_ratio=0.5)
+INTERNVL_SOURCE = 'OpenGVLab/InternVL3-8B-hf config.json'
+INTERNVL_LAYERS = (4, 'qwen2vl_serve runs the same LM widths at full depth')
+# InternViT-6B-448px-V2_5's block (3200 wide, 25 heads, RMSNorm, the
+# full-width qk-norm, no attention bias): 2 layers, f32, over a 224-pixel
+# image's 257 tokens, the card against the CPU
+INTERNVIT_6B = dict(hidden_size=3200, intermediate_size=12800, layers=2,
+                    heads=25, tokens=257)
+INTERNVIT_6B_SOURCE = 'OpenGVLab/InternViT-6B-448px-V2_5 config.json'
+# LLaVA-OneVision-7B (llava-hf/llava-onevision-qwen2-7b-ov-hf config.json):
+# SigLIP-so400m at 26 layers (1152 wide, gelu-tanh, 384 pixels of 14: 729
+# patches), the projector 1152 -> 3584 -> 3584, anyres_max_9 over the 36
+# pinpoints (384 i, 384 j), the Qwen2-7B LM with 152128 tokens
+ONEVISION_7B = dict(
+    text=dict(QWEN25_7B, vocab_size=152128, max_position_embeddings=32768),
+    vision=dict(hidden_size=1152, intermediate_size=4304,
+                num_hidden_layers=26, num_attention_heads=16),
+    image_size=384, patch_size=14, image_token_index=151646,
+    video_token_index=151647, vision_aspect_ratio='anyres_max_9',
+    image_grid_pinpoints=tuple((384 * i, 384 * j) for i in range(1, 7)
+                               for j in range(1, 7)))
+ONEVISION_SOURCE = 'llava-hf/llava-onevision-qwen2-7b-ov-hf config.json'
+ONEVISION_LAYERS = (4, 'qwen2vl_serve runs the Qwen2-7B widths at full '
+                       'depth')
+# a 768 x 768 image (the base crop and a 2 x 2 grid), 8 frames of video;
+# the CI config's PruneVid (token_reduction_prunevid_onevision.yml) and
+# dycoke.yml's DyCoke; the card against the CPU on 2 frames
+ONEVISION_RUN = dict(image=(768, 768), frames=8, text_tokens=32,
+                     cpu_layers=2, cpu_frames=2)
+PRUNEVID = dict(method='PruneVid', taus=0.5, cluster_ratios=0.5,
+                temporal_segment_ratios=0.34)
+# MiniCPM-Llama3-V-2.5 (openbmb/MiniCPM-Llama3-V-2_5 config.json, the
+# reference's MiniCPMVConfig defaults): SigLIP 1152 wide at 27 layers over
+# one 448-pixel slice (1024 patches), the resampler's 96 queries into 4096,
+# the Llama-3-8B LM
+LLAMA3_8B_LM = dict(vocab_size=128256, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    head_dim=128, rope_theta=500000.0, rms_norm_eps=1e-5,
+                    max_position_embeddings=8192, dtype='bfloat16')
+MINICPMV_25 = dict(
+    text=LLAMA3_8B_LM,
+    vision=dict(hidden_size=1152, intermediate_size=4304,
+                num_hidden_layers=27, num_attention_heads=16),
+    image_size=448, patch_size=14, num_queries=96,
+    image_token_index=128244)
+MINICPMV_SOURCE = 'openbmb/MiniCPM-Llama3-V-2_5 config.json'
+MINICPMV_LAYERS = (4, 'the Llama-3-8B LM is the text families\' graph, '
+                      'served at full depth in phase 19')
+VLM2_CHECK = dict(prompts=1, text_tokens=32, cpu_layers=2)
+
+
+def vlm2_model(dev, kind, spec, layers=None, tower_layers=None, dtype=BF16,
+               seed=0):
+    """A random ``kind`` (``Qwen2vl``, ``InternVL2``, ``LlavaOneVision`` or
+    ``MiniCPMV``) at ``spec``'s widths in ``dtype``, tower and LM alike
+    (MiniCPM-V's vision side float32, as the reference draws it);
+    ``layers`` / ``tower_layers`` cut the depths."""
+    from llmc_tpu_torch.models import LlamaConfig
+    from llmc_tpu_torch.utils.registry import MODEL_REGISTRY
+    cls = MODEL_REGISTRY[kind]
+    dt = str(dtype).replace('torch.', '')
+    text = dict(spec['text'], dtype=dt)
+    if layers:
+        text['num_hidden_layers'] = layers
+    v = dict(spec['vision'], dtype=dt)
+    if tower_layers:
+        v['num_hidden_layers'] = tower_layers
+    extra = {k: w for k, w in spec.items() if k not in ('text', 'vision')}
+    cfg = cls.vl_config_cls(text=LlamaConfig(**text),
+                            vision=cls._tower_cfg(v), **extra)
+    return cls.random(cfg, seed=seed, device=dev)
+
+
+def _forward(model, ids, img, qmap=None):
+    """The model's eager forward, its image kwargs' arrays on its device."""
+    dev = model.device
+    kw = {k: (torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
+              else v) for k, v in img.items()}
+    return model.forward_logits(torch.as_tensor(ids, device=dev),
+                                qmap=qmap, **kw)
+
+
+def _timed(dev, fn):
+    """(fn's value, its ms), synchronised."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def packed_eager(dev, model, prompts, wspec):
+    """The VLM's LM against its fake-quant twin (``vlm_fake_quant_twin``),
+    then packed W4A16 (fused qkv / gate_up, the head packed) in place:
+    each ``(name, ids, img)`` of ``prompts`` through the eager forward of
+    both, the packed one timed and counted (B1 4L + 1 times a forward,
+    whatever its batch).  Returns (the serving QMap, {name: the prompt's
+    record})."""
+    from llmc_tpu_torch.ops import reset_launch_counts
+    from llmc_tpu_torch.serve import pack_model
+    L_ = model.cfg.num_hidden_layers
+    out = {}
+    with torch.no_grad():
+        twin, fq_map = vlm_fake_quant_twin(model, wspec)
+        wants = {n: _forward(twin, ids, img, fq_map).float().cpu()
+                 for n, ids, img in prompts}
+        del twin
+        qmap, pack_ms = _timed(dev, lambda: pack_model(model, wspec,
+                                                       fuse=True, head=True))
+        for name, ids, img in prompts:
+            _forward(model, ids, img, qmap)        # warm
+            reset_launch_counts()
+            got, ms = _timed(dev, lambda: _forward(model, ids, img, qmap))
+            counts, xla = read_counts()
+            err, rel = _rel(got.float().cpu(), wants[name])
+            want = dict.fromkeys(KERNEL_NAMES, 0)
+            want['w4_dequant_matmul'] = 4 * L_ + 1
+            out[name] = dict(
+                prompts=len(ids), prompt_tokens=int(ids.shape[1]),
+                positions=int(got.shape[1]), forward_ms=ms,
+                max_abs_logit_err=err, rel_logit_err=rel,
+                tolerance=TOL_COMPRESS_SERVE,
+                argmax_agreement=float((got.float().cpu().argmax(-1)
+                                        == wants[name].argmax(-1)).float()
+                                       .mean()),
+                finite=bool(torch.isfinite(got).all()),
+                launches=counts, xla_branch_calls=xla,
+                expected_launches=want)
+    out['pack_ms'] = pack_ms
+    return qmap, out
+
+
+def vlm2_vs_cpu(dev, model, ids, img, layers, tower_layers=None):
+    """The model's first ``layers`` LM blocks (and ``tower_layers`` tower
+    blocks) in float32 on the card and on the CPU: the same prompt's
+    logits (``_logits_vs_cpu``)."""
+    outs = []
+    with torch.no_grad():
+        for d in (dev, CPU):
+            m = vlm_copy(model, d, F32, layers=layers,
+                         tower_layers=tower_layers)
+            outs.append(_forward(m, ids, img).cpu())
+            del m
+    return dict(layers=layers, tower_layers=tower_layers, dtype='float32',
+                **_logits_vs_cpu(*outs))
+
+
+def qwen2vl_prompts(cfg, B, grid, text_tokens, seed=0):
+    """(ids [B, 2 + merged + text], B patch arrays [t*h*w, C*T*p*p]):
+    each prompt a text token, ``vision_start``, the merged image span and
+    text below the special tokens."""
+    rng = np.random.RandomState(seed)
+    t, h, w = grid
+    m = t * h * w // cfg.spatial_merge_size ** 2
+    ids = rng.randint(0, cfg.vision_start_token_id - 9,
+                      (B, 2 + m + text_tokens))
+    ids[:, 1] = cfg.vision_start_token_id
+    ids[:, 2:2 + m] = cfg.image_token_id
+    return ids, [rng.randn(t * h * w, cfg.patch_dim).astype(np.float32)
+                 for _ in range(B)]
+
+
+def phase23_qwen2vl(dev, peaks, spec=QWEN2VL_7B, run=QWEN2VL_RUN,
+                    layers=None, tower_layers=None, group_size=128, seed=0,
+                    timing_steps=8):
+    """Qwen2-VL-7B at full depth: its LM packed W4A16 g128 (asymmetric,
+    fused, the head packed); B prompts with an image through the eager
+    forward (the tower + merger timed alone), their logits against the
+    fake-quant model's; text prompts served from an int8 cache through the
+    engine under ``auto`` (B2) and ``batch`` (B5), captured against eager,
+    the captured step against its byte bound; the card against the CPU
+    port at ``cpu_layers`` in float32."""
+    from llmc_tpu_torch.models import qwen2vl as QV
+    wspec = dataclasses.replace(_wspec(4, group_size), symmetric=False)
+    model = vlm2_model(dev, 'Qwen2vl', spec, layers, tower_layers, seed=seed)
+    cfg = model.vl_cfg
+    L_ = cfg.text.num_hidden_layers
+    grid = run['grid']
+    ids, patches = qwen2vl_prompts(cfg, run['batch'], grid,
+                                   run['text_tokens'], seed)
+    c = run['cpu_layers']
+    cids, cpatch = qwen2vl_prompts(cfg, 1, run['cpu_grid'],
+                                   run['text_tokens'], seed + 1)
+    vs_cpu = vlm2_vs_cpu(dev, model, cids, dict(
+        pixel_patches=cpatch[0], grid_thw=run['cpu_grid']), c, c)
+    rec = dict(phase='qwen2vl_serve', source=QWEN2VL_SOURCE, layers=L_,
+               tower_layers=cfg.vision.num_hidden_layers, grid=grid,
+               image_tokens=int((ids[0] == cfg.image_token_id).sum()),
+               batch=run['batch'], prompt=int(ids.shape[1]),
+               rope_scaling_type=cfg.text.rope_scaling_type,
+               weights='random, seed 0, bf16; LM packed W4A16 g128 '
+                       '(asymmetric), fused qkv / gate_up, head packed',
+               vs_cpu=dict(vs_cpu, grid=run['cpu_grid']))
+    prompts = [(f'image_{b}', ids[b:b + 1], dict(pixel_patches=patches[b],
+                                                 grid_thw=grid))
+               for b in range(run['batch'])]
+    qmap, pre = packed_eager(dev, model, prompts, wspec)
+    with torch.no_grad():
+        px = [torch.as_tensor(p, device=dev) for p in patches]
+        tower = [QV.vision_forward(model.params['vision'], cfg, p, grid)
+                 for p in px]                                  # warm
+        del tower
+        _, rec['tower_merger_ms'] = _timed(dev, lambda: [
+            QV.vision_forward(model.params['vision'], cfg, p, grid)
+            for p in px])
+    rec['pack_ms'] = pre.pop('pack_ms')
+    rec['image_prefill'] = pre
+    runs, times = {}, {}
+    serve_kw = dict(n_requests=run['text_batch'], max_batch=run['text_batch'],
+                    max_len=run['text_prompt'] + run['new_tokens'],
+                    buckets=(run['text_prompt'],),
+                    max_prompt=run['text_prompt'],
+                    new_tokens=run['new_tokens'], fixed=True)
+    for attn in ('auto', 'batch'):
+        got = {mode: adapter_serve_run(dev, model, attn,
+                                       eager=mode == 'eager', qmap=qmap,
+                                       **serve_kw)
+               for mode in ('graph', 'eager')}
+        runs[attn] = dict(graph=got['graph'][0], eager=got['eager'][0],
+                          tokens_equal=got['graph'][1] == got['eager'][1])
+        times[attn] = moe_step_times(
+            dev, model, attn, qmap=qmap, B=run['text_batch'],
+            prompt=run['text_prompt'], steps=timing_steps,
+            max_len=run['text_prompt'] + timing_steps + 4)
+    rec.update(text_runs=runs, text_timing=times, **family_step_bound(
+        model, peaks, B=run['text_batch'],
+        prompt=run['text_prompt'] + timing_steps // 2))
+    rec['ok'] = bool(
+        all(r['rel_logit_err'] <= TOL_COMPRESS_SERVE and r['finite']
+            for r in pre.values())
+        and all(r['tokens_equal'] and r[m]['all_done']
+                for r in runs.values() for m in ('graph', 'eager'))
+        and vs_cpu['same_shape'] and vs_cpu['rel_logit_err'] <= TOL_VLM_VS_CPU
+        and vs_cpu['last_argmax_equal'])
+    return rec
+
+
+def qwen2vl_compress_config(spec=QWEN2VL_7B, sizes=QWEN2VL_COMPRESS, seed=0):
+    """``run_pipeline``'s config of ``qwen2vl_compress``: the two ``quant``
+    sections of ``qwen2vl_awq_w4.yml``, calibration and the vqa eval on
+    ``synthetic_qwen2vl``."""
+    L_ = sizes['layers'][0]
+    h, w = sizes['grid']
+    merged = h * w // spec['spatial_merge_size'] ** 2
+    data = dict(name='synthetic_qwen2vl', seq_len=2 + merged + 32,
+                vocab_size=spec['vision_start_token_id'] - 9,
+                image_token=spec['image_token_id'],
+                vision_start_token=spec['vision_start_token_id'],
+                grid_hw=[h, w], patch_dim=3 * spec['temporal_patch_size']
+                * spec['patch_size'] ** 2, seed=seed)
+    return dict(
+        base=dict(seed=seed),
+        model=dict(type='Qwen2vl', seed=seed, arch=dict(
+            spec['text'], num_hidden_layers=L_,
+            vision=dict(spec['vision'], num_hidden_layers=L_,
+                        dtype=spec['text']['dtype']),
+            **{k: spec[k] for k in ('patch_size', 'temporal_patch_size',
+                                    'image_token_id',
+                                    'vision_start_token_id',
+                                    'mrope_section')})),
+        calib=dict(data, n_samples=sizes['calib_samples'], bs=1),
+        eval=dict(data, type='vqa', n_samples=sizes['samples'], bs=1,
+                  answer_tokens=sizes['answer_tokens'],
+                  eval_pos=['pretrain', 'fake_quant']),
+        quant=sizes['quant'])
+
+
+def phase23_qwen2vl_compress(dev, spec=QWEN2VL_7B, sizes=QWEN2VL_COMPRESS,
+                             seed=0):
+    """``run_pipeline`` of ``qwen2vl_awq_w4.yml``'s two sections (the tower
+    AWQ W8 g128, then the LM AWQ W4 g128 with clip v1) with the vqa eval:
+    the pretrain accuracy 1.0 by construction, and the fake-quant deploy a
+    ``ModalQMap`` whose ``vision`` QMap is the tower's W8 and whose own is
+    the LM's W4 (each tower takes only its own)."""
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.models import ModalQMap
+    from llmc_tpu_torch.ops import reset_launch_counts
+    config = qwen2vl_compress_config(spec, sizes, seed)
+    reset_launch_counts()
+    res = run_pipeline(config, device=dev)
+    counts, xla = read_counts()
+    dep = res['deploy']
+    bits = {}
+    if isinstance(dep, ModalQMap) and dep.vision is not None:
+        bits = dict(vision=dep.vision.get('self_attn.q_proj').w_spec.bit,
+                    language=dep.get('self_attn.q_proj').w_spec.bit)
+    L_ = sizes['layers'][0]
+    rec = dict(phase='qwen2vl_compress', source=QWEN2VL_SOURCE, layers=L_,
+               tower_layers=L_, reduced=[
+                   f'{L_} of {spec["text"]["num_hidden_layers"]} LM and {L_} '
+                   f'of {spec["vision"]["num_hidden_layers"]} tower layers: '
+                   f'{sizes["layers"][1]}'],
+               quant='vision AWQ W8 g128, language AWQ W4 g128 + clip v1 '
+                     '(configs/quantization/models/qwen2vl_awq_w4.yml)',
+               eval=f'vqa on synthetic_qwen2vl, {sizes["samples"]} samples, '
+                    f'{sizes["answer_tokens"]} answer tokens',
+               results={k: v for k, v in res.items()
+                        if isinstance(v, (int, float))},
+               phase_times=res['phase_times'], deploy_bits=bits,
+               launches=counts, xla_branch_calls=xla,
+               expected_launches=dict.fromkeys(KERNEL_NAMES, 0))
+    acc = res.get('vqa_fake_quant_acc')
+    rec['ok'] = bool(res.get('vqa_pretrain_acc') == 1.0 and acc is not None
+                     and 0.0 <= acc <= 1.0
+                     and bits == dict(vision=8, language=4)
+                     and res['model'].modality == 'language')
+    del res
+    return rec
+
+
+def internvit_6b_vs_cpu(dev, spec=INTERNVIT_6B, seed=0):
+    """InternViT-6B's blocks (RMSNorm, the full-width qk-norm, no attention
+    bias, layer scale) in float32 on the card and on the CPU, the same
+    random weights and tokens: the largest error over the largest
+    output."""
+    from llmc_tpu_torch.models import internvl as IV
+    from llmc_tpu_torch.models import llama as L
+    vc = IV.InternVLConfig.vit_block_cfg(
+        spec['hidden_size'], spec['intermediate_size'], spec['layers'],
+        spec['heads'], 'gelu', 'rms', True, False)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = L.init_params(vc, gen, device=dev)['blocks']
+    x = torch.randn((1, spec['tokens'], spec['hidden_size']), generator=gen,
+                    device=dev)
+    outs = []
+    with torch.no_grad():
+        for d in (dev, CPU):
+            y = x.to(d)
+            z = torch.zeros((1, 1, 1, 1), device=d)
+            for bp in blocks:
+                y = L.block_apply(tree_to(bp, d), vc, y, None, None,
+                                  attn_bias=z)[0]
+            outs.append(y.cpu())
+    err, rel = _rel(outs[0], outs[1])
+    return dict(source=INTERNVIT_6B_SOURCE, layers=spec['layers'],
+                tokens=spec['tokens'], dtype='float32',
+                q_norm_width=int(blocks[0]['self_attn']['q_norm']['w']
+                                 .shape[0]),
+                max_abs_err=err, rel_err=rel, tolerance=TOL_VLM_VS_CPU)
+
+
+def vlm2_image_prompts(cfg, B, span, text_tokens, image_token, seed=0,
+                       start=1):
+    """Ids [B, start + span + text] with the image span at ``start``, text
+    ids below the image token."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, image_token - 9, (B, start + span + text_tokens))
+    ids[:, start:start + span] = image_token
+    return ids, rng
+
+
+def phase23_internvl(dev, peaks, spec=INTERNVL3_8B, layers=INTERNVL_LAYERS[0],
+                     batch=4, text_tokens=32, cpu_layers=2,
+                     vit6b=INTERNVIT_6B, group_size=128, seed=0):
+    """InternVL3-8B: the full InternViT-300M tower, the LM at ``layers``
+    packed W4A16 g128 (17 launches of B1 a forward at 4 layers): B prompts
+    of the image's 256 tokens and 32 text tokens through the eager forward,
+    against the fake-quant model; the card against the CPU at
+    ``cpu_layers`` (LM and tower); InternViT-6B's qk-norm block on the card
+    against the CPU."""
+    from llmc_tpu_torch.models import internvl as IV
+    wspec = dataclasses.replace(_wspec(4, group_size), symmetric=False)
+    model = vlm2_model(dev, 'InternVL2', spec, layers, seed=seed)
+    cfg = model.vl_cfg
+    span = cfg.image_seq_length
+    ids, rng = vlm2_image_prompts(cfg, batch, span, text_tokens,
+                                  cfg.image_token_id, seed)
+    px = rng.randn(batch, 3, cfg.image_size, cfg.image_size).astype(
+        np.float32)
+    vs_cpu = vlm2_vs_cpu(dev, model, ids[:1], dict(pixel_values=px[:1]),
+                         cpu_layers, cpu_layers)
+    qmap, pre = packed_eager(dev, model, [('images', ids, dict(
+        pixel_values=px))], wspec)
+    with torch.no_grad():
+        pxt = torch.as_tensor(px, device=dev)
+        IV.image_features(model.params, cfg, pxt)              # warm
+        _, tower_ms = _timed(dev, lambda: IV.image_features(model.params,
+                                                            cfg, pxt))
+    full = spec['text']['num_hidden_layers']
+    rec = dict(phase='internvl', source=INTERNVL_SOURCE,
+               layers=cfg.text.num_hidden_layers,
+               tower_layers=cfg.vision.num_hidden_layers,
+               reduced=[f'{cfg.text.num_hidden_layers} of {full} LM layers: '
+                        f'{INTERNVL_LAYERS[1]}']
+               if cfg.text.num_hidden_layers < full else [],
+               image_tokens=span, batch=batch, prompt=int(ids.shape[1]),
+               layer_scale=cfg.vision.layer_scale,
+               tower_projector_ms=tower_ms, pack_ms=pre.pop('pack_ms'),
+               packed_prefill=pre['images'], vs_cpu=vs_cpu,
+               internvit_6b=internvit_6b_vs_cpu(dev, vit6b, seed))
+    p, v6 = rec['packed_prefill'], rec['internvit_6b']
+    rec['ok'] = bool(p['rel_logit_err'] <= TOL_COMPRESS_SERVE and p['finite']
+                     and vs_cpu['same_shape']
+                     and vs_cpu['rel_logit_err'] <= TOL_VLM_VS_CPU
+                     and vs_cpu['last_argmax_equal']
+                     and v6['rel_err'] <= TOL_VLM_VS_CPU
+                     and v6['q_norm_width'] == vit6b['hidden_size'])
+    return rec
+
+
+def phase23_onevision(dev, peaks, spec=ONEVISION_7B,
+                      layers=ONEVISION_LAYERS[0], run=ONEVISION_RUN,
+                      group_size=128, seed=0):
+    """LLaVA-OneVision-7B: the full SigLIP tower, the LM at ``layers``
+    packed W4A16 g128; an anyres_max_9 image (the base crop and a 2 x 2
+    grid) and an 8-frame video through the eager forward against the
+    fake-quant model; the video also reduced by PruneVid and DyCoke (their
+    kept tokens); the card against the CPU at ``cpu_layers`` on a video of
+    ``cpu_frames``."""
+    from llmc_tpu_torch.models import llava_onevision as OV
+    wspec = dataclasses.replace(_wspec(4, group_size), symmetric=False)
+    model = vlm2_model(dev, 'LlavaOneVision', spec, layers, seed=seed)
+    cfg = model.vl_cfg
+    size = run['image']
+    crops = OV.num_patches_for(size, cfg.image_grid_pinpoints,
+                               cfg.image_size)
+    # a crop's pixels the patch conv reads: 27 x 14 = 378 of a 384 crop
+    # (HF's conv drops the remainder; the reference's unfold takes none)
+    side = cfg.patches_per_side * cfg.patch_size
+    rng = np.random.RandomState(seed)
+    px = rng.randn(1, crops, 3, side, side).astype(np.float32)
+    with torch.no_grad():
+        span = OV.image_features(model.params, cfg, torch.as_tensor(
+            px[0], device=dev), size).shape[0]
+    half = -(-cfg.patches_per_side // 2)
+
+    def video(frames, s):
+        vspan = frames * half * half + 1
+        ids, r = vlm2_image_prompts(cfg, 1, vspan, run['text_tokens'],
+                                    cfg.image_token_index, s)
+        ids[:, 1:1 + vspan] = cfg.video_token_index
+        return ids, r.randn(1, frames, 3, side, side).astype(np.float32)
+    img_ids, _ = vlm2_image_prompts(cfg, 1, span, run['text_tokens'],
+                                    cfg.image_token_index, seed + 1)
+    vid_ids, vids = video(run['frames'], seed + 2)
+    cpu_ids, cpu_vids = video(run['cpu_frames'], seed + 3)
+    vs_cpu = vlm2_vs_cpu(dev, model, cpu_ids, dict(
+        pixel_values_videos=cpu_vids), run['cpu_layers'], run['cpu_layers'])
+    prompts = [('image', img_ids, dict(pixel_values=px, image_sizes=[size])),
+               ('video', vid_ids, dict(pixel_values_videos=vids))]
+    prompts += [(f'video_{r["method"]}', vid_ids, dict(
+        pixel_values_videos=vids, token_reduction=r))
+        for r in (PRUNEVID, DYCOKE)]
+    qmap, pre = packed_eager(dev, model, prompts, wspec)
+    vspan = run['frames'] * half * half + 1
+    kept = {n[6:]: pre[n]['positions'] - (vid_ids.shape[1] - vspan)
+            for n in pre if n.startswith('video_')}
+    full = spec['text']['num_hidden_layers']
+    rec = dict(phase='onevision', source=ONEVISION_SOURCE,
+               layers=cfg.text.num_hidden_layers,
+               tower_layers=cfg.vision.num_hidden_layers,
+               reduced=[f'{cfg.text.num_hidden_layers} of {full} LM layers: '
+                        f'{ONEVISION_LAYERS[1]}']
+               if cfg.text.num_hidden_layers < full else [],
+               image_size=size, crops=crops, crop_pixels=side,
+               image_tokens=span,
+               frames=run['frames'], video_tokens=vspan,
+               video_tokens_kept=kept, prunevid=PRUNEVID, dycoke=DYCOKE,
+               pack_ms=pre.pop('pack_ms'), packed_prefill=pre, vs_cpu=vs_cpu)
+    rec['ok'] = bool(
+        all(pre[n]['rel_logit_err'] <= TOL_COMPRESS_SERVE and pre[n]['finite']
+            for n in ('image', 'video'))
+        and all(pre[n]['finite'] for n in pre)
+        and all(0 < k <= vspan for k in kept.values())
+        and kept['DyCoke'] < vspan
+        and vs_cpu['same_shape'] and vs_cpu['rel_logit_err'] <= TOL_VLM_VS_CPU
+        and vs_cpu['last_argmax_equal'])
+    return rec
+
+
+def minicpmv_config(spec, layers, samples=2, seed=0):
+    """``run_pipeline``'s config of RTN W4 g128 on MiniCPM-V's LM alone,
+    calibrated on ``synthetic_vlm`` images, no eval."""
+    n = spec['num_queries']
+    data = dict(name='synthetic_vlm', seq_len=1 + n + 32,
+                vocab_size=spec['image_token_index'] - 9,
+                image_token=spec['image_token_index'], image_seq_length=n,
+                image_size=spec['image_size'], seed=seed)
+    return dict(
+        base=dict(seed=seed),
+        model=dict(type='MiniCPMV', seed=seed, arch=dict(
+            spec['text'], num_hidden_layers=layers,
+            vision=dict(spec['vision']),
+            **{k: spec[k] for k in ('image_size', 'patch_size', 'num_queries',
+                                    'image_token_index')})),
+        calib=dict(data, n_samples=samples, bs=1),
+        quant=dict(language=dict(method='RTN', weight=W4_G128)))
+
+
+def phase23_minicpmv(dev, peaks, spec=MINICPMV_25, layers=MINICPMV_LAYERS[0],
+                     batch=1, text_tokens=32, cpu_layers=2, seed=0):
+    """MiniCPM-Llama3-V-2.5: ``run_pipeline`` of RTN W4 g128 on the LM
+    alone (the reference compresses nothing else), then the LM packed
+    W4A16 g128 and the eager forward with an image through B1, against the
+    fake-quant model; the card against the CPU at ``cpu_layers``."""
+    from llmc_tpu_torch.main import run_pipeline
+    from llmc_tpu_torch.models import minicpmv as MV
+    wspec = dataclasses.replace(_wspec(4), symmetric=False)
+    res = run_pipeline(minicpmv_config(spec, layers, seed=seed), device=dev)
+    model = res['model']
+    cfg = model.vl_cfg
+    n = cfg.num_queries
+    ids, rng = vlm2_image_prompts(cfg, batch, n, text_tokens,
+                                  cfg.image_token_index, seed)
+    px = rng.randn(batch, 3, cfg.image_size, cfg.image_size).astype(
+        np.float32)
+    vs_cpu = vlm2_vs_cpu(dev, model, ids[:1], dict(pixel_values=px[:1]),
+                         cpu_layers, cpu_layers)
+    qmap, pre = packed_eager(dev, model, [('image', ids, dict(
+        pixel_values=px))], wspec)
+    with torch.no_grad():
+        pxt = torch.as_tensor(px, device=dev)
+        MV.image_embeds(model.params, cfg, pxt)                # warm
+        _, tower_ms = _timed(dev, lambda: MV.image_embeds(model.params, cfg,
+                                                          pxt))
+    full = spec['text']['num_hidden_layers']
+    rec = dict(phase='minicpmv', source=MINICPMV_SOURCE, layers=layers,
+               tower_layers=cfg.vision.num_hidden_layers,
+               reduced=[f'{layers} of {full} LM layers: '
+                        f'{MINICPMV_LAYERS[1]}'] if layers < full else [],
+               quant='RTN W4 g128 asymmetric, language only (the packing '
+                     'holds its grid)', phase_times=res['phase_times'],
+               image_tokens=n, prompt=int(ids.shape[1]),
+               tower_resampler_ms=tower_ms, pack_ms=pre.pop('pack_ms'),
+               packed_prefill=pre['image'], vs_cpu=vs_cpu)
+    p = rec['packed_prefill']
+    rec['ok'] = bool(p['rel_logit_err'] <= TOL_COMPRESS_SERVE and p['finite']
+                     and vs_cpu['same_shape']
+                     and vs_cpu['rel_logit_err'] <= TOL_VLM_VS_CPU
+                     and vs_cpu['last_argmax_equal'])
+    del res
+    return rec
+
+
+def phase23(dev, peaks):
+    """Every record of phase 23, in its order (a generator: each record is
+    emitted and checked before the next part runs)."""
+    yield phase23_qwen2vl(dev, peaks)
+    _free(dev)
+    yield phase23_qwen2vl_compress(dev)
+    _free(dev)
+    yield phase23_internvl(dev, peaks)
+    _free(dev)
+    yield phase23_onevision(dev, peaks)
+    _free(dev)
+    yield phase23_minicpmv(dev, peaks)
+    _free(dev)
+
+
+def phase23_launch_checks(rec):
+    """(name, launches, expected launches, XLA branch calls) of every run
+    a phase-23 record counts, for ``require_launches`` (on the CPU no
+    kernel launches: the tests read the predictions apart)."""
+    subs = [(f'{rec["phase"]}.{attn}.{m}', run[m])
+            for attn, run in rec.get('text_runs', {}).items()
+            for m in ('graph', 'eager')]
+    pre = rec.get('image_prefill', rec.get('packed_prefill', {}))
+    if 'launches' in pre:
+        pre = {'prefill': pre}
+    subs += [(f'{rec["phase"]}.{n}', r) for n, r in pre.items()]
+    if 'expected_launches' in rec:
+        subs.append((rec['phase'], rec))
+    return [dict(phase=name, launches=r['launches'],
+                 expected_launches=r['expected_launches'],
+                 xla_branch_calls=r['xla_branch_calls']) for name, r in subs]
+
+
+def phase23_failure(rec) -> dict:
+    """The fields of a phase-23 record that its ``ok`` reads, for the
+    failure's message."""
+    keys = ('image_prefill', 'packed_prefill', 'text_runs', 'vs_cpu',
+            'internvit_6b', 'results', 'deploy_bits', 'video_tokens_kept')
     return {k: rec[k] for k in keys if k in rec}
 
 
@@ -6240,6 +6884,20 @@ def main(argv=None) -> int:
         for run in phase22_launch_checks(rec):
             require_launches(run)
     emit(dict(phase='phase22', wall_s=time.perf_counter() - t22, **card))
+
+    # phase 23: Qwen2-VL-7B at full depth (images through the eager forward
+    # and B1, text served through B1 and B2 / B5), its two-modality AWQ,
+    # InternVL3-8B, LLaVA-OneVision-7B (anyres, video, PruneVid, DyCoke)
+    # and MiniCPM-V, each LM packed through B1
+    t23 = time.perf_counter()
+    for rec in phase23(dev, peaks):
+        rec.update(card)
+        emit(rec)
+        require(rec['ok'], f'{rec["phase"]}: a check failed: '
+                f'{phase23_failure(rec)}')
+        for run in phase23_launch_checks(rec):
+            require_launches(run)
+    emit(dict(phase='phase23', wall_s=time.perf_counter() - t23, **card))
 
     require(min(launches.values()) > 0,
             f'a kernel of the main paths was never launched: {launches}')

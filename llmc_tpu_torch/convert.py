@@ -13,7 +13,10 @@ leaf of any tree, so the generalized graph's extra trees (the norms'
 biases, q/k norms, Gemma2's sandwich norms, learned positions, Bloom's
 embedding LayerNorm) carry over as the Llama ones do, and so do OPT's
 native tree (its absent projections stay ``None``) and its generalized
-view.
+view, and the VLM trees (the towers' ``patch_proj``, ``merger``, ``ls1`` /
+``ls2`` and full-width ``q_norm``, the projectors, ``image_newline``, the
+resampler), whose Python scalars (the resampler's ``num_heads``) stay as
+they are.
 """
 
 from __future__ import annotations
@@ -79,6 +82,8 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None,
             return {k: rec(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [rec(v, ()) for v in node]   # a block: paths restart
+        if isinstance(node, (int, float)):
+            return node
         packed = (path[-1:] == ('qweight',) and np.asarray(node).dtype == np.int8
                   and nibble_bytes('.'.join(path[:-1])))
         return tensor_from_numpy(node, dev, dtype, packed=packed)

@@ -9,7 +9,11 @@ on the same tokens.  The LLaVA tier's synthetic sources draw theirs the
 same way, one batch a sample: ``synthetic_vlm`` (ids with one image
 placeholder span, and ``pixel_values``), ``synthetic_img`` (pixels alone,
 ViT) and ``synthetic_videollava`` (ids with a video span, and F-frame
-``pixel_values_videos``).  The other multimodal, audio and video sources
+``pixel_values_videos``); those of the second VLM slice ``synthetic_qwen2vl``
+(a vision start, the merged image span, processor-layout
+``pixel_patches`` and ``grid_thw``), ``synthetic_onevision`` (anyres crop
+stacks with ``image_sizes``) and ``synthetic_onevision_video`` (the pooled
+video span and its frames).  The other multimodal, audio and video sources
 raise (ROADMAP A13e).
 """
 
@@ -29,8 +33,10 @@ TEXT_KEY = {'pileval': 'text', 'c4': 'text', 'wikitext2': 'text',
             'ptb': 'sentence'}
 
 
-# the synthetic multimodal sources of the LLaVA tier
-SYNTHETIC_VLM = ('synthetic_vlm', 'synthetic_img', 'synthetic_videollava')
+# the synthetic multimodal sources of the ported VLMs
+SYNTHETIC_VLM = ('synthetic_vlm', 'synthetic_img', 'synthetic_videollava',
+                 'synthetic_qwen2vl', 'synthetic_onevision',
+                 'synthetic_onevision_video')
 
 
 class CalibDataset:
@@ -116,6 +122,10 @@ class CalibDataset:
     def _synthetic_vlm(self, rng) -> List[Dict]:
         """One batch a sample, drawn in the reference's order."""
         c = self.cfg
+        if self.name == 'synthetic_qwen2vl':
+            return self._synthetic_qwen2vl(rng)
+        if self.name.startswith('synthetic_onevision'):
+            return self._synthetic_onevision(rng)
         size = int(c.get('image_size', 32 if self.name == 'synthetic_img'
                          else 28))
         chans = int(c.get('num_channels', 3))
@@ -138,6 +148,58 @@ class CalibDataset:
             out.append({'input_ids': ids.astype(np.int32),
                         'pixel_values_videos' if video else 'pixel_values':
                         px})
+        return out
+
+    def _synthetic_qwen2vl(self, rng) -> List[Dict]:
+        """Qwen2-VL's processor layout: ids with ``vision_start`` and the
+        merged image span, flattened patches [h*w, patch_dim], the grid."""
+        c = self.cfg
+        vocab = int(c.get('vocab_size', 32000))
+        img_tok = int(c.get('image_token', vocab))
+        vstart = int(c.get('vision_start_token', vocab + 1))
+        h, w = c.get('grid_hw', (4, 4))
+        merge = int(c.get('spatial_merge_size', 2))
+        pdim = int(c.get('patch_dim', 3 * 2 * 14 * 14))
+        out = []
+        for _ in range(self.n_samples):
+            ids = rng.randint(0, vocab, size=(1, self.seq_len))
+            ids[0, 1] = vstart
+            ids[0, 2:2 + h * w // (merge * merge)] = img_tok
+            out.append({'input_ids': ids.astype(np.int32),
+                        'pixel_patches': rng.randn(h * w, pdim).astype(
+                            np.float32),
+                        'grid_thw': (1, h, w)})
+        return out
+
+    def _synthetic_onevision(self, rng) -> List[Dict]:
+        """OneVision's anyres images (ids with the image span from position
+        2, [1, crops, C, H, W] and ``image_sizes``) or videos (ids with the
+        pooled span F*ceil(side/2)^2 + 1 from position 1, [1, F, C, H, W])."""
+        c = self.cfg
+        video = self.name == 'synthetic_onevision_video'
+        vocab = int(c.get('vocab_size', 32000))
+        tok = int(c.get('video_token' if video else 'image_token', vocab))
+        size = int(c.get('image_size', 16))
+        chans = int(c.get('num_channels', 3))
+        if video:
+            half = -(-(size // int(c.get('patch_size', 4))) // 2)
+            frames = int(c.get('num_frames', 3))
+            start, span = 1, frames * half * half + 1
+            shape = (1, frames, chans, size, size)
+        else:
+            start, span = 2, int(c.get('image_seq_length', 4))
+            shape = (1, int(c.get('num_crops', 2)), chans, size, size)
+        out = []
+        for _ in range(self.n_samples):
+            ids = rng.randint(0, vocab, size=(1, self.seq_len))
+            ids[0, start:start + span] = tok
+            px = rng.randn(*shape).astype(np.float32)
+            b = {'input_ids': ids.astype(np.int32)}
+            if video:
+                b['pixel_values_videos'] = px
+            else:
+                b.update(pixel_values=px, image_sizes=[(size, size)])
+            out.append(b)
         return out
 
     def _batch(self, samples: List[np.ndarray]) -> List[Dict]:

@@ -25,13 +25,15 @@ HF names), the backend exports (``save_vllm``, ``save_sgl``,
 ``save_lightllm``, ``save_autoawq``, ``save_mlcllm``, ``save_trtllm``:
 ``export/``), ``model.offload`` (the blocks in host memory, one on the
 device at a time: ``utils/offload.py``) and the opencompass shell-out.
-The LLaVA tier (``Llava``, ``LlavaHf``, ``VideoLlava``) and ``Vit`` run
-with their ``vision`` modality: a ``quant: {vision: ..., language: ...}``
-section calibrates the tower, then the LM (``set_modality``), and the
-fake-quant evals take each modality's own deploy (``ModalQMap``: the LM's
-QMap never reaches the tower, ROADMAP C); ``sparse: {method:
-TokenReduction}`` installs a token reduction; the ``acc`` and ``vqa``
-evals build their labels from the pretrain model before any calibration.
+The LLaVA tier (``Llava``, ``LlavaHf``, ``VideoLlava``), ``Qwen2vl``,
+``InternVL2``, ``LlavaOneVision`` and ``Vit`` run with their ``vision``
+modality (``MiniCPMV`` compresses its LM only, as in the reference): a
+``quant: {vision: ..., language: ...}`` section calibrates the tower, then
+the LM (``set_modality``), and the fake-quant evals take each modality's
+own deploy (``ModalQMap``: each tower takes only its own QMap, ROADMAP
+C); ``sparse: {method: TokenReduction}`` installs a token reduction; the
+``acc`` and ``vqa`` evals build their labels from the pretrain model
+before any calibration.
 Another model's ``vision`` modality raises (ROADMAP A13e).
 Data parallel calibration raises ``NotImplementedError`` (ROADMAP A14),
 ``save_lightx2v`` too (it needs the Wan model, ROADMAP A13e), and so does
@@ -68,8 +70,11 @@ from .utils import (ALGO_REGISTRY, Cfg, check_config, get_modality,
 from .utils.profiler import PhaseTimer, trace
 
 
-# the model types whose vision modality the port calibrates
-VISION_MODELS = ('Llava', 'LlavaHf', 'VideoLlava', 'VideoLLaVA', 'Vit')
+# the model types whose vision modality the port calibrates, and those
+# whose reference compresses the language model only
+VISION_MODELS = ('Llava', 'LlavaHf', 'VideoLlava', 'VideoLLaVA', 'Vit',
+                 'Qwen2vl', 'InternVL2', 'LlavaOneVision')
+LANGUAGE_ONLY_VLMS = ('MiniCPMV',)
 
 
 def deploy_modalities(model, opts, quant_format: str):
@@ -107,6 +112,11 @@ def _check_ported(config: Cfg) -> None:
         raise ValueError('opencompass eval requires save.save_trans')
     exports = [f for f in BACKENDS if save.get(f)]
     for modality, mcfg in get_modality(config):
+        if modality != 'language' and config['model']['type'] in \
+                LANGUAGE_ONLY_VLMS:
+            raise ValueError(
+                f'{config["model"]["type"]} compresses the language model '
+                f'only, as in the reference: no {modality!r} modality')
         if modality != 'language' and not (
                 modality == 'vision'
                 and config['model']['type'] in VISION_MODELS):
@@ -129,8 +139,9 @@ def _check_ported(config: Cfg) -> None:
 def run_pipeline(config: Dict, device=None) -> Dict:
     """Run the whole pipeline; returns the eval metrics per position, the
     wall time of every phase (``phase_times``, each ending in a device
-    synchronise), the model (``model``) and the algorithm object
-    (``opt``)."""
+    synchronise), the model (``model``), the algorithm object (``opt``)
+    and the fake-quant evals' deploy (``deploy``: a VLM's ``ModalQMap``;
+    None where no fake-quant eval ran)."""
     dev = resolve_device(device)
     config = Cfg(config)
     check_config(config)
@@ -182,6 +193,7 @@ def run_pipeline(config: Dict, device=None) -> Dict:
         tmap = deploy_modalities(model, opts, 'transformed')
         with timer.phase('eval_transformed'):
             results.update(orch.run('transformed', model, qmap=tmap))
+    qmap = None
     if blockwise_opt is not None and (orch.wants('fake_quant')
                                       or orch.wants('fake_quant_wo_kv')):
         qmap = deploy_modalities(model, opts, 'fake_quant')
@@ -223,6 +235,7 @@ def run_pipeline(config: Dict, device=None) -> Dict:
                          if dev.type == 'cuda' else 'cpu')
     results['model'] = model
     results['opt'] = blockwise_opt
+    results['deploy'] = qmap
     return results
 
 

@@ -1,7 +1,8 @@
 """Model adapters (port of ``llmc_tpu/models/adapter.py``: the protocol,
 the Llama-family and generalized-graph families, the MoE / MLA families,
-OPT, the LLaVA tier (Llava, LlavaHf, VideoLlava), ViT with its accuracy
-eval, and ``build_model``): the protocol the compression engine and the
+OPT, the LLaVA tier (Llava, LlavaHf, VideoLlava), Qwen2-VL, InternVL,
+LLaVA-OneVision, MiniCPM-V, ViT with its accuracy eval, and
+``build_model``): the protocol the compression engine and the
 evals consume.
 
 ``QMap`` maps linear paths to their static ``LinearQcfg``; ``ModalQMap``
@@ -29,7 +30,11 @@ from . import llama as L
 from . import mixtral as MX
 from . import opt as O
 from . import qwen2moe as QM
+from . import internvl as IV
 from . import llava as LV
+from . import llava_onevision as OV
+from . import minicpmv as MV
+from . import qwen2vl as QV
 from . import vit as V
 from .base import BlockLayout, LinearQcfg, matmul_f32_acc, rms_norm
 
@@ -173,7 +178,6 @@ class LlamaAdapter(BaseAdapter):
 
     def __init__(self, cfg: L.LlamaConfig, params, tokenizer=None,
                  hf_config=None):
-        L.check_ported(cfg)
         super().__init__(cfg, params, tokenizer, hf_config)
         self._layout = L.llama_layout(cfg)
 
@@ -1124,78 +1128,38 @@ class AccuracyEval:
                      / len(self.labels))
 
 
-def _clip_cfg(varch: dict) -> L.LlamaConfig:
-    """The tower's block config of an inline ``model.arch.vision`` (float32
-    unless it names a ``dtype``)."""
-    cfg = LV.LlavaConfig.clip_block_cfg(
-        varch.get('hidden_size', 32), varch.get('intermediate_size', 64),
-        varch.get('num_hidden_layers', 2), varch.get('num_attention_heads', 2))
+def _tower_cfg(make, varch: dict, **kw) -> L.LlamaConfig:
+    """The tower's block config ``make`` builds from an inline
+    ``model.arch.vision`` (the reference's defaults: 32 wide, 64 in the
+    MLP, 2 layers of 2 heads; float32 unless it names a ``dtype``)."""
+    cfg = make(varch.get('hidden_size', 32),
+               varch.get('intermediate_size', 64),
+               varch.get('num_hidden_layers', 2),
+               varch.get('num_attention_heads', 2), **kw)
     return dataclasses.replace(cfg, dtype=varch.get('dtype', cfg.dtype))
 
 
-@MODEL_REGISTRY.register(name='Llava')
-class LlavaAdapter(LlamaAdapter):
-    """Llava: CLIP tower + MLP projector + Llama LM.  ``set_modality``
-    switches the block stack the compression engine sees ('vision' or
-    'language'); ``cfg`` is the LM's config, ``llava_cfg`` the whole.
-    Calibration batches may carry ``pixel_values`` beside ``input_ids``.
-    The tower takes only a ``ModalQMap``'s ``vision`` QMap."""
+class _VisionLanguageAdapter(LlamaAdapter):
+    """What the two-modality VLM adapters share: ``set_modality`` switches
+    the block stack the compression engine sees ('vision': the tower's
+    blocks, which take the batch kwargs' rope tables where the tower has
+    any; 'language': the LM's); ``cfg`` is the LM's config, ``vl_cfg``
+    the whole.  ``family`` is the model's module (its ``init_params``);
+    the towers take only a ``ModalQMap``'s ``vision`` QMap."""
 
-    name = 'Llava'
+    family = None
 
-    def __init__(self, cfg: LV.LlavaConfig, params, tokenizer=None,
-                 hf_config=None):
+    def __init__(self, cfg, params, tokenizer=None, hf_config=None):
         super().__init__(cfg.text, params, tokenizer, hf_config)
-        self.llava_cfg = cfg
+        self.vl_cfg = cfg
         self._modality = 'language'
         self._vlayout = L.llama_layout(cfg.vision)
 
     @classmethod
-    def random(cls, cfg: LV.LlavaConfig, seed: int = 0, device=None):
+    def random(cls, cfg, seed: int = 0, device=None):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return cls(cfg, LV.init_params(cfg, gen, device=dev))
-
-    @classmethod
-    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device=None):
-        """An HF LlavaForConditionalGeneration checkpoint onto ``device``
-        (``None``: the CUDA device)."""
-        from .hf_loader import load_hf_config
-        hf = load_hf_config(path)
-        v = hf['vision_config']
-        cfg = LV.LlavaConfig(
-            text=L.LlamaConfig.from_hf(hf['text_config']),
-            vision=LV.LlavaConfig.clip_block_cfg(
-                v['hidden_size'], v['intermediate_size'],
-                v['num_hidden_layers'], v['num_attention_heads'],
-                v.get('layer_norm_eps', 1e-5)),
-            image_size=v.get('image_size', 336),
-            patch_size=v.get('patch_size', 14),
-            image_token_index=hf.get('image_token_index', 32000),
-            vision_feature_layer=hf.get('vision_feature_layer', -2),
-            vision_feature_select_strategy=hf.get(
-                'vision_feature_select_strategy', 'default'))
-        params = _load_params(path, dtype, False, device,
-                              lambda flat: LV.params_from_hf(flat, cfg))
-        return cls(cfg, params, _load_tokenizer(path), hf)
-
-    # the inline arch keys that belong to LlavaConfig, not the LM
-    _LLAVA_KEYS = ('image_size', 'patch_size', 'image_token_index')
-
-    @classmethod
-    def from_config(cls, config, device=None):
-        m = config['model']
-        if m.get('path'):
-            return cls.from_pretrained(
-                m['path'], dtype=_config_dtype(m.get('torch_dtype',
-                                                     'bfloat16')),
-                device=device)
-        arch = _arch(m)
-        vcfg = _clip_cfg(arch.pop('vision', {}))
-        extra = {k: arch.pop(k) for k in cls._LLAVA_KEYS if k in arch}
-        cfg = LV.LlavaConfig(text=L.LlamaConfig(**arch), vision=vcfg,
-                             **extra)
-        return cls.random(cfg, seed=int(m.get('seed', 0)), device=device)
+        return cls(cfg, cls.family.init_params(cfg, gen, device=dev))
 
     # --- modality dispatch ---------------------------------------------
     def set_modality(self, modality: str) -> None:
@@ -1227,50 +1191,23 @@ class LlavaAdapter(LlamaAdapter):
     def block_fn(self):
         if self._modality == 'language':
             return super().block_fn()
-        vc = self.llava_cfg.vision
+        vc = self.vl_cfg.vision
 
         def fn(bp, x, kw, qmap=None, capture=False):
-            return L.block_apply(bp, vc, x, None, None,
+            return L.block_apply(bp, vc, x, kw.get('cos'), kw.get('sin'),
                                  attn_bias=kw.get('attn_bias'), qmap=qmap,
                                  capture=capture)
         return fn
 
     def inspect_fns(self):
-        return L.make_inspect_fns(self.llava_cfg.vision
+        return L.make_inspect_fns(self.vl_cfg.vision
                                   if self._modality == 'vision' else self.cfg)
 
-    # --- embeddings / forward -------------------------------------------
     def _pixels(self, px):
         return None if px is None else _on(px, self.device)
 
-    def embed_and_rope_p(self, params, input_ids, attention_mask=None,
-                         pixel_values=None):
-        cfg = self.llava_cfg
-        if self._modality == 'vision':
-            x = LV.clip_embed(params['vision'], cfg, pixel_values
-                              if pixel_values is not None else input_ids)
-            return x, {'attn_bias': torch.zeros((1, 1, 1, 1),
-                                                dtype=torch.float32,
-                                                device=x.device)}
-        x = LV.llava_embed(params, cfg, input_ids, pixel_values)
-        S = input_ids.shape[1]
-        cos, sin = L.rope_cos_sin(cfg.text, torch.arange(
-            S, device=input_ids.device)[None, :])
-        return x, {'cos': cos, 'sin': sin}
-
-    def collect_first_block_input(self, calib_batches):
-        dev = self.device
-        xs, kws = [], []
-        with torch.no_grad():
-            for batch in calib_batches:
-                ids = batch.get('input_ids')
-                x, kw = self.embed_and_rope_p(
-                    self.params, None if ids is None else _on(ids, dev,
-                                                              torch.long),
-                    None, self._pixels(batch.get('pixel_values')))
-                xs.append(x)
-                kws.append(kw)
-        return xs, kws
+    def _ids(self, ids):
+        return _on(ids, self.device, torch.long)
 
     def _reduction(self, token_reduction, *pixels):
         # the one the TokenReduction algorithm installed, where a call
@@ -1278,6 +1215,122 @@ class LlavaAdapter(LlamaAdapter):
         if token_reduction is None and any(p is not None for p in pixels):
             return getattr(self, 'token_reduction', None)
         return token_reduction
+
+    def _rope_kw(self, ids):
+        cos, sin = L.rope_cos_sin(self.cfg, torch.arange(
+            ids.shape[1], device=ids.device)[None, :])
+        return {'cos': cos, 'sin': sin}
+
+    def _tower_kw(self, x):
+        return {'attn_bias': torch.zeros((1, 1, 1, 1), dtype=torch.float32,
+                                         device=x.device)}
+
+    def collect_first_block_input(self, calib_batches):
+        """Block 0's input of the modality's stack over the batches, no
+        QMap on the tower (``_first_input``)."""
+        xs, kws = [], []
+        with torch.no_grad():
+            for batch in calib_batches:
+                x, kw = self._first_input(batch)
+                xs.append(x)
+                kws.append(kw)
+        return xs, kws
+
+    # the inline arch keys that belong to the whole config, not the LM
+    _VL_KEYS: Tuple[str, ...] = ()
+
+    @classmethod
+    def _tower_cfg(cls, varch: dict) -> L.LlamaConfig:
+        raise NotImplementedError
+
+    @classmethod
+    def _from_arch(cls, m, device):
+        arch = dict(cls.arch_defaults, **_arch(m))
+        vcfg = cls._tower_cfg(arch.pop('vision', {}))
+        extra = {k: tuple(v) if isinstance(v, list) else v
+                 for k, v in ((k, arch.pop(k)) for k in cls._VL_KEYS
+                              if k in arch)}
+        cfg = cls.vl_config_cls(text=L.LlamaConfig(**arch), vision=vcfg,
+                                **extra)
+        return cls.random(cfg, seed=int(m.get('seed', 0)), device=device)
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        """``model.path`` (an HF checkpoint directory) or ``model.arch``
+        (the LM's fields, the config's own keys and a ``vision`` section;
+        random weights from ``model.seed``)."""
+        m = config['model']
+        if m.get('path'):
+            return cls.from_pretrained(
+                m['path'], dtype=_config_dtype(m.get('torch_dtype',
+                                                     'bfloat16')),
+                device=device)
+        return cls._from_arch(m, device)
+
+
+@MODEL_REGISTRY.register(name='Llava')
+class LlavaAdapter(_VisionLanguageAdapter):
+    """Llava: CLIP tower + MLP projector + Llama LM (``llava_cfg`` is
+    ``vl_cfg``).  Calibration batches may carry ``pixel_values`` beside
+    ``input_ids``."""
+
+    name = 'Llava'
+    family = LV
+    vl_config_cls = LV.LlavaConfig
+    _VL_KEYS = ('image_size', 'patch_size', 'image_token_index')
+
+    @property
+    def llava_cfg(self) -> LV.LlavaConfig:
+        return self.vl_cfg
+
+    @llava_cfg.setter
+    def llava_cfg(self, cfg: LV.LlavaConfig) -> None:
+        self.vl_cfg = cfg
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device=None):
+        """An HF LlavaForConditionalGeneration checkpoint onto ``device``
+        (``None``: the CUDA device)."""
+        from .hf_loader import load_hf_config
+        hf = load_hf_config(path)
+        v = hf['vision_config']
+        cfg = LV.LlavaConfig(
+            text=L.LlamaConfig.from_hf(hf['text_config']),
+            vision=LV.LlavaConfig.clip_block_cfg(
+                v['hidden_size'], v['intermediate_size'],
+                v['num_hidden_layers'], v['num_attention_heads'],
+                v.get('layer_norm_eps', 1e-5)),
+            image_size=v.get('image_size', 336),
+            patch_size=v.get('patch_size', 14),
+            image_token_index=hf.get('image_token_index', 32000),
+            vision_feature_layer=hf.get('vision_feature_layer', -2),
+            vision_feature_select_strategy=hf.get(
+                'vision_feature_select_strategy', 'default'))
+        params = _load_params(path, dtype, False, device,
+                              lambda flat: LV.params_from_hf(flat, cfg))
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    @classmethod
+    def _tower_cfg(cls, varch):
+        return _tower_cfg(LV.LlavaConfig.clip_block_cfg, varch)
+
+    # --- embeddings / forward -------------------------------------------
+    def embed_and_rope_p(self, params, input_ids, attention_mask=None,
+                         pixel_values=None):
+        cfg = self.llava_cfg
+        if self._modality == 'vision':
+            x = LV.clip_embed(params['vision'], cfg, pixel_values
+                              if pixel_values is not None else input_ids)
+            return x, self._tower_kw(x)
+        return (LV.llava_embed(params, cfg, input_ids, pixel_values),
+                self._rope_kw(input_ids))
+
+    def _first_input(self, batch):
+        ids = batch.get('input_ids')
+        return self.embed_and_rope_p(
+            self.params, None if ids is None else _on(ids, self.device,
+                                                      torch.long),
+            None, self._pixels(batch.get('pixel_values')))
 
     def forward_logits(self, input_ids, qmap=None, pixel_values=None,
                        token_reduction=None):
@@ -1318,8 +1371,7 @@ class VideoLlavaAdapter(LlavaAdapter):
     methods (DyCoke, PruneVid, FastVID, HoliTom) reduce them."""
 
     name = 'VideoLlava'
-    _LLAVA_KEYS = LlavaAdapter._LLAVA_KEYS + ('video_token_index',
-                                              'num_frames')
+    _VL_KEYS = LlavaAdapter._VL_KEYS + ('video_token_index', 'num_frames')
 
     @classmethod
     def from_config(cls, config, device=None):
@@ -1337,28 +1389,16 @@ class VideoLlavaAdapter(LlavaAdapter):
         return super().from_config(dict(config, model=dict(m, arch=arch)),
                                    device=device)
 
-    def collect_first_block_input(self, calib_batches):
-        cfg, dev = self.llava_cfg, self.device
-        xs, kws = [], []
-        with torch.no_grad():
-            for batch in calib_batches:
-                vids = self._pixels(batch.get('pixel_values_videos'))
-                imgs = self._pixels(batch.get('pixel_values'))
-                if self._modality == 'vision':
-                    # a clip's frames go through the tower as images
-                    px = (vids.flatten(0, 1) if vids is not None
-                          else imgs)
-                    x, kw = self.embed_and_rope_p(self.params, None,
-                                                  pixel_values=px)
-                else:
-                    ids = _on(batch['input_ids'], dev, torch.long)
-                    x = self._lm_embeds(ids, imgs, vids)
-                    cos, sin = L.rope_cos_sin(cfg.text, torch.arange(
-                        ids.shape[1], device=dev)[None, :])
-                    kw = {'cos': cos, 'sin': sin}
-                xs.append(x)
-                kws.append(kw)
-        return xs, kws
+    def _first_input(self, batch):
+        vids = self._pixels(batch.get('pixel_values_videos'))
+        imgs = self._pixels(batch.get('pixel_values'))
+        if self._modality == 'vision':
+            # a clip's frames go through the tower as images
+            return self.embed_and_rope_p(
+                self.params, None, pixel_values=(
+                    vids.flatten(0, 1) if vids is not None else imgs))
+        ids = _on(batch['input_ids'], self.device, torch.long)
+        return self._lm_embeds(ids, imgs, vids), self._rope_kw(ids)
 
     def _lm_embeds(self, ids, imgs, vids):
         cfg, p = self.llava_cfg, self.params
@@ -1380,6 +1420,281 @@ class VideoLlavaAdapter(LlavaAdapter):
             self._pixels(pixel_values), self._pixels(pixel_values_videos),
             qmap=qmap, token_reduction=self._reduction(
                 token_reduction, pixel_values, pixel_values_videos))
+
+
+# --------------------------------------------------------------------------
+# Qwen2-VL, InternVL, LLaVA-OneVision and MiniCPM-V (reference
+# adapter.py:1392-1880, 2198-2305)
+# --------------------------------------------------------------------------
+
+@MODEL_REGISTRY.register(name='Qwen2vl')
+class Qwen2VLAdapter(_VisionLanguageAdapter):
+    """Qwen2-VL: the 2-D-rope ViT with its patch merger and the Qwen2 LM
+    with M-RoPE.  Calibration batches may carry ``pixel_patches`` (the HF
+    processor's layout [n, C*T*p*p]) and ``grid_thw``.  The LM's config
+    keeps a checkpoint's ``mrope`` rope-scaling type, plain rope on text:
+    the cached decode serves text prompts; a prompt with an image takes the
+    eager forward (the reference's cached VLM prefill is LLaVA's only)."""
+
+    name = 'Qwen2vl'
+    family = QV
+    vl_config_cls = QV.Qwen2VLConfig
+    arch_defaults = {'attention_bias': True}
+    _VL_KEYS = ('patch_size', 'temporal_patch_size', 'image_token_id',
+                'vision_start_token_id', 'mrope_section')
+
+    @classmethod
+    def _tower_cfg(cls, varch):
+        return _tower_cfg(QV.Qwen2VLConfig.vit_block_cfg, varch)
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device=None):
+        """An HF Qwen2VLForConditionalGeneration checkpoint onto
+        ``device`` (``None``: the CUDA device)."""
+        from .hf_loader import load_hf_config
+        hf = load_hf_config(path)
+        tc_hf = hf.get('text_config', hf)
+        v = hf['vision_config']
+        embed = v.get('embed_dim', v.get('hidden_size', 1280))
+        rs = tc_hf.get('rope_scaling') or {}
+        cfg = QV.Qwen2VLConfig(
+            text=L.LlamaConfig.from_hf(dict(tc_hf, attention_bias=True)),
+            vision=QV.Qwen2VLConfig.vit_block_cfg(
+                embed, int(embed * v.get('mlp_ratio', 4)),
+                v.get('depth', 32), v.get('num_heads', 16),
+                v.get('hidden_act', 'quick_gelu')),
+            mrope_section=tuple(rs.get('mrope_section', (16, 24, 24))),
+            spatial_merge_size=v.get('spatial_merge_size', 2),
+            patch_size=v.get('patch_size', 14),
+            temporal_patch_size=v.get('temporal_patch_size', 2),
+            num_channels=v.get('in_channels', 3),
+            image_token_id=hf.get('image_token_id', 151655),
+            video_token_id=hf.get('video_token_id', 151656),
+            vision_start_token_id=hf.get('vision_start_token_id', 151652))
+        params = _load_params(path, dtype, False, device,
+                              lambda flat: QV.params_from_hf(flat, cfg))
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    def _first_input(self, batch):
+        cfg = self.vl_cfg
+        patches = self._pixels(batch.get('pixel_patches'))
+        grid = batch.get('grid_thw')
+        if self._modality == 'vision':
+            x = QV.patch_embed(self.params['vision'], cfg, patches)
+            cos, sin = QV.vision_rot_cos_sin(
+                grid, cfg.vision.head_dim, cfg.spatial_merge_size,
+                device=x.device)
+            return x, dict(self._tower_kw(x), cos=cos[None], sin=sin[None])
+        x, cos, sin = QV.lm_inputs(self.params, cfg,
+                                   self._ids(batch['input_ids']), patches,
+                                   grid)
+        return x, {'cos': cos, 'sin': sin}
+
+    def forward_logits(self, input_ids, qmap=None, pixel_patches=None,
+                       grid_thw=None):
+        return QV.qwen2vl_forward(
+            self.params, self.vl_cfg, self._ids(input_ids),
+            self._pixels(pixel_patches),
+            None if grid_thw is None else tuple(int(g) for g in grid_thw),
+            qmap=qmap)
+
+
+@MODEL_REGISTRY.register(name='InternVL2')
+class InternVLAdapter(_VisionLanguageAdapter):
+    """InternVL 2 / 2.5 / 3: InternViT (layer scale, optional full-width
+    qk-norm), a pixel shuffle, the MLP projector and a Qwen2 / Llama LM.
+    Calibration batches may carry ``pixel_values`` [B, C, H, W]."""
+
+    name = 'InternVL2'
+    family = IV
+    vl_config_cls = IV.InternVLConfig
+    _VL_KEYS = ('image_size', 'patch_size', 'image_token_id',
+                'downsample_ratio')
+
+    @classmethod
+    def _tower_cfg(cls, varch):
+        return _tower_cfg(IV.InternVLConfig.vit_block_cfg, varch,
+                          qk_norm=varch.get('use_qk_norm', False))
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device=None):
+        """An HF InternVLForConditionalGeneration checkpoint onto
+        ``device`` (``None``: the CUDA device)."""
+        from .hf_loader import load_hf_config
+        hf = load_hf_config(path)
+        v = hf['vision_config']
+
+        def scalar(x, default):
+            x = x if x is not None else default
+            return x[0] if isinstance(x, (list, tuple)) else x
+
+        cfg = IV.InternVLConfig(
+            text=L.LlamaConfig.from_hf(hf['text_config']),
+            vision=IV.InternVLConfig.vit_block_cfg(
+                v['hidden_size'], v['intermediate_size'],
+                v['num_hidden_layers'], v['num_attention_heads'],
+                v.get('hidden_act', 'gelu'),
+                'ln' if v.get('norm_type', 'layer_norm') == 'layer_norm'
+                else 'rms', v.get('use_qk_norm', False),
+                v.get('attention_bias', True), v.get('layer_norm_eps', 1e-6)),
+            image_size=scalar(v.get('image_size'), 448),
+            patch_size=scalar(v.get('patch_size'), 14),
+            image_token_id=hf.get('image_token_id', 151667),
+            downsample_ratio=hf.get('downsample_ratio', 0.5),
+            vision_feature_layer=hf.get('vision_feature_layer', -1),
+            vision_feature_select_strategy=hf.get(
+                'vision_feature_select_strategy', 'default'),
+            use_abs_pos=v.get('use_absolute_position_embeddings', True),
+            final_layernorm=not v.get('use_mean_pooling', False))
+        params = _load_params(path, dtype, False, device,
+                              lambda flat: IV.params_from_hf(flat, cfg))
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    def _first_input(self, batch):
+        px = self._pixels(batch.get('pixel_values'))
+        if self._modality == 'vision':
+            x = IV.vit_embed(self.params['vision'], self.vl_cfg, px)
+            return x, self._tower_kw(x)
+        ids = self._ids(batch['input_ids'])
+        return (IV.lm_embeds(self.params, self.vl_cfg, ids, px),
+                self._rope_kw(ids))
+
+    def forward_logits(self, input_ids, qmap=None, pixel_values=None):
+        return IV.internvl_forward(self.params, self.vl_cfg,
+                                   self._ids(input_ids),
+                                   self._pixels(pixel_values), qmap=qmap)
+
+
+@MODEL_REGISTRY.register(name='LlavaOneVision')
+class LlavaOneVisionAdapter(_VisionLanguageAdapter):
+    """LLaVA-OneVision: the SigLIP tower, anyres packing and a Qwen2 LM.
+    Calibration batches may carry ``pixel_values`` [B, crops, C, H, W] with
+    ``image_sizes``; the forward also takes ``pixel_values_videos`` [B, F,
+    C, H, W], which DyCoke or PruneVid (a ``token_reduction``, or the one
+    the TokenReduction algorithm installed) reduce."""
+
+    name = 'LlavaOneVision'
+    family = OV
+    vl_config_cls = OV.LlavaOnevisionConfig
+    _VL_KEYS = ('image_size', 'patch_size', 'image_token_index',
+                'video_token_index')
+
+    @classmethod
+    def _tower_cfg(cls, varch):
+        return _tower_cfg(OV.LlavaOnevisionConfig.siglip_block_cfg, varch)
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device=None):
+        """An HF LlavaOnevisionForConditionalGeneration checkpoint onto
+        ``device`` (``None``: the CUDA device)."""
+        from .hf_loader import load_hf_config
+        hf = load_hf_config(path)
+        v = hf['vision_config']
+        cfg = OV.LlavaOnevisionConfig(
+            text=L.LlamaConfig.from_hf(hf['text_config']),
+            vision=OV.LlavaOnevisionConfig.siglip_block_cfg(
+                v['hidden_size'], v['intermediate_size'],
+                v['num_hidden_layers'], v['num_attention_heads'],
+                v.get('layer_norm_eps', 1e-6)),
+            image_size=v.get('image_size', 384),
+            patch_size=v.get('patch_size', 14),
+            image_token_index=hf.get('image_token_index', 151646),
+            video_token_index=hf.get('video_token_index', 151647),
+            vision_feature_layer=hf.get('vision_feature_layer', -1),
+            vision_feature_select_strategy=hf.get(
+                'vision_feature_select_strategy', 'full'),
+            vision_aspect_ratio=hf.get('vision_aspect_ratio',
+                                       'anyres_max_9'),
+            image_grid_pinpoints=tuple(
+                tuple(p) for p in hf.get('image_grid_pinpoints',
+                                         [[384, 384]])))
+        params = _load_params(path, dtype, False, device,
+                              lambda flat: OV.params_from_hf(flat, cfg))
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    def _first_input(self, batch):
+        cfg = self.vl_cfg
+        px = self._pixels(batch.get('pixel_values'))
+        if self._modality == 'vision':
+            x = OV.siglip_embed(self.params['vision'], cfg,
+                                px.flatten(0, 1) if px.ndim == 5 else px)
+            return x, self._tower_kw(x)
+        ids = self._ids(batch['input_ids'])
+        sizes = batch.get('image_sizes', [(cfg.image_size, cfg.image_size)]
+                          * ids.shape[0])
+        x, _ = OV.lm_inputs(self.params, cfg, ids, px, sizes)
+        return x, self._rope_kw(ids)
+
+    def forward_logits(self, input_ids, qmap=None, pixel_values=None,
+                       image_sizes=None, pixel_values_videos=None,
+                       token_reduction=None):
+        return OV.onevision_forward(
+            self.params, self.vl_cfg, self._ids(input_ids),
+            self._pixels(pixel_values), image_sizes,
+            self._pixels(pixel_values_videos), qmap=qmap,
+            token_reduction=self._reduction(token_reduction,
+                                            pixel_values_videos))
+
+
+@MODEL_REGISTRY.register(name='MiniCPMV')
+class MiniCPMVAdapter(_VisionLanguageAdapter):
+    """MiniCPM-V: the SigLIP tower, the perceiver resampler and the LM.  As
+    in the reference, only the language model compresses: ``set_modality``
+    refuses 'vision'.  Calibration batches may carry ``pixel_values``."""
+
+    name = 'MiniCPMV'
+    family = MV
+    vl_config_cls = MV.MiniCPMVConfig
+    _VL_KEYS = ('image_size', 'patch_size', 'num_queries',
+                'image_token_index')
+
+    @classmethod
+    def _tower_cfg(cls, varch):
+        return _tower_cfg(OV.LlavaOnevisionConfig.siglip_block_cfg, varch)
+
+    def set_modality(self, modality: str) -> None:
+        if modality != 'language':
+            raise ValueError('MiniCPMV compresses the language model only '
+                             '(the reference\'s find_blocks asserts it)')
+        self._modality = modality
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device=None):
+        """An HF MiniCPM-V checkpoint (``llm.*``, ``vpm.*``, ``resampler.*``)
+        onto ``device`` (``None``: the CUDA device)."""
+        from .hf_loader import llama_params_from_hf, load_hf_config
+        hf = load_hf_config(path)
+        tcfg = L.LlamaConfig.from_hf(hf)
+        v = hf.get('vision_config', {})
+        cfg = MV.MiniCPMVConfig(
+            text=tcfg, vision=OV.LlavaOnevisionConfig.siglip_block_cfg(
+                v.get('hidden_size', 1152), v.get('intermediate_size', 4304),
+                v.get('num_hidden_layers', 27),
+                v.get('num_attention_heads', 16)),
+            image_size=v.get('image_size', 448),
+            patch_size=v.get('patch_size', 14),
+            num_queries=hf.get('query_num', 64))
+
+        def build(flat):
+            params = llama_params_from_hf(
+                {k[len('llm.'):]: t for k, t in flat.items()
+                 if k.startswith('llm.')}, tcfg.num_hidden_layers,
+                tcfg.tie_word_embeddings)
+            params.update(MV.vision_params_from_hf(flat, cfg, dtype))
+            return params
+        params = _load_params(path, dtype, False, device, build)
+        return cls(cfg, params, _load_tokenizer(path), hf)
+
+    def _first_input(self, batch):
+        ids = self._ids(batch['input_ids'])
+        return (MV.lm_embeds(self.params, self.vl_cfg, ids,
+                             self._pixels(batch.get('pixel_values'))),
+                self._rope_kw(ids))
+
+    def forward_logits(self, input_ids, qmap=None, pixel_values=None):
+        return MV.minicpmv_forward(self.params, self.vl_cfg,
+                                   self._ids(input_ids),
+                                   self._pixels(pixel_values), qmap=qmap)
 
 
 def _load_params(path: str, dtype, stream: Optional[bool], device, build):

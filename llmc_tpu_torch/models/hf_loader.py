@@ -137,6 +137,15 @@ def hf_linear(flat, prefix: str) -> Dict:
     return {'w': flat[f'{prefix}.weight'], 'b': flat.get(f'{prefix}.bias')}
 
 
+def hf_norm(flat, prefix: str) -> Dict:
+    """An HF norm's weight, with its bias where it has one (a
+    LayerNorm's)."""
+    p = {'w': flat[f'{prefix}.weight']}
+    if flat.get(f'{prefix}.bias') is not None:
+        p['b'] = flat[f'{prefix}.bias']
+    return p
+
+
 def hf_attention(flat, b: str) -> Dict:
     """The q/k/v/o projections of HF block ``b`` (Llama's names)."""
     return {n: hf_linear(flat, f'{b}.self_attn.{n}')

@@ -9,8 +9,14 @@ MiniCPM (its three multipliers), StableLm / Phi / GLM (partial and
 interleaved rope), Falcon / Phi (parallel residual, shared LayerNorm),
 Starcoder and OPT (learned positions, OPT's at +2,
 ``learned_pos_offset``) and Bloom / Falcon-RW (ALiBi), with LayerNorm and
-non-gated MLPs.  InternViT's ``layer_scale`` / ``qk_norm_full`` raise
-(``check_ported``).
+non-gated MLPs, and InternViT's ``layer_scale`` (per-channel ``ls1`` /
+``ls2`` on each sublayer's output) and ``qk_norm_full`` (an RMS q / k norm
+over the whole projection, before the head split).  Qwen2-VL's ``mrope``
+rope-scaling type is plain rope on 1-D positions: its three streams carry
+one position on text (the VL forward builds its own tables,
+``models/qwen2vl.py::mrope_cos_sin``).  The eager graph also takes the
+fused serving layout of ``serve/packed.py`` (``qkv_proj``,
+``gate_up_proj``).
 """
 
 from __future__ import annotations
@@ -117,27 +123,6 @@ def _norm_dtype(s) -> str:
     return s
 
 
-# options of LlamaConfig the port does not run: name -> (default, owner).
-# They belong to InternViT, outside the Llama-family graph (the VLM tier)
-_UNPORTED = {
-    'layer_scale': (False, 'InternViT\'s per-channel layer scale (the VLM '
-                           'tier)'),
-    'qk_norm_full': (False, 'InternViT\'s qk-norm over the full embed dim '
-                            '(the VLM tier)'),
-}
-
-
-def check_ported(cfg: LlamaConfig) -> None:
-    """Raise for an option the port does not run (ROADMAP A13e: the VLM
-    tier's InternViT)."""
-    for name, (default, owner) in _UNPORTED.items():
-        v = getattr(cfg, name)
-        if v != default:
-            raise NotImplementedError(
-                f'LlamaConfig.{name}={v!r} is not ported yet (ROADMAP A13e: '
-                f'{owner})')
-
-
 def norm_apply(cfg: LlamaConfig, x: torch.Tensor, p: Dict) -> torch.Tensor:
     """The block's norm: RMSNorm, or LayerNorm (with its bias where the
     params hold one) under ``norm_type='ln'``."""
@@ -179,7 +164,7 @@ def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor
         inv_freq = torch.where(wl < hi_wl, inv_freq,
                                torch.where(wl > lo_wl, inv_freq / factor,
                                            blended))
-    elif cfg.rope_scaling_type is not None:
+    elif cfg.rope_scaling_type not in (None, 'mrope'):
         raise NotImplementedError(
             f'rope_scaling_type={cfg.rope_scaling_type!r} is not ported')
     freqs = positions.to(F32)[..., None] * inv_freq
@@ -276,6 +261,33 @@ def _qc(qmap, path: str) -> Optional[LinearQcfg]:
     return qmap.get(path)
 
 
+def qkv_project(p: Dict, cfg: LlamaConfig, x: torch.Tensor, qmap=None,
+                prefix: str = 'self_attn'):
+    """q [B,S,H,hd], k and v [B,S,KVH,hd] of one block, before rope: the
+    three projections (or the fused serving layout's one ``qkv_proj``),
+    InternViT's full-width q / k norm, then the per-head q / k norm."""
+    B, S, _ = x.shape
+    H, KVH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if 'qkv_proj' in p:
+        q, k, v = torch.split(
+            linear_apply(p['qkv_proj'], x, _qc(qmap, f'{prefix}.qkv_proj')),
+            [H * hd, KVH * hd, KVH * hd], dim=-1)
+    else:
+        q = linear_apply(p['q_proj'], x, _qc(qmap, f'{prefix}.q_proj'))
+        k = linear_apply(p['k_proj'], x, _qc(qmap, f'{prefix}.k_proj'))
+        v = linear_apply(p['v_proj'], x, _qc(qmap, f'{prefix}.v_proj'))
+    if cfg.qk_norm_full:
+        q = rms_norm(q, p['q_norm']['w'], cfg.rms_norm_eps)
+        k = rms_norm(k, p['k_norm']['w'], cfg.rms_norm_eps)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KVH, hd)
+    v = v.reshape(B, S, KVH, hd)
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p['q_norm']['w'], cfg.rms_norm_eps)
+        k = rms_norm(k, p['k_norm']['w'], cfg.rms_norm_eps)
+    return q, k, v
+
+
 def attention_apply(p: Dict, cfg: LlamaConfig, x: torch.Tensor,
                     cos: torch.Tensor, sin: torch.Tensor,
                     attn_bias: Optional[torch.Tensor], qmap=None,
@@ -286,15 +298,7 @@ def attention_apply(p: Dict, cfg: LlamaConfig, x: torch.Tensor,
     ``window`` positions where one is given."""
     B, S, D = x.shape
     H, KVH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q = linear_apply(p['q_proj'], x, _qc(qmap, f'{prefix}.q_proj'))
-    k = linear_apply(p['k_proj'], x, _qc(qmap, f'{prefix}.k_proj'))
-    v = linear_apply(p['v_proj'], x, _qc(qmap, f'{prefix}.v_proj'))
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KVH, hd)
-    v = v.reshape(B, S, KVH, hd)
-    if cfg.use_qk_norm:
-        q = rms_norm(q, p['q_norm']['w'], cfg.rms_norm_eps)
-        k = rms_norm(k, p['k_norm']['w'], cfg.rms_norm_eps)
+    q, k, v = qkv_project(p, cfg, x, qmap, prefix)
     q, k = rope_qk(cfg, q, k, cos, sin)
     if KVH != H:
         rep = H // KVH
@@ -345,11 +349,17 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
 def mlp_apply(p: Dict, x: torch.Tensor, qmap=None, prefix: str = 'mlp',
               act: str = 'silu'):
     """Gated MLP (SwiGLU / GeGLU-tanh), or up -> act -> down where the
-    params hold no gate (Starcoder, Phi, Falcon, Bloom).  Returns (out,
+    params hold no gate (Starcoder, Phi, Falcon, Bloom); a fused
+    ``gate_up_proj`` holds the gate's rows, then the up's.  Returns (out,
     down_in)."""
-    u = linear_apply(p['up_proj'], x, _qc(qmap, f'{prefix}.up_proj'))
-    if 'gate_proj' in p:
-        g = linear_apply(p['gate_proj'], x, _qc(qmap, f'{prefix}.gate_proj'))
+    if 'gate_up_proj' in p:
+        g, u = torch.chunk(linear_apply(p['gate_up_proj'], x, _qc(
+            qmap, f'{prefix}.gate_up_proj')), 2, dim=-1)
+    else:
+        u = linear_apply(p['up_proj'], x, _qc(qmap, f'{prefix}.up_proj'))
+        g = (linear_apply(p['gate_proj'], x, _qc(qmap, f'{prefix}.gate_proj'))
+             if 'gate_proj' in p else None)
+    if g is not None:
         g = attn_act_fq(qmap, f'{prefix}.act_fn', g)
         down_in = _act(g.to(F32), act).to(x.dtype) * u
     else:
@@ -373,7 +383,8 @@ def block_apply(bp: Dict, cfg: LlamaConfig, x: torch.Tensor,
     (Falcon, Phi): y = x + attn(h) + mlp(h'), h' the attention's norm
     under ``shared_ln``; ``sandwich_norms`` (Gemma2): each sublayer's
     output is normed before its residual add; ``residual_multiplier``
-    (MiniCPM) scales both sublayers' outputs."""
+    (MiniCPM) scales both sublayers' outputs; ``layer_scale`` (InternViT)
+    multiplies them by ``ls1`` / ``ls2`` first."""
     caps = {}
     rm = cfg.residual_multiplier or 1.0
     h = norm_apply(cfg, x, bp['input_layernorm'])
@@ -392,6 +403,8 @@ def block_apply(bp: Dict, cfg: LlamaConfig, x: torch.Tensor,
         if capture:
             caps['down_in'] = down_in
         return x + attn_out + mlp_out, caps
+    if cfg.layer_scale:
+        attn_out = attn_out * bp['ls1']
     if cfg.sandwich_norms:
         x = x + norm_apply(cfg, attn_out, bp['post_attention_layernorm'])
         h = norm_apply(cfg, x, bp['pre_feedforward_layernorm'])
@@ -403,6 +416,8 @@ def block_apply(bp: Dict, cfg: LlamaConfig, x: torch.Tensor,
     mlp_out, down_in = mlp_apply(bp['mlp'], h, qmap, act=cfg.act_fn)
     if capture:
         caps['down_in'] = down_in
+    if cfg.layer_scale:
+        mlp_out = mlp_out * bp['ls2']
     if cfg.sandwich_norms:
         mlp_out = norm_apply(cfg, mlp_out, bp['post_feedforward_layernorm'])
     return x + mlp_out * rm, caps
@@ -477,7 +492,6 @@ def model_apply(params: Dict, cfg: LlamaConfig, input_ids: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None, qmap=None
                 ) -> torch.Tensor:
     """Full forward to logits (no KV cache)."""
-    check_ported(cfg)
     B, S = input_ids.shape
     x = embed_apply(params, cfg, input_ids)
     cos, sin = rope_cos_sin(cfg, torch.arange(S, device=x.device)[None, :])
@@ -622,10 +636,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     table, and a zero ``o_proj`` bias wherever ``attention_bias`` is on (as
     the reference builds it; HF's Qwen2 has none).  ``use_qk_norm`` gets
     its q/k norms of ones [head_dim], which the reference's random tree
-    lacks (ROADMAP C).  ``blocks``: the list each block is appended to as
-    it is drawn (an offloaded model's ``HostBlocks``), a new list by
+    lacks (ROADMAP C); ``layer_scale`` gets its ``ls1`` / ``ls2`` of 0.1 and
+    ``qk_norm_full`` its q / k norms of ones over the whole projection, as
+    the reference draws them.  ``blocks``: the list each block is appended
+    to as it is drawn (an offloaded model's ``HostBlocks``), a new list by
     default."""
-    check_ported(cfg)
     ini = Init(generator, dtype or cfg.tdtype, device)
     D, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     ln = cfg.norm_type == 'ln'
@@ -647,6 +662,12 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         if cfg.use_qk_norm:
             blk['self_attn']['q_norm'] = ini.ones(hd)
             blk['self_attn']['k_norm'] = ini.ones(hd)
+        if cfg.layer_scale:
+            blk['ls1'] = ini.ones(D)['w'] * 0.1
+            blk['ls2'] = ini.ones(D)['w'] * 0.1
+        if cfg.qk_norm_full:
+            blk['self_attn']['q_norm'] = ini.ones(cfg.num_attention_heads * hd)
+            blk['self_attn']['k_norm'] = ini.ones(cfg.num_key_value_heads * hd)
         blocks.append(blk)
     params = {'embed_tokens': ini.embed(cfg.vocab_size, D),
               'blocks': blocks, 'norm': ini.norm(D, ln)}

@@ -628,7 +628,7 @@ def init_params(cfg: LlavaConfig, generator: torch.Generator,
 def params_from_hf(flat, cfg: LlavaConfig) -> Dict:
     """LlavaForConditionalGeneration tensors (the pre- and post-4.52
     transformers key layouts) onto the params tree."""
-    from .hf_loader import hf_linear, llama_params_from_hf
+    from .hf_loader import hf_linear, hf_norm, llama_params_from_hf
     norm = {}
     for name in flat.keys():
         n = name
@@ -647,23 +647,18 @@ def params_from_hf(flat, cfg: LlavaConfig) -> Dict:
                                   cfg.text.tie_word_embeddings)
     vt = 'vision_tower.vision_model'
 
-    def ln(pre):
-        p = {'w': norm[f'{pre}.weight']}
-        if norm.get(f'{pre}.bias') is not None:
-            p['b'] = norm[f'{pre}.bias']
-        return p
-
     blocks = []
     for i in range(cfg.vision.num_hidden_layers):
         b = f'{vt}.encoder.layers.{i}'
         blocks.append({
-            'input_layernorm': ln(f'{b}.layer_norm1'),
+            'input_layernorm': hf_norm(norm, f'{b}.layer_norm1'),
             'self_attn': {
                 'q_proj': hf_linear(norm, f'{b}.self_attn.q_proj'),
                 'k_proj': hf_linear(norm, f'{b}.self_attn.k_proj'),
                 'v_proj': hf_linear(norm, f'{b}.self_attn.v_proj'),
                 'o_proj': hf_linear(norm, f'{b}.self_attn.out_proj')},
-            'post_attention_layernorm': ln(f'{b}.layer_norm2'),
+            'post_attention_layernorm': hf_norm(
+                norm, f'{b}.layer_norm2'),
             'mlp': {'up_proj': hf_linear(norm, f'{b}.mlp.fc1'),
                     'down_proj': hf_linear(norm, f'{b}.mlp.fc2')},
         })
@@ -671,8 +666,8 @@ def params_from_hf(flat, cfg: LlavaConfig) -> Dict:
         'patch_proj': hf_linear(norm, f'{vt}.embeddings.patch_embedding'),
         'class_emb': norm[f'{vt}.embeddings.class_embedding'],
         'pos_embed': norm[f'{vt}.embeddings.position_embedding.weight'],
-        'pre_ln': ln(f'{vt}.pre_layrnorm'),   # HF's spelling
-        'post_ln': ln(f'{vt}.post_layernorm'),
+        'pre_ln': hf_norm(norm, f'{vt}.pre_layrnorm'),   # HF's spelling
+        'post_ln': hf_norm(norm, f'{vt}.post_layernorm'),
         'blocks': blocks,
     }
     params['projector'] = {

@@ -62,7 +62,7 @@ from ..models import deepseek as DS
 from ..models import llama as L
 from ..models import mixtral as MX
 from ..models import qwen2moe as QM
-from ..models.base import linear_apply, rms_norm
+from ..models.base import linear_apply
 from ..ops.batch_decode import batch_decode_attention
 from ..ops.flash_decode import flash_decode_attention, online_softmax_step
 from ..utils.device import check_on, resolve_device
@@ -213,9 +213,8 @@ def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
     graph (the reference's decode.py:210-366): the config's norms, q/k
     norm, partial / interleaved rope, and the attention read
     ``ATTN_IMPL`` and ``kernel_takes_attention`` pick."""
-    B, S, D = x.shape
-    H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
+    B, S, _ = x.shape
+    H, hd = cfg.num_attention_heads, cfg.head_dim
     # an unknown LLMC_ATTN raises on every path
     attend = None if ATTN_IMPL in _READS else _decode_kernel()
     h = L.norm_apply(cfg, x, bp['input_layernorm'])
@@ -223,21 +222,7 @@ def _block_cached(bp, cfg, x, cos, sin, cache, layer: int,
 
     def qc(path):
         return qmap.get(path) if qmap is not None else None
-    if 'qkv_proj' in p:  # fused serving layout: one kernel launch
-        qkv = linear_apply(p['qkv_proj'], h, qc('self_attn.qkv_proj'))
-        q = qkv[..., :H * hd].reshape(B, S, H, hd)
-        k = qkv[..., H * hd:(H + KVH) * hd].reshape(B, S, KVH, hd)
-        v = qkv[..., (H + KVH) * hd:].reshape(B, S, KVH, hd)
-    else:
-        q = linear_apply(p['q_proj'], h, qc('self_attn.q_proj')).reshape(
-            B, S, H, hd)
-        k = linear_apply(p['k_proj'], h, qc('self_attn.k_proj')).reshape(
-            B, S, KVH, hd)
-        v = linear_apply(p['v_proj'], h, qc('self_attn.v_proj')).reshape(
-            B, S, KVH, hd)
-    if cfg.use_qk_norm:
-        q = rms_norm(q, p['q_norm']['w'], cfg.rms_norm_eps)
-        k = rms_norm(k, p['k_norm']['w'], cfg.rms_norm_eps)
+    q, k, v = L.qkv_project(p, cfg, h, qmap)
     q, k = L.rope_qk(cfg, q, k, cos, sin)
     paged = policy.method == 'paged'
     if paged and S != 1:
@@ -303,16 +288,7 @@ def _finish_block(bp, cfg, x, h, attn_out, qc, qmap):
         moe = moe_of(bp)
         if moe is not None:
             return moe[0](moe[1], cfg, h_in, qmap)[0]
-        mp = bp['mlp']
-        if 'gate_up_proj' in mp:  # fused serving layout (gated)
-            gu = linear_apply(mp['gate_up_proj'], h_in,
-                              qc('mlp.gate_up_proj'))
-            inter = gu.shape[-1] // 2
-            down_in = (L._act(gu[..., :inter].to(F32), cfg.act_fn)
-                       .to(x.dtype) * gu[..., inter:])
-            return linear_apply(mp['down_proj'], down_in,
-                                qc('mlp.down_proj'))
-        return L.mlp_apply(mp, h_in, qmap, act=cfg.act_fn)[0]
+        return L.mlp_apply(bp['mlp'], h_in, qmap, act=cfg.act_fn)[0]
 
     if cfg.parallel_residual:
         h2 = h if cfg.shared_ln else L.norm_apply(
@@ -337,7 +313,6 @@ def forward_cached(params, cfg, ids, cache: Dict, policy: KVCachePolicy,
     ``last_only`` projects just the final position through the lm_head.
     ``input_embeds`` [B, S, D] takes the token embedding's place (``ids``
     may be None): the VLM prefill's merged multimodal embeddings."""
-    L.check_ported(cfg)
     ref = ids if input_embeds is None else input_embeds
     S = ref.shape[1]
     pos0 = cache['pos']

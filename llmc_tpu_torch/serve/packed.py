@@ -266,11 +266,12 @@ def pack_model(model, wspec: QuantSpec, a_spec: Optional[QuantSpec] = None,
     engine's first admission); packed MoE serving is a feature the
     reference lacks (ROADMAP C).
 
-    A VLM (``LlavaAdapter``) packs its LM's blocks and head, whatever
-    modality the engine last saw: its tower and projector stay as they
-    are, and the serving QMap reaches the LM only
-    (``models/llava.py::vision_qmap``), where the reference's reaches the
-    tower's unpacked linears too and cannot serve (ROADMAP C)."""
+    A VLM (LLaVA, Qwen2-VL, InternVL, OneVision, MiniCPM-V) packs its LM's
+    blocks and head, whatever modality the engine last saw: its tower,
+    projector, merger or resampler stay as they are, and the serving QMap
+    reaches the LM only (``models/llava.py::vision_qmap``), where the
+    reference's reaches LLaVA's, OneVision's video and MiniCPM-V's
+    unpacked tower linears too and cannot serve (ROADMAP C)."""
     if hasattr(model, 'set_modality'):
         model.set_modality('language')
     unserved = [p for p in model.get_layout().linears

@@ -7,8 +7,9 @@ the generalized-graph ``Gemma2``, ``StableLm``, ``Falcon``, ``Phi``,
 ``Starcoder``, ``Bloom``, ``InternLM2``, ``Glm`` / ``ChatGLM``, ``MiniCPM``
 and ``Qwen``, the MoE ``Mixtral``, ``Qwen2Moe``, ``DeepseekV2`` and
 ``DeepseekV3``, ``Opt``, and the VLMs ``Llava``, ``LlavaHf``, ``VideoLlava`` /
-``VideoLLaVA`` and ``Vit`` in MODEL_REGISTRY (the other multimodal names
-raise ``NotImplementedError`` naming their ROADMAP item); ``Naive``, ``Kivi``, ``SinkKV`` and
+``VideoLLaVA``, ``Qwen2vl``, ``InternVL2``, ``LlavaOneVision``, ``MiniCPMV``
+and ``Vit`` in MODEL_REGISTRY (the other multimodal names raise
+``NotImplementedError`` naming their ROADMAP item); ``Naive``, ``Kivi``, ``SinkKV`` and
 ``ShadowKV`` in KV_REGISTRY; the quantization methods and the
 sparsifiers (``Dense``, ``Magnitude``, ``Wanda``, ``ShortGPT``) in
 ALGO_REGISTRY, with ``TokenReduction`` and its 13 methods in
@@ -54,8 +55,8 @@ class Registry(dict):
 # the VLM, audio and video models of the reference's registry still to port
 _VLM_TIER = 'ROADMAP A13e: the VLM / audio / video tier'
 MODEL_REGISTRY = Registry('MODEL_REGISTRY', unported=dict.fromkeys(
-    ('Qwen2vl', 'InternVL2', 'LlavaOneVision', 'MiniCPMV', 'Vila', 'Mllama',
-     'Glm4v', 'GLM4V', 'Qwen2Audio', 'InternOmni', 'WanT2V', 'WanI2V'),
+    ('Vila', 'Mllama', 'Glm4v', 'GLM4V', 'Qwen2Audio', 'InternOmni', 'WanT2V',
+     'WanI2V'),
     _VLM_TIER))
 ALGO_REGISTRY = Registry('ALGO_REGISTRY')
 KV_REGISTRY = Registry('KV_REGISTRY')

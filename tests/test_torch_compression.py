@@ -340,15 +340,18 @@ def test_custom_txt_calibration_batches_match(tmp_path, preproc, bs,
 
 def test_unported_calibration_sources_raise():
     """The sources of the models still to port raise with their ROADMAP
-    item; the LLaVA tier's synthetic sources, which raised until its slice
-    ported them, draw the JAX package's batches."""
-    for name in ('synthetic_qwen2vl', 't2v'):
+    item; the VLM slices' synthetic sources, which raised until their
+    slices ported them, draw the JAX package's batches."""
+    for name in ('synthetic_mllama', 't2v'):
         with pytest.raises(NotImplementedError, match='ROADMAP A13'):
             CalibDataset(dict(name=name, n_samples=1, seq_len=4), None)
-    for name in ('synthetic_vlm', 'synthetic_img', 'synthetic_videollava'):
+    for name in ('synthetic_vlm', 'synthetic_img', 'synthetic_videollava',
+                 'synthetic_qwen2vl', 'synthetic_onevision',
+                 'synthetic_onevision_video'):
         cfg = dict(name=name, n_samples=2, seq_len=24, seed=3, vocab_size=60,
                    image_token=60, video_token=61, image_seq_length=4,
-                   image_size=28, num_frames=3)
+                   image_size=28, num_frames=3, vision_start_token=62,
+                   patch_dim=24, patch_size=7)
         jb, jm = JCalibDataset(cfg, None).get_calib_dataset()
         tb, tm = CalibDataset(cfg, None).get_calib_dataset()
         assert jm is tm is None and len(tb) == len(jb) == 2

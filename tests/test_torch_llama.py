@@ -4,6 +4,7 @@ weights are carried across by convert.params_from_numpy."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from llmc_tpu_torch.convert import params_from_numpy
 from llmc_tpu_torch.models import LlamaAdapter, LlamaConfig
 from llmc_tpu_torch.models import base as TB
 from llmc_tpu_torch.models import llama as TL
-from torch_port_helpers import TINY, port_params, rel_err
+from torch_port_helpers import TINY, perturbed, port_params, rel_err
 
 torch.set_num_threads(1)
 
@@ -111,25 +112,30 @@ def test_config_from_hf_and_layout_match():
     (dict(learned_pos_offset=2), 'OPT'),
     (dict(learned_pos=True, learned_pos_offset=2), 'OPT')])
 def test_unported_graph_options_raise(opt, owner):
-    """The generalized graph's options run (tests/test_torch_families.py)
-    but for the two of InternViT, outside it: its layer scale and
-    full-width qk-norm raise naming the VLM tier of ROADMAP A13.  OPT's
-    offset positions, which raised until OPT was ported, run: the logits
-    of ``model_apply`` and of a cached prefill plus two decode steps (each
-    slot at its own position) within 1e-5 of the reference's."""
+    """The options that raised until their slice ported them run: the
+    logits of ``model_apply`` within 1e-5 of the reference's on the same
+    weights.  InternViT's layer scale and full-width qk-norm (the VLM
+    tier) run in the eager graph, with the reference's random ``ls1`` /
+    ``ls2`` and q / k norms moved off their init; OPT's offset positions
+    also through a cached prefill plus two decode steps (each slot at its
+    own position)."""
     cfg = LlamaConfig(**dict(TINY, **opt))
-    if owner != 'OPT':
-        with pytest.raises(NotImplementedError, match=f'A13.*{owner}'):
-            LlamaAdapter.random(cfg, device='cpu')
-        return
     from llmc_tpu.serve import decode as JD
     from llmc_tpu_torch.serve import decode as TD
     jm = JAdapter.random(JConfig(**dict(TINY, **opt)), seed=4)
+    if owner != 'OPT':
+        jm.params = jax.tree.map(jnp.asarray, perturbed(
+            jax.tree.map(np.asarray, jm.params), np.random.RandomState(5)))
+        blk = jm.params['blocks'][0]
+        assert ('ls1' in blk) == cfg.layer_scale
+        assert ('q_norm' in blk['self_attn']) == cfg.qk_norm_full
     tm = LlamaAdapter(cfg, port_params(jm.params))
     ids = np.random.RandomState(2).randint(0, 128, (2, 7))
     want = np.asarray(jm.forward_logits(jnp.asarray(ids)))
     assert rel_err(tm.forward_logits(torch.as_tensor(ids)).numpy(),
                    want) < 1e-5
+    if owner != 'OPT':
+        return
     jc = JD.init_cache(jm, 2, 9)
     tc = TD.init_cache(tm, 2, 9, device='cpu')
     jc['pos'] = jnp.asarray([0, 0], jnp.int32)

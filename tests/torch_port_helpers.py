@@ -445,13 +445,19 @@ def same_random_vlm_weights(monkeypatch):
 
 
 def reference_tower_takes_its_own_qmap(monkeypatch):
-    """The JAX package's VLM tower under its own modality's deploy: its
-    ``vision_features`` / ``video_features`` take the fake-quant QMap of
-    the algorithm that calibrated the ``vision`` modality (none where no
-    algorithm did) in place of the LM's QMap, which the reference passes
-    on to the tower (ROADMAP C)."""
+    """The JAX package's VLM towers under their own modality's deploy: the
+    fake-quant QMap of the algorithm that calibrated the ``vision``
+    modality (none where no algorithm did).  The reference hands LLaVA's
+    ``vision_features`` / ``video_features``, OneVision's video tower and
+    MiniCPM-V's the LM's QMap, and Qwen2-VL's, InternVL's and OneVision's
+    image towers none (ROADMAP C): each tower takes ``tower_qmap`` of the
+    QMap its forward was given instead."""
     from llmc_tpu.compression.blockwise import BlockwiseOpt
+    from llmc_tpu.models import internvl as JIV
     from llmc_tpu.models import llava as JLV
+    from llmc_tpu.models import llava_onevision as JOV
+    from llmc_tpu.models import minicpmv as JMV
+    from llmc_tpu.models import qwen2vl as JQV
     state = {}
     inner_init = BlockwiseOpt.__init__
 
@@ -479,5 +485,124 @@ def reference_tower_takes_its_own_qmap(monkeypatch):
             return inner(vp, cfg, px, qmap=tower_qmap(qmap),
                          reduction=reduction)
         monkeypatch.setattr(JLV, name, confined)
+    # the second slice's forwards: the QMap a forward was given, which its
+    # tower then reads through tower_qmap
+    given = {}
+
+    def forward_of(mod, name):
+        inner = getattr(mod, name)
+
+        def outer(*a, qmap=None, **kw):
+            given['qmap'] = qmap
+            try:
+                return inner(*a, qmap=qmap, **kw)
+            finally:
+                given.pop('qmap')
+        monkeypatch.setattr(mod, name, outer)
+
+    def tower_of(mod, name):
+        inner = getattr(mod, name)
+
+        def outer(*a, qmap=None, **kw):
+            return inner(*a, qmap=tower_qmap(given.get('qmap')), **kw)
+        monkeypatch.setattr(mod, name, outer)
+    for mod, fwd, tower in ((JQV, 'qwen2vl_forward', 'vision_forward'),
+                            (JIV, 'internvl_forward', 'image_features'),
+                            (JOV, 'onevision_forward', 'vision_features'),
+                            (JMV, 'minicpmv_forward', 'image_embeds')):
+        forward_of(mod, fwd)
+        tower_of(mod, tower)
     monkeypatch.setattr(BlockwiseOpt, '__init__', init)
     return state
+
+
+# the tiny models of the JAX package's own tests of Qwen2-VL, InternVL,
+# OneVision (tests/test_qwen2vl.py, test_internvl.py,
+# test_llava_onevision.py: 16-pixel images of 4-pixel patches) and
+# MiniCPM-V (tests/test_minicpmv.py)
+VLM2_LM = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, head_dim=16, dtype='float32')
+VLM2_TOWER = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                  num_attention_heads=2)
+VLM2_ARCHS = {
+    'Qwen2vl': dict(VLM2_LM, patch_size=4, image_token_id=126,
+                    vision_start_token_id=125, mrope_section=[2, 3, 3],
+                    vision=VLM2_TOWER),
+    'InternVL2': dict(VLM2_LM, image_size=16, patch_size=4,
+                      image_token_id=126, vision=VLM2_TOWER),
+    'LlavaOneVision': dict(VLM2_LM, image_size=16, patch_size=4,
+                           image_token_index=126, video_token_index=127,
+                           vision=VLM2_TOWER),
+    'MiniCPMV': dict(VLM2_LM, vocab_size=72, hidden_size=32,
+                     intermediate_size=64, head_dim=8, image_size=28,
+                     patch_size=14, num_queries=4, image_token_index=70,
+                     vision=dict(VLM2_TOWER, num_attention_heads=4)),
+}
+
+
+def _vlm2_tree(jm, seed):
+    """The JAX model's params as numpy, perturbed; the resampler's head
+    count stays a Python int."""
+    tree = perturbed(to_np(jm.params), np.random.RandomState(seed + 1))
+    if 'resampler' in tree:
+        tree['resampler']['num_heads'] = int(tree['resampler']['num_heads'])
+    return tree
+
+
+def _jax_tree(tree):
+    import jax.numpy as jnp
+    return jax.tree.map(lambda a: a if a is None or isinstance(a, int)
+                        else jnp.asarray(a), tree)
+
+
+def vlm2_pair(model_type, seed=0, vision=None, **arch):
+    """(JAX adapter, port adapter) of a tiny ``model_type`` of the second
+    VLM slice on the same weights: the JAX package's random tree with
+    every bias and norm weight moved off its init (``perturbed``)."""
+    from llmc_tpu.utils.registry import MODEL_REGISTRY as JREG
+    import llmc_tpu.models  # noqa: F401  (registers the adapters)
+    from llmc_tpu_torch.convert import params_from_numpy
+    from llmc_tpu_torch.utils.registry import MODEL_REGISTRY as TREG
+    import llmc_tpu_torch.models  # noqa: F401
+    a = dict(VLM2_ARCHS[model_type], **arch)
+    a['vision'] = dict(a['vision'], **(vision or {}))
+    m = dict(type=model_type, arch=a, seed=seed)
+    jm = JREG[model_type].from_config(dict(model=m))
+    tm = TREG[model_type].from_config(dict(model=m), device='cpu')
+    tree = _vlm2_tree(jm, seed)
+    jm.params = _jax_tree(tree)
+    tm.params = params_from_numpy(tree, device='cpu')
+    return jm, tm
+
+
+def same_random_vlm2_weights(monkeypatch):
+    """Both packages' random Qwen2-VL, InternVL, OneVision and MiniCPM-V
+    (an inline ``model.arch``) hold the JAX package's random tree of that
+    arch and seed, perturbed (``vlm2_pair``'s weights)."""
+    from llmc_tpu.utils.registry import MODEL_REGISTRY as JREG
+    import llmc_tpu.models  # noqa: F401
+    from llmc_tpu_torch.convert import params_from_numpy
+    from llmc_tpu_torch.utils.registry import MODEL_REGISTRY as TREG
+    import llmc_tpu_torch.models  # noqa: F401
+    for name in VLM2_ARCHS:
+        jcls, tcls = JREG[name], TREG[name]
+        j_from, t_from = jcls.from_config.__func__, tcls.from_config.__func__
+
+        def jf(cls, config, j_from=j_from):
+            jm = j_from(cls, config)
+            if not config['model'].get('path'):
+                jm.params = _jax_tree(_vlm2_tree(
+                    jm, int(config['model'].get('seed', 0))))
+            return jm
+
+        def tf(cls, config, device=None, j_from=j_from, t_from=t_from,
+               jcls=jcls):
+            tm = t_from(cls, config, device=device)
+            if not config['model'].get('path'):
+                tree = _vlm2_tree(j_from(jcls, config),
+                                  int(config['model'].get('seed', 0)))
+                tm.params = params_from_numpy(tree, device=tm.device)
+            return tm
+        monkeypatch.setattr(jcls, 'from_config', classmethod(jf))
+        monkeypatch.setattr(tcls, 'from_config', classmethod(tf))
